@@ -6,15 +6,19 @@ module paths and function names, imports neither JAX nor ``pyslam_tpu``,
 and replaces each of its Pallas TPU kernels with a CUDA kernel written by
 hand (``csrc/``, built by ``_ext`` at first use).
 
-Ported so far (the sphere2500 pose-graph solve):
+Ported so far (the pose-graph solves of sphere2500 and of bench configs
+1, 2 and 7):
 
-  * ``lie``     — SO(3) / SE(3) functional cores
+  * ``lie``     — SO(2) / SE(2) / SO(3) / SE(3) / Sim(3) functional cores
   * ``losses``  — robust M-estimators for IRLS
-  * ``graph``   — factor graph core, SE(3) factors, ``build.pose_graph``,
-                  ``convert.graph_from_numpy``
-  * ``io``      — synthetic dataset generators
-  * ``solver``  — LM / GN, PCG, direct-to-ELL assembly, ``solve_ell``, and
-                  the ``ell_matvec`` / ``slot_reduce`` CUDA kernels
+  * ``graph``   — factor graph core, the SE(2) / SE(3) / Sim(3) prior and
+                  between factors, ``build.pose_graph`` /
+                  ``build.sim3_pose_graph``, ``convert.graph_from_numpy``
+  * ``io``      — synthetic dataset generators, g2o reader/writer
+  * ``solver``  — GN / LM / dogleg over dense assembly and Cholesky
+                  (``solve``, ``solve_one_iter``) or direct-to-ELL assembly
+                  and PCG (``solve_ell``), and the ``ell_matvec`` /
+                  ``slot_reduce`` CUDA kernels
 """
 
 __version__ = "0.1.0"

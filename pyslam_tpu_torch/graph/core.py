@@ -23,25 +23,36 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..lie import se3
+from ..lie import se2, se3, sim3, so2, so3
 
 # --------------------------------------------------------------------------
 # Manifolds
 # --------------------------------------------------------------------------
 
-# Only SE(3) is ported so far; any other kind raises KeyError.
+_EUCLIDEAN = "euclidean"
+
+# The Lie kinds.  'euclidean' is handled outside this table, with its dof
+# taken from the element shape.  'bal_cam9' is not ported yet.
 MANIFOLDS: dict[str, dict[str, Any]] = {
     "se3": dict(dof=6, retract=lambda T, dx: se3.perturb(T, dx), shape=(4, 4)),
+    "se2": dict(dof=3, retract=lambda T, dx: se2.perturb(T, dx), shape=(3, 3)),
+    "so3": dict(dof=3, retract=lambda R, dx: so3.perturb(R, dx), shape=(3, 3)),
+    "so2": dict(dof=1, retract=lambda R, dx: so2.perturb(R, dx[..., 0]), shape=(2, 2)),
+    "sim3": dict(dof=7, retract=lambda S, dx: sim3.perturb(S, dx), shape=(4, 4)),
 }
 
 
 def manifold_dof(kind: str, element_shape=None) -> int:
+    if kind == _EUCLIDEAN:
+        return int(np.prod(element_shape, dtype=np.int64))
     return MANIFOLDS[kind]["dof"]
 
 
 def retract(kind: str, values, dx):
-    """Batched manifold update with the left-multiplicative convention
-    exp(dx) * T."""
+    """Batched manifold update: Lie kinds use the left-multiplicative
+    convention exp(dx) * T, 'euclidean' adds."""
+    if kind == _EUCLIDEAN:
+        return values + dx.reshape(values.shape)
     return MANIFOLDS[kind]["retract"](values, dx)
 
 
@@ -54,7 +65,7 @@ def retract(kind: str, values, dx):
 class VariableBlock:
     """N manifold elements stored contiguously.
 
-    kind:       'se3'
+    kind:       'se3' | 'se2' | 'so3' | 'so2' | 'sim3' | 'euclidean'
     values:     (N, *element_shape)
     const_mask: (N,) bool — True freezes the element (zero update)
     """

@@ -1,7 +1,8 @@
 """Batched residual + analytic-Jacobian kernels, one per factor kind.
 
 Counterpart of ``pyslam_tpu/graph/factor_defs.py``.  Ported so far: the
-SE(3) pose prior and the SE(3) relative-pose factor.  Conventions are the
+pose priors and the relative-pose factors of SE(2), SE(3) and Sim(3), all
+through the group-generic ``_prior`` / ``_between``.  Conventions are the
 reference's:
   * residuals are pre-multiplied by ``sqrt_info``,
   * Jacobians are w.r.t. *left* perturbations exp(eps) * T,
@@ -14,7 +15,7 @@ Every kernel returns ``(r, jacs)`` with r (F, m) and jacs a tuple of
 
 from __future__ import annotations
 
-from ..lie import se3
+from ..lie import se2, se3, sim3
 from .core import register_factor
 
 
@@ -42,6 +43,18 @@ def prior_se3(data, T, compute_jacobians=True):
     return _prior(se3, data, T, compute_jacobians)
 
 
+@register_factor("prior_se2")
+def prior_se2(data, T, compute_jacobians=True):
+    """Unary SE(2) prior (reference PoseResidual)."""
+    return _prior(se2, data, T, compute_jacobians)
+
+
+@register_factor("prior_sim3")
+def prior_sim3(data, S, compute_jacobians=True):
+    """Unary Sim(3) prior: PoseResidual's shape with a 7-dof tangent."""
+    return _prior(sim3, data, S, compute_jacobians)
+
+
 # --------------------------------------------------------------------------
 # Pose-to-pose (odometry / loop closure):
 #   r = sqrt_info * log(T_2_0 * T_1_0^-1 * T_obs^-1)
@@ -65,3 +78,17 @@ def _between(ops, data, T1, T2, compute_jacobians):
 def between_se3(data, T1, T2, compute_jacobians=True):
     """SE(3) relative-pose factor (reference PoseToPoseResidual)."""
     return _between(se3, data, T1, T2, compute_jacobians)
+
+
+@register_factor("between_se2")
+def between_se2(data, T1, T2, compute_jacobians=True):
+    """SE(2) relative-pose factor (reference PoseToPoseResidual)."""
+    return _between(se2, data, T1, T2, compute_jacobians)
+
+
+@register_factor("between_sim3")
+def between_sim3(data, S1, S2, compute_jacobians=True):
+    """Sim(3) relative-similarity factor: the scale-drift-aware loop
+    closure of monocular SLAM.  The 7th residual component is the log scale
+    ratio."""
+    return _between(sim3, data, S1, S2, compute_jacobians)

@@ -1,3 +1,4 @@
-"""Dataset I/O.  Ported so far: the synthetic generators (numpy only)."""
+"""Dataset I/O.  Ported so far: the synthetic generators and the g2o
+reader/writer (numpy only)."""
 
-from . import synth  # noqa: F401
+from . import g2o, synth  # noqa: F401

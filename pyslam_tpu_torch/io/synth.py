@@ -62,24 +62,20 @@ def with_outliers(data: "PoseGraphData", n_outliers: int, magnitude: float = 2.0
     sqrt_info.  The standard robustness benchmark (Vertigo/GNC papers);
     feed the result to ``build.switchable_pose_graph`` or
     ``solver.solve_gnc``.  Returns (poisoned_data, outlier_mask) with the
-    mask True on the appended edges.
-
-    The torch port has SE(3) only so far: a 2D graph raises
-    NotImplementedError until SE(2) is ported."""
+    mask True on the appended edges."""
     import dataclasses
 
     import torch
 
-    from ..lie import se3 as _se3
+    from ..lie import se2 as _se2, se3 as _se3
 
-    if data.dim == 2:
-        raise NotImplementedError("with_outliers on SE(2) graphs: SE(2) is not ported yet")
     rng = np.random.default_rng(seed)
     n = data.T_gt.shape[0]
     dof = data.sqrt_info.shape[-1]
     bad_i = rng.integers(0, n, n_outliers)
     bad_j = (bad_i + rng.integers(n // 4, max(n // 2, n // 4 + 1), n_outliers)) % n
-    bad_T = _se3.exp(
+    ops = _se2 if data.dim == 2 else _se3
+    bad_T = ops.exp(
         torch.from_numpy(rng.normal(size=(n_outliers, dof)) * magnitude)
     ).numpy()
     si_pick = rng.integers(0, len(data.sqrt_info), n_outliers)

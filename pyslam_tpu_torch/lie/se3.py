@@ -58,7 +58,8 @@ def log(T):
 
 def _assemble(R, t):
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    last = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # built on the device: a host-to-device copy would synchronise the stream
+    last = torch.eye(4, dtype=R.dtype, device=R.device)[3:]  # [0, 0, 0, 1]
     bottom = last.expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

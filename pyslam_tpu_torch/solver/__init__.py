@@ -1,12 +1,21 @@
-"""GN/LM solver core on torch tensors.  Ported so far: the ``solve_ell``
-pose-graph path (direct-to-ELL assembly, block-Jacobi PCG, LM) and its two
-CUDA kernels."""
+"""GN/LM solver core on torch tensors.  Ported so far: the dense path
+(``assemble_dense``, Cholesky), 'lm' / 'gn' / 'dogleg', ``solve_one_iter``,
+the ``solve_ell`` pose-graph path (direct-to-ELL assembly, block-Jacobi
+PCG) and its two CUDA kernels."""
 
-from .assemble import free_mask, linearize_batch
+from .assemble import (
+    DensePlan,
+    assemble_dense,
+    dense_contributions,
+    dense_plan,
+    free_mask,
+    gradient_and_chi2,
+    linearize_batch,
+    unit_diag_where_dead,
+)
 from .bcsr import (
     EllDevicePlan,
     EllDirect,
-    SlotPlan,
     assemble_ell,
     build_ell_direct,
     build_slot_plans,
@@ -15,22 +24,40 @@ from .bcsr import (
     solve_ell,
     sym_block_inv,
 )
-from .cuda_ops import LAUNCHES, ell_matvec, ell_matvec_plain, slot_reduce, slot_reduce_plain
-from .linear import HOST_READS, pcg_solve
-from .lm import STATUS_NAMES, Options, SolveInfo, solve
+from .cuda_ops import (
+    LAUNCHES,
+    SlotPlan,
+    ell_matvec,
+    ell_matvec_plain,
+    slot_plan,
+    slot_reduce,
+    slot_reduce_plain,
+)
+from .linear import HOST_READS, cholesky_solve, damp_marquardt, pcg_solve
+from .lm import STATUS_NAMES, Options, SolveInfo, solve, solve_one_iter
 
 __all__ = [
     "Options",
     "SolveInfo",
     "STATUS_NAMES",
     "solve",
+    "solve_one_iter",
+    "assemble_dense",
+    "gradient_and_chi2",
+    "cholesky_solve",
+    "damp_marquardt",
+    "pcg_solve",
     "linearize_batch",
     "free_mask",
-    "pcg_solve",
+    "unit_diag_where_dead",
+    "DensePlan",
+    "dense_plan",
+    "dense_contributions",
     "HOST_READS",
     "EllDirect",
     "EllDevicePlan",
     "SlotPlan",
+    "slot_plan",
     "build_ell_direct",
     "build_slot_plans",
     "ell_contributions",

@@ -31,8 +31,8 @@ import torch
 
 from ..graph.core import FactorGraph
 from . import lm as _lm
-from .assemble import free_mask, linearize_batch
-from .cuda_ops import ell_matvec, slot_reduce
+from .assemble import dense_contributions, free_mask
+from .cuda_ops import SlotPlan, ell_matvec, slot_plan, slot_reduce
 from .linear import pcg_solve
 
 # --------------------------------------------------------------------------
@@ -130,28 +130,6 @@ def build_ell_direct(graph: FactorGraph, block_name: str | None = None) -> EllDi
 # --------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class SlotPlan:
-    """Contributions sorted stably by destination: contribution ``perm[e]``
-    is the e-th to add, and slot s sums ``[offsets[s], offsets[s+1])``."""
-
-    perm: np.ndarray  # (E,) int32
-    offsets: np.ndarray  # (n_slots + 1,) int32
-    n_slots: int
-
-
-def slot_plan(dest: np.ndarray, n_slots: int) -> SlotPlan:
-    dest = np.asarray(dest, np.int64)
-    if len(dest) and (dest.min() < 0 or dest.max() >= n_slots):
-        raise ValueError(f"slot destination out of range [0, {n_slots})")
-    if len(dest) >= 2**31:
-        raise ValueError("too many contributions for int32 offsets")
-    perm = np.argsort(dest, kind="stable").astype(np.int32)
-    counts = np.bincount(dest, minlength=n_slots)
-    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    return SlotPlan(perm, offsets, n_slots)
-
-
 def build_slot_plans(plan: EllDirect) -> tuple[SlotPlan, SlotPlan]:
     """(Hessian plan over nb*K ELL slots, gradient plan over nb poses).
 
@@ -209,24 +187,11 @@ def ell_device_plan(plan: EllDirect, device) -> EllDevicePlan:
 def ell_contributions(graph: FactorGraph, plan: EllDirect):
     """Linearize every batch: (Hessian contributions (E_h, d*d), gradient
     contributions J^T W r (E_g, d), chi2), stacked in the order of
-    ``build_slot_plans``."""
+    ``build_slot_plans``: with one block kind, the one (d, d) group of the
+    dense assembly's contributions."""
     d = plan.d
-    dtype = next(iter(graph.blocks.values())).values.dtype
-    device = next(iter(graph.blocks.values())).values.device
-    chi2 = torch.zeros((), dtype=dtype, device=device)
-    h_parts, g_parts = [], []
-    for fb, entries in zip(graph.batches, plan.maps):
-        r, jacs, w, c2 = linearize_batch(fb, graph.blocks)
-        chi2 = chi2 + c2
-        wr = w * r
-        for J in jacs:
-            g_parts.append((J.transpose(1, 2) @ wr[..., None])[..., 0])  # (F, d)
-        for a, b, pos_ab, pos_ba in entries:
-            C = jacs[a].transpose(1, 2) @ (w[..., None] * jacs[b])  # (F, d, d)
-            h_parts.append(C.reshape(-1, d * d))
-            if pos_ba is not None:
-                h_parts.append(C.transpose(1, 2).reshape(-1, d * d))
-    return torch.cat(h_parts).contiguous(), torch.cat(g_parts).contiguous(), chi2
+    h_parts, g_parts, chi2 = dense_contributions(graph, hessian=True)
+    return torch.cat(h_parts[(d, d)]).contiguous(), torch.cat(g_parts[(d,)]).contiguous(), chi2
 
 
 def assemble_ell(graph: FactorGraph, dplan: EllDevicePlan):

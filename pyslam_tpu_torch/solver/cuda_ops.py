@@ -20,6 +20,9 @@ what bounds it on an H100 and what its design does about that.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 LAUNCHES = {"ell_matvec": 0, "ell_matvec_plain": 0, "slot_reduce": 0, "slot_reduce_plain": 0}
@@ -99,6 +102,30 @@ def ell_matvec(He, cols, x):
 # --------------------------------------------------------------------------
 # Segmented slot reduction
 # --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotPlan:
+    """Contributions sorted stably by destination: contribution ``perm[e]``
+    is the e-th to add, and slot s sums ``[offsets[s], offsets[s+1])``."""
+
+    perm: np.ndarray  # (E,) int32
+    offsets: np.ndarray  # (n_slots + 1,) int32
+    n_slots: int
+
+
+def slot_plan(dest: np.ndarray, n_slots: int) -> SlotPlan:
+    """The ``slot_reduce`` plan of contributions with destinations ``dest``
+    (host, numpy); raises on a destination outside [0, n_slots)."""
+    dest = np.asarray(dest, np.int64)
+    if len(dest) and (dest.min() < 0 or dest.max() >= n_slots):
+        raise ValueError(f"slot destination out of range [0, {n_slots})")
+    if len(dest) >= 2**31:
+        raise ValueError("too many contributions for int32 offsets")
+    perm = np.argsort(dest, kind="stable").astype(np.int32)
+    counts = np.bincount(dest, minlength=n_slots)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return SlotPlan(perm, offsets, n_slots)
 
 
 def slot_reduce_plain(contrib, perm, offsets, n_slots):

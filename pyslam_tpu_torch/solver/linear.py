@@ -1,12 +1,19 @@
-"""Preconditioned conjugate gradients for the normal equations.
+"""Linear solvers for the normal equations.
 
-Counterpart of ``pyslam_tpu/solver/linear.py::pcg_solve``: the same
-recurrences and the same stop rule, ``norm(r) > rtol * norm(b) and
-it < max_iters``, tested before every iteration.  The reference runs the
-loop on the device under ``lax.while_loop``; here the loop runs on the
-host and reads the stop test back from the device once per CG iteration
-(``HOST_READS["pcg"]`` counts those reads, ``HOST_READS["lm"]`` the LM
-loop's).
+Counterpart of ``pyslam_tpu/solver/linear.py``:
+
+  * ``cholesky_solve`` — dense Cholesky (``torch.linalg.cholesky_ex``) and
+    two triangular solves.  A failed factorization (H not positive
+    definite) gives NaN, which the LM loop treats as a rejected step, as in
+    the reference; ``torch.linalg.cholesky`` would raise instead.
+  * ``damp_marquardt`` — H + lam * diag(max(diag(H), floor)).
+  * ``pcg_solve`` — preconditioned conjugate gradients, with the same
+    recurrences and the same stop rule as the reference, ``norm(r) > rtol *
+    norm(b) and it < max_iters``, tested before every iteration.  The
+    reference runs the loop on the device under ``lax.while_loop``; here
+    the loop runs on the host and reads the stop test back from the device
+    once per CG iteration (``HOST_READS["pcg"]`` counts those reads,
+    ``HOST_READS["lm"]`` the LM loop's).
 """
 
 from __future__ import annotations
@@ -21,6 +28,29 @@ HOST_READS = {"pcg": 0, "lm": 0}
 def reset_host_reads():
     for k in HOST_READS:
         HOST_READS[k] = 0
+
+
+def cholesky_solve(H, g):
+    """Solve H dx = g for SPD H via Cholesky; NaN where the factorization
+    fails (by design: no host read, no exception)."""
+    L, info = torch.linalg.cholesky_ex(H)
+    y = torch.linalg.solve_triangular(L, g[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[:, 0]
+    return torch.where(info != 0, float("nan"), x)
+
+
+def damp_marquardt_(H, lam, floor=1e-12):
+    """In place: H += lam * diag(max(diag(H), floor)).  Returns H."""
+    d = H.diagonal()
+    d.add_(lam * torch.clamp(d, min=floor))
+    return H
+
+
+def damp_marquardt(H, lam, floor=1e-12):
+    """Levenberg-Marquardt damping H + lam * diag(H) (Marquardt scaling,
+    which is unit-free).  The floor keeps gauge-free directions damped.
+    Returns a new matrix."""
+    return damp_marquardt_(H.clone(), lam, floor)
 
 
 def pcg_solve(matvec, b, precond=None, x0=None, rtol=1e-6, max_iters=500):

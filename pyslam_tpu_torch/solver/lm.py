@@ -1,16 +1,19 @@
-"""Gauss-Newton / Levenberg-Marquardt solver loop.
+"""Gauss-Newton / Levenberg-Marquardt / dogleg solver loop.
 
-Counterpart of ``pyslam_tpu/solver/lm.py::solve``, with the same options,
-accept/reject rule, best-point tracking and stop codes.  The reference
-runs the whole solve on the device under one ``lax.while_loop``; here the
-loop runs on the host and makes one device-to-host read per LM iteration,
-which brings back every comparison the accept and stop logic needs
-(computed on the device in the graph's dtype, as in the reference).
+Counterpart of ``pyslam_tpu/solver/lm.py``: ``solve`` and
+``solve_one_iter``, with the same options, accept/reject rule, trust-region
+update, best-point tracking and stop codes.  The reference runs the whole
+solve on the device under one ``lax.while_loop``; here the loop runs on
+the host and makes one device-to-host read per iteration, which brings
+back every comparison the accept and stop logic needs (computed on the
+device in the graph's dtype, as in the reference).  The trust radius of
+'dogleg' is updated on the device and needs no read of its own.
 
-Ported so far: ``method`` 'lm' and 'gn', speculative or classic
-linearization, with the caller's ``assemble_fn`` / ``solve_fn`` (the
-sparse paths pass their own).  'dogleg' and the dense default path come
-with a later slice of the port.
+The default linear path is dense: ``assemble_dense`` (over a plan built
+once per solve) and ``_dense_solve`` (Marquardt damping and Cholesky).  A
+failed Cholesky gives a NaN step, whose cost compares False with
+everything, so the step is rejected without a branch.  The sparse paths
+pass their own ``assemble_fn`` / ``solve_fn`` / ``matvec_fn``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from typing import NamedTuple
 import torch
 
 from ..graph.core import FactorGraph
-from .linear import HOST_READS
+from .assemble import assemble_dense, dense_plan, unit_diag_where_dead_
+from .linear import HOST_READS, cholesky_solve, damp_marquardt_
 
 # Stop codes (SolveInfo.status)
 RUNNING = 0
@@ -52,7 +56,7 @@ class Options:
     allow_nondecreasing_steps: bool = False
     max_nondecreasing_steps: int = 3
     # --- solver extensions ---
-    method: str = "lm"  # 'gn' (reference) | 'lm' (damping) | 'dogleg' (not ported yet)
+    method: str = "lm"  # 'gn' (reference) | 'lm' (damping) | 'dogleg' (trust region)
     lambda_init: float = 1e-4
     lambda_up: float = 10.0
     lambda_down: float = 0.1
@@ -88,6 +92,48 @@ def _history(values, length, dtype, device):
     return out
 
 
+def _dogleg_step(H, g, dx_gn, delta, matvec_fn):
+    """Powell's dogleg: blend the (undamped) GN step with the Cauchy point
+    inside the trust region of radius ``delta``.  All three cases are
+    evaluated and selected on the device.  g is the NEGATIVE gradient (rhs
+    of H dx = g), so it is the descent direction.  Returns (dx, interior),
+    interior a 0-dim bool tensor: the full GN step fits the region."""
+    tiny = 1e-30
+    gg = torch.dot(g, g)
+    gHg = torch.dot(g, matvec_fn(H, g))
+    alpha = gg / torch.clamp(gHg, min=tiny)
+    dx_sd = alpha * g
+    n_gn = torch.linalg.norm(dx_gn)
+    n_sd = torch.linalg.norm(dx_sd)
+    d = dx_gn - dx_sd
+    a2 = torch.clamp(torch.dot(d, d), min=tiny)
+    b2 = torch.dot(dx_sd, d)
+    c2 = torch.dot(dx_sd, dx_sd) - delta * delta
+    disc = torch.sqrt(torch.clamp(b2 * b2 - a2 * c2, min=0.0))
+    beta = (-b2 + disc) / a2
+    dx_interp = dx_sd + beta * d
+    dx_sd_clamped = (delta / torch.clamp(n_sd, min=tiny)) * dx_sd
+    # NaN-safety: a singular H gives a NaN GN step, both n_gn comparisons
+    # are then False, so the finite steepest-descent branch stays reachable
+    # once delta shrinks below ||dx_sd||
+    interior = n_gn <= delta
+    dx = torch.where(interior, dx_gn, torch.where(n_sd >= delta, dx_sd_clamped, dx_interp))
+    return dx, interior
+
+
+def _dogleg_radius(opt, delta, g, dx, H, matvec_fn, cost_lin, cost_new, update_norm):
+    """(pred > 0, next radius): the gain ratio rho = actual / predicted
+    decrease of the quadratic model m(dx) = cost - g.dx + 0.5 dx.H.dx sets
+    the next radius, on the device."""
+    pred = torch.dot(g, dx) - 0.5 * torch.dot(dx, matvec_fn(H, dx))
+    rho = (cost_lin - cost_new) / torch.clamp(pred, min=1e-30)
+    accept = (cost_new < cost_lin) & (pred > 0)  # False on NaN
+    grow = (rho > 0.75) & (update_norm > 0.8 * delta)
+    shrink = ~accept | (rho < 0.25)
+    lam = torch.where(grow, 2.0 * delta, torch.where(shrink, 0.25 * delta, delta))
+    return pred > 0, torch.clamp(lam, opt.trust_radius_min, opt.trust_radius_max)
+
+
 def solve(
     graph: FactorGraph,
     options: Options = Options(),
@@ -95,23 +141,35 @@ def solve(
     solve_fn=None,
     matvec_fn=None,
 ):
-    """Run GN/LM to convergence.  Returns (solved_graph, SolveInfo).
+    """Run GN/LM/dogleg to convergence.  Returns (solved_graph, SolveInfo).
 
     ``assemble_fn(graph) -> (H, g, chi2)`` and ``solve_fn(H, g, lam,
-    options) -> dx`` define the linear path (``solver.bcsr.solve_ell``
-    passes its own).  ``matvec_fn`` is accepted for the reference's
-    signature; only 'dogleg' would use it.
+    options) -> dx`` default to the dense path; the sparse paths pass their
+    own.  ``matvec_fn(H, v) -> Hv`` (default dense ``H @ v``) is needed
+    only by 'dogleg', which evaluates the quadratic model at the composite
+    step; with a custom linear path 'dogleg' requires it.
     """
     opt = options
-    if opt.method == "dogleg":
-        raise NotImplementedError("method='dogleg' is not ported yet")
-    if opt.method not in ("lm", "gn"):
+    if opt.method not in ("lm", "gn", "dogleg"):
         raise ValueError(f"unknown method {opt.method!r}")
-    if assemble_fn is None or solve_fn is None:
-        raise NotImplementedError("the dense default path is not ported yet: pass assemble_fn and solve_fn")
+    if matvec_fn is None:
+        if opt.method == "dogleg" and (
+            assemble_fn not in (None, assemble_dense) or solve_fn not in (None, _dense_solve)
+        ):
+            raise ValueError("method='dogleg' with a custom linear path needs matvec_fn(H, v)")
+        matvec_fn = _dense_matvec
+    if assemble_fn is None or assemble_fn is assemble_dense:
+        plan = dense_plan(graph)
+
+        def assemble_fn(g):
+            return assemble_dense(g, plan)
+
+    if solve_fn is None:
+        solve_fn = _dense_solve
     blocks0 = next(iter(graph.blocks.values())).values
     dtype, device = blocks0.dtype, blocks0.device
     K = opt.max_iters
+    dogleg = opt.method == "dogleg"
 
     if opt.speculative:
         # one assembly before the loop seeds the carried linearization; its
@@ -123,7 +181,7 @@ def solve(
         init_cost = graph.chi2()
     blocks = best_blocks = graph.blocks
     cost = best_cost = init_cost
-    lam = torch.tensor(opt.lambda_init, dtype=dtype, device=device)
+    lam = torch.tensor(opt.trust_radius_init if dogleg else opt.lambda_init, dtype=dtype, device=device)
     nondec = 0
     status = RUNNING
     it = 0
@@ -134,6 +192,8 @@ def solve(
         if not opt.speculative:
             H, g, cost_lin = assemble_fn(g_cur)
         dx = solve_fn(H, g, lam, opt)
+        if dogleg:
+            dx, interior = _dogleg_step(H, g, dx, lam, matvec_fn)
         update_norm = torch.linalg.norm(dx)
         trial = g_cur.retract_all(dx)
         if opt.speculative:
@@ -142,17 +202,21 @@ def solve(
             cost_new = trial.chi2()
 
         # every comparison on the device in the graph's dtype; one read
-        flags = torch.stack(
-            [
-                cost_new < cost_lin,
-                cost_new < best_cost,
-                cost_new < cost * opt.min_cost_decrease,
-                update_norm < opt.min_update_norm,
-                cost_new < opt.min_cost,
-            ]
-        ).tolist()
+        checks = [
+            cost_new < cost_lin,
+            cost_new < best_cost,
+            cost_new < cost * opt.min_cost_decrease,
+            update_norm < opt.min_update_norm,
+            cost_new < opt.min_cost,
+        ]
+        if dogleg:
+            pred_pos, lam_next = _dogleg_radius(
+                opt, lam, g, dx, H, matvec_fn, cost_lin, cost_new, update_norm
+            )
+            checks += [pred_pos, interior]
+        flags = torch.stack(checks).tolist()
         HOST_READS["lm"] += 1
-        lm_accept, improved, decrease_ok, small_update, below_min_cost = flags
+        lm_accept, improved, decrease_ok, small_update, below_min_cost = flags[:5]
 
         lams.append(lam)
         if opt.method == "lm":
@@ -161,6 +225,9 @@ def solve(
                 lam = torch.clamp(lam * opt.lambda_down, min=opt.lambda_min)
             else:
                 lam = torch.clamp(lam * opt.lambda_up, max=opt.lambda_max)
+        elif dogleg:
+            accept = lm_accept and flags[5]  # and pred > 0
+            lam = lam_next
         else:  # 'gn': unconditional step, reference behavior
             accept = True
 
@@ -187,9 +254,12 @@ def solve(
             # ... or has not improved for max_nondecreasing_steps.
             if status == RUNNING and nondec >= max_nondec:
                 status = STOPPED_NONDECREASING
-        elif status == RUNNING and accept and not decrease_ok:
-            # LM: 'converged' when an accepted step yields a tiny relative
-            # decrease; rejected steps just raise lambda and continue
+        elif status == RUNNING and accept and not decrease_ok and (not dogleg or flags[6]):
+            # LM/dogleg: 'converged' when an accepted step yields a tiny
+            # relative decrease; rejected steps just shrink the region.
+            # Dogleg also requires the step to have been interior: a
+            # radius-limited step with small decrease means the region is
+            # still growing, not that the optimum is reached.
             status = CONVERGED_COST_DECREASE
 
         costs.append(cost)
@@ -213,3 +283,26 @@ def solve(
         accepted=accepted,
     )
     return graph.with_values(best_blocks), info
+
+
+def _dense_matvec(H, v):
+    return H @ v
+
+
+def _dense_solve(H, g, lam, opt: Options):
+    """Damped dense solve on one copy of H (H itself is kept: a rejected
+    step reuses it)."""
+    Hd = unit_diag_where_dead_(H.clone())
+    if opt.method == "lm":
+        damp_marquardt_(Hd, lam)
+    elif opt.gn_diag_floor > 0.0:
+        Hd.diagonal().add_(opt.gn_diag_floor)
+    return cholesky_solve(Hd, g)
+
+
+def solve_one_iter(graph: FactorGraph, options: Options = Options()):
+    """Single GN/LM step on the dense path.  Returns (updated_graph, dx,
+    chi2_at_linearization)."""
+    H, g, chi2 = assemble_dense(graph)
+    dx = _dense_solve(H, g, torch.tensor(options.lambda_init, dtype=H.dtype, device=H.device), options)
+    return graph.retract_all(dx), dx, chi2

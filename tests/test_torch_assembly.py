@@ -17,9 +17,10 @@ from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu.losses import CauchyLoss as JCauchy
 from pyslam_tpu.losses import L2Loss as JL2
 from pyslam_tpu.solver import bcsr as jb
-from pyslam_tpu_torch.graph import FACTOR_KERNELS, MANIFOLDS, FactorGraph, graph_from_numpy
+from pyslam_tpu_torch.graph import FACTOR_KERNELS, MANIFOLDS, FactorGraph, graph_from_numpy, manifold_dof
 from pyslam_tpu_torch.graph import build as tbuild
 from pyslam_tpu_torch.io import synth as tsynth
+from pyslam_tpu_torch.losses import CauchyLoss as TCauchy
 from pyslam_tpu_torch.solver import bcsr as tb
 from pyslam_tpu_torch.solver.assemble import free_mask, linearize_batch
 
@@ -199,15 +200,40 @@ def test_linearize_batch_rejects_wrong_jacobian_width(monkeypatch):
         linearize_batch(dataclasses.replace(fb, kind="narrow_se3"), tg.blocks)
 
 
-@pytest.mark.parametrize("case", ["init_chordal", "init_spanning_tree", "se2_graph", "se2_manifold"])
+@pytest.mark.parametrize("case", ["init_chordal", "init_spanning_tree"])
 def test_unported_parts_raise(case):
-    if case == "se2_manifold":
-        with pytest.raises(KeyError):
-            MANIFOLDS["se2"]
-        return
-    if case == "se2_graph":
-        with pytest.raises(NotImplementedError):
-            tbuild.pose_graph(tsynth.se2_loop(n_poses=10, n_loops=2, seed=0))
-        return
     with pytest.raises(NotImplementedError):
         tbuild.pose_graph(tsynth.se3_sphere(n_poses=30, seed=0), init=case.split("_", 1)[1])
+
+
+@pytest.mark.parametrize("kind", ["se2", "sim3"])
+def test_pose_graph_2d_and_sim3_match_reference(kind):
+    """``pose_graph`` routes 2-D data to SE(2) and 7-dof 3-D data to
+    ``sim3_pose_graph``, with the reference's arrays."""
+    if kind == "se2":
+        jd, td = jsynth.se2_loop(n_poses=20, n_loops=3, seed=2), tsynth.se2_loop(n_poses=20, n_loops=3, seed=2)
+    else:
+        jd, td = jsynth.sim3_loop(n_poses=20, n_loops=2, seed=2), tsynth.sim3_loop(n_poses=20, n_loops=2, seed=2)
+    jg = jbuild.pose_graph(jd, loss=JCauchy(k=1.5), dtype=jnp.float64)
+    tg = tbuild.pose_graph(td, loss=TCauchy(k=1.5), dtype=torch.float64)
+    jb_, tb_ = jg.blocks["poses"], tg.blocks["poses"]
+    assert tb_.kind == jb_.kind == kind and tb_.dof == jb_.dof
+    np.testing.assert_array_equal(tb_.values.numpy(), np.asarray(jb_.values))
+    np.testing.assert_array_equal(tb_.const_mask.numpy(), np.asarray(jb_.const_mask))
+    (jf,), (tf,) = jg.batches, tg.batches
+    assert (tf.kind, tf.slots) == (jf.kind, jf.slots) == (f"between_{kind}", ("poses", "poses"))
+    for k in jf.data:
+        np.testing.assert_array_equal(tf.data[k].numpy(), np.asarray(jf.data[k]))
+    assert_rel(tg.chi2(), jg.chi2())
+
+
+def test_manifold_table_matches_reference():
+    """Every Lie kind of the reference's table but 'bal_cam9' (the BA
+    slice), with the same dof and element shape; 'euclidean' takes its dof
+    from the element shape."""
+    from pyslam_tpu.graph import core as jcore
+
+    assert set(MANIFOLDS) == set(jcore.MANIFOLDS) - {"bal_cam9"}
+    for kind, entry in MANIFOLDS.items():
+        assert (entry["dof"], entry["shape"]) == (jcore.MANIFOLDS[kind]["dof"], jcore.MANIFOLDS[kind]["shape"])
+    assert manifold_dof("euclidean", (2, 3)) == jcore.manifold_dof("euclidean", (2, 3)) == 6

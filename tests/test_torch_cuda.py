@@ -19,7 +19,7 @@ import torch
 
 from pyslam_tpu_torch.graph import build
 from pyslam_tpu_torch.io import synth
-from pyslam_tpu_torch.solver import bcsr, cuda_ops
+from pyslam_tpu_torch.solver import assemble, bcsr, cuda_ops, lm
 from pyslam_tpu_torch.solver.cuda_ops import (
     ell_matvec,
     ell_matvec_plain,
@@ -27,6 +27,11 @@ from pyslam_tpu_torch.solver.cuda_ops import (
     slot_reduce_plain,
 )
 from pyslam_tpu_torch.solver.lm import Options
+
+DENSE_GRAPHS = {
+    "se2": lambda: synth.se2_loop(n_poses=30, n_loops=4, seed=0),
+    "sim3": lambda: synth.sim3_loop(n_poses=40, n_loops=3, scale_drift=0.005, seed=0),
+}
 
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -114,6 +119,44 @@ def test_solve_ell_on_the_card_matches_cpu(cuda_device, method):
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["ell_matvec"] > 0 and cuda_ops.LAUNCHES["slot_reduce"] > 0
     assert cuda_ops.LAUNCHES["ell_matvec_plain"] == 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    assert (i_gpu.iterations, i_gpu.status) == (i_cpu.iterations, i_cpu.status)
+    np.testing.assert_allclose(i_gpu.chi2.item(), i_cpu.chi2.item(), rtol=1e-8)
+    np.testing.assert_allclose(
+        s_gpu.blocks["poses"].values.cpu().numpy(), s_cpu.blocks["poses"].values.numpy(), rtol=0, atol=1e-6
+    )
+
+
+def _dense_graph(name, device):
+    return build.pose_graph(DENSE_GRAPHS[name](), dtype=torch.float64, device=device)
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_GRAPHS))
+def test_assemble_dense_on_the_card_matches_cpu(cuda_device, name):
+    ref = assemble.assemble_dense(_dense_graph(name, "cpu"))
+    cuda_ops.reset_launches()
+    out = assemble.assemble_dense(_dense_graph(name, cuda_device))
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["slot_reduce"] == 2 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    for a, b in zip(ref, out):
+        _assert_close(b.cpu(), a, 1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_GRAPHS))
+def test_assemble_dense_on_the_card_is_deterministic(cuda_device, name):
+    g = _dense_graph(name, cuda_device)
+    plan = assemble.dense_plan(g)
+    first = assemble.assemble_dense(g, plan)
+    second = assemble.assemble_dense(g, plan)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)  # no atomics: the same bits every run
+
+
+@pytest.mark.parametrize("method", ["lm", "gn", "dogleg"])
+def test_dense_solve_on_the_card_matches_cpu(cuda_device, method):
+    opts = Options(method=method, max_iters=20)
+    s_cpu, i_cpu = lm.solve(_dense_graph("se2", "cpu"), opts)
+    s_gpu, i_gpu = lm.solve(_dense_graph("se2", cuda_device), opts)
     assert (i_gpu.iterations, i_gpu.status) == (i_cpu.iterations, i_cpu.status)
     np.testing.assert_allclose(i_gpu.chi2.item(), i_cpu.chi2.item(), rtol=1e-8)
     np.testing.assert_allclose(

@@ -37,9 +37,9 @@ def test_import_leaves_jax_out():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("path", ["package", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["package", "chip_smoke.py", "profile_port.py"])
 def test_sources_do_not_import_jax(path):
-    files = sorted(PKG.rglob("*.py")) if path == "package" else [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) if path == "package" else [ROOT / path]
     assert files
     offenders = [str(f.relative_to(ROOT)) for f in files if _IMPORT.search(f.read_text())]
     assert not offenders

@@ -86,16 +86,42 @@ def test_options_match_reference():
     assert tlm.SolveInfo._fields == jlm.SolveInfo._fields
 
 
-@pytest.mark.parametrize("case", ["dogleg", "two_level", "no_linear_path"])
+@pytest.mark.parametrize("case", ["two_level"])
 def test_unported_options_raise(case):
     tg = to_port(jax_graph("l2"))
     with pytest.raises(NotImplementedError):
-        if case == "dogleg":
-            tb.solve_ell(tg, tlm.Options(method="dogleg"))
-        elif case == "two_level":
-            tb.solve_ell(tg, tlm.Options(), precond="two_level")
-        else:
-            tlm.solve(tg, tlm.Options())
+        tb.solve_ell(tg, tlm.Options(), precond="two_level")
+
+
+@pytest.mark.parametrize("graph,speculative", [("l2", True), ("robust_prior", False)])
+def test_solve_ell_dogleg_matches_reference(graph, speculative):
+    """Dogleg on the ELL path: its model evaluations go through the ELL
+    matvec (``matvec_fn``), as in the reference."""
+    jg = jax_graph(graph)
+    kw = dict(method="dogleg", max_iters=15, speculative=speculative)
+    js, ji = jb.solve_ell(jg, jlm.Options(**kw))
+    ts, ti = tb.solve_ell(to_port(jg), tlm.Options(**kw))
+    assert ti.iterations == int(ji.iterations)
+    assert ti.status == int(ji.status)
+    np.testing.assert_array_equal(ti.accepted.numpy(), np.asarray(ji.accepted))
+    np.testing.assert_allclose(ti.chi2.item(), float(ji.chi2), rtol=1e-8)
+    np.testing.assert_allclose(ti.lambda_history.numpy(), np.asarray(ji.lambda_history), rtol=1e-8)
+    np.testing.assert_allclose(
+        ts.blocks["poses"].values.numpy(), np.asarray(js.blocks["poses"].values), rtol=0, atol=1e-6
+    )
+
+
+def test_dense_default_path_matches_reference():
+    """``solve`` with no linear path given runs the dense one, on SE(3)."""
+    jg = jax_graph("l2")
+    js, ji = jlm.solve(jg, jlm.Options(max_iters=10))
+    ts, ti = tlm.solve(to_port(jg), tlm.Options(max_iters=10))
+    assert (ti.iterations, ti.status) == (int(ji.iterations), int(ji.status))
+    np.testing.assert_array_equal(ti.accepted.numpy(), np.asarray(ji.accepted))
+    np.testing.assert_allclose(ti.chi2.item(), float(ji.chi2), rtol=1e-8)
+    np.testing.assert_allclose(
+        ts.blocks["poses"].values.numpy(), np.asarray(js.blocks["poses"].values), rtol=0, atol=1e-6
+    )
 
 
 def test_solution_stays_on_the_graph_device_and_dtype():

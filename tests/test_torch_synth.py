@@ -52,6 +52,12 @@ def test_with_outliers_se3_matches_reference():
     np.testing.assert_allclose(od.T_meas, rd.T_meas, rtol=0, atol=1e-12)
 
 
-def test_with_outliers_se2_not_ported():
-    with pytest.raises(NotImplementedError):
-        tsynth.with_outliers(tsynth.se2_loop(n_poses=20, n_loops=2, seed=0), n_outliers=2)
+def test_with_outliers_se2_matches_reference():
+    """SE(2) outliers go through each package's own SE(2) exp."""
+    rd, rm = jsynth.with_outliers(jsynth.se2_loop(n_poses=20, n_loops=2, seed=0), n_outliers=4, seed=3)
+    od, om = tsynth.with_outliers(tsynth.se2_loop(n_poses=20, n_loops=2, seed=0), n_outliers=4, seed=3)
+    np.testing.assert_array_equal(om, rm)
+    np.testing.assert_array_equal(od.edges_i, rd.edges_i)
+    np.testing.assert_array_equal(od.edges_j, rd.edges_j)
+    np.testing.assert_array_equal(od.sqrt_info, rd.sqrt_info)
+    np.testing.assert_allclose(od.T_meas, rd.T_meas, rtol=0, atol=1e-12)
