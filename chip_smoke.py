@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (``pyslam_tpu_torch``) on one
 NVIDIA GPU: builds its CUDA kernels, checks each against its plain PyTorch
-version at the shapes its paths give it, and drives each ported path
-through the entry points a user calls, checking that it reaches its
-converged cost and went through the kernels:
+version at the shapes its paths give it, times kernel, plain version and
+(where one PyTorch call computes the same function) that library call, and
+drives each ported path through the entry points a user calls, checking
+that it reaches its converged cost and went through the kernels:
 
-  * sphere2500 (SE(3), ``build.pose_graph`` + ``bcsr.solve_ell``), gate
-    chi2 <= 1.001 x ``bench/baseline_cache.json``;
+  * sphere2500 (SE(3), ``build.pose_graph`` + ``bcsr.solve_ell``), LM, gate
+    chi2 <= 1.001 x ``bench/baseline_cache.json``: one ``ell_pcg`` launch
+    per linear solve and no CG stop test read by the host;
+  * sphere2500 by dogleg on the same path, whose model products are the
+    stand-alone ``ell_matvec`` kernel;
   * bench config 1, ``se2_loop(100)`` + Cauchy, dense LM;
   * bench config 2, ``se2_manhattan(3500)`` through the g2o writer and
     reader, dense GN (D = 10,500);
@@ -41,9 +45,18 @@ sys.path.insert(0, ROOT)
 N_POSES = 2500
 SEED = 0
 TIMING_CALLS = 50
+# Launches between one pair of events when a small kernel is timed.
+BACK_TO_BACK = 20
+# Peaks of one NVIDIA H100 SXM (data sheet, 700 W): device memory rate and
+# float32 rate outside the tensor cores.  A kernel's bound is the larger of
+# its bytes (each input read once, each output written once) over the
+# first and its operations over the second.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOP_PER_S = 67e12
 # The 1% gates of bench/run.py on the converged costs of the stand-in
 # solvers, by the keys of bench/standin_cache.json.
 STANDIN_GATE = 1.01
+KERNELS = ("ell_matvec", "ell_pcg", "slot_reduce")
 # Relative tolerances of a kernel against its plain version: both sum the
 # same terms in another order, so the difference is rounding only.
 REL_TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -58,28 +71,48 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def median_ms(fn, args, calls=TIMING_CALLS):
-    """Device time of one call: the median over ``calls`` calls, each timed
-    with a pair of CUDA events.  Before each call the stream is held busy
-    for about 0.5 ms (``torch.cuda._sleep``), so the host has queued the
-    whole call before the first event fires and the pair measures the
-    device's work, not the host's launch overhead."""
+def median_ms(fn, args, calls=TIMING_CALLS, inner=1):
+    """Device time of one call: the median over ``calls`` measurements, each
+    a pair of CUDA events around ``inner`` calls, divided by ``inner``.
+    Before each measurement the stream is held busy (``torch.cuda._sleep``)
+    for at least 0.5 ms and three times as long as the host took to queue
+    the calls in the warm-up, so the host has queued them all before the
+    first event fires and the pair measures the device's work, not the
+    host's launch overhead.  With ``inner`` = 1 the pair's own cost (a few
+    microseconds) is part of the figure; ``inner`` > 1 runs the calls back
+    to back and spreads it."""
     import torch
 
-    for _ in range(3):
-        fn(*args)
+    fn(*args)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn(*args)
+    queue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = max(1_000_000, int(3 * queue_s * 2e9))  # the SM clock is just under 2 GHz
     times = []
     for _ in range(calls):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
-        fn(*args)
+        for _ in range(inner):
+            fn(*args)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def bound_ms(n_bytes, flop):
+    """(least time in ms the card could take, what bounds it)."""
+    by_bytes, by_ops = 1e3 * n_bytes / H100_BYTES_PER_S, 1e3 * flop / H100_F32_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def host_ms(fn, reps=5):
@@ -98,10 +131,30 @@ def host_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def check_kernel(name, fn, plain, args, report, key):
+def add_times(report, name, key, times, n_bytes, flop):
+    """Accumulate one timed call into ``report[name]``: ``times`` maps
+    "ms", "single_ms", "plain_ms", "library_ms" to this call's figures; the
+    call's bound is computed from its bytes and operations.  ``key`` is
+    "ms" for a sphere2500 call (the kernels line's columns) or
+    "<config>_ms" for a dense-assembly shape."""
+    import math
+
+    r = report[name]
+    b_ms, by = bound_ms(n_bytes, flop)
+    prefix = key[: -len("ms")]
+    for k, v in {**times, "bound_ms": b_ms}.items():
+        if v is not None:
+            r[prefix + k] = r.get(prefix + k, 0.0) + v
+    r.setdefault(prefix + "library_ms", None)
+    r[prefix + "bound_by"] = by
+    log(f"{name} {key[:-3] or 'sphere2500'}: {times}; bound {b_ms!r} ms by {by} "
+        f"({n_bytes} B, {flop} flop); kernel / bound {times['ms'] / b_ms if b_ms else math.inf!r}")
+
+
+def check_kernel(name, fn, plain, args, report, key, flop, library=None):
     """``fn`` against ``plain`` on the same inputs in f32 and f64, then the
-    device time of each in f32, accumulated into ``report[name]`` under
-    ``key`` / ``"plain_" + key``."""
+    device time of each in f32, and of ``library`` (one PyTorch call on the
+    same inputs, prepared outside the timing) where there is one."""
     import torch
 
     for dtype in (torch.float32, torch.float64):
@@ -115,15 +168,121 @@ def check_kernel(name, fn, plain, args, report, key):
         log(f"{name} {tname} out{tuple(out.shape)}: max_abs_err {err!r} max|ref| {scale!r} rel {err / scale!r}")
         check(torch.isfinite(out).all().item(), f"{name} {tname}: non-finite output")
         check(err <= REL_TOL[tname] * scale, f"{name} {tname}: error {err} > {REL_TOL[tname]} * {scale}")
-        r = report.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+        r = report.setdefault(name, dict(max_abs_err=0.0))
         if dtype is torch.float32:
             r["max_abs_err"] = max(r["max_abs_err"], err)
-    ms = median_ms(fn, args)
-    plain_ms = median_ms(plain, args)
-    log(f"{name} f32 out{tuple(fn(*args).shape)}: device time per call: kernel {ms!r} ms, "
-        f"plain {plain_ms!r} ms (median of {TIMING_CALLS})")
-    r[key] = r.get(key, 0.0) + ms
-    r["plain_" + key] = r.get("plain_" + key, 0.0) + plain_ms
+            if library is not None:
+                lib_err = (library() - ref).abs().max().item()
+                check(lib_err <= REL_TOL[tname] * scale, f"{name}: the library call disagrees by {lib_err}")
+    times = dict(
+        ms=median_ms(fn, args, inner=BACK_TO_BACK),
+        single_ms=median_ms(fn, args),
+        plain_ms=median_ms(plain, args),
+        library_ms=median_ms(library, (), inner=BACK_TO_BACK) if library is not None else None,
+    )
+    tensors = [t for t in args if torch.is_tensor(t)]
+    add_times(report, name, key, times, tensor_bytes(*tensors, fn(*args)), flop)
+
+
+def check_pcg(He, cols, g, rtol, max_iters, report):
+    """``ell_pcg`` against ``ell_pcg_plain`` on one damped sphere2500
+    system (block-Jacobi inverse from ``sym_block_inv``, as ``solve_ell``
+    makes it), in f32 and f64, and the device time of each in f32.
+
+    Tolerances.  f64: the same iteration count, x within 1e-9 of its
+    largest entry (the kernel's dot products sum in another order, 1e-16 a
+    step, over at most ``max_iters`` dependent steps).  f32: the count
+    within one iteration where the run stops on its tolerance (the stop
+    test compares two f32 norms computed in different orders), equal where
+    it stops on the cap; x within 1e-4 of its largest entry (rounding of
+    1e-7 a step grows over 120 dependent steps of an ill-conditioned
+    system), and the kernel's true residual within 1% of the plain
+    version's."""
+    import torch
+
+    from pyslam_tpu_torch.solver import cuda_ops, linear
+    from pyslam_tpu_torch.solver.bcsr import sym_block_inv
+
+    for dtype, x_tol in ((torch.float32, 1e-4), (torch.float64, 1e-9)):
+        a = [He.to(dtype), cols, sym_block_inv(He.to(dtype)[:, 0]).contiguous(), g.to(dtype)]
+        linear.reset_host_reads()
+        out = cuda_ops.ell_pcg(*a, rtol, max_iters)
+        torch.cuda.synchronize()
+        check(linear.HOST_READS["pcg"] == 0, "ell_pcg read a stop test on the host")
+        again = cuda_ops.ell_pcg(*a, rtol, max_iters)
+        ref = cuda_ops.ell_pcg_plain(*a, rtol, max_iters)
+        it, it_ref = int(out.iterations), int(ref.iterations)
+        err = (out.x - ref.x).abs().max().item()
+        scale = ref.x.abs().max().item()
+
+        def residual(x):
+            return (torch.linalg.norm(a[3] - cuda_ops.ell_matvec_plain(a[0], cols, x)) / torch.linalg.norm(a[3])).item()
+
+        res, res_ref = residual(out.x), residual(ref.x)
+        tname = str(dtype).split(".")[-1]
+        log(f"ell_pcg {tname}: iterations {it} (plain {it_ref}, cap {max_iters}), resident rows {out.resident_rows} of "
+            f"{He.shape[0]}, max_abs_err {err!r} max|ref| {scale!r} rel {err / scale!r}, "
+            f"true residual {res!r} (plain {res_ref!r})")
+        check(torch.isfinite(out.x).all().item(), f"ell_pcg {tname}: non-finite output")
+        check(torch.equal(out.x, again.x) and it == int(again.iterations), f"ell_pcg {tname}: two runs differ")
+        slack = 0 if dtype is torch.float64 or it_ref == max_iters else 1
+        check(abs(it - it_ref) <= slack, f"ell_pcg {tname}: {it} iterations, plain {it_ref}")
+        check(err <= x_tol * scale, f"ell_pcg {tname}: error {err} > {x_tol} * {scale}")
+        check(res <= 1.01 * res_ref, f"ell_pcg {tname}: true residual {res} above the plain version's {res_ref}")
+        check(out.resident_rows == He.shape[0], "ell_pcg: sphere2500 should be resident in shared memory")
+        nb, K, d, _ = He.shape
+        log(f"ell_pcg {tname}: launch plan {cuda_ops.ell_pcg_plan(nb, K, d, dtype, He.device)}")
+        if dtype is torch.float32:
+            report["ell_pcg"] = dict(max_abs_err=err)
+            # per iteration: the ELL product and the block-Jacobi product (2
+            # flop a stored value), three dot products, three vector updates
+            flop = it * (2 * nb * (K + 1) * d * d + 12 * nb * d)
+            args = (*a, rtol, max_iters)
+            ms = median_ms(lambda *b: cuda_ops.ell_pcg(*b), args)
+            times = dict(ms=ms, single_ms=ms, plain_ms=median_ms(cuda_ops.ell_pcg_plain, args, calls=5),
+                         library_ms=None)
+            add_times(report, "ell_pcg", "ms", times, tensor_bytes(*a, out.x), flop)
+            log(f"ell_pcg f32: {1e3 * ms / max(it, 1)!r} us per CG iteration")
+
+
+def bsr_matrix(He, plan):
+    """The ELL store as a ``torch.sparse_bsr_tensor`` (padding slots
+    dropped, columns ascending within a row), for the library yardstick of
+    ``ell_matvec``.  Built once, outside any timing."""
+    import numpy as np
+    import torch
+
+    nb, K, d = plan.nb, plan.K, plan.d
+    valid = plan.valid > 0
+    order = np.argsort(np.where(valid, plan.cols, nb), axis=1, kind="stable")  # valid first, by column
+    rows = np.repeat(np.arange(nb), K).reshape(nb, K)
+    keep = np.take_along_axis(valid, order, axis=1)
+    col = np.take_along_axis(plan.cols, order, axis=1)[keep]
+    crow = np.concatenate([[0], np.cumsum(valid.sum(1))])
+    flat = torch.from_numpy((rows * K + order)[keep]).to(He.device)
+    values = He.reshape(nb * K, d, d)[flat].contiguous()
+    return torch.sparse_bsr_tensor(
+        torch.from_numpy(crow).to(He.device), torch.from_numpy(col.astype(np.int64)).to(He.device), values,
+        size=(nb * d, nb * d),
+    )
+
+
+def index_add_library(contrib, perm, offsets, n_slots):
+    """``out.index_add_(0, dest, contrib)`` as the library yardstick of
+    ``slot_reduce``; ``dest`` (each contribution's slot) is built once on
+    the device, outside the timing."""
+    import torch
+
+    counts = (offsets[1:] - offsets[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(n_slots, device=contrib.device), counts)
+    dest = torch.empty_like(seg)
+    dest[perm.long()] = seg
+
+    def call():
+        out = torch.zeros((n_slots, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
+        return out.index_add_(0, dest, contrib)
+
+    return call
 
 
 def main() -> int:
@@ -154,7 +313,6 @@ def main() -> int:
     with open(os.path.join(ROOT, "bench", "standin_cache.json")) as f:
         standin = json.load(f)
 
-    dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -176,12 +334,14 @@ def main() -> int:
 
     # ---- phase 3: kernels vs plain versions at sphere2500 shapes -----------
     data = synth.se3_sphere(n_poses=N_POSES, seed=SEED)
-    graph = build.pose_graph(data, dtype=torch.float32, device=dev)
+    graph = build.pose_graph(data, dtype=torch.float32)
+    check(graph.blocks["poses"].values.device.type == "cuda", "pose_graph did not build on the card by default")
+    dev = graph.blocks["poses"].values.device
     plan = build_ell_direct(graph)
     dplan = ell_device_plan(plan, dev)
     nb, d, K = plan.nb, plan.d, plan.K
     h_contrib, g_contrib, _ = ell_contributions(graph, plan)
-    He, _, _ = assemble_ell(graph, dplan)
+    He, g_vec, _ = assemble_ell(graph, dplan)
     x = torch.from_numpy(np.random.default_rng(SEED).normal(size=nb * d)).to(dev, torch.float32)
     torch.cuda.synchronize()
     log(
@@ -189,25 +349,36 @@ def main() -> int:
         f"h_contrib={tuple(h_contrib.shape)} g_contrib={tuple(g_contrib.shape)}"
     )
     report = {}
-    check_kernel("ell_matvec", cuda_ops.ell_matvec, cuda_ops.ell_matvec_plain, [He, dplan.cols, x], report, "ms")
-    check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
-                 [h_contrib, dplan.h_perm, dplan.h_offsets, nb * K], report, "ms")
-    check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
-                 [g_contrib, dplan.g_perm, dplan.g_offsets, nb], report, "ms")
+    # library yardstick of ell_matvec: one BSR product (6x6 blocks), the
+    # matrix built once outside the timing
+    bsr = bsr_matrix(He, plan)
+    check_kernel("ell_matvec", cuda_ops.ell_matvec, cuda_ops.ell_matvec_plain, [He, dplan.cols, x], report, "ms",
+                 flop=2 * nb * K * d * d, library=lambda: (bsr @ x[:, None])[:, 0])
+    for contrib, perm, offsets, n_slots in ((h_contrib, dplan.h_perm, dplan.h_offsets, nb * K),
+                                            (g_contrib, dplan.g_perm, dplan.g_offsets, nb)):
+        check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                     [contrib, perm, offsets, n_slots], report, "ms", flop=contrib.numel(),
+                     library=index_add_library(contrib, perm, offsets, n_slots))
+    # ell_pcg on the first linear system of the solve: He damped as solve_ell
+    # damps it at lambda_init, its block-Jacobi inverse, the gradient
+    He_d = He.clone()
+    diag = torch.clamp(torch.diagonal(He[:, 0], dim1=-2, dim2=-1), min=1e-12)
+    He_d[:, 0] += Options().lambda_init * torch.diag_embed(diag)
+    check_pcg(He_d, dplan.cols, g_vec, 3e-6, 120, report)
 
     # ---- phase 3b: slot_reduce at the dense-assembly shapes of configs 1, 2, 7
     # The graphs that phases 6-8 solve.  Config 2's goes through the g2o
     # writer and reader, as in bench/run.py.
     loop = synth.se2_loop(n_poses=100, n_loops=12, seed=0)
-    g_1 = build.pose_graph(loop, loss=CauchyLoss(2.0), device=dev)
+    g_1 = build.pose_graph(loop, loss=CauchyLoss(2.0))
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "m3500.g2o")
         g2o.write_g2o(path, synth.se2_manhattan(n_poses=3500, seed=1))
         m3500 = g2o.read_g2o(path)
-    g_m = build.pose_graph(m3500, dtype=torch.float32, device=dev)
+    g_m = build.pose_graph(m3500, dtype=torch.float32)
     m_plan = assemble.dense_plan(g_m)
     loop7 = synth.sim3_loop(n_poses=400, n_loops=10, scale_drift=0.005, odo_scale_std=0.005, seed=0)
-    g_7 = build.sim3_pose_graph(loop7, device=dev)
+    g_7 = build.sim3_pose_graph(loop7)
     for cfg, g_d in (("config1", g_1), ("config2", g_m), ("config7", g_7)):
         d_plan = m_plan if g_d is g_m else assemble.dense_plan(g_d)
         h_parts, g_parts, _ = assemble.dense_contributions(g_d, hessian=True)
@@ -216,7 +387,8 @@ def main() -> int:
             contrib = torch.cat(parts[grp.shape]).contiguous()
             log(f"{cfg} dense group {grp.shape}: contributions {tuple(contrib.shape)} into {grp.n_slots} destinations")
             check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
-                         [contrib, grp.perm, grp.offsets, grp.n_slots], report, f"{cfg}_ms")
+                         [contrib, grp.perm, grp.offsets, grp.n_slots], report, f"{cfg}_ms", flop=contrib.numel(),
+                         library=index_add_library(contrib, grp.perm, grp.offsets, grp.n_slots))
     torch.cuda.synchronize()
 
     launches_by_path = {}
@@ -230,7 +402,7 @@ def main() -> int:
         out = run()
         torch.cuda.synchronize()
         launches, reads = dict(cuda_ops.LAUNCHES), dict(linear.HOST_READS)
-        for k in ("ell_matvec", "slot_reduce"):
+        for k in KERNELS:
             if k in kernels:
                 check(launches[k] > 0, f"{path}: kernel {k} was not launched")
             check(launches[f"{k}_plain"] == 0, f"{path}: plain {k} ran")
@@ -258,24 +430,54 @@ def main() -> int:
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (solved, info), launches, reads = drive("sphere2500", run_sphere, ("ell_matvec", "slot_reduce"))
+    (solved, info), launches, reads = drive("sphere2500", run_sphere, ("ell_pcg", "slot_reduce"))
     chi2 = info.chi2.item()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    cg_iters = launches["ell_matvec"] - info.iterations  # one r0 matvec per linear solve
+    cg_iters = cuda_ops.pcg_iterations()  # summed on the device by the launches, read once here
     log(
         f"solve sphere2500 f32: wall {wall!r} s (warm-up {warm!r} s), LM iterations {info.iterations}, "
-        f"status {STATUS_NAMES[info.status]!r}, CG iterations {cg_iters}, host reads {reads}, "
-        f"launches {launches}, peak memory {peak} B"
+        f"status {STATUS_NAMES[info.status]!r}, linear solves {launches['ell_pcg']}, CG iterations {cg_iters} "
+        f"(cap 120 each), host reads {reads}, launches {launches}, peak memory {peak} B"
     )
+    check(launches["ell_pcg"] == info.iterations, f"sphere2500: {launches['ell_pcg']} ell_pcg launches for "
+          f"{info.iterations} linear solves")
+    check(reads == {"pcg": 0, "lm": info.iterations}, f"sphere2500: host reads {reads}, expected none by PCG "
+          f"and one per LM iteration")
+    check(0 < cg_iters <= 120 * info.iterations, f"sphere2500: {cg_iters} CG iterations on the device counter")
     gate("sphere2500", chi2, 1.001, chi2_ref)
     check_poses("sphere2500", solved, (N_POSES, 4, 4))
+
+    # ---- phase 4b: sphere2500 by dogleg: the stand-alone ell_matvec --------
+    # Not a cell of the reference's harness, so it has no gate of its own:
+    # the trust region must bring the cost below a tenth of the start's.
+    opts_dl = Options(method="dogleg", max_iters=30, min_cost_decrease=0.999)
+
+    def run_sphere_dogleg():
+        return solve_ell(graph, opts_dl, plan=plan, pcg_rtol=3e-6, pcg_max_iters=120)
+
+    run_sphere_dogleg()
+    t0 = time.perf_counter()
+    (solved_dl, info_dl), launches, reads = drive("sphere2500_dogleg", run_sphere_dogleg,
+                                                  ("ell_matvec", "ell_pcg", "slot_reduce"))
+    chi2_dl, chi2_0 = info_dl.chi2.item(), info_dl.cost_history[0].item()
+    wall = time.perf_counter() - t0
+    log(
+        f"solve sphere2500 dogleg f32: wall {wall!r} s, iterations {info_dl.iterations}, "
+        f"status {STATUS_NAMES[info_dl.status]!r}, chi2 {chi2_0!r} -> {chi2_dl!r}, CG iterations "
+        f"{cuda_ops.pcg_iterations()}, host reads {reads}, launches {launches}"
+    )
+    check(launches["ell_matvec"] == 2 * info_dl.iterations, "dogleg: two model products per iteration expected")
+    check(launches["ell_pcg"] == info_dl.iterations and reads == {"pcg": 0, "lm": info_dl.iterations},
+          f"dogleg: launches {launches}, host reads {reads}")
+    check(np.isfinite(chi2_dl) and chi2_dl < 0.1 * chi2_0, f"dogleg: chi2 {chi2_0} -> {chi2_dl}")
+    check_poses("sphere2500_dogleg", solved_dl, (N_POSES, 4, 4))
 
     # ---- phase 5: the kernels' path agrees with the CPU path ---------------
     small = synth.se3_sphere(n_poses=60, seed=11)
     res = {}
     for where in ("cpu", "cuda"):
-        g_small = build.pose_graph(small, dtype=torch.float64, device=where)
+        g_small = build.pose_graph(small, dtype=torch.float64, device=where)  # "cpu" must be asked for
         s_small, i_small = solve_ell(g_small, Options(method="lm", max_iters=20))
         res[where] = (i_small, s_small)
     cross_check("se3_sphere(60) solve_ell lm", res)
@@ -305,7 +507,7 @@ def main() -> int:
     # config 1: se2_loop(100) + Cauchy, timed; the gate is on the L2 graph
     opts1 = Options(method="lm", max_iters=50)
     run_dense("config1_se2_loop_cauchy", g_1, opts1, 100, (3, 3))
-    _, _, chi2_l2 = run_dense("config1_se2_loop_l2", build.pose_graph(loop, device=dev), opts1, 100, (3, 3))
+    _, _, chi2_l2 = run_dense("config1_se2_loop_l2", build.pose_graph(loop), opts1, 100, (3, 3))
     gate("config1 se2_loop_100 (L2 graph)", chi2_l2, STANDIN_GATE, standin["se2_loop_100"]["chi2"])
 
     # config 2: M3500-class, GN with exact solves, D = 10,500
@@ -340,31 +542,37 @@ def main() -> int:
         cross_check(label, res)
     opts_dl = Options(method="dogleg", max_iters=20)
     s_c, i_c = solve_ell(build.pose_graph(small, dtype=torch.float64, device="cpu"), opts_dl)
-    g_small = build.pose_graph(small, dtype=torch.float64, device=dev)
+    g_small = build.pose_graph(small, dtype=torch.float64)
     (s_g, i_g), launches, reads = drive("solve_ell_dogleg_f64", lambda: solve_ell(g_small, opts_dl),
-                                        ("ell_matvec", "slot_reduce"))
+                                        ("ell_matvec", "ell_pcg", "slot_reduce"))
     res = {"cpu": (i_c, s_c), "cuda": (i_g, s_g)}
     cross_check("se3_sphere(60) solve_ell dogleg", res)
-    # per LM iteration: one r0 matvec, the CG matvecs, and dogleg's two
-    # model matvecs; the CG stop tests bound the CG iterations from above
-    log(f"solve_ell dogleg on the card: ell_matvec launches {launches['ell_matvec']}, "
-        f"CG stop tests {reads['pcg']}, LM iterations {i_g.iterations}")
-    check(launches["ell_matvec"] >= reads["pcg"] + 2 * i_g.iterations,
-          "solve_ell dogleg did not run its model matvecs through ell_matvec")
+    log(f"solve_ell dogleg on the card: launches {launches}, CG iterations {cuda_ops.pcg_iterations()}, "
+        f"host reads {reads}, LM iterations {i_g.iterations}")
+    check(launches["ell_matvec"] == 2 * i_g.iterations and launches["ell_pcg"] == i_g.iterations
+          and reads["pcg"] == 0, "solve_ell dogleg: model products or linear solves left the kernels")
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
+               "ell_pcg": "pyslam_tpu_torch/csrc/ell_pcg.cu",
                "slot_reduce": "pyslam_tpu_torch/csrc/slot_reduce.cu"}
+    # ell_pcg is ell_matvec_lane_major at the grain of its caller, the
+    # while_loop of pyslam_tpu/solver/linear.py:38-61
     replaces = {"ell_matvec": "pyslam_tpu/solver/pallas_ops.py:60",
+                "ell_pcg": "pyslam_tpu/solver/pallas_ops.py:60",
                 "slot_reduce": "pyslam_tpu/solver/pallas_ops.py:143"}
-    main_paths = ("sphere2500", "config1_se2_loop_cauchy", "config1_se2_loop_l2", "config2_m3500_g2o",
-                  "config7_sim3_400")
+    main_paths = ("sphere2500", "sphere2500_dogleg", "config1_se2_loop_cauchy", "config1_se2_loop_l2",
+                  "config2_m3500_g2o", "config7_sim3_400")
     kernels = [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
              launches=sum(launches_by_path[p].get(k, 0) for p in main_paths),
              launches_by_path={p: launches_by_path[p][k] for p in main_paths if k in launches_by_path[p]},
-             **v)
-        for k, v in report.items()
+             **report[k])
+        for k in KERNELS
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"kernel {k['name']} was launched on no main path")
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            check(key in k, f"kernel {k['name']}: no {key}")
     log(smi_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

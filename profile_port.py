@@ -12,7 +12,7 @@ harness's options).  Per cell:
   * wall: one warm-up solve, then the median of ``--reps`` solves, each
     timed on the host clock from the call to the converged chi2 read back
     with ``.item()``;
-  * busy share (dense cells): one more solve under ``torch.profiler``
+  * busy share: one more solve under ``torch.profiler``
     (CPU and CUDA activities); the summed self device time of its kernel
     events divided by the unprofiled median wall.  Also the kernels
     launched per solve and the ten longest kernels;
@@ -21,12 +21,20 @@ harness's options).  Per cell:
     ``_dense_solve`` and ``retract_all`` at the start point, each the
     median of ``--reps`` calls after one warm-up, every call closed by
     ``torch.cuda.synchronize()``;
+  * host ms per call (sphere2500), measured the same way:
+    ``ell_device_plan``, the linearization, ``assemble_ell``, the damping
+    with ``sym_block_inv``, one PCG linear solve at the start point (the
+    ``ell_pcg`` kernel; on a checkout from before that kernel, the host
+    loop over ``ell_matvec`` that ``solve_ell`` ran then) and
+    ``retract_all``;
   * the runtime's stream and device synchronisations and memory copies
     counted in the profiled solve.
 
 ``--root`` imports ``pyslam_tpu_torch`` from another checkout, such as a
 parent commit unpacked beside this one (the sphere2500 cell runs on every
-version of the port; the dense cells need the dense path).
+version of the port; the dense cells need the dense path).  The graphs
+are built on the package's default device, the CUDA card; a checkout from
+before ``default_device`` is given ``cuda:0`` by name.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from __future__ import annotations
 import argparse
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -114,6 +123,46 @@ def dense_split(g, o, dev, reps):
     )
 
 
+def ell_split(g, o, dev, reps):
+    import torch
+
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops
+
+    plan = bcsr.build_ell_direct(g)
+    dplan = bcsr.ell_device_plan(plan, dev)
+    He, gv, _ = bcsr.assemble_ell(g, dplan)
+
+    def damp():
+        D = He[:, 0]
+        diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1), min=1e-12)
+        He_d = He.clone()
+        He_d[:, 0] = D + o.lambda_init * torch.diag_embed(diag)
+        return He_d, bcsr.sym_block_inv(He_d[:, 0])
+
+    He_d, Minv = damp()
+    if hasattr(cuda_ops, "ell_pcg"):
+        def pcg():
+            return cuda_ops.ell_pcg(He_d, dplan.cols, Minv, gv, 3e-6, 120).x
+    else:  # before the ell_pcg kernel: the host loop of that solve_ell
+        from pyslam_tpu_torch.solver.linear import pcg_solve
+
+        def pcg():
+            return pcg_solve(
+                lambda x: cuda_ops.ell_matvec(He_d, dplan.cols, x), gv,
+                precond=lambda r: (Minv @ r.reshape(plan.nb, plan.d, 1)).reshape(-1), rtol=3e-6, max_iters=120,
+            )[0]
+
+    dx = pcg()
+    return dict(
+        ell_device_plan=host_ms(lambda: bcsr.ell_device_plan(plan, dev), reps),
+        linearize=host_ms(lambda: bcsr.ell_contributions(g, plan), reps),
+        assemble_ell=host_ms(lambda: bcsr.assemble_ell(g, dplan), reps),
+        damp_and_block_inverse=host_ms(damp, reps),
+        pcg_linear_solve=host_ms(pcg, reps),
+        retract_all=host_ms(lambda: g.retract_all(dx), reps),
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cells", default=",".join(CELLS))
@@ -130,8 +179,11 @@ def main() -> int:
         return 1
     import pyslam_tpu_torch  # noqa: F401  (sets the TF32 flags)
 
-    dev = torch.device("cuda", 0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; "
+    dev = pyslam_tpu_torch.default_device() if hasattr(pyslam_tpu_torch, "default_device") else torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+          f"({smi.stdout.strip() or 'nvidia-smi not available'}); "
           f"pyslam_tpu_torch from {os.path.dirname(pyslam_tpu_torch.__file__)}", flush=True)
 
     def dev_us(e):
@@ -163,9 +215,8 @@ def main() -> int:
         print(f"   runtime calls per solve {({e.key: e.count for e in ka if e.key in RUNTIME_CALLS})}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"   {dev_us(e) / 1e3:10.4f} ms  x{e.count:5d}  {e.key[:110]}")
-        if name != "sphere2500":
-            print(f"   host ms per call (median of {args.reps}, synchronised): {dense_split(g, o, dev, args.reps)}",
-                  flush=True)
+        split = ell_split(g, o, dev, args.reps) if name == "sphere2500" else dense_split(g, o, dev, args.reps)
+        print(f"   host ms per call (median of {args.reps}, synchronised): {split}", flush=True)
     return 0
 
 

@@ -18,7 +18,12 @@ Ported so far (the pose-graph solves of sphere2500 and of bench configs
   * ``solver``  — GN / LM / dogleg over dense assembly and Cholesky
                   (``solve``, ``solve_one_iter``) or direct-to-ELL assembly
                   and PCG (``solve_ell``), and the ``ell_matvec`` /
-                  ``slot_reduce`` CUDA kernels
+                  ``ell_pcg`` / ``slot_reduce`` CUDA kernels
+
+Entry points that build tensors (``build.pose_graph``,
+``build.sim3_pose_graph``, ``convert.graph_from_numpy``, the Lie modules'
+``identity``) put them on ``default_device()``, the CUDA card, unless the
+caller names a device; ``device="cpu"`` asks for the CPU.
 """
 
 __version__ = "0.1.0"
@@ -31,4 +36,5 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from ._device import default_device  # noqa: E402,F401
 from . import graph, io, lie, losses, solver  # noqa: E402,F401

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..losses import L2Loss
 from .core import FactorBatch, FactorGraph, VariableBlock
 
@@ -20,6 +21,7 @@ def _tensor(a, dtype, device):
 
 def _single_between_graph(kind, T0, data, loss, anchor_first, dtype, device):
     """One block of poses of ``kind`` and one ``between_<kind>`` batch."""
+    device = resolve_device(device)
     const = np.zeros(T0.shape[0], bool)
     if anchor_first:
         const[0] = True
@@ -45,10 +47,11 @@ def pose_graph(
     anchor_first: bool = True,
     dtype=torch.float32,
     init: str = "odometry",
-    device="cpu",
+    device=None,
 ) -> FactorGraph:
     """Build a pose-graph FactorGraph from PoseGraphData (2D or 3D), with
-    every tensor in ``dtype`` on ``device``.
+    every tensor in ``dtype`` on ``device`` (None: the package's default,
+    the CUDA card; ``device="cpu"`` asks for the CPU).
 
     ``anchor_first`` freezes pose 0 (gauge fixing).  ``init`` is
     'odometry' (integrated measurements, the standard benchmark init) or
@@ -84,14 +87,15 @@ def sim3_pose_graph(
     anchor_first: bool = True,
     dtype=torch.float32,
     init: str = "odometry",
-    device="cpu",
+    device=None,
 ) -> FactorGraph:
     """Build a Sim(3) pose-graph FactorGraph (scale-drift-aware monocular
     loop closure; see ``lie/sim3.py`` and ``synth.sim3_loop``).
 
     ``data`` is PoseGraphData whose (N, 4, 4) matrices are Sim(3)
     ``[[s*R, t], [0, 1]]`` and whose sqrt_info is (E, 7, 7).  ``init``
-    'gt' starts from the ground truth, anything else from ``T_init``."""
+    'gt' starts from the ground truth, anything else from ``T_init``.
+    ``device`` as in ``pose_graph``."""
     loss = loss if loss is not None else L2Loss()
     T0 = data.T_gt if init == "gt" else data.T_init
     return _single_between_graph("sim3", T0, data, loss, anchor_first, dtype, device)

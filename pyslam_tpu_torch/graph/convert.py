@@ -13,14 +13,17 @@ import numpy as np
 import torch
 
 from .. import losses
+from .._device import resolve_device
 from .core import FactorBatch, FactorGraph, VariableBlock
 
 
-def graph_from_numpy(blocks: dict, batches: list, dtype, device="cpu") -> FactorGraph:
+def graph_from_numpy(blocks: dict, batches: list, dtype, device=None) -> FactorGraph:
     """``blocks``: name -> dict(kind, values, const_mask).
     ``batches``: list of dict(kind, slots, indices, data, weight, loss),
     where ``loss`` is ``(class name, {field: value})``, for example
-    ``("CauchyLoss", {"k": 2.0})``.  Floating arrays become ``dtype``."""
+    ``("CauchyLoss", {"k": 2.0})``.  Floating arrays become ``dtype``, on
+    ``device`` (None: the package's default, the CUDA card)."""
+    device = resolve_device(device)
 
     def tensor(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)

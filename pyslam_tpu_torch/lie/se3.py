@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
 from . import so3
 
 DOF = 6
@@ -157,8 +158,9 @@ def perturb(T, xi):
     return exp(xi) @ T
 
 
-def identity(dtype=torch.float32, batch_shape=(), device="cpu"):
-    return torch.eye(4, dtype=dtype, device=device).expand(tuple(batch_shape) + (4, 4))
+def identity(dtype=torch.float32, batch_shape=(), device=None):
+    """Identity elements on ``device`` (None: the package's default, the CUDA card)."""
+    return torch.eye(4, dtype=dtype, device=resolve_device(device)).expand(tuple(batch_shape) + (4, 4))
 
 
 def normalize(T):

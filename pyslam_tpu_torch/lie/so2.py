@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
+
 DOF = 1
 
 
@@ -62,5 +64,6 @@ def perturb(R, phi):
     return exp(phi) @ R
 
 
-def identity(dtype=torch.float32, batch_shape=(), device="cpu"):
-    return torch.eye(2, dtype=dtype, device=device).expand(tuple(batch_shape) + (2, 2))
+def identity(dtype=torch.float32, batch_shape=(), device=None):
+    """Identity elements on ``device`` (None: the package's default, the CUDA card)."""
+    return torch.eye(2, dtype=dtype, device=resolve_device(device)).expand(tuple(batch_shape) + (2, 2))

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from .._device import resolve_device
+
 DOF = 3
 
 # Angle below which Taylor series replace the closed forms (as in the
@@ -179,5 +181,6 @@ def perturb(R, phi):
     return exp(phi) @ R
 
 
-def identity(dtype=torch.float32, batch_shape=(), device="cpu"):
-    return torch.eye(3, dtype=dtype, device=device).expand(tuple(batch_shape) + (3, 3))
+def identity(dtype=torch.float32, batch_shape=(), device=None):
+    """Identity elements on ``device`` (None: the package's default, the CUDA card)."""
+    return torch.eye(3, dtype=dtype, device=resolve_device(device)).expand(tuple(batch_shape) + (3, 3))

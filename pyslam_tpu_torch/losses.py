@@ -121,7 +121,9 @@ class TDistributionLoss:
 
     def _sigma2(self, e):
         if self.scale is not None:
-            return torch.tensor(self.scale, dtype=e.dtype, device=e.device) ** 2
+            # a Python float: it enters the tensor arithmetic of loss() and
+            # weight() as a scalar argument, with no host-to-device copy
+            return self.scale * self.scale
         return self._estimate_scale(e)
 
     def loss(self, e):

@@ -15,7 +15,9 @@ Per LM iteration:
     from run to run;
   * Marquardt damping of the slot-0 blocks and the closed-form 6×6
     block-Jacobi inverse (``sym_block_inv``), plain tensor code;
-  * PCG (``linear.pcg_solve``) whose matvec is the ``ell_matvec`` kernel.
+  * PCG: the ``ell_pcg`` kernel, one launch per linear solve (on CPU
+    tensors ``linear.pcg_solve`` over the plain product).  Dogleg's model
+    products go through the ``ell_matvec`` kernel.
 
 The plan (``EllDirect``) is built on the host in numpy, as in the
 reference; ``ell_device_plan`` validates it and puts the index tensors the
@@ -32,8 +34,7 @@ import torch
 from ..graph.core import FactorGraph
 from . import lm as _lm
 from .assemble import dense_contributions, free_mask
-from .cuda_ops import SlotPlan, ell_matvec, slot_plan, slot_reduce
-from .linear import pcg_solve
+from .cuda_ops import SlotPlan, ell_matvec, ell_pcg, slot_plan, slot_reduce
 
 # --------------------------------------------------------------------------
 # Direct-to-ELL plan (numpy, as in the reference)
@@ -308,7 +309,6 @@ def solve_ell(
         pcg_rtol = 3e-6 if plan.nb <= 10_000 else 1e-8
     if pcg_max_iters is None:
         pcg_max_iters = min(1000, max(120, plan.nb // 80))
-    nb, d = plan.nb, plan.d
     device = next(iter(graph.blocks.values())).values.device
     dplan = ell_device_plan(plan, device)
 
@@ -328,15 +328,7 @@ def solve_ell(
         else:
             He_d = He
         Minv = sym_block_inv(D)
-
-        def precond_fn(r):
-            return (Minv @ r.reshape(nb, d, 1)).reshape(-1)
-
-        dx, _ = pcg_solve(
-            lambda x: matvec_fn(He_d, x), g, precond=precond_fn, rtol=pcg_rtol,
-            max_iters=pcg_max_iters,
-        )
-        return dx
+        return ell_pcg(He_d, dplan.cols, Minv.contiguous(), g, pcg_rtol, pcg_max_iters).x
 
     return _lm.solve(
         graph, options, assemble_fn=assemble_fn, solve_fn=solve_fn, matvec_fn=matvec_fn

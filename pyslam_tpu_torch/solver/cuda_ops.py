@@ -4,8 +4,12 @@ PyTorch versions and launch counters.
 Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
 
 * ``ell_matvec`` (``csrc/ell_matvec.cu``) replaces ``ell_matvec_lane_major``
-  / ``ell_matvec_pallas``: the symmetric-ELL block SpMV of every PCG
-  iteration, y[r] = sum_k He[r, k] @ x[cols[r, k]].
+  / ``ell_matvec_pallas``: the symmetric-ELL block SpMV, y[r] = sum_k
+  He[r, k] @ x[cols[r, k]] (dogleg's model products on ``solve_ell``).
+* ``ell_pcg`` (``csrc/ell_pcg.cu``) is that product at the grain this card
+  wants it: the whole block-Jacobi PCG solve of ``solve_ell`` (the
+  reference's ``_pcg`` ``while_loop`` around ``ell_matvec_lane_major``) as
+  one persistent launch, with He resident in shared memory.
 * ``slot_reduce`` (``csrc/slot_reduce.cu``) replaces ``scatter_matmul``: the
   reduction of per-factor contributions into their ELL slots (and of the
   gradient rows into their poses) during assembly, as a deterministic
@@ -14,25 +18,49 @@ Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
 Dispatch: a tensor on the CPU goes to the plain version (the CPU tests use
 it); a tensor on a CUDA device launches the kernel or raises.  There is no
 fallback from the kernel to the plain version.  ``LAUNCHES`` counts, for
-each function, the calls that ran it.  The source note of each kernel says
-what bounds it on an H100 and what its design does about that.
+each function, the calls that ran it; ``pcg_iterations`` reads the CG
+iterations that ``ell_pcg`` launches summed on the device.  The source note
+of each kernel says what bounds it on an H100 and what its design does
+about that.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-LAUNCHES = {"ell_matvec": 0, "ell_matvec_plain": 0, "slot_reduce": 0, "slot_reduce_plain": 0}
+from . import linear
+
+LAUNCHES = {
+    "ell_matvec": 0, "ell_matvec_plain": 0,
+    "ell_pcg": 0, "ell_pcg_plain": 0,
+    "slot_reduce": 0, "slot_reduce_plain": 0,
+}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
+# Per CUDA device, a one-element int64 tensor to which every ell_pcg launch
+# adds its iteration count, on the device.
+_PCG_ITERATIONS: dict = {}
+
 
 def reset_launches():
+    """Every launch count, and the device counters of CG iterations, to 0."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counter in _PCG_ITERATIONS.values():
+        counter.zero_()
+
+
+def pcg_iterations() -> int:
+    """CG iterations run by the ``ell_pcg`` kernel since the last
+    ``reset_launches()``, over all devices.  One device-to-host read per
+    device: for the end of a run, not for a solver loop."""
+    return sum(int(counter.item()) for counter in _PCG_ITERATIONS.values())
 
 
 def _route(*tensors) -> str:
@@ -97,6 +125,120 @@ def ell_matvec(He, cols, x):
     _raise_on_error(fn_name, err)
     LAUNCHES["ell_matvec"] += 1
     return y
+
+
+# --------------------------------------------------------------------------
+# Block-Jacobi PCG on the ELL matrix
+# --------------------------------------------------------------------------
+
+
+class PcgResult(NamedTuple):
+    x: torch.Tensor  # (nb*d,)
+    iterations: torch.Tensor  # 0-dim int32, on x's device
+    # Block rows (of nb) whose He, cols and Minv the kernel kept in shared
+    # memory for the whole solve; the others were read from device memory
+    # every iteration.  None from the plain version.
+    resident_rows: int | None
+
+
+_PCG_ERRORS = {
+    -1: "the device does not support cooperative launch",
+    -2: "the solve's vectors do not fit in shared memory (nb * d too large for this kernel)",
+    -3: "the grid cannot be co-resident with this much shared memory",
+}
+_PCG_PLANS: dict = {}
+
+
+def ell_pcg_plan(nb, K, d, dtype, device) -> dict:
+    """The launch geometry of ``ell_pcg`` for these shapes on ``device``, as
+    the library computes it: ``grid`` (blocks, one per SM at most),
+    ``rows_per_block``, ``resident_rows`` (of nb), ``smem_bytes`` (dynamic
+    shared memory a block) and ``lanes`` (sub-warp width of a row
+    product)."""
+    from .._ext import library
+
+    device = torch.device(device)
+    key = (nb, K, d, dtype, device)
+    if key not in _PCG_PLANS:
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(device):
+            err = library().pyslam_ell_pcg_plan(nb, K, d, torch.finfo(dtype).bits // 8, out)
+        _raise_on_pcg_error("pyslam_ell_pcg_plan", err)
+        _PCG_PLANS[key] = dict(zip(("grid", "rows_per_block", "resident_rows", "smem_bytes", "lanes"), out))
+    return _PCG_PLANS[key]
+
+
+def _raise_on_pcg_error(fn_name, err):
+    if err < 0:
+        raise RuntimeError(f"{fn_name}: {_PCG_ERRORS.get(err, err)}")
+    _raise_on_error(fn_name, err)
+
+
+def ell_pcg_plain(He, cols, Minv, b, rtol, max_iters):
+    """Plain version: ``linear.pcg_solve`` (the host loop, one stop test
+    read back per iteration) over ``ell_matvec_plain`` and the batched
+    ``Minv @ r``."""
+    LAUNCHES["ell_pcg_plain"] += 1
+    nb, _, d, _ = He.shape
+
+    def precond(r):
+        return (Minv @ r.reshape(nb, d, 1)).reshape(-1)
+
+    x, it = linear.pcg_solve(
+        lambda v: ell_matvec_plain(He, cols, v), b, precond=precond, rtol=rtol, max_iters=max_iters
+    )
+    return PcgResult(x, torch.tensor(it, dtype=torch.int32, device=b.device), None)
+
+
+def ell_pcg(He, cols, Minv, b, rtol, max_iters):
+    """Solve A x = b by block-Jacobi preconditioned CG from x0 = 0, where
+    (A v)[r] = sum_k He[r, k] @ v[cols[r, k]] and the preconditioner is
+    z[r] = Minv[r] @ r[r]: ``linear.pcg_solve``'s recurrences and stop rule
+    (continue while ``norm(r) > rtol * norm(b)`` and ``it < max_iters``,
+    tested before every iteration; a NaN ends the loop).
+
+    He (nb, K, d, d), cols (nb, K) int32 with entries in [0, nb), Minv
+    (nb, d, d), b (nb*d,), all contiguous on one device.  Returns a
+    ``PcgResult``.  On a CUDA device the whole solve is one launch and makes
+    no host read.  The kernel takes r0 = b without forming A @ x0; the two
+    differ only where He holds a non-finite value (``pcg_solve`` then stops
+    at once with x = 0, the kernel returns NaN after one iteration: LM
+    rejects either step)."""
+    if He.dim() != 4 or He.shape[2] != He.shape[3]:
+        raise ValueError(f"He: shape {tuple(He.shape)}, expected (nb, K, d, d)")
+    nb, K, d, _ = He.shape
+    if He.dtype not in _SUFFIX:
+        raise TypeError(f"He: dtype {He.dtype}, expected float32 or float64")
+    _check("He", He, He.dtype, (nb, K, d, d))
+    _check("cols", cols, torch.int32, (nb, K))
+    _check("Minv", Minv, He.dtype, (nb, d, d))
+    _check("b", b, He.dtype, (nb * d,))
+    rtol, max_iters = float(rtol), int(max_iters)
+    if max_iters < 0:
+        raise ValueError(f"max_iters: {max_iters}, expected >= 0")
+    if _route(He, cols, Minv, b) == "cpu":
+        return ell_pcg_plain(He, cols, Minv, b, rtol, max_iters)
+    from .._ext import library
+
+    lib = library()
+    dev = b.device
+    plan = ell_pcg_plan(nb, K, d, He.dtype, dev)
+    with torch.cuda.device(dev):
+        if dev not in _PCG_ITERATIONS:
+            _PCG_ITERATIONS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        x = torch.empty_like(b)
+        iterations = torch.empty((), dtype=torch.int32, device=dev)
+        # p of two iterations in turn, z, and the blocks' partial dot products
+        scratch = torch.empty(3 * nb * d + 3 * plan["grid"], dtype=He.dtype, device=dev)
+        fn_name = f"pyslam_ell_pcg_{_SUFFIX[He.dtype]}"
+        err = getattr(lib, fn_name)(
+            He.data_ptr(), cols.data_ptr(), Minv.data_ptr(), b.data_ptr(), x.data_ptr(),
+            scratch.data_ptr(), iterations.data_ptr(), _PCG_ITERATIONS[dev].data_ptr(),
+            nb, K, d, rtol, max_iters, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_pcg_error(fn_name, err)
+    LAUNCHES["ell_pcg"] += 1
+    return PcgResult(x, iterations, plan["resident_rows"])
 
 
 # --------------------------------------------------------------------------

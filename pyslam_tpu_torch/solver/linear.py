@@ -9,11 +9,14 @@ Counterpart of ``pyslam_tpu/solver/linear.py``:
   * ``damp_marquardt`` — H + lam * diag(max(diag(H), floor)).
   * ``pcg_solve`` — preconditioned conjugate gradients, with the same
     recurrences and the same stop rule as the reference, ``norm(r) > rtol *
-    norm(b) and it < max_iters``, tested before every iteration.  The
-    reference runs the loop on the device under ``lax.while_loop``; here
-    the loop runs on the host and reads the stop test back from the device
-    once per CG iteration (``HOST_READS["pcg"]`` counts those reads,
-    ``HOST_READS["lm"]`` the LM loop's).
+    norm(b) and it < max_iters``, tested before every iteration, for any
+    matvec and preconditioner closures.  The reference runs the loop on the
+    device under ``lax.while_loop``; here the loop runs on the host and
+    reads the stop test back from the device once per CG iteration
+    (``HOST_READS["pcg"]`` counts those reads, ``HOST_READS["lm"]`` the LM
+    loop's).  ``solve_ell`` does not come here on the card: its ELL
+    product and block-Jacobi preconditioner are the ``cuda_ops.ell_pcg``
+    kernel, the whole loop in one launch with no host read.
 """
 
 from __future__ import annotations

@@ -82,7 +82,7 @@ GRAPHS = ["l2", "robust_prior"]
 
 def test_pose_graph_matches_reference():
     jg = jbuild.pose_graph(jsynth.se3_sphere(n_poses=60, seed=11), dtype=jnp.float64)
-    tg = tbuild.pose_graph(tsynth.se3_sphere(n_poses=60, seed=11), dtype=torch.float64)
+    tg = tbuild.pose_graph(tsynth.se3_sphere(n_poses=60, seed=11), dtype=torch.float64, device="cpu")
     jb_, tb_ = jg.blocks["poses"], tg.blocks["poses"]
     np.testing.assert_array_equal(tb_.values.numpy(), np.asarray(jb_.values))
     np.testing.assert_array_equal(tb_.const_mask.numpy(), np.asarray(jb_.const_mask))
@@ -203,7 +203,7 @@ def test_linearize_batch_rejects_wrong_jacobian_width(monkeypatch):
 @pytest.mark.parametrize("case", ["init_chordal", "init_spanning_tree"])
 def test_unported_parts_raise(case):
     with pytest.raises(NotImplementedError):
-        tbuild.pose_graph(tsynth.se3_sphere(n_poses=30, seed=0), init=case.split("_", 1)[1])
+        tbuild.pose_graph(tsynth.se3_sphere(n_poses=30, seed=0), init=case.split("_", 1)[1], device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["se2", "sim3"])
@@ -215,7 +215,7 @@ def test_pose_graph_2d_and_sim3_match_reference(kind):
     else:
         jd, td = jsynth.sim3_loop(n_poses=20, n_loops=2, seed=2), tsynth.sim3_loop(n_poses=20, n_loops=2, seed=2)
     jg = jbuild.pose_graph(jd, loss=JCauchy(k=1.5), dtype=jnp.float64)
-    tg = tbuild.pose_graph(td, loss=TCauchy(k=1.5), dtype=torch.float64)
+    tg = tbuild.pose_graph(td, loss=TCauchy(k=1.5), dtype=torch.float64, device="cpu")
     jb_, tb_ = jg.blocks["poses"], tg.blocks["poses"]
     assert tb_.kind == jb_.kind == kind and tb_.dof == jb_.dof
     np.testing.assert_array_equal(tb_.values.numpy(), np.asarray(jb_.values))

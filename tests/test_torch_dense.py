@@ -311,8 +311,8 @@ def test_dogleg_with_custom_path_needs_matvec():
 
 def test_pose_graph_routes_sim3_data():
     data = tsynth.sim3_loop(n_poses=12, n_loops=2, seed=0)
-    g = tbuild.pose_graph(data, dtype=torch.float64)
+    g = tbuild.pose_graph(data, dtype=torch.float64, device="cpu")
     assert g.blocks["poses"].kind == "sim3" and g.batches[0].kind == "between_sim3"
     for init in ("chordal", "spanning_tree"):
         with pytest.raises(ValueError, match="Sim\\(3\\)"):
-            tbuild.pose_graph(data, init=init)
+            tbuild.pose_graph(data, init=init, device="cpu")

@@ -137,8 +137,17 @@ def test_cpu_tensors_run_the_plain_versions():
     plan = slot_plan(np.array([0, 1, 1]), 2)
     slot_reduce(torch.ones(3, 36, dtype=torch.float64), _t(plan.perm), _t(plan.offsets), 2)
     assert cuda_ops.LAUNCHES == {
-        "ell_matvec": 0, "ell_matvec_plain": 1, "slot_reduce": 0, "slot_reduce_plain": 1,
+        "ell_matvec": 0, "ell_matvec_plain": 1, "ell_pcg": 0, "ell_pcg_plain": 0,
+        "slot_reduce": 0, "slot_reduce_plain": 1,
     }
+    # ell_pcg's plain version is the host loop over the plain product: one
+    # product for r0 and one per iteration
+    He_t = _t(He)
+    He_t[:, 0] += 50.0 * torch.eye(6, dtype=torch.float64)
+    res = cuda_ops.ell_pcg(He_t, _t(cols), torch.linalg.inv(He_t[:, 0]).contiguous(), _t(x), 1e-6, 3)
+    assert cuda_ops.LAUNCHES["ell_pcg_plain"] == 1 and cuda_ops.LAUNCHES["ell_pcg"] == 0
+    assert cuda_ops.LAUNCHES["ell_matvec_plain"] == 2 + int(res.iterations)
+    assert cuda_ops.pcg_iterations() == 0  # the device counter belongs to the kernel
 
 
 @pytest.mark.parametrize(

@@ -154,4 +154,4 @@ def test_log_near_pi_takes_first_argmax_on_ties():
 @pytest.mark.parametrize("module", ["so3", "se3"])
 def test_identity(module):
     jm, tm = (jso3, tso3) if module == "so3" else (jse3, tse3)
-    _cmp(jm.identity(jnp.float64, (2, 3)), tm.identity(torch.float64, (2, 3)), 0.0)
+    _cmp(jm.identity(jnp.float64, (2, 3)), tm.identity(torch.float64, (2, 3), device="cpu"), 0.0)

@@ -213,4 +213,4 @@ def test_sim3_unselected_branches_stay_finite():
 @pytest.mark.parametrize("module", ["so2", "se2", "sim3"])
 def test_identity(module):
     jm, tm = {"so2": (jso2, tso2), "se2": (jse2, tse2), "sim3": (jsim3, tsim3)}[module]
-    _cmp(jm.identity(jnp.float64, (2, 3)), tm.identity(torch.float64, (2, 3)), 0.0)
+    _cmp(jm.identity(jnp.float64, (2, 3)), tm.identity(torch.float64, (2, 3), device="cpu"), 0.0)

@@ -1,6 +1,7 @@
 """Boundaries of the torch port: it imports neither JAX nor the JAX
-package, sets the full-f32 matmul flags, and its chip smoke script fails
-cleanly where there is no GPU."""
+package, sets the full-f32 matmul flags, builds on the CUDA device unless
+the caller asks for the CPU, and its chip smoke script fails cleanly where
+there is no GPU."""
 
 import os
 import pathlib
@@ -8,7 +9,14 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
+
+import pyslam_tpu_torch
+from pyslam_tpu_torch.graph import build, convert
+from pyslam_tpu_torch.io import synth
+from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "pyslam_tpu_torch"
@@ -43,6 +51,40 @@ def test_sources_do_not_import_jax(path):
     assert files
     offenders = [str(f.relative_to(ROOT)) for f in files if _IMPORT.search(f.read_text())]
     assert not offenders
+
+
+_BLOCK = dict(kind="se2", values=np.eye(3)[None], const_mask=np.zeros(1, bool))
+DEFAULT_DEVICE_ENTRY_POINTS = {
+    "default_device": pyslam_tpu_torch.default_device,
+    "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
+    "sim3_pose_graph": lambda **kw: build.sim3_pose_graph(synth.sim3_loop(n_poses=6, n_loops=1, seed=0), **kw),
+    "graph_from_numpy": lambda **kw: convert.graph_from_numpy({"poses": _BLOCK}, [], torch.float64, **kw),
+    "so2.identity": so2.identity,
+    "se2.identity": se2.identity,
+    "so3.identity": so3.identity,
+    "se3.identity": se3.identity,
+    "sim3.identity": sim3.identity,
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_ENTRY_POINTS))
+def test_entry_points_default_to_the_cuda_device(name):
+    """With no device given an entry point builds on the card; where there
+    is none it raises, and the message says how to ask for the CPU.  It
+    never falls back to the CPU by itself."""
+    fn = DEFAULT_DEVICE_ENTRY_POINTS[name]
+    if torch.cuda.is_available():
+        out = fn()
+        device = out if isinstance(out, torch.device) else (
+            out.device if torch.is_tensor(out) else out.blocks["poses"].values.device)
+        assert device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            fn()
+    if name != "default_device":
+        out = fn(device="cpu")
+        values = out if torch.is_tensor(out) else out.blocks["poses"].values
+        assert values.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_gpu():
