@@ -7,8 +7,9 @@ drives each ported path through the entry points a user calls, checking
 that it reaches its converged cost and went through the kernels:
 
   * sphere2500 (SE(3), ``build.pose_graph`` + ``bcsr.solve_ell``), LM, gate
-    chi2 <= 1.001 x ``bench/baseline_cache.json``: one ``ell_pcg`` launch
-    per linear solve and no CG stop test read by the host;
+    chi2 <= 1.001 x ``bench/baseline_cache.json``: one ``ell_assemble``
+    launch per assembly, one ``ell_pcg`` launch per linear solve and no CG
+    stop test read by the host;
   * sphere2500 by dogleg on the same path, whose model products are the
     stand-alone ``ell_matvec`` kernel;
   * bench config 1, ``se2_loop(100)`` + Cauchy, dense LM;
@@ -56,10 +57,20 @@ H100_F32_FLOP_PER_S = 67e12
 # The 1% gates of bench/run.py on the converged costs of the stand-in
 # solvers, by the keys of bench/standin_cache.json.
 STANDIN_GATE = 1.01
-KERNELS = ("ell_matvec", "ell_pcg", "slot_reduce")
+KERNELS = ("ell_matvec", "ell_pcg", "slot_reduce", "ell_assemble")
 # Relative tolerances of a kernel against its plain version: both sum the
 # same terms in another order, so the difference is rounding only.
 REL_TOL = {"float32": 1e-5, "float64": 1e-12}
+# ell_assemble against its plain version: twice REL_TOL in f32 and ten times
+# in f64.  The kernel contracts its multiply-adds and evaluates sin, cos and
+# atan2 with other code than the batched tensor ops; a Jacobian entry differs
+# by a few roundings of its largest term, and He sums products of two.
+ASSEMBLE_TOL = {"float32": 2e-5, "float64": 1e-11}
+# Floating-point operations of one ell_assemble call, counted from its
+# source: stage 1 a factor (nine 3x3 products for Q, five more, two rigid
+# compositions, six rows of Jacobians and loss), stage 2 a 6x6 contribution
+# (36 sums of six w * J * J terms) and a gradient row (six sums of six).
+ASSEMBLE_FLOP = {"factor": 1700, "contribution": 648, "gradient_row": 72}
 
 
 def log(msg=""):
@@ -245,6 +256,61 @@ def check_pcg(He, cols, g, rtol, max_iters, report):
             log(f"ell_pcg f32: {1e3 * ms / max(it, 1)!r} us per CG iteration")
 
 
+def check_assemble(label, graph, report=None):
+    """``ell_assemble`` against ``ell_assemble_plain`` on ``graph`` in its
+    dtype: He, g and chi2 within ``ASSEMBLE_TOL`` of their largest entries,
+    two runs bitwise equal, and ``assemble_ell`` dispatching to the kernel.
+    With ``report``, also the device times of the kernel, its plain version
+    and the general route it replaces (plain-tensor linearization and two
+    ``slot_reduce``) beside the kernel's bound."""
+    import torch
+
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops
+
+    block = graph.blocks["poses"]
+    dev, tname = block.values.device, str(block.values.dtype).split(".")[-1]
+    dplan = bcsr.ell_device_plan(bcsr.build_ell_direct(graph), dev)
+    batches = bcsr.ell_assemble_batches(graph)
+    check(batches is not None, f"{label}: the graph is not one ell_assemble takes")
+    args = (block.values, block.const_mask, batches, dplan.cols, dplan.a_idx, dplan.a_entries,
+            dplan.h_offsets, dplan.a_first)
+    out = cuda_ops.ell_assemble(*args)
+    again = cuda_ops.ell_assemble(*args)
+    ref = cuda_ops.ell_assemble_plain(*args)
+    before = cuda_ops.LAUNCHES["ell_assemble"]
+    routed = bcsr.assemble_ell(graph, dplan)
+    torch.cuda.synchronize()
+    check(cuda_ops.LAUNCHES["ell_assemble"] == before + 1, f"{label}: assemble_ell did not launch ell_assemble")
+    worst = 0.0
+    for name, a, b, c, r in zip(("He", "g", "chi2"), out, again, routed, ref):
+        err, scale = (a - r).abs().max().item(), r.abs().max().item()
+        log(f"ell_assemble {label} {tname} {name}{tuple(a.shape)}: max_abs_err {err!r} max|ref| {scale!r} "
+            f"rel {err / scale!r}")
+        check(a.shape == r.shape and torch.isfinite(a).all().item(), f"ell_assemble {label} {name}: shape or non-finite")
+        check(torch.equal(a, b) and torch.equal(a, c), f"ell_assemble {label} {name}: two runs differ")
+        check(err <= ASSEMBLE_TOL[tname] * scale, f"ell_assemble {label} {tname} {name}: error {err} > "
+              f"{ASSEMBLE_TOL[tname]} * {scale}")
+        worst = max(worst, err)
+    if report is None:
+        return
+    report["ell_assemble"] = dict(max_abs_err=worst)
+    times = dict(
+        ms=median_ms(cuda_ops.ell_assemble, args, inner=BACK_TO_BACK),
+        single_ms=median_ms(cuda_ops.ell_assemble, args),
+        plain_ms=median_ms(cuda_ops.ell_assemble_plain, args, calls=10),
+        # no one PyTorch call assembles: the general route that the kernel replaces
+        library_ms=median_ms(bcsr.assemble_ell_general, (graph, dplan), calls=20),
+    )
+    measurements = [t for bt in batches for t in (bt.T_obs, bt.sqrt_info, bt.weight)]
+    n_bytes = tensor_bytes(block.values, block.const_mask, *measurements, dplan.cols, dplan.a_idx, dplan.a_entries,
+                           dplan.h_offsets, *out)
+    n_rows = sum(bt.n_slots * bt.weight.shape[0] for bt in batches)
+    flop = (ASSEMBLE_FLOP["factor"] * dplan.a_idx.shape[0] + ASSEMBLE_FLOP["contribution"] * dplan.a_entries.shape[0]
+            + ASSEMBLE_FLOP["gradient_row"] * n_rows)
+    add_times(report, "ell_assemble", "ms", times, n_bytes, flop)
+    log(f"ell_assemble {label}: library_ms is the general route (ell_contributions + two slot_reduce + masks)")
+
+
 def bsr_matrix(He, plan):
     """The ELL store as a ``torch.sparse_bsr_tensor`` (padding slots
     dropped, columns ascending within a row), for the library yardstick of
@@ -307,6 +373,7 @@ def main() -> int:
         solve_ell,
     )
     from pyslam_tpu_torch.solver.lm import STATUS_NAMES, Options, _dense_solve, solve
+    from pyslam_tpu_torch.testing import se3_stress_graph
 
     with open(os.path.join(ROOT, "bench", "baseline_cache.json")) as f:
         chi2_ref = float(json.load(f)["chi2"])
@@ -365,6 +432,16 @@ def main() -> int:
     diag = torch.clamp(torch.diagonal(He[:, 0], dim1=-2, dim2=-1), min=1e-12)
     He_d[:, 0] += Options().lambda_init * torch.diag_embed(diag)
     check_pcg(He_d, dplan.cols, g_vec, 3e-6, 120, report)
+
+    # ---- phase 3a: ell_assemble vs its plain version -----------------------
+    # sphere2500 (timed), then the stress graph (special angles, priors,
+    # padding, a frozen interior pose) under L2 and Cauchy, f32 and f64
+    check_assemble("sphere2500", graph, report)
+    check_assemble("sphere2500", build.pose_graph(data, dtype=torch.float64))
+    for dtype in (torch.float32, torch.float64):
+        check_assemble("stress graph L2", se3_stress_graph(dtype=dtype))
+        check_assemble("stress graph Cauchy", se3_stress_graph(loss=CauchyLoss(2.0), dtype=dtype))
+        check_assemble("sphere2500 Cauchy", build.pose_graph(data, loss=CauchyLoss(2.0), dtype=dtype))
 
     # ---- phase 3b: slot_reduce at the dense-assembly shapes of configs 1, 2, 7
     # The graphs that phases 6-8 solve.  Config 2's goes through the g2o
@@ -430,7 +507,7 @@ def main() -> int:
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (solved, info), launches, reads = drive("sphere2500", run_sphere, ("ell_pcg", "slot_reduce"))
+    (solved, info), launches, reads = drive("sphere2500", run_sphere, ("ell_pcg", "ell_assemble"))
     chi2 = info.chi2.item()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -442,6 +519,10 @@ def main() -> int:
     )
     check(launches["ell_pcg"] == info.iterations, f"sphere2500: {launches['ell_pcg']} ell_pcg launches for "
           f"{info.iterations} linear solves")
+    # speculative LM assembles once before the loop and once per trial point
+    check(launches["ell_assemble"] == info.iterations + 1 and launches["slot_reduce"] == 0,
+          f"sphere2500: {launches['ell_assemble']} ell_assemble and {launches['slot_reduce']} slot_reduce launches "
+          f"for {info.iterations + 1} assemblies")
     check(reads == {"pcg": 0, "lm": info.iterations}, f"sphere2500: host reads {reads}, expected none by PCG "
           f"and one per LM iteration")
     check(0 < cg_iters <= 120 * info.iterations, f"sphere2500: {cg_iters} CG iterations on the device counter")
@@ -459,7 +540,7 @@ def main() -> int:
     run_sphere_dogleg()
     t0 = time.perf_counter()
     (solved_dl, info_dl), launches, reads = drive("sphere2500_dogleg", run_sphere_dogleg,
-                                                  ("ell_matvec", "ell_pcg", "slot_reduce"))
+                                                  ("ell_matvec", "ell_pcg", "ell_assemble"))
     chi2_dl, chi2_0 = info_dl.chi2.item(), info_dl.cost_history[0].item()
     wall = time.perf_counter() - t0
     log(
@@ -470,6 +551,8 @@ def main() -> int:
     check(launches["ell_matvec"] == 2 * info_dl.iterations, "dogleg: two model products per iteration expected")
     check(launches["ell_pcg"] == info_dl.iterations and reads == {"pcg": 0, "lm": info_dl.iterations},
           f"dogleg: launches {launches}, host reads {reads}")
+    check(launches["ell_assemble"] == info_dl.iterations + 1 and launches["slot_reduce"] == 0,
+          f"dogleg: launches {launches} for {info_dl.iterations + 1} assemblies")
     check(np.isfinite(chi2_dl) and chi2_dl < 0.1 * chi2_0, f"dogleg: chi2 {chi2_0} -> {chi2_dl}")
     check_poses("sphere2500_dogleg", solved_dl, (N_POSES, 4, 4))
 
@@ -544,22 +627,27 @@ def main() -> int:
     s_c, i_c = solve_ell(build.pose_graph(small, dtype=torch.float64, device="cpu"), opts_dl)
     g_small = build.pose_graph(small, dtype=torch.float64)
     (s_g, i_g), launches, reads = drive("solve_ell_dogleg_f64", lambda: solve_ell(g_small, opts_dl),
-                                        ("ell_matvec", "ell_pcg", "slot_reduce"))
+                                        ("ell_matvec", "ell_pcg", "ell_assemble"))
     res = {"cpu": (i_c, s_c), "cuda": (i_g, s_g)}
     cross_check("se3_sphere(60) solve_ell dogleg", res)
     log(f"solve_ell dogleg on the card: launches {launches}, CG iterations {cuda_ops.pcg_iterations()}, "
         f"host reads {reads}, LM iterations {i_g.iterations}")
     check(launches["ell_matvec"] == 2 * i_g.iterations and launches["ell_pcg"] == i_g.iterations
-          and reads["pcg"] == 0, "solve_ell dogleg: model products or linear solves left the kernels")
+          and launches["ell_assemble"] == i_g.iterations + 1 and reads["pcg"] == 0,
+          "solve_ell dogleg: model products, linear solves or assemblies left the kernels")
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
                "ell_pcg": "pyslam_tpu_torch/csrc/ell_pcg.cu",
-               "slot_reduce": "pyslam_tpu_torch/csrc/slot_reduce.cu"}
+               "slot_reduce": "pyslam_tpu_torch/csrc/slot_reduce.cu",
+               "ell_assemble": "pyslam_tpu_torch/csrc/ell_assemble.cu"}
     # ell_pcg is ell_matvec_lane_major at the grain of its caller, the
-    # while_loop of pyslam_tpu/solver/linear.py:38-61
+    # while_loop of pyslam_tpu/solver/linear.py:38-61; ell_assemble is
+    # scatter_matmul at the grain of its caller, assemble_ell of
+    # pyslam_tpu/solver/bcsr.py:410-439
     replaces = {"ell_matvec": "pyslam_tpu/solver/pallas_ops.py:60",
                 "ell_pcg": "pyslam_tpu/solver/pallas_ops.py:60",
-                "slot_reduce": "pyslam_tpu/solver/pallas_ops.py:143"}
+                "slot_reduce": "pyslam_tpu/solver/pallas_ops.py:143",
+                "ell_assemble": "pyslam_tpu/solver/pallas_ops.py:143"}
     main_paths = ("sphere2500", "sphere2500_dogleg", "config1_se2_loop_cauchy", "config1_se2_loop_l2",
                   "config2_m3500_g2o", "config7_sim3_400")
     kernels = [

@@ -22,13 +22,22 @@ harness's options).  Per cell:
     median of ``--reps`` calls after one warm-up, every call closed by
     ``torch.cuda.synchronize()``;
   * host ms per call (sphere2500), measured the same way:
-    ``ell_device_plan``, the linearization, ``assemble_ell``, the damping
-    with ``sym_block_inv``, one PCG linear solve at the start point (the
-    ``ell_pcg`` kernel; on a checkout from before that kernel, the host
+    ``ell_device_plan``, ``assemble_ell``, inside it the ``ell_assemble``
+    kernel alone (linearization, reduction and masks in two launches) and
+    beside it the general route it replaced (``assemble_ell_general``); on a
+    checkout from before that kernel, ``assemble_ell`` and the linearization
+    alone (``ell_contributions``, which two ``slot_reduce`` followed); the
+    damping with ``sym_block_inv``, one PCG linear solve at the start point
+    (the ``ell_pcg`` kernel; on a checkout from before that kernel, the host
     loop over ``ell_matvec`` that ``solve_ell`` ran then) and
     ``retract_all``;
   * the runtime's stream and device synchronisations and memory copies
     counted in the profiled solve.
+
+The extra cell ``kernels`` (not in the default list) is no solve: it runs
+sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
+under ``torch.profiler``, in f32 and f64, and prints the mean device time
+of every kernel by name (the two stages of ``ell_assemble`` apart).
 
 ``--root`` imports ``pyslam_tpu_torch`` from another checkout, such as a
 parent commit unpacked beside this one (the sphere2500 cell runs on every
@@ -152,15 +161,56 @@ def ell_split(g, o, dev, reps):
                 precond=lambda r: (Minv @ r.reshape(plan.nb, plan.d, 1)).reshape(-1), rtol=3e-6, max_iters=120,
             )[0]
 
+    if hasattr(cuda_ops, "ell_assemble"):
+        block = next(iter(g.blocks.values()))
+        args = (block.values, block.const_mask, bcsr.ell_assemble_batches(g), dplan.cols, dplan.a_idx,
+                dplan.a_entries, dplan.h_offsets, dplan.a_first)
+        inside = dict(ell_assemble=host_ms(lambda: cuda_ops.ell_assemble(*args), reps),
+                      assemble_ell_general=host_ms(lambda: bcsr.assemble_ell_general(g, dplan), reps))
+    else:  # before the ell_assemble kernel: linearization in tensor code, then two slot_reduce
+        inside = dict(linearize=host_ms(lambda: bcsr.ell_contributions(g, plan), reps))
+
     dx = pcg()
     return dict(
         ell_device_plan=host_ms(lambda: bcsr.ell_device_plan(plan, dev), reps),
-        linearize=host_ms(lambda: bcsr.ell_contributions(g, plan), reps),
         assemble_ell=host_ms(lambda: bcsr.assemble_ell(g, dplan), reps),
+        **inside,
         damp_and_block_inverse=host_ms(damp, reps),
         pcg_linear_solve=host_ms(pcg, reps),
         retract_all=host_ms(lambda: g.retract_all(dx), reps),
     )
+
+
+def kernel_split(dev, dev_us, calls=50):
+    """Mean device time of each kernel of sphere2500's assembly, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops
+
+    for dtype in (torch.float32, torch.float64):
+        g = build.pose_graph(synth.se3_sphere(n_poses=2500, seed=0), dtype=dtype, device=dev)
+        plan = bcsr.build_ell_direct(g)
+        dplan = bcsr.ell_device_plan(plan, dev)
+        h, gr, _ = bcsr.ell_contributions(g, plan)
+
+        def once():
+            bcsr.assemble_ell(g, dplan)
+            cuda_ops.slot_reduce(h, dplan.h_perm, dplan.h_offsets, plan.nb * plan.K)
+            cuda_ops.slot_reduce(gr, dplan.g_perm, dplan.g_offsets, plan.nb)
+
+        once()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                once()
+            torch.cuda.synchronize()
+        print(f"== kernels, sphere2500 {dtype}: mean device us of {calls} calls")
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count == calls:
+                print(f"   {dev_us(e) / e.count:10.3f} us  {e.key[:110]}")
 
 
 def main() -> int:
@@ -190,6 +240,9 @@ def main() -> int:
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
     for name in args.cells.split(","):
+        if name == "kernels":
+            kernel_split(dev, dev_us)
+            continue
         g, o, run = make_cell(name, dev)
         run()
         torch.cuda.synchronize()

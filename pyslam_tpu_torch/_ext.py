@@ -35,11 +35,17 @@ _ELL_MATVEC = [_P, _P, _P, _P, _I, _I, _I, _P]
 _SLOT_REDUCE = [_P, _P, _P, _P, _I, _I, _P]
 # He, cols, Minv, b, x, scratch, iters, counter, nb, K, d, rtol, max_iters, stream
 _ELL_PCG = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P]
+# poses, const_mask, cols, idx, entries, offsets, n_batches, then host tables
+# (T_obs, sqrt_info, weight pointers; first; n_slots; loss; loss_params),
+# scratch, its length, He, g, chi2, nb, K, stream
+_ELL_ASSEMBLE = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P]
 _SIGNATURES = {
     "pyslam_ell_matvec_f32": _ELL_MATVEC,
     "pyslam_ell_matvec_f64": _ELL_MATVEC,
     "pyslam_slot_reduce_f32": _SLOT_REDUCE,
     "pyslam_slot_reduce_f64": _SLOT_REDUCE,
+    "pyslam_ell_assemble_f32": _ELL_ASSEMBLE,
+    "pyslam_ell_assemble_f64": _ELL_ASSEMBLE,
     "pyslam_ell_pcg_f32": _ELL_PCG,
     "pyslam_ell_pcg_f64": _ELL_PCG,
     # nb, K, d, element size, out (5 ints)

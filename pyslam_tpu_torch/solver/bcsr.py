@@ -7,12 +7,17 @@ that Marquardt damping and the block-Jacobi preconditioner read He[:, 0]
 as a slice.
 
 Per LM iteration:
-  * assembly (``assemble_ell``): factor linearization in plain tensor code,
-    then two calls of the ``slot_reduce`` kernel — one reduces every
-    factor's JᵀWJ blocks into their ELL slots, one reduces the gradient
-    rows into their poses.  The order of each reduction is fixed by a plan
-    sorted once on the host (``SlotPlan``), so the result does not change
-    from run to run;
+  * assembly (``assemble_ell``).  An SE(3) pose graph (``between_se3`` /
+    ``prior_se3`` batches on one block, an elementwise loss) is assembled by
+    the ``ell_assemble`` kernel: linearization, the ordered sums into the
+    ELL slots, masks, gradient and chi2 in two launches.  Any other graph
+    takes the general route: factor linearization in plain tensor code, then
+    two calls of the ``slot_reduce`` kernel — one reduces every factor's
+    JᵀWJ blocks into their ELL slots, one reduces the gradient rows into
+    their poses.  Which route is a property of the graph alone
+    (``ell_assemble_batches``).  The order of each reduction is fixed by a
+    plan sorted once on the host (``SlotPlan``), so the result does not
+    change from run to run;
   * Marquardt damping of the slot-0 blocks and the closed-form 6×6
     block-Jacobi inverse (``sym_block_inv``), plain tensor code;
   * PCG: the ``ell_pcg`` kernel, one launch per linear solve (on CPU
@@ -34,7 +39,17 @@ import torch
 from ..graph.core import FactorGraph
 from . import lm as _lm
 from .assemble import dense_contributions, free_mask
-from .cuda_ops import SlotPlan, ell_matvec, ell_pcg, slot_plan, slot_reduce
+from .cuda_ops import (
+    MAX_ASSEMBLE_BATCHES,
+    AssembleBatch,
+    SlotPlan,
+    ell_assemble,
+    ell_matvec,
+    ell_pcg,
+    kernel_loss,
+    slot_plan,
+    slot_reduce,
+)
 
 # --------------------------------------------------------------------------
 # Direct-to-ELL plan (numpy, as in the reference)
@@ -154,10 +169,44 @@ def build_slot_plans(plan: EllDirect) -> tuple[SlotPlan, SlotPlan]:
     )
 
 
+def build_assemble_tables(plan: EllDirect, h_plan: SlotPlan):
+    """The tables the ``ell_assemble`` kernel reads beside the Hessian slot
+    plan, or None where a batch has other than one or two slots:
+
+    * ``idx`` (F_total, 2) int32: the poses of every factor, the batches one
+      after the other (a one-slot factor names its pose twice);
+    * ``entries`` (E,) int32: for every position of ``h_plan`` the
+      contribution it adds, packed as ``factor << 3 | a << 2 | b << 1 | t``:
+      the block J_aᵀ W J_b of that factor, transposed where t = 1.  The
+      contributions are numbered as ``build_slot_plans`` stacks them, so the
+      kernel sums every slot in the order ``slot_reduce`` does;
+    * ``first``: each batch's first factor, then F_total."""
+    idx, codes, first = [], [], [0]
+    for entries in plan.maps:
+        slots = {a: np.asarray(pos_ab, np.int64) // plan.K for a, b, pos_ab, _ in entries if a == b}
+        if sorted(slots) not in ([0], [0, 1]):
+            return None
+        factor = first[-1] + np.arange(len(slots[0]), dtype=np.int64)
+        idx.append(np.stack([slots[0], slots[len(slots) - 1]], axis=1))
+        for a, b, _, pos_ba in entries:
+            codes.append(factor << 3 | a << 2 | b << 1)
+            if pos_ba is not None:
+                codes.append(factor << 3 | a << 2 | b << 1 | 1)
+        first.append(first[-1] + len(factor))
+    if first[-1] >= 2**28:
+        raise ValueError("too many factors for the packed int32 entries")
+    codes = np.concatenate(codes) if codes else np.zeros(0, np.int64)
+    if len(codes) != len(h_plan.perm):
+        raise ValueError(f"{len(codes)} contributions for a slot plan of {len(h_plan.perm)}")
+    idx = np.concatenate(idx) if idx else np.zeros((0, 2), np.int64)
+    return idx.astype(np.int32), codes[h_plan.perm].astype(np.int32), tuple(first)
+
+
 @dataclasses.dataclass(frozen=True)
 class EllDevicePlan:
     """An ``EllDirect`` with the index tensors its kernels read, on one
-    device: ELL columns and both slot plans, int32."""
+    device: ELL columns, both slot plans and the ``ell_assemble`` tables
+    (``build_assemble_tables``; None where they do not apply), int32."""
 
     host: EllDirect
     cols: torch.Tensor  # (nb, K) int32
@@ -165,6 +214,9 @@ class EllDevicePlan:
     h_offsets: torch.Tensor
     g_perm: torch.Tensor
     g_offsets: torch.Tensor
+    a_idx: torch.Tensor | None = None  # (F_total, 2)
+    a_entries: torch.Tensor | None = None  # (E,), segments h_offsets
+    a_first: tuple | None = None
 
 
 def ell_device_plan(plan: EllDirect, device) -> EllDevicePlan:
@@ -177,7 +229,11 @@ def ell_device_plan(plan: EllDirect, device) -> EllDevicePlan:
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
 
-    return EllDevicePlan(plan, t(plan.cols), t(hp.perm), t(hp.offsets), t(gp.perm), t(gp.offsets))
+    tables = build_assemble_tables(plan, hp)
+    a_idx, a_entries, a_first = (t(tables[0]), t(tables[1]), tables[2]) if tables else (None, None, None)
+    return EllDevicePlan(
+        plan, t(plan.cols), t(hp.perm), t(hp.offsets), t(gp.perm), t(gp.offsets), a_idx, a_entries, a_first
+    )
 
 
 # --------------------------------------------------------------------------
@@ -195,8 +251,47 @@ def ell_contributions(graph: FactorGraph, plan: EllDirect):
     return torch.cat(h_parts[(d, d)]).contiguous(), torch.cat(g_parts[(d,)]).contiguous(), chi2
 
 
+_ASSEMBLE_KINDS = {"between_se3": 2, "prior_se3": 1}
+
+
+def ell_assemble_batches(graph: FactorGraph):
+    """The graph's batches as the ``ell_assemble`` kernel takes them, or None
+    for a graph it does not take.  It takes a graph of one ``se3`` block
+    whose batches, ``MAX_ASSEMBLE_BATCHES`` at most, are all ``between_se3``
+    or ``prior_se3`` with a loss that ``kernel_loss`` knows (every loss of
+    ``losses.py`` but ``TDistributionLoss(scale=None)``).  The answer
+    depends on the graph only, not on where its tensors lie."""
+    if len(graph.blocks) != 1 or len(graph.batches) > MAX_ASSEMBLE_BATCHES:
+        return None
+    ((name, block),) = graph.blocks.items()
+    if block.kind != "se3":
+        return None
+    out = []
+    for fb in graph.batches:
+        n_slots = _ASSEMBLE_KINDS.get(fb.kind)
+        if n_slots is None or fb.slots != (name,) * n_slots or kernel_loss(fb.loss) is None:
+            return None
+        out.append(AssembleBatch(n_slots, fb.data["T_obs"], fb.data["sqrt_info"], fb.weight, fb.loss))
+    return out
+
+
 def assemble_ell(graph: FactorGraph, dplan: EllDevicePlan):
-    """(He (nb, K, d, d), g (nb*d,), chi2) straight from the factor batches."""
+    """(He (nb, K, d, d), g (nb*d,), chi2) straight from the factor batches:
+    through ``ell_assemble`` for the graphs ``ell_assemble_batches`` takes,
+    else ``ell_contributions`` and two ``slot_reduce``."""
+    batches = ell_assemble_batches(graph)
+    if batches is not None and dplan.a_entries is not None:
+        block = next(iter(graph.blocks.values()))
+        return ell_assemble(
+            block.values, block.const_mask, batches, dplan.cols, dplan.a_idx, dplan.a_entries,
+            dplan.h_offsets, dplan.a_first,
+        )
+    return assemble_ell_general(graph, dplan)
+
+
+def assemble_ell_general(graph: FactorGraph, dplan: EllDevicePlan):
+    """``assemble_ell`` for any one-block graph: linearization in plain
+    tensor code, two ``slot_reduce`` calls, then the masks."""
     plan = dplan.host
     nb, d, K = plan.nb, plan.d, plan.K
     dtype = next(iter(graph.blocks.values())).values.dtype

@@ -11,9 +11,15 @@ Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
   reference's ``_pcg`` ``while_loop`` around ``ell_matvec_lane_major``) as
   one persistent launch, with He resident in shared memory.
 * ``slot_reduce`` (``csrc/slot_reduce.cu``) replaces ``scatter_matmul``: the
-  reduction of per-factor contributions into their ELL slots (and of the
-  gradient rows into their poses) during assembly, as a deterministic
+  reduction of per-factor contributions into their destination blocks (and
+  of the gradient rows into their rows) during assembly, as a deterministic
   segmented sum over a plan sorted by destination.
+* ``ell_assemble`` (``csrc/ell_assemble.cu``) is that reduction at the grain
+  this card wants it: the whole ``assemble_ell`` of an SE(3) pose graph
+  (linearization of every ``between_se3`` / ``prior_se3`` factor, the
+  ordered sums into the ELL slots, the masks, the gradient and chi2) in two
+  launches, around the row sum (``csrc/slot_row.cuh``) it shares with
+  ``slot_reduce``.
 
 Dispatch: a tensor on the CPU goes to the plain version (the CPU tests use
 it); a tensor on a CUDA device launches the kernel or raises.  There is no
@@ -33,12 +39,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import losses as _losses
+from ..lie import se3
 from . import linear
 
 LAUNCHES = {
     "ell_matvec": 0, "ell_matvec_plain": 0,
     "ell_pcg": 0, "ell_pcg_plain": 0,
     "slot_reduce": 0, "slot_reduce_plain": 0,
+    "ell_assemble": 0, "ell_assemble_plain": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -270,14 +279,18 @@ def slot_plan(dest: np.ndarray, n_slots: int) -> SlotPlan:
     return SlotPlan(perm, offsets, n_slots)
 
 
+def _segment_ids(offsets, n_slots):
+    """The destination of every position of a plan: s for [offsets[s], offsets[s+1])."""
+    counts = (offsets[1:] - offsets[:-1]).long()
+    return torch.repeat_interleave(torch.arange(n_slots, device=offsets.device), counts)
+
+
 def slot_reduce_plain(contrib, perm, offsets, n_slots):
     """Plain version: index_add_ of the permuted contributions into their
     segment ids."""
     LAUNCHES["slot_reduce_plain"] += 1
-    counts = (offsets[1:] - offsets[:-1]).long()
-    seg = torch.repeat_interleave(torch.arange(n_slots, device=contrib.device), counts)
     out = torch.zeros((n_slots, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
-    return out.index_add_(0, seg, contrib[perm.long()])
+    return out.index_add_(0, _segment_ids(offsets, n_slots), contrib[perm.long()])
 
 
 def slot_reduce(contrib, perm, offsets, n_slots):
@@ -305,3 +318,188 @@ def slot_reduce(contrib, perm, offsets, n_slots):
     _raise_on_error(fn_name, err)
     LAUNCHES["slot_reduce"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# Fused SE(3) linearize-and-assemble
+# --------------------------------------------------------------------------
+
+MAX_ASSEMBLE_BATCHES = 8  # the kernel's batch table
+_LIN = 84  # values stage 1 stores a factor: J1 (36), J2 (36), w (6), w r (6)
+_LINEARIZE_THREADS = 32  # stage 1's block: one chi2 partial a block
+
+_ASSEMBLE_ERRORS = {
+    -1: f"more than {MAX_ASSEMBLE_BATCHES} factor batches",
+    -2: "the scratch buffer is too small",
+}
+
+
+class AssembleBatch(NamedTuple):
+    """One factor batch as ``ell_assemble`` takes it."""
+
+    n_slots: int  # 2: between_se3 (poses T1, T2), 1: prior_se3
+    T_obs: torch.Tensor  # (F, 4, 4)
+    sqrt_info: torch.Tensor  # (F, 6, 6)
+    weight: torch.Tensor  # (F,)
+    loss: object
+
+
+def kernel_loss(loss):
+    """(id, c0, c1, c2) of a loss the ``ell_assemble`` kernel evaluates, the
+    constants as ``losses.py`` forms them in Python floats; None for any
+    other loss (``TDistributionLoss(scale=None)`` re-estimates its scale
+    from all residuals, which is not elementwise)."""
+    kind = type(loss)
+    if kind is _losses.L2Loss:
+        return 0, 0.0, 0.0, 0.0
+    if kind is _losses.L1Loss:
+        return 1, 0.0, 0.0, 0.0
+    if kind is _losses.CauchyLoss:
+        return 2, float(loss.k), 0.5 * loss.k**2, 0.0
+    if kind is _losses.HuberLoss:
+        return 3, float(loss.k), 0.0, 0.0
+    if kind is _losses.TukeyLoss:
+        return 4, float(loss.k), loss.k**2 / 6.0, 0.0
+    if kind is _losses.TDistributionLoss and loss.scale is not None:
+        return 5, float(loss.nu), loss.scale * loss.scale, 0.5 * (loss.nu + 1.0)
+    return None
+
+
+def ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, offsets, first):
+    """Plain version, in the kernel's two stages on the kernel's own tables.
+    Stage 1, per factor: both Jacobians, w and w r from ``lie/se3.py`` (a
+    prior's one Jacobian first).  Stage 2, per entry of ``entries``: the
+    block J_a^T diag(w) J_b or its transpose, summed into its ELL slot in
+    table order; the diagonal slots' entries with a == b also give the
+    gradient rows."""
+    LAUNCHES["ell_assemble_plain"] += 1
+    nb, K = cols.shape
+    n_factors = idx.shape[0]
+    Jac = poses.new_zeros((n_factors, 2, 6, 6))
+    w = poses.new_zeros((n_factors, 6))
+    wr = poses.new_zeros((n_factors, 6))
+    chi2 = poses.new_zeros(())
+    for b, bt in enumerate(batches):
+        lo, hi = first[b], first[b + 1]
+        T_est = poses[idx[lo:hi, 1].long()]
+        if bt.n_slots == 2:
+            T_est = T_est @ se3.inv(poses[idx[lo:hi, 0].long()])
+        r_local = se3.log(T_est @ se3.inv(bt.T_obs))
+        r = (bt.sqrt_info @ r_local[..., None])[..., 0]
+        J2 = bt.sqrt_info @ se3.inv_left_jacobian(r_local)
+        if bt.n_slots == 2:
+            Jac[lo:hi, 0] = -(J2 @ se3.adjoint(T_est))
+            Jac[lo:hi, 1] = J2
+        else:
+            Jac[lo:hi, 0] = J2
+        w[lo:hi] = bt.loss.weight(r) * bt.weight[:, None]
+        wr[lo:hi] = w[lo:hi] * r
+        chi2 = chi2 + torch.sum(bt.loss.loss(r) * bt.weight[:, None])
+
+    p = entries.long()
+    f, a, b = p >> 3, (p >> 2) & 1, (p >> 1) & 1  # factor << 3 | a << 2 | b << 1 | transposed
+    C = Jac[f, a].transpose(1, 2) @ (w[f][..., None] * Jac[f, b])
+    C = torch.where((p & 1).bool()[:, None, None], C.transpose(1, 2), C)
+    seg = _segment_ids(offsets, nb * K)
+    He = poses.new_zeros((nb * K, 36)).index_add_(0, seg, C.reshape(-1, 36)).reshape(nb, K, 6, 6)
+    rows = (a == b) & (seg % K == 0)
+    G = (Jac[f, a].transpose(1, 2) @ wr[f][..., None])[..., 0]
+    g = poses.new_zeros((nb, 6)).index_add_(0, (seg // K)[rows], G[rows])
+
+    free = (~const_mask).to(poses.dtype)
+    He = He * free[:, None, None, None] * free[cols.long()][:, :, None, None]
+    He[:, 0] += (1.0 - free)[:, None, None] * torch.eye(6, dtype=poses.dtype, device=poses.device)
+    return He, (-g * free[:, None]).reshape(-1), chi2
+
+
+def ell_assemble(poses, const_mask, batches, cols, idx, entries, offsets, first):
+    """The direct-to-ELL normal equations of an SE(3) pose graph: (He (nb,
+    K, 6, 6), g (nb*6,), chi2 0-dim), what ``bcsr.assemble_ell`` returns,
+    as new tensors on every call.
+
+    poses (nb, 4, 4) f32 or f64, const_mask (nb,) bool, ``batches`` a
+    sequence of at most ``MAX_ASSEMBLE_BATCHES`` ``AssembleBatch``es whose
+    losses ``kernel_loss`` takes, and the tables of ``bcsr.ell_device_plan``:
+    cols (nb, K) int32, idx (F_total, 2) int32 the two poses of every factor
+    (a prior names its pose twice), entries (E,) int32 the packed (factor,
+    role) contributions sorted by ELL slot, offsets (nb*K + 1,) int32 their
+    segments, ``first`` the host tuple of each batch's first factor and
+    F_total.  Index values are trusted: the plan validates them."""
+    if poses.dim() != 3 or tuple(poses.shape[1:]) != (4, 4):
+        raise ValueError(f"poses: shape {tuple(poses.shape)}, expected (nb, 4, 4)")
+    if poses.dtype not in _SUFFIX:
+        raise TypeError(f"poses: dtype {poses.dtype}, expected float32 or float64")
+    if cols.dim() != 2:
+        raise ValueError(f"cols: shape {tuple(cols.shape)}, expected (nb, K)")
+    nb, K = cols.shape
+    dtype = poses.dtype
+    first = tuple(int(v) for v in first)
+    if len(first) != len(batches) + 1 or first[0] != 0 or any(b < a for a, b in zip(first, first[1:])):
+        raise ValueError(f"first: {first}, expected {len(batches) + 1} ascending offsets from 0")
+    if len(batches) > MAX_ASSEMBLE_BATCHES:
+        raise ValueError(f"{len(batches)} factor batches, the kernel takes {MAX_ASSEMBLE_BATCHES}")
+    n_factors = first[-1]
+    _check("poses", poses, dtype, (nb, 4, 4))
+    _check("const_mask", const_mask, torch.bool, (nb,))
+    _check("cols", cols, torch.int32, (nb, K))
+    _check("idx", idx, torch.int32, (n_factors, 2))
+    if entries.dim() != 1:
+        raise ValueError(f"entries: shape {tuple(entries.shape)}, expected (E,)")
+    _check("entries", entries, torch.int32, (entries.shape[0],))
+    _check("offsets", offsets, torch.int32, (nb * K + 1,))
+    codes = []
+    for b, bt in enumerate(batches):
+        F = first[b + 1] - first[b]
+        if bt.n_slots not in (1, 2):
+            raise ValueError(f"batch {b}: {bt.n_slots} slots, expected 1 (prior_se3) or 2 (between_se3)")
+        _check(f"batch {b} T_obs", bt.T_obs, dtype, (F, 4, 4))
+        _check(f"batch {b} sqrt_info", bt.sqrt_info, dtype, (F, 6, 6))
+        _check(f"batch {b} weight", bt.weight, dtype, (F,))
+        code = kernel_loss(bt.loss)
+        if code is None:
+            raise ValueError(f"batch {b}: the kernel does not evaluate {bt.loss!r}")
+        codes.append(code)
+    tensors = [poses, const_mask, cols, idx, entries, offsets]
+    for bt in batches:
+        tensors += [bt.T_obs, bt.sqrt_info, bt.weight]
+    for name, t in [("poses", poses)] + [(f"batch {b} {k}", getattr(bt, k)) for b, bt in enumerate(batches)
+                                         for k in ("T_obs", "sqrt_info")]:
+        if t.data_ptr() % 16:  # the kernel reads them 16 bytes at a time
+            raise ValueError(f"{name}: storage not aligned to 16 bytes")
+    if _route(*tensors) == "cpu":
+        return ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, offsets, first)
+    from .._ext import library
+
+    dev = poses.device
+    n = len(batches)
+
+    def table(ctype, values):
+        return (ctype * max(n, 1))(*values)
+
+    t_obs = table(ctypes.c_void_p, [bt.T_obs.data_ptr() for bt in batches])
+    sqrt_info = table(ctypes.c_void_p, [bt.sqrt_info.data_ptr() for bt in batches])
+    weight = table(ctypes.c_void_p, [bt.weight.data_ptr() for bt in batches])
+    first_c = (ctypes.c_int * (n + 1))(*first)
+    n_slots = table(ctypes.c_int, [bt.n_slots for bt in batches])
+    loss_id = table(ctypes.c_int, [c[0] for c in codes])
+    loss_params = (ctypes.c_double * (3 * max(n, 1)))(*[v for c in codes for v in c[1:]])
+    with torch.cuda.device(dev):
+        He = torch.empty((nb, K, 6, 6), dtype=dtype, device=dev)
+        g = torch.empty(nb * 6, dtype=dtype, device=dev)
+        chi2 = torch.empty((), dtype=dtype, device=dev)
+        # stage 1's per-factor values and its blocks' chi2 partials
+        scratch_len = n_factors * _LIN + -(-n_factors // _LINEARIZE_THREADS)
+        scratch = torch.empty(scratch_len, dtype=dtype, device=dev)
+        fn_name = f"pyslam_ell_assemble_{_SUFFIX[dtype]}"
+        err = getattr(library(), fn_name)(
+            poses.data_ptr(), const_mask.data_ptr(), cols.data_ptr(), idx.data_ptr(), entries.data_ptr(),
+            offsets.data_ptr(), n, *(ctypes.addressof(t) for t in (t_obs, sqrt_info, weight, first_c, n_slots,
+                                                                   loss_id, loss_params)),
+            scratch.data_ptr(), scratch_len, He.data_ptr(), g.data_ptr(), chi2.data_ptr(), nb, K,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err < 0:
+        raise RuntimeError(f"{fn_name}: {_ASSEMBLE_ERRORS.get(err, err)}")
+    _raise_on_error(fn_name, err)
+    LAUNCHES["ell_assemble"] += 1
+    return He, g, chi2

@@ -20,8 +20,11 @@ import torch
 
 from pyslam_tpu_torch.graph import build
 from pyslam_tpu_torch.io import synth
+from pyslam_tpu_torch.losses import CauchyLoss, HuberLoss, L1Loss, L2Loss, TDistributionLoss, TukeyLoss
 from pyslam_tpu_torch.solver import assemble, bcsr, cuda_ops, linear, lm
 from pyslam_tpu_torch.solver.cuda_ops import (
+    ell_assemble,
+    ell_assemble_plain,
     ell_matvec,
     ell_matvec_plain,
     ell_pcg,
@@ -30,6 +33,7 @@ from pyslam_tpu_torch.solver.cuda_ops import (
     slot_reduce_plain,
 )
 from pyslam_tpu_torch.solver.lm import Options
+from pyslam_tpu_torch.testing import se3_stress_graph
 
 DENSE_GRAPHS = {
     "se2": lambda: synth.se2_loop(n_poses=30, n_loops=4, seed=0),
@@ -82,8 +86,16 @@ def test_ell_matvec_kernel_matches_plain(cuda_device, nb, K, d, dtype):
     _assert_close(out, ref, KERNEL_TOL[dtype])
 
 
+# every templated width, one that takes the generic body (5), the
+# sphere2500 shapes, a plan with long segments and many empty ones, E = 0
+SLOT_SHAPES = [
+    (22500, 19792, 36), (2500, 9896, 6), (3500, 7814, 9), (3500, 7814, 3), (400, 1620, 49), (400, 820, 7),
+    (300, 1000, 5), (1000, 40, 36), (7, 900, 36), (7, 900, 9), (10, 0, 36), (10, 0, 5),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n_slots,E,C", [(22500, 19792, 36), (2500, 9896, 6), (10, 0, 36)])
+@pytest.mark.parametrize("n_slots,E,C", SLOT_SHAPES)
 def test_slot_reduce_kernel_matches_plain(cuda_device, n_slots, E, C, dtype):
     rng = np.random.default_rng(5)
     plan = bcsr.slot_plan(rng.integers(0, n_slots, E), n_slots)
@@ -99,8 +111,123 @@ def test_slot_reduce_kernel_matches_plain(cuda_device, n_slots, E, C, dtype):
     assert torch.equal(out, again)  # no atomics: the same bits every run
     if E:
         _assert_close(out, ref, KERNEL_TOL[dtype])
+        # the plan's order exactly: a sequential sum on the host gives the same bits
+        order = plan.perm[plan.offsets[3] : plan.offsets[4]]
+        acc = torch.zeros(C, dtype=dtype)
+        for e in order:
+            acc += contrib[int(e)].cpu()
+        assert torch.equal(out[3].cpu(), acc)
     else:
         assert not out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slot_reduce_kernel_takes_an_unaligned_view(cuda_device, dtype):
+    """A contiguous view that starts off the 16-byte grid takes the generic
+    body and gives the same sums."""
+    rng = np.random.default_rng(6)
+    n_slots, E, C = 50, 200, 36
+    plan = bcsr.slot_plan(rng.integers(0, n_slots, E), n_slots)
+    flat = torch.from_numpy(rng.normal(size=E * C + 1)).to(cuda_device, dtype)
+    perm, offsets = torch.from_numpy(plan.perm).to(cuda_device), torch.from_numpy(plan.offsets).to(cuda_device)
+    view = flat[1:].reshape(E, C)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert torch.equal(slot_reduce(view, perm, offsets, n_slots), slot_reduce(view.clone(), perm, offsets, n_slots))
+
+
+# --------------------------------------------------------------------------
+# ell_assemble
+# --------------------------------------------------------------------------
+
+ASSEMBLE_LOSSES = {
+    "l2": L2Loss(), "l1": L1Loss(), "cauchy": CauchyLoss(2.0), "huber": HuberLoss(1.0), "tukey": TukeyLoss(3.0),
+    "student_t": TDistributionLoss(5.0, 1.5),
+}
+# ell_assemble against ell_assemble_plain, relative to the largest entry of
+# He, of g, and to chi2.  f64: rounding only.  f32: the kernel contracts
+# multiply-adds and sums in another order than the batched tensor code; the
+# error of a Jacobian entry is a few f32 roundings of the largest
+# intermediate, and He squares the Jacobians.
+ASSEMBLE_TOL = {torch.float32: 2e-5, torch.float64: 1e-11}
+# L1's weight 1 / |e| carries the relative rounding error of e, which is an
+# f32 rounding of the residual's largest term over |e|: the stress graph has
+# residual elements of 1e-4 beside terms of order one, and the entry of He
+# they weigh is its largest.
+L1_F32_TOL = 5e-3
+
+
+def _assemble_args(g, device):
+    dplan = bcsr.ell_device_plan(bcsr.build_ell_direct(g), device)
+    block = g.blocks["poses"]
+    return (block.values, block.const_mask, bcsr.ell_assemble_batches(g), dplan.cols, dplan.a_idx,
+            dplan.a_entries, dplan.h_offsets, dplan.a_first)
+
+
+def _check_assemble(args, dtype, tol=None):
+    tol = ASSEMBLE_TOL[dtype] if tol is None else tol
+    cuda_ops.reset_launches()
+    out = ell_assemble(*args)
+    again = ell_assemble(*args)
+    ref = ell_assemble_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["ell_assemble"] == 2
+    for name, a, b, r in zip(("He", "g", "chi2"), out, again, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name  # ordered sums, no atomics: the same bits every run
+        err = (a - r).abs().max().item()
+        assert err <= tol * r.abs().max().item(), (name, err, r.abs().max().item())
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_poses", [60, 2500, 30000])
+def test_ell_assemble_kernel_matches_plain_on_spheres(cuda_device, n_poses, dtype):
+    g = build.pose_graph(synth.se3_sphere(n_poses=n_poses, seed=3), dtype=dtype, device=cuda_device)
+    He, gvec, _ = _check_assemble(_assemble_args(g, cuda_device), dtype)
+    assert He.shape[0] == n_poses and gvec.shape == (n_poses * 6,)
+    # pose 0 is the anchor: identity at slot 0, zero elsewhere in its row, zero gradient
+    assert torch.equal(He[0, 0], torch.eye(6, dtype=dtype, device=cuda_device))
+    assert not He[0, 1:].any() and not gvec[:6].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("loss", sorted(ASSEMBLE_LOSSES))
+def test_ell_assemble_kernel_matches_plain_on_the_stress_graph(cuda_device, loss, dtype):
+    """Special angles (0, below 1e-4, within 1e-3 of pi), priors, padding
+    factors, a general sqrt_info, a frozen interior pose, every loss."""
+    g = se3_stress_graph(loss=ASSEMBLE_LOSSES[loss], dtype=dtype, device=cuda_device)
+    tol = L1_F32_TOL if (loss, dtype) == ("l1", torch.float32) else None
+    He, gvec, _ = _check_assemble(_assemble_args(g, cuda_device), dtype, tol)
+    mid = He.shape[0] // 2
+    cols = bcsr.build_ell_direct(g).cols
+    for frozen in (0, mid):
+        assert torch.equal(He[frozen, 0], torch.eye(6, dtype=dtype, device=cuda_device))
+        assert not He[frozen, 1:].any() and not gvec[6 * frozen : 6 * frozen + 6].any()
+    # the frozen pose's column is zero in its neighbours' rows
+    r, k = np.nonzero((cols == mid) & (np.arange(len(cols))[:, None] != mid))
+    assert len(r) and not He[r, k].any()
+
+
+def test_ell_assemble_kernel_general_route_agrees(cuda_device):
+    """The kernel against the route it replaces on the card (plain-tensor
+    linearization + two slot_reduce), f64."""
+    g = se3_stress_graph(loss=CauchyLoss(2.0), device=cuda_device)
+    dplan = bcsr.ell_device_plan(bcsr.build_ell_direct(g), cuda_device)
+    cuda_ops.reset_launches()
+    out = bcsr.assemble_ell(g, dplan)
+    ref = bcsr.assemble_ell_general(g, dplan)
+    assert cuda_ops.LAUNCHES["ell_assemble"] == 1 and cuda_ops.LAUNCHES["slot_reduce"] == 2
+    assert not any(n for k, n in cuda_ops.LAUNCHES.items() if k.endswith("_plain"))
+    for a, r in zip(out, ref):
+        _assert_close(a, r, 1e-11)
+
+
+def test_ell_assemble_refuses_mixed_devices(cuda_device):
+    args = list(_assemble_args(se3_stress_graph(device=cuda_device), cuda_device))
+    args[3] = args[3].cpu()
+    with pytest.raises(ValueError, match="different devices"):
+        ell_assemble(*args)
 
 
 def _spd_ell(nb, K, d, seed, device, dtype):
@@ -224,7 +351,9 @@ def test_solve_ell_on_the_card_matches_cpu(cuda_device, method):
     launches = cuda_ops.LAUNCHES
     # one PCG launch per linear solve, no CG stop test read by the host;
     # dogleg's two model products per iteration go through ell_matvec
-    assert launches["ell_pcg"] == i_gpu.iterations and launches["slot_reduce"] > 0
+    # and every assembly (one before the loop, one per trial point) is one ell_assemble
+    assert launches["ell_pcg"] == i_gpu.iterations and launches["ell_assemble"] == i_gpu.iterations + 1
+    assert launches["slot_reduce"] == 0
     assert launches["ell_matvec"] == (2 * i_gpu.iterations if method == "dogleg" else 0)
     assert not any(n for k, n in launches.items() if k.endswith("_plain"))
     assert linear.HOST_READS == {"pcg": 0, "lm": i_gpu.iterations}

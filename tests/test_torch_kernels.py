@@ -138,7 +138,7 @@ def test_cpu_tensors_run_the_plain_versions():
     slot_reduce(torch.ones(3, 36, dtype=torch.float64), _t(plan.perm), _t(plan.offsets), 2)
     assert cuda_ops.LAUNCHES == {
         "ell_matvec": 0, "ell_matvec_plain": 1, "ell_pcg": 0, "ell_pcg_plain": 0,
-        "slot_reduce": 0, "slot_reduce_plain": 1,
+        "slot_reduce": 0, "slot_reduce_plain": 1, "ell_assemble": 0, "ell_assemble_plain": 0,
     }
     # ell_pcg's plain version is the host loop over the plain product: one
     # product for r0 and one per iteration

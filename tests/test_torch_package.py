@@ -17,6 +17,7 @@ import pyslam_tpu_torch
 from pyslam_tpu_torch.graph import build, convert
 from pyslam_tpu_torch.io import synth
 from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
+from pyslam_tpu_torch.testing import se3_stress_graph
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "pyslam_tpu_torch"
@@ -59,6 +60,7 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
     "sim3_pose_graph": lambda **kw: build.sim3_pose_graph(synth.sim3_loop(n_poses=6, n_loops=1, seed=0), **kw),
     "graph_from_numpy": lambda **kw: convert.graph_from_numpy({"poses": _BLOCK}, [], torch.float64, **kw),
+    "se3_stress_graph": lambda **kw: se3_stress_graph(n_poses=24, **kw),
     "so2.identity": so2.identity,
     "se2.identity": se2.identity,
     "so3.identity": so3.identity,
