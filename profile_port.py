@@ -3,7 +3,7 @@
 time, the device's busy share and, for the dense cells, the host time of
 each phase of an iteration.
 
-    python3 profile_port.py [--cells sphere2500,config1,config2,config7]
+    python3 profile_port.py [--cells sphere2500,config1,config2,config7,config4,config4_dense]
                             [--reps 7] [--root DIR]
 
 Each cell is the one ``chip_smoke.py`` drives (f32, the reference
@@ -31,8 +31,28 @@ harness's options).  Per cell:
     (the ``ell_pcg`` kernel; on a checkout from before that kernel, the host
     loop over ``ell_matvec`` that ``solve_ell`` ran then) and
     ``retract_all``;
+  * host ms per call (``config4``, ``config4_dense``: bundle adjustment of
+    49 cameras and 7,000 points through ``solve_schur`` in its 'pcg' and
+    'dense' modes), measured the same way: ``schur_plan``, the
+    linearization, ``ba_assemble``, ``_schur_reduce``, the whole linear
+    solve of either mode, inside the 'pcg' one the CG loop alone
+    (``linear.pcg_solve``, timed from within the call between two
+    synchronisations, with its iteration count), ``_back_substitute`` and
+    ``retract_all``, and the ``slot_reduce`` launches and host reads of one
+    solve;
   * the runtime's stream and device synchronisations and memory copies
     counted in the profiled solve.
+
+The extra cell ``config4_pcg_loops`` (not in the default list) times
+config 4 in 'pcg' mode under each way of running the CG loop: the plain
+host loop of ``linear.pcg_solve`` (the stop test read every iteration,
+what ``schur_solve_pcg`` runs) and ``pcg_solve_masked`` below (the stop
+test applied on the device) reading it every 1, 2, 5 or 10 iterations or
+never (every solve then runs to its cap).  The variants are set from
+outside (``schur.pcg_solve``); each must give the same LM iterations and
+chi2.  They take turns solve by solve
+(``--reps`` rounds of one solve each after a warm-up round), so that a
+drift of the host's speed falls on all alike.
 
 The extra cell ``kernels`` (not in the default list) is no solve: it runs
 sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
@@ -49,6 +69,7 @@ before ``default_device`` is given ``cuda:0`` by name.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import statistics
 import subprocess
@@ -56,7 +77,7 @@ import sys
 import tempfile
 import time
 
-CELLS = ("sphere2500", "config1", "config2", "config7")
+CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
@@ -74,6 +95,45 @@ def host_ms(fn, reps):
     return statistics.median(times)
 
 
+def pcg_solve_masked(matvec, b, precond, rtol=1e-6, max_iters=500, read_every=0):
+    """``linear.pcg_solve`` from x0 = 0 with the stop test applied on the
+    device: every iteration is computed, and once ``norm(r) > rtol * norm(b)``
+    fails (a NaN fails it) ``torch.where`` keeps x, r, p and rz as they are,
+    so the result is the one ``pcg_solve`` returns after the same iterations.
+    The host reads the stop test before iterations 0, ``read_every``, 2
+    ``read_every``, ... and leaves the loop where it has failed;
+    ``read_every=0`` never reads and runs ``max_iters`` iterations.
+    Returns (x, iterations), the count a 0-dim int32 tensor on b's device.
+    The variant that ``config4_pcg_loops`` times against the plain loop."""
+    import torch
+
+    from pyslam_tpu_torch.solver.linear import HOST_READS
+
+    x = torch.zeros_like(b)
+    tol = rtol * torch.linalg.norm(b)
+    r = b - matvec(x)
+    z = precond(r)
+    p = z
+    rz = torch.dot(r, z)
+    it = torch.zeros((), dtype=torch.int32, device=b.device)
+    for k in range(max_iters):
+        go = torch.linalg.norm(r) > tol
+        if read_every and k % read_every == 0:
+            HOST_READS["pcg"] += 1
+            if not bool(go):
+                break
+        Ap = matvec(p)
+        alpha = rz / torch.dot(p, Ap)
+        x = torch.where(go, x + alpha * p, x)
+        r = torch.where(go, r - alpha * Ap, r)
+        z = precond(r)
+        rz_new = torch.dot(r, z)
+        p = torch.where(go, z + (rz_new / rz) * p, p)
+        rz = torch.where(go, rz_new, rz)
+        it = it + go
+    return x, it
+
+
 def make_cell(name, dev):
     """(graph, run) of one cell: ``run()`` solves and returns (solved, info)."""
     import torch
@@ -89,6 +149,15 @@ def make_cell(name, dev):
         plan = build_ell_direct(g)
         o = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
         return g, o, lambda: solve_ell(g, o, plan=plan, pcg_rtol=3e-6, pcg_max_iters=120)
+
+    if name in ("config4", "config4_dense"):
+        from pyslam_tpu_torch.solver.schur import solve_schur
+
+        g = build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0), device=dev)
+        o = Options(method="lm", max_iters=25)
+        if name == "config4":
+            return g, o, lambda: solve_schur(g, o, mode="pcg", pcg_rtol=1e-4, pcg_max_iters=30)
+        return g, o, lambda: solve_schur(g, o, mode="dense")
 
     from pyslam_tpu_torch.io import g2o
     from pyslam_tpu_torch.losses import CauchyLoss
@@ -181,6 +250,96 @@ def ell_split(g, o, dev, reps):
     )
 
 
+def schur_split(g, o, dev, reps, run):
+    import torch
+
+    from pyslam_tpu_torch.solver import cuda_ops, linear, schur
+    from pyslam_tpu_torch.solver.assemble import linearize_batch
+
+    plan = schur.schur_plan(g)
+    parts, gv, _ = schur.ba_assemble(g, plan=plan)
+    lam = torch.tensor(o.lambda_init, dtype=gv.dtype, device=dev)
+    Hpp, L_ll, W, g_red = schur._schur_reduce(parts, lam, o.method)
+    dx = schur.schur_solve_dense(parts, gv, lam, o)
+    dx_p = dx.reshape(-1)[: plan.C * plan.dp].reshape(plan.C, plan.dp)  # any vector of the shape will do
+
+    loop_ms, loop_iterations = [], []
+    loop = schur.pcg_solve
+
+    def timed_loop(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it = loop(*a, **kw)
+        torch.cuda.synchronize()
+        loop_ms.append(1e3 * (time.perf_counter() - t0))
+        loop_iterations.append(int(it))
+        return x, it
+
+    def pcg_step():
+        return schur.schur_solve_pcg(parts, gv, lam, o, rtol=1e-4, max_iters=30)
+
+    schur.pcg_solve = timed_loop
+    try:
+        host_ms(pcg_step, reps)
+    finally:
+        schur.pcg_solve = loop
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    _, info = run()
+    info.chi2.item()
+    counts = dict(slot_reduce_launches_per_solve=cuda_ops.LAUNCHES["slot_reduce"],
+                  host_reads_per_solve=dict(linear.HOST_READS))
+    return dict(
+        schur_plan=host_ms(lambda: schur.schur_plan(g), reps),
+        linearize=host_ms(lambda: [linearize_batch(fb, g.blocks) for fb in g.batches], reps),
+        ba_assemble=host_ms(lambda: schur.ba_assemble(g, plan=plan), reps),
+        schur_reduce=host_ms(lambda: schur._schur_reduce(parts, lam, o.method), reps),
+        schur_solve_dense=host_ms(lambda: schur.schur_solve_dense(parts, gv, lam, o), reps),
+        schur_solve_pcg=host_ms(pcg_step, reps),
+        pcg_loop=statistics.median(loop_ms[1:]),
+        pcg_loop_iterations=loop_iterations[-1],
+        back_substitute=host_ms(lambda: schur._back_substitute(L_ll, W, plan, parts["g_l"], dx_p), reps),
+        retract_all=host_ms(lambda: g.retract_all(dx), reps),
+        **counts,
+    )
+
+
+def pcg_loop_variants(dev, reps):
+    """Config 4 in 'pcg' mode under each way of running the CG loop."""
+    import torch
+
+    from pyslam_tpu_torch.solver import linear, schur
+
+    g, o, run = make_cell("config4", dev)
+    plain = schur.pcg_solve
+    variants = [("plain loop, a read an iteration", plain)]
+    variants += [(f"masked, a read every {n}" if n else "masked, never read (always to the cap)",
+                  functools.partial(pcg_solve_masked, read_every=n)) for n in (1, 2, 5, 10, 0)]
+    walls = {label: [] for label, _ in variants}
+    try:
+        for rep in range(reps + 1):  # round 0 warms each variant up and is not kept
+            for label, loop in variants:
+                schur.pcg_solve = loop
+                linear.reset_host_reads()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, info = run()
+                chi2 = info.chi2.item()
+                wall = 1e3 * (time.perf_counter() - t0)
+                if rep:
+                    walls[label].append(wall)
+                else:
+                    print(f"== config4 pcg loop [{label}]: LM iterations {info.iterations} status {info.status} "
+                          f"chi2 {chi2!r} accepted {info.accepted[: info.iterations].tolist()} "
+                          f"host reads {dict(linear.HOST_READS)}", flush=True)
+    finally:
+        schur.pcg_solve = plain
+    for label, w in walls.items():
+        q = statistics.quantiles(w, n=4)
+        print(f"== config4 pcg loop [{label}]: wall median of {reps} {statistics.median(w)!r} ms, quartiles "
+              f"{q[0]!r} to {q[2]!r}, least {min(w)!r} (all {[round(x, 3) for x in w]})", flush=True)
+
+
 def kernel_split(dev, dev_us, calls=50):
     """Mean device time of each kernel of sphere2500's assembly, by name."""
     import torch
@@ -243,6 +402,9 @@ def main() -> int:
         if name == "kernels":
             kernel_split(dev, dev_us)
             continue
+        if name == "config4_pcg_loops":
+            pcg_loop_variants(dev, args.reps)
+            continue
         g, o, run = make_cell(name, dev)
         run()
         torch.cuda.synchronize()
@@ -268,7 +430,12 @@ def main() -> int:
         print(f"   runtime calls per solve {({e.key: e.count for e in ka if e.key in RUNTIME_CALLS})}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"   {dev_us(e) / 1e3:10.4f} ms  x{e.count:5d}  {e.key[:110]}")
-        split = ell_split(g, o, dev, args.reps) if name == "sphere2500" else dense_split(g, o, dev, args.reps)
+        if name == "sphere2500":
+            split = ell_split(g, o, dev, args.reps)
+        elif name.startswith("config4"):
+            split = schur_split(g, o, dev, args.reps, run)
+        else:
+            split = dense_split(g, o, dev, args.reps)
         print(f"   host ms per call (median of {args.reps}, synchronised): {split}", flush=True)
     return 0
 

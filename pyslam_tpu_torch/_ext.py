@@ -44,6 +44,8 @@ _SIGNATURES = {
     "pyslam_ell_matvec_f64": _ELL_MATVEC,
     "pyslam_slot_reduce_f32": _SLOT_REDUCE,
     "pyslam_slot_reduce_f64": _SLOT_REDUCE,
+    "pyslam_slot_reduce_long_f32": _SLOT_REDUCE,
+    "pyslam_slot_reduce_long_f64": _SLOT_REDUCE,
     "pyslam_ell_assemble_f32": _ELL_ASSEMBLE,
     "pyslam_ell_assemble_f64": _ELL_ASSEMBLE,
     "pyslam_ell_pcg_f32": _ELL_PCG,

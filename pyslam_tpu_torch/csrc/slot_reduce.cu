@@ -38,6 +38,19 @@
 //  * the bounds and the perm entries of a segment are loaded once by
 //    neighbouring lanes and handed round by shuffle;
 //  * four rows of a segment are in flight before the first is added.
+//
+// Few destinations with hundreds of rows each (the Schur path of bundle
+// adjustment: 25,769 observations summed into 49 camera blocks) starve that
+// design: 49 sub-warps walk 526 dependent steps each on a card of 132 SMs,
+// 0.17 us a row.  pyslam_slot_reduce_long_* gives such a sum a block of
+// 1024 threads per destination: thread (r, c) adds the rows r, r + R, ...
+// of column c (R = 1024 / C rows of a segment in flight at once, their
+// columns read side by side), then the R partial sums of a column are
+// added pairwise in shared memory.  Which rows meet in which partial sum
+// depends on the segment's bounds and on C alone: the same bits run to
+// run, though not those of the sub-warp order.  The caller chooses between
+// the two from the shape (cuda_ops.slot_reduce), so that one shape always
+// takes one kernel.
 
 #include <cuda_runtime.h>
 
@@ -121,6 +134,50 @@ __global__ void slot_reduce_generic_kernel(const T* __restrict__ contrib,
   }
 }
 
+constexpr int kLongThreads = 1024;
+
+// A block per destination; any C (wider than the block: kLongThreads
+// columns at a time, one row in flight).
+template <typename T>
+__global__ void __launch_bounds__(kLongThreads)
+    slot_reduce_long_kernel(const T* __restrict__ contrib, const int* __restrict__ perm,
+                            const int* __restrict__ offsets, T* __restrict__ out, int C) {
+  __shared__ T partial[kLongThreads];
+  const long long slot = blockIdx.x;
+  const int lo = offsets[slot], hi = offsets[slot + 1];
+  const int cols = C < kLongThreads ? C : kLongThreads;  // columns side by side
+  const int R = kLongThreads / cols;                     // rows in flight
+  const int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+  int half = 1;  // the power of two at or above R, halved
+  while (2 * half < R) half *= 2;
+  for (int c0 = 0; c0 < C; c0 += cols) {
+    const bool live = r < R && c0 + c < C;
+    T acc = T(0);
+    if (live) {
+#pragma unroll 4
+      for (int e = lo + r; e < hi; e += R) acc += contrib[(long long)perm[e] * C + c0 + c];
+    }
+    partial[threadIdx.x] = acc;
+    __syncthreads();
+    for (int h = R > 1 ? half : 0; h >= 1; h /= 2) {
+      if (live && r < h && r + h < R) partial[threadIdx.x] += partial[threadIdx.x + h * cols];
+      __syncthreads();
+    }
+    if (live && r == 0) out[slot * C + c0 + c] = partial[c];
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_long(const void* contrib, const void* perm, const void* offsets, void* out, int n_slots,
+                int C, void* stream) {
+  if ((long long)n_slots * C == 0) return (int)cudaSuccess;
+  slot_reduce_long_kernel<T><<<(unsigned)n_slots, kLongThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(contrib), static_cast<const int*>(perm),
+      static_cast<const int*>(offsets), static_cast<T*>(out), C);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int C>
 bool aligned_for(const void* contrib, const void* out) {
   constexpr std::uintptr_t a = pyslam::SlotRow<T, C>::kAlign;
@@ -179,4 +236,16 @@ extern "C" int pyslam_slot_reduce_f32(const void* contrib, const void* perm, con
 extern "C" int pyslam_slot_reduce_f64(const void* contrib, const void* perm, const void* offsets,
                                       void* out, int n_slots, int C, void* stream) {
   return launch<double>(contrib, perm, offsets, out, n_slots, C, stream);
+}
+
+extern "C" int pyslam_slot_reduce_long_f32(const void* contrib, const void* perm,
+                                           const void* offsets, void* out, int n_slots, int C,
+                                           void* stream) {
+  return launch_long<float>(contrib, perm, offsets, out, n_slots, C, stream);
+}
+
+extern "C" int pyslam_slot_reduce_long_f64(const void* contrib, const void* perm,
+                                           const void* offsets, void* out, int n_slots, int C,
+                                           void* stream) {
+  return launch_long<double>(contrib, perm, offsets, out, n_slots, C, stream);
 }

@@ -2,7 +2,10 @@
 
 Counterpart of ``pyslam_tpu/graph/build.py``.  Ported so far:
 ``pose_graph`` (SE(2), SE(3), and Sim(3) data routed to
-``sim3_pose_graph``) and ``sim3_pose_graph``.
+``sim3_pose_graph``), ``sim3_pose_graph``, ``landmark_slam_2d``,
+``ba_graph`` and ``bal_graph``.  Every builder puts its tensors in
+``dtype`` on ``device`` (None: the package's default, the CUDA card;
+``device="cpu"`` asks for the CPU).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 
 from .._device import resolve_device
 from ..losses import L2Loss
+from ..sensors import StereoCamera
 from .core import FactorBatch, FactorGraph, VariableBlock
 
 
@@ -19,16 +23,17 @@ def _tensor(a, dtype, device):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
-def _single_between_graph(kind, T0, data, loss, anchor_first, dtype, device):
-    """One block of poses of ``kind`` and one ``between_<kind>`` batch."""
-    device = resolve_device(device)
-    const = np.zeros(T0.shape[0], bool)
+def _pose_block(kind, values, anchor_first, dtype, device):
+    """A block of ``kind`` from (N, ...) values, element 0 frozen (gauge
+    fixing) where ``anchor_first``."""
+    const = np.zeros(values.shape[0], bool)
     if anchor_first:
         const[0] = True
-    blocks = {
-        "poses": VariableBlock.create(kind, _tensor(T0, dtype, device), torch.as_tensor(const, device=device))
-    }
-    batch = FactorBatch.create(
+    return VariableBlock.create(kind, _tensor(values, dtype, device), torch.as_tensor(const, device=device))
+
+
+def _between_batch(kind, data, loss, dtype, device):
+    return FactorBatch.create(
         kind=f"between_{kind}",
         slots=("poses", "poses"),
         indices=(np.asarray(data.edges_i), np.asarray(data.edges_j)),
@@ -38,7 +43,13 @@ def _single_between_graph(kind, T0, data, loss, anchor_first, dtype, device):
         },
         loss=loss,
     )
-    return FactorGraph(blocks, [batch])
+
+
+def _single_between_graph(kind, T0, data, loss, anchor_first, dtype, device):
+    """One block of poses of ``kind`` and one ``between_<kind>`` batch."""
+    device = resolve_device(device)
+    blocks = {"poses": _pose_block(kind, T0, anchor_first, dtype, device)}
+    return FactorGraph(blocks, [_between_batch(kind, data, loss, dtype, device)])
 
 
 def pose_graph(
@@ -99,3 +110,133 @@ def sim3_pose_graph(
     loss = loss if loss is not None else L2Loss()
     T0 = data.T_gt if init == "gt" else data.T_init
     return _single_between_graph("sim3", T0, data, loss, anchor_first, dtype, device)
+
+
+def landmark_slam_2d(
+    data,
+    loss=None,
+    anchor_first: bool = True,
+    dtype=torch.float32,
+    init: str = "noisy",
+    device=None,
+) -> FactorGraph:
+    """Build a 2D landmark-SLAM FactorGraph from synth.LandmarkSLAM2DData
+    (or io.g2o landmark files): SE(2) poses + 2-dof euclidean landmarks,
+    odometry between factors + bearing-range / relative-position landmark
+    observations.  ``solve_schur`` takes this shape: ``solver/schur.py`` is
+    dof-generic."""
+    device = resolve_device(device)
+    loss = loss if loss is not None else L2Loss()
+    T0 = data.T_init if init == "noisy" else data.T_gt
+    l0 = data.lm_init if init == "noisy" else data.lm_gt
+    blocks = {
+        "poses": _pose_block("se2", T0, anchor_first, dtype, device),
+        "landmarks": VariableBlock.create("euclidean", _tensor(l0, dtype, device)),
+    }
+    kind = "bearing_range_se2" if data.obs_type == "bearing_range" else "landmark_xy_se2"
+    batches = [
+        FactorBatch.create(
+            kind=kind,
+            slots=("poses", "landmarks"),
+            indices=(data.obs_pose, data.obs_lm),
+            data={
+                "obs": _tensor(data.obs, dtype, device),
+                "sqrt_info": _tensor(data.obs_sqrt_info, dtype, device),
+            },
+            loss=loss,
+        )
+    ]
+    if len(data.edges_i):
+        batches.append(_between_batch("se2", data, loss, dtype, device))
+    return FactorGraph(blocks, batches)
+
+
+def ba_graph(data, loss=None, dtype=torch.float32, init: str = "noisy", device=None) -> FactorGraph:
+    """Build a bundle-adjustment FactorGraph from BAData: SE(3) camera poses
+    (camera 0 frozen: the gauge anchor) + Euclidean landmarks + stereo
+    reprojection factors."""
+    device = resolve_device(device)
+    loss = loss if loss is not None else L2Loss()
+    T0 = data.T_init if init == "noisy" else data.T_gt
+    p0 = data.pts_init if init == "noisy" else data.pts_gt
+    blocks = {
+        "poses": _pose_block("se3", T0, True, dtype, device),
+        "landmarks": VariableBlock.create("euclidean", _tensor(p0, dtype, device)),
+    }
+    batch = FactorBatch.create(
+        kind="reprojection",
+        slots=("poses", "landmarks"),
+        indices=(data.cam_idx, data.pt_idx),
+        data={
+            "obs": _tensor(data.obs, dtype, device),
+            # one (3, 3) matrix for the whole batch: the kernels broadcast it
+            "sqrt_info": torch.eye(3, dtype=dtype, device=device),
+            "camera": StereoCamera(**data.camera),
+        },
+        loss=loss,
+    )
+    return FactorGraph(blocks, [batch])
+
+
+def bal_graph(
+    data,
+    loss=None,
+    pixel_std=1.0,
+    anchor_first=True,
+    dtype=torch.float32,
+    optimize_intrinsics: bool = False,
+    device=None,
+) -> FactorGraph:
+    """Build a monocular BA FactorGraph from io.bal.BALData (Snavely camera
+    model).
+
+    ``optimize_intrinsics=False`` (default) holds [f, k1, k2] fixed at the
+    file values.  ``True`` builds the full BAL problem: 9-dof cameras with
+    the intrinsics optimized jointly, as one ``bal_cam9`` product-manifold
+    block, so that the Schur path applies."""
+    device = resolve_device(device)
+    loss = loss if loss is not None else L2Loss()
+    n_cams = data.T.shape[0]
+    sqrt_info = torch.eye(2, dtype=dtype, device=device) / pixel_std
+    blocks = {"landmarks": VariableBlock.create("euclidean", _tensor(data.pts, dtype, device))}
+    indices = (data.cam_idx, data.pt_idx)
+    obs = _tensor(data.obs, dtype, device)
+    if optimize_intrinsics:
+        packed = np.concatenate([data.T.reshape(n_cams, 16), np.asarray(data.intrinsics)], axis=1)
+        # gauge fixing must pin only the POSE dofs of camera 0: a const mask
+        # would freeze the whole 9-dof block and with it the anchor camera's
+        # intrinsics, so the anchor is a stiff pose-only prior instead
+        blocks["poses"] = VariableBlock.create("bal_cam9", _tensor(packed, dtype, device))
+        batches = [
+            FactorBatch.create(
+                kind="reprojection_bal9",
+                slots=("poses", "landmarks"),
+                indices=indices,
+                data={"obs": obs, "sqrt_info": sqrt_info},
+                loss=loss,
+            )
+        ]
+        if anchor_first:
+            batches.append(
+                FactorBatch.create(
+                    kind="prior_balcam_pose",
+                    slots=("poses",),
+                    indices=(np.zeros(1, np.int32),),
+                    data={
+                        "T_obs": _tensor(data.T[:1], dtype, device),
+                        "sqrt_info": _tensor(np.eye(6)[None] * 1e6, dtype, device),
+                    },
+                    loss=L2Loss(),
+                )
+            )
+        return FactorGraph(blocks, batches)
+    intr = _tensor(np.asarray(data.intrinsics)[data.cam_idx], dtype, device)
+    blocks["poses"] = _pose_block("se3", data.T, anchor_first, dtype, device)
+    batch = FactorBatch.create(
+        kind="reprojection_bal",
+        slots=("poses", "landmarks"),
+        indices=indices,
+        data={"obs": obs, "sqrt_info": sqrt_info, "f": intr[:, 0], "k1": intr[:, 1], "k2": intr[:, 2]},
+        loss=loss,
+    )
+    return FactorGraph(blocks, [batch])

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import losses
+from .. import losses, sensors
 from .._device import resolve_device
 from .core import FactorBatch, FactorGraph, VariableBlock
 
@@ -22,11 +22,22 @@ def graph_from_numpy(blocks: dict, batches: list, dtype, device=None) -> FactorG
     ``batches``: list of dict(kind, slots, indices, data, weight, loss),
     where ``loss`` is ``(class name, {field: value})``, for example
     ``("CauchyLoss", {"k": 2.0})``.  Floating arrays become ``dtype``, on
-    ``device`` (None: the package's default, the CUDA card)."""
+    ``device`` (None: the package's default, the CUDA card).  A ``data``
+    array keeps its shape, with or without the factor axis; a camera in
+    ``data`` is given the same way as the loss,
+    ``("StereoCamera", {"cu": ..., ...})``."""
     device = resolve_device(device)
 
     def tensor(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def datum(v):
+        if isinstance(v, tuple):
+            name, fields = v
+            if name not in sensors.__all__:
+                raise ValueError(f"unknown camera {name!r}")
+            return getattr(sensors, name)(**fields)
+        return tensor(v)
 
     t_blocks = {
         name: VariableBlock.create(
@@ -46,7 +57,7 @@ def graph_from_numpy(blocks: dict, batches: list, dtype, device=None) -> FactorG
                 kind=fb["kind"],
                 slots=fb["slots"],
                 indices=[np.asarray(i) for i in fb["indices"]],
-                data={k: tensor(v) for k, v in fb["data"].items()},
+                data={k: datum(v) for k, v in fb["data"].items()},
                 loss=getattr(losses, loss_name)(**loss_fields),
                 weight=tensor(fb["weight"]),
             )

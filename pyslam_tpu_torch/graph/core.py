@@ -31,8 +31,8 @@ from ..lie import se2, se3, sim3, so2, so3
 
 _EUCLIDEAN = "euclidean"
 
-# The Lie kinds.  'euclidean' is handled outside this table, with its dof
-# taken from the element shape.  'bal_cam9' is not ported yet.
+# The Lie kinds and the BAL camera.  'euclidean' is handled outside this
+# table, with its dof taken from the element shape.
 MANIFOLDS: dict[str, dict[str, Any]] = {
     "se3": dict(dof=6, retract=lambda T, dx: se3.perturb(T, dx), shape=(4, 4)),
     "se2": dict(dof=3, retract=lambda T, dx: se2.perturb(T, dx), shape=(3, 3)),
@@ -40,6 +40,18 @@ MANIFOLDS: dict[str, dict[str, Any]] = {
     "so2": dict(dof=1, retract=lambda R, dx: so2.perturb(R, dx[..., 0]), shape=(2, 2)),
     "sim3": dict(dof=7, retract=lambda S, dx: sim3.perturb(S, dx), shape=(4, 4)),
 }
+
+
+def _retract_bal_cam9(v, dx):
+    """Product manifold SE(3) x R^3 of the full BAL camera (pose and the
+    intrinsics [f, k1, k2]), stored flat as (..., 19) = [vec(T) (16), f, k1,
+    k2].  Pose and intrinsics in ONE 9-dof block keep the two-block
+    camera/landmark structure that the Schur path assumes."""
+    T = se3.perturb(v[..., :16].reshape(v.shape[:-1] + (4, 4)), dx[..., :6])
+    return torch.cat([T.reshape(v.shape[:-1] + (16,)), v[..., 16:] + dx[..., 6:]], dim=-1)
+
+
+MANIFOLDS["bal_cam9"] = dict(dof=9, retract=_retract_bal_cam9, shape=(19,))
 
 
 def manifold_dof(kind: str, element_shape=None) -> int:
@@ -65,7 +77,7 @@ def retract(kind: str, values, dx):
 class VariableBlock:
     """N manifold elements stored contiguously.
 
-    kind:       'se3' | 'se2' | 'so3' | 'so2' | 'sim3' | 'euclidean'
+    kind:       'se3' | 'se2' | 'so3' | 'so2' | 'sim3' | 'bal_cam9' | 'euclidean'
     values:     (N, *element_shape)
     const_mask: (N,) bool — True freezes the element (zero update)
     """
@@ -114,7 +126,12 @@ class FactorBatch:
     kind:    registered kernel name
     slots:   variable-block names, one per parameter slot
     indices: per-slot (F,) int64 tensors into the blocks
-    data:    measurement tensors, each (F, ...)
+    data:    what the kernel reads beside the variables: measurement tensors
+             (F, ...); a tensor without the factor axis where the kernel
+             broadcasts it (one ``sqrt_info`` (m, m) for the whole batch);
+             and values that are no tensors (``camera``: a ``sensors``
+             camera).  Nothing slices ``data`` by factor: a batch is
+             evaluated whole.
     loss:    robust M-estimator, applied elementwise
     weight:  (F,) float — 1 for live factors, 0 for padding
     """
@@ -129,8 +146,8 @@ class FactorBatch:
     @classmethod
     def create(cls, kind, slots, indices, data, loss, weight=None):
         """``weight`` defaults to ones in the dtype and on the device of the
-        measurement tensors in ``data``."""
-        ref = next(v for v in data.values() if torch.is_floating_point(v))
+        floating-point tensors in ``data``."""
+        ref = next(v for v in data.values() if torch.is_tensor(v) and v.is_floating_point())
         indices = tuple(
             torch.tensor(np.asarray(i, dtype=np.int64), device=ref.device) for i in indices
         )

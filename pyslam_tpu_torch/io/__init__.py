@@ -1,4 +1,4 @@
-"""Dataset I/O.  Ported so far: the synthetic generators and the g2o
-reader/writer (numpy only)."""
+"""Dataset I/O.  Ported so far: the synthetic generators, the g2o
+reader/writer and the BAL reader/writer (numpy only)."""
 
-from . import g2o, synth  # noqa: F401
+from . import bal, g2o, synth  # noqa: F401

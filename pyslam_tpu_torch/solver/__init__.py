@@ -1,8 +1,10 @@
 """GN/LM solver core on torch tensors.  Ported so far: the dense path
 (``assemble_dense``, Cholesky), 'lm' / 'gn' / 'dogleg', ``solve_one_iter``,
 the ``solve_ell`` pose-graph path (direct-to-ELL assembly, block-Jacobi
-PCG) and the three CUDA kernels (``ell_matvec``, ``ell_pcg``,
-``slot_reduce``)."""
+PCG), the Schur-complement path of bundle adjustment and landmark SLAM
+(``ba_assemble``, ``solve_schur`` in its 'dense' and 'pcg' modes) and the
+four CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
+``ell_assemble``)."""
 
 from .assemble import (
     DensePlan,
@@ -41,6 +43,7 @@ from .cuda_ops import (
 )
 from .linear import HOST_READS, cholesky_solve, damp_marquardt, pcg_solve
 from .lm import STATUS_NAMES, Options, SolveInfo, solve, solve_one_iter
+from .schur import ba_assemble, solve_schur
 
 __all__ = [
     "Options",
@@ -48,6 +51,8 @@ __all__ = [
     "STATUS_NAMES",
     "solve",
     "solve_one_iter",
+    "ba_assemble",
+    "solve_schur",
     "assemble_dense",
     "gradient_and_chi2",
     "cholesky_solve",

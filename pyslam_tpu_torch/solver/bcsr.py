@@ -259,8 +259,9 @@ def ell_assemble_batches(graph: FactorGraph):
     for a graph it does not take.  It takes a graph of one ``se3`` block
     whose batches, ``MAX_ASSEMBLE_BATCHES`` at most, are all ``between_se3``
     or ``prior_se3`` with a loss that ``kernel_loss`` knows (every loss of
-    ``losses.py`` but ``TDistributionLoss(scale=None)``).  The answer
-    depends on the graph only, not on where its tensors lie."""
+    ``losses.py`` but ``TDistributionLoss(scale=None)``) and a ``sqrt_info``
+    that carries the factor axis.  The answer depends on the graph only,
+    not on where its tensors lie."""
     if len(graph.blocks) != 1 or len(graph.batches) > MAX_ASSEMBLE_BATCHES:
         return None
     ((name, block),) = graph.blocks.items()
@@ -270,6 +271,8 @@ def ell_assemble_batches(graph: FactorGraph):
     for fb in graph.batches:
         n_slots = _ASSEMBLE_KINDS.get(fb.kind)
         if n_slots is None or fb.slots != (name,) * n_slots or kernel_loss(fb.loss) is None:
+            return None
+        if fb.data["sqrt_info"].dim() != 3:  # one matrix for the whole batch: the kernel reads one a factor
             return None
         out.append(AssembleBatch(n_slots, fb.data["T_obs"], fb.data["sqrt_info"], fb.weight, fb.loss))
     return out

@@ -265,6 +265,18 @@ class SlotPlan:
     n_slots: int
 
 
+def _stable_argsort(dest, n_slots):
+    """``np.argsort(dest, kind="stable")`` for destinations in [0, n_slots).
+    numpy sorts 16-bit keys by radix, ten times faster than its merge sort
+    of wider ones, so the keys go 16 bits at a time, low half first."""
+    if n_slots <= 1 << 16:
+        return np.argsort(dest.astype(np.uint16), kind="stable")
+    if n_slots > 1 << 32:
+        return np.argsort(dest, kind="stable")
+    low = np.argsort((dest & 0xFFFF).astype(np.uint16), kind="stable")
+    return low[np.argsort((dest[low] >> 16).astype(np.uint16), kind="stable")]
+
+
 def slot_plan(dest: np.ndarray, n_slots: int) -> SlotPlan:
     """The ``slot_reduce`` plan of contributions with destinations ``dest``
     (host, numpy); raises on a destination outside [0, n_slots)."""
@@ -273,7 +285,7 @@ def slot_plan(dest: np.ndarray, n_slots: int) -> SlotPlan:
         raise ValueError(f"slot destination out of range [0, {n_slots})")
     if len(dest) >= 2**31:
         raise ValueError("too many contributions for int32 offsets")
-    perm = np.argsort(dest, kind="stable").astype(np.int32)
+    perm = _stable_argsort(dest, n_slots).astype(np.int32)
     counts = np.bincount(dest, minlength=n_slots)
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return SlotPlan(perm, offsets, n_slots)
@@ -293,10 +305,25 @@ def slot_reduce_plain(contrib, perm, offsets, n_slots):
     return out.index_add_(0, _segment_ids(offsets, n_slots), contrib[perm.long()])
 
 
+# A sum into few destinations of many rows each takes the kernel that gives
+# a destination a whole block (csrc/slot_reduce.cu says why): at most this
+# many destinations, with at least this many rows each on average.
+LONG_MAX_SLOTS = 1024
+LONG_MIN_ROWS = 64
+
+
+def slot_reduce_is_long(E: int, n_slots: int) -> bool:
+    """Whether ``slot_reduce`` sums this shape with a block per destination
+    (few destinations of many rows) and not a sub-warp.  The shape alone
+    decides, so one plan always sums in one order."""
+    return n_slots <= LONG_MAX_SLOTS and E >= LONG_MIN_ROWS * n_slots
+
+
 def slot_reduce(contrib, perm, offsets, n_slots):
     """out (n_slots, C), out[s] = sum_{e in [offsets[s], offsets[s+1])}
     contrib[perm[e]], for contrib (E, C) contiguous, perm (E,) int32 and
-    offsets (n_slots + 1,) int32 ascending from 0 to E."""
+    offsets (n_slots + 1,) int32 ascending from 0 to E.  A slot without
+    contributions (E = 0: all of them) is 0."""
     if contrib.dim() != 2:
         raise ValueError(f"contrib: shape {tuple(contrib.shape)}, expected (E, C)")
     E, C = contrib.shape
@@ -307,10 +334,12 @@ def slot_reduce(contrib, perm, offsets, n_slots):
     _check("offsets", offsets, torch.int32, (n_slots + 1,))
     if _route(contrib, perm, offsets) == "cpu":
         return slot_reduce_plain(contrib, perm, offsets, n_slots)
+    out = torch.empty((n_slots, C), dtype=contrib.dtype, device=contrib.device)
+    if n_slots * C == 0:  # nothing to write, and an empty grid is a launch error: no launch, no count
+        return out
     from .._ext import library
 
-    out = torch.empty((n_slots, C), dtype=contrib.dtype, device=contrib.device)
-    fn_name = f"pyslam_slot_reduce_{_SUFFIX[contrib.dtype]}"
+    fn_name = f"pyslam_slot_reduce_{'long_' if slot_reduce_is_long(E, n_slots) else ''}{_SUFFIX[contrib.dtype]}"
     err = getattr(library(), fn_name)(
         contrib.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), n_slots, C,
         torch.cuda.current_stream(contrib.device).cuda_stream,

@@ -16,7 +16,10 @@ Counterpart of ``pyslam_tpu/solver/linear.py``:
     (``HOST_READS["pcg"]`` counts those reads, ``HOST_READS["lm"]`` the LM
     loop's).  ``solve_ell`` does not come here on the card: its ELL
     product and block-Jacobi preconditioner are the ``cuda_ops.ell_pcg``
-    kernel, the whole loop in one launch with no host read.
+    kernel, the whole loop in one launch with no host read.  The Schur
+    path (``schur.schur_solve_pcg``) does: its loop is bound by the host's
+    launches, a read costs less than the launches that would mask the
+    state on the device, and ``profile_port.py`` times both.
 """
 
 from __future__ import annotations
@@ -84,3 +87,4 @@ def pcg_solve(matvec, b, precond=None, x0=None, rtol=1e-6, max_iters=500):
         rz = rz_new
         it += 1
     return x, it
+

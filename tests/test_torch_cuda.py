@@ -18,10 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from pyslam_tpu_torch.graph import build
+from pyslam_tpu_torch.graph import FactorBatch, FactorGraph, build
 from pyslam_tpu_torch.io import synth
 from pyslam_tpu_torch.losses import CauchyLoss, HuberLoss, L1Loss, L2Loss, TDistributionLoss, TukeyLoss
-from pyslam_tpu_torch.solver import assemble, bcsr, cuda_ops, linear, lm
+from pyslam_tpu_torch.solver import assemble, bcsr, cuda_ops, linear, lm, schur
 from pyslam_tpu_torch.solver.cuda_ops import (
     ell_assemble,
     ell_assemble_plain,
@@ -91,7 +91,37 @@ def test_ell_matvec_kernel_matches_plain(cuda_device, nb, K, d, dtype):
 SLOT_SHAPES = [
     (22500, 19792, 36), (2500, 9896, 6), (3500, 7814, 9), (3500, 7814, 3), (400, 1620, 49), (400, 820, 7),
     (300, 1000, 5), (1000, 40, 36), (7, 900, 36), (7, 900, 9), (10, 0, 36), (10, 0, 5),
+    # few destinations of many rows: a block per destination (the Schur sums
+    # of bench config 4 by camera), widths that leave threads idle, one row
+    # in flight, more columns than a block has threads, the largest grid
+    (49, 25769, 36), (49, 25769, 6), (1, 5000, 3), (3, 2000, 5), (2, 700, 600), (2, 300, 1500), (1024, 70000, 9),
 ]
+
+
+def _ordered_sum(rows, long):
+    """The sum of one destination's rows (in plan order) as the kernel
+    forms it.  A sub-warp adds them one after the other.  The block of 1024
+    threads that a long segment gets keeps R = 1024 // C rows in flight:
+    partial sum r adds the rows r, r + R, ... one after the other, then the
+    partial sums meet pairwise, the upper half onto the lower."""
+    n, C = rows.shape
+    if not long:
+        acc = torch.zeros(C, dtype=rows.dtype)
+        for row in rows:
+            acc += row
+        return acc
+    R = max(1024 // C, 1)
+    partial = torch.zeros((R, C), dtype=rows.dtype)
+    for e in range(n):
+        partial[e % R] += rows[e]
+    h = 1
+    while 2 * h < R:
+        h *= 2
+    while h >= 1 and R > 1:
+        for r in range(min(h, R - h)):
+            partial[r] += partial[r + h]
+        h //= 2
+    return partial[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -108,15 +138,14 @@ def test_slot_reduce_kernel_matches_plain(cuda_device, n_slots, E, C, dtype):
     ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["slot_reduce"] == 2
+    assert cuda_ops.slot_reduce_is_long(E, n_slots) == (n_slots <= 1024 and E >= 64 * n_slots)
     assert torch.equal(out, again)  # no atomics: the same bits every run
     if E:
         _assert_close(out, ref, KERNEL_TOL[dtype])
-        # the plan's order exactly: a sequential sum on the host gives the same bits
-        order = plan.perm[plan.offsets[3] : plan.offsets[4]]
-        acc = torch.zeros(C, dtype=dtype)
-        for e in order:
-            acc += contrib[int(e)].cpu()
-        assert torch.equal(out[3].cpu(), acc)
+        # the kernel's order exactly: the same sum on the host gives the same bits
+        slot = min(3, n_slots - 1)
+        rows = contrib[torch.from_numpy(plan.perm[plan.offsets[slot] : plan.offsets[slot + 1]]).long()].cpu()
+        assert torch.equal(out[slot].cpu(), _ordered_sum(rows, cuda_ops.slot_reduce_is_long(E, n_slots)))
     else:
         assert not out.any()
 
@@ -401,3 +430,96 @@ def test_dense_solve_on_the_card_matches_cpu(cuda_device, method):
     np.testing.assert_allclose(
         s_gpu.blocks["poses"].values.cpu().numpy(), s_cpu.blocks["poses"].values.numpy(), rtol=0, atol=1e-6
     )
+
+
+# --------------------------------------------------------------------------
+# The Schur path (bundle adjustment, landmark SLAM): slot_reduce at its shapes
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_slots,C", [(49, 36), (7000, 9), (5, 6), (0, 36), (0, 5), (3, 0)])
+def test_slot_reduce_with_zero_contributions(cuda_device, n_slots, C, dtype):
+    """No contribution at all (a graph without (pose, pose) factors, or
+    without observations): every slot is 0; with no slot, or no column,
+    there is nothing to launch and nothing is counted."""
+    contrib = torch.zeros((0, C), dtype=dtype, device=cuda_device)
+    perm = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    offsets = torch.zeros(n_slots + 1, dtype=torch.int32, device=cuda_device)
+    cuda_ops.reset_launches()
+    out = slot_reduce(contrib, perm, offsets, n_slots)
+    torch.cuda.synchronize()
+    assert out.shape == (n_slots, C) and out.dtype == dtype and not out.any()
+    assert cuda_ops.LAUNCHES["slot_reduce"] == (1 if n_slots * C else 0)
+    assert cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+
+
+def _config4(dtype, device):
+    return build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ba_assemble_of_config4_repeats_bit_for_bit(cuda_device, dtype):
+    """Two assemblies of bench config 4 (49 cameras, 7,000 points) on the
+    card give the same bits, every sum through the ``slot_reduce`` kernel,
+    and agree with the CPU path (``slot_reduce_plain``) to the kernel's
+    tolerance."""
+    g = _config4(dtype, cuda_device)
+    plan = schur.schur_plan(g)
+    cuda_ops.reset_launches()
+    parts, grad, chi2 = schur.ba_assemble(g, plan=plan)
+    again, grad_again, chi2_again = schur.ba_assemble(g)  # a plan of its own
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["slot_reduce"] == 8 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    for k in ("Hpp", "Hll", "W", "PP", "g_p", "g_l"):
+        assert torch.equal(parts[k], again[k]), k
+    assert torch.equal(grad, grad_again) and torch.equal(chi2, chi2_again)
+    ref, grad_ref, chi2_ref = schur.ba_assemble(_config4(dtype, "cpu"))
+    # the linearization itself differs between the two devices in f32 (other
+    # fused multiply-adds): ten times the kernel's tolerance
+    rel = 10 * KERNEL_TOL[dtype]
+    for k in ("Hpp", "Hll", "W", "g_p", "g_l"):
+        _assert_close(parts[k].cpu(), ref[k], rel)
+    _assert_close(grad.cpu(), grad_ref, rel)
+    assert abs(chi2.item() - chi2_ref.item()) <= rel * chi2_ref.item()
+
+
+def _priors_only(device):
+    """A camera / landmark graph with no observation and no (pose, pose)
+    factor: W and PP are empty, and so is every sum over them."""
+    g = build.ba_graph(synth.ba_synthetic(n_cams=4, n_pts=12, seed=0), dtype=torch.float64, device=device)
+    poses, pts = g.blocks["poses"].values, g.blocks["landmarks"].values
+    eye = torch.eye(6, dtype=torch.float64, device=poses.device)
+    batches = [
+        FactorBatch.create("prior_se3", ("poses",), (np.arange(4),),
+                           {"T_obs": poses.flip(0).contiguous(), "sqrt_info": eye.expand(4, 6, 6).contiguous()},
+                           loss=L2Loss()),
+        FactorBatch.create("prior_euclidean", ("landmarks",), (np.arange(12),),
+                           {"obs": pts + 0.1, "sqrt_info": 2.0 * eye[:3, :3]}, loss=L2Loss()),
+    ]
+    return FactorGraph(g.blocks, batches)
+
+
+SCHUR_GRAPHS = {
+    "ba": lambda device: build.ba_graph(synth.ba_synthetic(n_cams=8, n_pts=60, seed=3), dtype=torch.float64,
+                                        device=device),
+    "landmark_slam_2d": lambda device: build.landmark_slam_2d(
+        synth.landmark_slam_2d(n_poses=40, n_landmarks=25, obs_type="xy", seed=3), dtype=torch.float64,
+        device=device),
+    "priors_only": _priors_only,
+}
+
+
+@pytest.mark.parametrize("mode", ["dense", "pcg"])
+@pytest.mark.parametrize("name", sorted(SCHUR_GRAPHS))
+def test_solve_schur_on_the_card_matches_the_cpu_path(cuda_device, name, mode):
+    opts = Options(method="lm", max_iters=25)
+    s_c, i_c = schur.solve_schur(SCHUR_GRAPHS[name]("cpu"), opts, mode=mode)
+    cuda_ops.reset_launches()
+    s_g, i_g = schur.solve_schur(SCHUR_GRAPHS[name](cuda_device), opts, mode=mode)
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    assert (i_g.iterations, i_g.status) == (i_c.iterations, i_c.status)
+    assert i_g.accepted.cpu().tolist() == i_c.accepted.tolist()
+    assert abs(i_g.chi2.item() - i_c.chi2.item()) <= 1e-9 * i_c.chi2.item()
+    for n in s_c.blocks:
+        assert (s_g.blocks[n].values.cpu() - s_c.blocks[n].values).abs().max().item() <= 1e-6

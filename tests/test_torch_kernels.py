@@ -125,6 +125,39 @@ def test_slot_plan_is_stable_sort():
         slot_plan(np.array([0, 4]), 4)
 
 
+@pytest.mark.parametrize("n_slots", [1, 49, 1 << 16, (1 << 16) + 1, 343_000, 5_000_000])
+@pytest.mark.parametrize("E", [0, 1, 1000, 30_000])
+def test_slot_plan_sorts_as_numpy_stable_argsort(n_slots, E):
+    """The plan sorts 16 bits of the destination at a time (numpy's radix
+    sort); the order is that of one stable sort of the whole key, and the
+    ELL slot plans of the reference are built on that order."""
+    dest = np.random.default_rng(n_slots % 97 + E).integers(0, n_slots, E)
+    plan = slot_plan(dest, n_slots)
+    np.testing.assert_array_equal(plan.perm, np.argsort(dest, kind="stable"))
+    assert plan.perm.dtype == np.int32 and plan.offsets.dtype == np.int32 and plan.offsets.shape == (n_slots + 1,)
+    np.testing.assert_array_equal(np.diff(plan.offsets), np.bincount(dest, minlength=n_slots))
+
+
+def test_slot_reduce_kernel_choice_reads_the_shape_only():
+    """Few destinations of many rows take the block-per-destination kernel:
+    the Schur sums by camera of bench config 4, not its sums by landmark,
+    not the assemblies of the pose-graph cells."""
+    long = cuda_ops.slot_reduce_is_long
+    assert long(25769, 49) and long(64, 1) and long(1024 * 64, 1024)
+    assert not long(25769, 7000) and not long(19792, 22500) and not long(63, 1) and not long(10**6, 1025)
+    assert not long(0, 5)
+
+
+def test_slot_reduce_of_nothing_is_zero():
+    """E = 0 (a graph without the factors a sum is over): every slot 0."""
+    out = slot_reduce(torch.zeros((0, 6), dtype=torch.float64), torch.zeros(0, dtype=torch.int32),
+                      torch.zeros(5, dtype=torch.int32), 4)
+    assert out.shape == (4, 6) and not out.any()
+    out = slot_reduce(torch.zeros((0, 6), dtype=torch.float64), torch.zeros(0, dtype=torch.int32),
+                      torch.zeros(1, dtype=torch.int32), 0)
+    assert out.shape == (0, 6)
+
+
 # --------------------------------------------------------------------------
 # Wrapper dispatch and checks
 # --------------------------------------------------------------------------

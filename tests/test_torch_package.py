@@ -15,7 +15,7 @@ import torch
 
 import pyslam_tpu_torch
 from pyslam_tpu_torch.graph import build, convert
-from pyslam_tpu_torch.io import synth
+from pyslam_tpu_torch.io import bal, synth
 from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
 from pyslam_tpu_torch.testing import se3_stress_graph
 
@@ -35,6 +35,8 @@ def test_import_leaves_jax_out():
     proc = _run(
         "import sys, pyslam_tpu_torch\n"
         "import pyslam_tpu_torch.solver.cuda_ops, pyslam_tpu_torch._ext\n"
+        "import pyslam_tpu_torch.sensors, pyslam_tpu_torch.io.bal, pyslam_tpu_torch.solver.schur\n"
+        "import pyslam_tpu_torch.graph.build, pyslam_tpu_torch.graph.convert, pyslam_tpu_torch.graph.factor_defs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -59,6 +61,12 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "default_device": pyslam_tpu_torch.default_device,
     "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
     "sim3_pose_graph": lambda **kw: build.sim3_pose_graph(synth.sim3_loop(n_poses=6, n_loops=1, seed=0), **kw),
+    "ba_graph": lambda **kw: build.ba_graph(synth.ba_synthetic(n_cams=3, n_pts=8, seed=0), **kw),
+    "bal_graph": lambda **kw: build.bal_graph(bal.synthetic_bal(n_cams=3, n_pts=8, seed=0), **kw),
+    "bal_graph_intrinsics": lambda **kw: build.bal_graph(
+        bal.synthetic_bal(n_cams=3, n_pts=8, seed=0), optimize_intrinsics=True, **kw),
+    "landmark_slam_2d": lambda **kw: build.landmark_slam_2d(
+        synth.landmark_slam_2d(n_poses=6, n_landmarks=4, seed=0), **kw),
     "graph_from_numpy": lambda **kw: convert.graph_from_numpy({"poses": _BLOCK}, [], torch.float64, **kw),
     "se3_stress_graph": lambda **kw: se3_stress_graph(n_poses=24, **kw),
     "so2.identity": so2.identity,
@@ -85,8 +93,10 @@ def test_entry_points_default_to_the_cuda_device(name):
             fn()
     if name != "default_device":
         out = fn(device="cpu")
-        values = out if torch.is_tensor(out) else out.blocks["poses"].values
-        assert values.device.type == "cpu"
+        tensors = [out] if torch.is_tensor(out) else [
+            t for b in out.blocks.values() for t in (b.values, b.const_mask)] + [
+            t for fb in out.batches for t in (*fb.indices, fb.weight, *fb.data.values()) if torch.is_tensor(t)]
+        assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_chip_smoke_fails_without_a_gpu():
