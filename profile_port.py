@@ -43,6 +43,21 @@ harness's options).  Per cell:
   * the runtime's stream and device synchronisations and memory copies
     counted in the profiled solve.
 
+Cells of the sparse direct paths and the dispatch (f32, as
+``chip_smoke.py`` drives them): ``config8`` (``solve_auto`` on bench config
+8's landmark graph, route ``schur_dense``; split as ``config4_dense``),
+``config2_sparse_chol`` (``solve_sparse_chol`` on config 2's graph, the plan
+built once), ``sparse_chol_5000`` (``solve_auto`` on
+``se2_manhattan(5000)``, route ``sparse_chol``, the nested dissection in
+every solve), ``schur_sparse_2000`` (``solve_auto`` on
+``landmark_slam_2d(2000, 300)``, route ``schur_sparse``) and ``fleet16``
+(``solve_batched`` on 16 ``se2_loop(100)``; its LM iterations are the
+fleet's, its chi2 the sum).  Host ms per call of the sparse cells: the
+plans (``build_chol_plan`` / ``build_schur_sparse_plan``), the assembly,
+``_factorize`` (with ``assemble_S_ell`` for the Schur cell) and
+``_solve_factored`` at the start point, and ``retract_all``; and the
+``slot_reduce`` launches and host reads of one solve.
+
 The extra cell ``config4_pcg_loops`` (not in the default list) times
 config 4 in 'pcg' mode under each way of running the CG loop: the plain
 host loop of ``linear.pcg_solve`` (the stop test read every iteration,
@@ -76,8 +91,10 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
-CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense")
+CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense", "config8", "config2_sparse_chol",
+         "sparse_chol_5000", "schur_sparse_2000", "fleet16")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
@@ -159,10 +176,52 @@ def make_cell(name, dev):
             return g, o, lambda: solve_schur(g, o, mode="pcg", pcg_rtol=1e-4, pcg_max_iters=30)
         return g, o, lambda: solve_schur(g, o, mode="dense")
 
+    if name == "config8":
+        from pyslam_tpu_torch.solver import solve_auto
+
+        g = build.landmark_slam_2d(synth.landmark_slam_2d(n_poses=800, n_landmarks=250, max_range=10.0,
+                                                          odo_rot_std=0.005, seed=0), device=dev)
+        o = Options(method="lm", max_iters=30)
+        return g, o, lambda: solve_auto(g, o)
+    if name == "sparse_chol_5000":
+        from pyslam_tpu_torch.solver import solve_auto
+
+        g = build.pose_graph(synth.se2_manhattan(n_poses=5000, seed=1), device=dev)
+        o = Options(method="gn", max_iters=30, min_cost_decrease=0.999)
+        return g, o, lambda: solve_auto(g, o)
+    if name == "schur_sparse_2000":
+        from pyslam_tpu_torch.solver import solve_auto
+
+        g = build.landmark_slam_2d(synth.landmark_slam_2d(n_poses=2000, n_landmarks=300, max_range=10.0,
+                                                          odo_rot_std=0.005, seed=0), device=dev)
+        o = Options(method="lm", max_iters=30)
+        return g, o, lambda: solve_auto(g, o)
+    if name == "fleet16":
+        from pyslam_tpu_torch.solver import solve_batched
+
+        fleet = [build.pose_graph(synth.se2_loop(n_poses=100, n_loops=12, seed=s), device=dev) for s in range(16)]
+        o = Options(method="lm", max_iters=50)
+
+        def run_fleet():
+            _, chi2, info = solve_batched(fleet, o, return_info=True)
+            return None, FleetInfo(chi2.sum(), max(info.iterations), info.status)
+
+        return fleet[0], o, run_fleet
+
     from pyslam_tpu_torch.io import g2o
     from pyslam_tpu_torch.losses import CauchyLoss
     from pyslam_tpu_torch.solver import solve
 
+    if name == "config2_sparse_chol":
+        from pyslam_tpu_torch.solver import sparse_chol
+
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "m3500.g2o")
+            g2o.write_g2o(path, synth.se2_manhattan(n_poses=3500, seed=1))
+            g = build.pose_graph(g2o.read_g2o(path), device=dev)
+        o = Options(method="gn", max_iters=30, min_cost_decrease=0.999)
+        plan = sparse_chol.build_chol_plan(g)
+        return g, o, lambda: sparse_chol.solve_sparse_chol(g, o, plan=plan)
     if name == "config1":
         g = build.pose_graph(synth.se2_loop(n_poses=100, n_loops=12, seed=0), loss=CauchyLoss(2.0), device=dev)
         o = Options(method="lm", max_iters=50)
@@ -179,6 +238,66 @@ def make_cell(name, dev):
     else:
         raise SystemExit(f"unknown cell {name!r}; cells: {', '.join(CELLS)}")
     return g, o, lambda: solve(g, o)
+
+
+class FleetInfo(NamedTuple):
+    """What the timing loop reads of a fleet solve."""
+
+    chi2: object  # 0-dim tensor: the sum over the fleet
+    iterations: int  # the fleet's LM iterations
+    status: list
+
+
+def sparse_split(name, g, o, dev, reps, run):
+    """Host ms of the phases of the sparse cells, and one solve's counts."""
+    import torch
+
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops, linear, schur, schur_sparse, sparse_chol
+
+    lam = torch.tensor(o.lambda_init, dtype=next(iter(g.blocks.values())).values.dtype, device=dev)
+    if name == "schur_sparse_2000":
+        plan = schur_sparse.build_schur_sparse_plan(g)
+        tables = schur_sparse.plan_tables(plan, dev)
+        parts, gv, _ = schur.ba_assemble(g)
+        Hpp, L_ll, W, g_red = schur._schur_reduce(parts, lam, o.method)
+        Hll_inv = schur._binv(L_ll)
+        He = schur_sparse.assemble_S_ell(plan, tables, Hpp, parts["PP"], W, Hll_inv)
+        chol, rhs = plan.chol, g_red.reshape(-1)
+        split = dict(
+            build_schur_sparse_plan=host_ms(lambda: schur_sparse.build_schur_sparse_plan(g), reps),
+            ba_assemble=host_ms(lambda: schur.ba_assemble(g, plan=parts["plan"]), reps),
+            schur_reduce_and_Hll_inverse=host_ms(lambda: schur._binv(schur._schur_reduce(parts, lam, o.method)[1]),
+                                                 reps),
+            assemble_S_ell=host_ms(lambda: schur_sparse.assemble_S_ell(plan, tables, Hpp, parts["PP"], W, Hll_inv),
+                                   reps),
+        )
+        factor_args = (chol, He)
+        dx = schur_sparse.schur_solve_sparse(parts, gv, lam, o, plan, tables)
+    else:
+        chol = sparse_chol.build_chol_plan(g)
+        dplan = bcsr.ell_device_plan(chol.ell, dev)
+        He, rhs, _ = bcsr.assemble_ell(g, dplan)
+        split = dict(
+            build_chol_plan=host_ms(lambda: sparse_chol.build_chol_plan(g), reps),
+            ell_device_plan=host_ms(lambda: bcsr.ell_device_plan(chol.ell, dev), reps),
+            assemble_ell=host_ms(lambda: bcsr.assemble_ell(g, dplan), reps),
+        )
+        factor_args = (chol, He, lam if o.method == "lm" else None)
+        dx = sparse_chol.sparse_chol_solve(chol, He, rhs, lam, o)
+    factors = sparse_chol._factorize(*factor_args)
+    split.update(
+        waves=len(chol.waves),
+        factorize=host_ms(lambda: sparse_chol._factorize(*factor_args), reps),
+        solve_factored=host_ms(lambda: sparse_chol._solve_factored(chol, factors, rhs), reps),
+        retract_all=host_ms(lambda: g.retract_all(dx), reps),
+    )
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    _, info = run()
+    info.chi2.item()
+    split.update(slot_reduce_launches_per_solve=cuda_ops.LAUNCHES["slot_reduce"],
+                 host_reads_per_solve=dict(linear.HOST_READS))
+    return split
 
 
 def dense_split(g, o, dev, reps):
@@ -432,8 +551,12 @@ def main() -> int:
             print(f"   {dev_us(e) / 1e3:10.4f} ms  x{e.count:5d}  {e.key[:110]}")
         if name == "sphere2500":
             split = ell_split(g, o, dev, args.reps)
-        elif name.startswith("config4"):
+        elif name.startswith("config4") or name == "config8":
             split = schur_split(g, o, dev, args.reps, run)
+        elif name in ("config2_sparse_chol", "sparse_chol_5000", "schur_sparse_2000"):
+            split = sparse_split(name, g, o, dev, args.reps, run)
+        elif name == "fleet16":
+            continue
         else:
             split = dense_split(g, o, dev, args.reps)
         print(f"   host ms per call (median of {args.reps}, synchronised): {split}", flush=True)

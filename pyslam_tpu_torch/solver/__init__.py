@@ -2,9 +2,14 @@
 (``assemble_dense``, Cholesky), 'lm' / 'gn' / 'dogleg', ``solve_one_iter``,
 the ``solve_ell`` pose-graph path (direct-to-ELL assembly, block-Jacobi
 PCG), the Schur-complement path of bundle adjustment and landmark SLAM
-(``ba_assemble``, ``solve_schur`` in its 'dense' and 'pcg' modes) and the
-four CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
+(``ba_assemble``, ``solve_schur`` in its 'dense' and 'pcg' modes), the
+multifrontal sparse Cholesky (``solve_sparse_chol``) and SPARSE_SCHUR
+(``solve_schur_sparse``), the structure dispatch (``route_auto``,
+``solve_auto``), the batched fleet solve (``solve_batched``) and the four
+CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
 ``ell_assemble``)."""
+
+import numpy as np
 
 from .assemble import (
     DensePlan,
@@ -43,7 +48,16 @@ from .cuda_ops import (
 )
 from .linear import HOST_READS, cholesky_solve, damp_marquardt, pcg_solve
 from .lm import STATUS_NAMES, Options, SolveInfo, solve, solve_one_iter
+from .batched import BatchedSolveInfo, solve_batched
 from .schur import ba_assemble, solve_schur
+from .schur_sparse import (
+    SchurSparsePlan,
+    assemble_S_ell,
+    build_schur_sparse_plan,
+    coobservation_stats,
+    solve_schur_sparse,
+)
+from .sparse_chol import CholPlan, build_chol_plan, solve_sparse_chol, sparse_chol_solve
 
 __all__ = [
     "Options",
@@ -86,4 +100,221 @@ __all__ = [
     "pcg_iterations",
     "slot_reduce",
     "slot_reduce_plain",
+    "CholPlan",
+    "build_chol_plan",
+    "sparse_chol_solve",
+    "solve_sparse_chol",
+    "SchurSparsePlan",
+    "assemble_S_ell",
+    "build_schur_sparse_plan",
+    "coobservation_stats",
+    "solve_schur_sparse",
+    "BatchedSolveInfo",
+    "solve_batched",
+    "route_auto",
+    "solve_auto",
 ]
+
+
+def _mono_low_parallax(graph, pose_name, lm_name, max_obs=500_000, spread_thresh=1.4e-3):
+    """True when a monocular BA graph's landmark geometry is low-parallax
+    (the f32-ill-conditioned regime where the square-root path wins).
+
+    Cheap host check at dispatch time: per-landmark resultant length of the
+    unit observation rays — parallax std angle ~ sqrt(2 * (1 - |mean ray|)),
+    threshold ~3 degrees.  Stereo/RGB-D (3-dof residuals) return False;
+    conditioning never bites when observations carry depth.  Reads the
+    camera and landmark values to the host."""
+    binary = [fb for fb in graph.batches if tuple(fb.slots) in ((pose_name, lm_name), (lm_name, pose_name))]
+    if len(binary) != 1 or binary[0].n > max_obs:
+        return False
+    fb = binary[0]
+    data = getattr(fb, "data", None)
+    obs = None if data is None else data.get("obs")
+    if obs is None or obs.ndim != 2 or obs.shape[-1] != 2:
+        return False  # not monocular
+    pb, lb = graph.blocks[pose_name], graph.blocks[lm_name]
+    if pb.kind != "se3":
+        return False
+    ci, li = (_host(i).astype(np.int64) for i in (fb.indices if fb.slots[0] == pose_name else fb.indices[::-1]))
+    T = _host(pb.values).astype(np.float64)  # (C, 4, 4) world -> cam
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    centers = -np.einsum("cji,cj->ci", R, t)
+    pts = _host(lb.values).astype(np.float64)
+    rays = pts[li] - centers[ci]
+    rays /= np.maximum(np.linalg.norm(rays, axis=1, keepdims=True), 1e-12)
+    s = np.zeros((lb.n, 3))
+    np.add.at(s, li, rays)
+    cnt = np.bincount(li, minlength=lb.n)
+    multi = cnt >= 2
+    if not multi.any():
+        return False
+    spread = 1.0 - np.linalg.norm(s[multi], axis=1) / cnt[multi]
+    return bool(np.median(spread) < spread_thresh)
+
+
+def _host(t):
+    """A tensor (or array) as a numpy array on the host."""
+    return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+def route_auto(
+    graph,
+    mesh=None,
+    dense_dof_limit: int = 12000,
+    dense_hpl_budget_bytes: int = 1 << 30,
+    schur_sparse_pair_budget: int = 2_000_000,
+):
+    """Name of the solve path ``solve_auto`` picks for this graph.
+
+    Single-chip routes, decided as in the reference with its thresholds
+    (dof counts and logical bytes): ``dense`` / ``sparse_chol`` / ``ell`` /
+    ``schur_dense`` / ``schur_sparse`` (exact multifrontal factorization of
+    the reduced camera system: many-poses / few-landmarks graphs with
+    sparse co-observation) / ``schur_pcg`` / ``schur_sqrt`` (f32 mono
+    low-parallax conditioning) / ``schur_large``.  A graph is bundle
+    adjustment when it has one Lie and one euclidean block and a binary
+    batch between them in EITHER slot order (the reference sees only
+    (pose, landmark) and sends a (landmark, pose) graph to the dense path).
+
+    ``mesh``: the sharded routes are not ported; any mesh raises
+    NotImplementedError.  The reference's knobs that price only those
+    routes (``device_hbm_budget_bytes``, ``tiny_dof``,
+    ``cm_obs_crossover``) come with them."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "route_auto: the mesh routes (factor_parallel, pose_sharded, schur_reduce, schur_cm) come with "
+            "the port of dist/ (ROADMAP item 16)"
+        )
+    blocks = graph.blocks
+    kinds = {name: b.kind for name, b in blocks.items()}
+    lie_blocks = [n for n, k in kinds.items() if k != "euclidean"]
+    euc_blocks = [n for n, k in kinds.items() if k == "euclidean"]
+    # BA shape = one lie + one euclidean block AND at least one binary batch
+    # between them — a 2-block graph coupled only by other factor arities
+    # (e.g. switchable pose graphs) is NOT BA and must not enter the Schur
+    # routes
+    is_ba = (
+        len(blocks) == 2
+        and len(lie_blocks) == 1
+        and len(euc_blocks) == 1
+        and any(
+            tuple(fb.slots) in ((lie_blocks[0], euc_blocks[0]), (euc_blocks[0], lie_blocks[0]))
+            for fb in graph.batches
+        )
+    )
+
+    if is_ba:
+        pose_name, lm_name = lie_blocks[0], euc_blocks[0]
+        obs_slots = ((pose_name, lm_name), (lm_name, pose_name))
+        binary = [fb for fb in graph.batches if tuple(fb.slots) in obs_slots]
+        others = [fb for fb in graph.batches if tuple(fb.slots) not in obs_slots]
+        n_obs = sum(fb.n for fb in binary)
+        if (
+            n_obs > 2_000_000
+            and len(binary) == 1
+            # schur_large's layout is specialized to (6, 3)-dof camera /
+            # landmark blocks; 9-dof bal_cam9 graphs fall through to the
+            # generic Schur PCG
+            and blocks[pose_name].dof == 6
+            and all(
+                fb.slots in ((pose_name,), (pose_name, pose_name)) for fb in others
+            )
+        ):
+            return "schur_large"
+        pb, lb = blocks[pose_name], blocks[lm_name]
+        itemsize = pb.values.dtype.itemsize
+        # Conditioning route: in f32, monocular low-parallax geometry
+        # squares Jl's condition number through Hll = Jl^T Jl; the
+        # square-root (QR) elimination tracks the f64 trajectory closer.
+        # Stereo/RGB-D observations carry depth — mono 2-dof residuals only.
+        if (
+            pb.n * pb.dof <= 4096
+            and itemsize == 4
+            and len(binary) == 1
+            and lb.dof == 3
+            and all(fb.slots == (pose_name,) for fb in others)
+            and _mono_low_parallax(graph, pose_name, lm_name)
+        ):
+            return "schur_sqrt"
+        hpl_bytes = pb.n * pb.dof * lb.n * lb.dof * itemsize
+        if pb.n * pb.dof <= 4096 and 2 * hpl_bytes <= dense_hpl_budget_bytes:
+            return "schur_dense"
+        # SPARSE_SCHUR: beyond the dense ceiling, when the co-observation
+        # camera graph is sparse (many poses / few landmarks), the reduced S
+        # factors EXACTLY through the multifrontal path at O(fill) instead
+        # of trusting iterative Schur PCG.  Gate on the co-observation pair
+        # count (sum of squared landmark degrees): first the shape-only
+        # Cauchy-Schwarz lower bound n_obs^2 / L (no index arrays touched),
+        # then the real count.
+        pair_budget = min(schur_sparse_pair_budget, 96 * pb.n)
+        if (
+            n_obs > 0
+            and n_obs * n_obs <= pair_budget * max(lb.n, 1)
+            and all(
+                tuple(fb.slots) in ((pose_name,), (pose_name, pose_name)) + obs_slots
+                for fb in graph.batches
+            )
+        ):
+            pairs_sq, _ = coobservation_stats(graph, pose_name, lm_name)
+            if pairs_sq <= pair_budget:
+                return "schur_sparse"
+        return "schur_pcg"
+    if len(blocks) == 1 and graph.total_dof > dense_dof_limit:
+        blk = next(iter(blocks.values()))
+        # Stiff 2D graphs need EXACT solves (PCG stalls in a worse basin) —
+        # beyond the dense ceiling, the multifrontal sparse Cholesky is the
+        # exact option.  2D dissection separators stay narrow, so the fill is
+        # cheap there; 3D-ish SE(3) graphs keep the ELL PCG default.
+        if blk.dof == 3 and blk.kind in ("se2", "euclidean"):
+            return "sparse_chol"
+        return "ell"
+    return "dense"
+
+
+def solve_auto(
+    graph,
+    options=None,
+    mesh=None,
+    dense_dof_limit: int = 12000,
+    dense_hpl_budget_bytes: int = 1 << 30,
+    schur_sparse_pair_budget: int = 2_000_000,
+):
+    """Structure-dispatching solve: runs the path ``route_auto`` names.
+
+    * camera + landmark blocks -> Schur complement: ``solve_schur`` in
+      'dense' mode (few cameras) or 'pcg' mode, or ``solve_schur_sparse``
+      (many poses, sparse co-observation);
+    * single variable block, total dof <= dense_dof_limit -> dense Cholesky;
+      larger -> ``solve_sparse_chol`` (3-dof SE(2) / euclidean) or
+      ``solve_ell`` (block-Jacobi PCG);
+    * anything else -> the dense path.
+
+    The routes ``schur_large`` and ``schur_sqrt`` and every mesh route are
+    not ported: they raise NotImplementedError, and no other solver stands
+    in for them.  Returns (solved_graph, SolveInfo)."""
+    opts = options if options is not None else Options()
+    route = route_auto(
+        graph,
+        mesh=mesh,
+        dense_dof_limit=dense_dof_limit,
+        dense_hpl_budget_bytes=dense_hpl_budget_bytes,
+        schur_sparse_pair_budget=schur_sparse_pair_budget,
+    )
+    if route in ("schur_large", "schur_sqrt"):
+        item = {"schur_large": 15, "schur_sqrt": 18}[route]
+        raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item {item})")
+    kinds = {name: b.kind for name, b in graph.blocks.items()}
+    names = dict(
+        pose_name=next((n for n, k in kinds.items() if k != "euclidean"), None),
+        lm_name=next((n for n, k in kinds.items() if k == "euclidean"), None),
+    )
+    if route == "sparse_chol":
+        return solve_sparse_chol(graph, opts)
+    if route == "schur_sparse":
+        return solve_schur_sparse(graph, opts, **names)
+    if route in ("schur_dense", "schur_pcg"):
+        return solve_schur(graph, opts, mode=route.removeprefix("schur_"), **names)
+    if route == "ell":
+        return solve_ell(graph, opts)
+    return solve(graph, opts)

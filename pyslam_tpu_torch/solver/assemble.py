@@ -150,16 +150,21 @@ def dense_plan(graph: FactorGraph, hessian: bool = True) -> DensePlan:
 # --------------------------------------------------------------------------
 
 
-def dense_contributions(graph: FactorGraph, hessian: bool):
+def dense_contributions(graph: FactorGraph, hessian: bool, problems: int | None = None):
     """Linearize every batch: ({shape: [(F, C) block contributions]},
     {(dof,): [(F, dof) rows J^T W r]}, chi2), in the order of
-    ``dense_plan`` (and, for one block kind, of ``bcsr.build_slot_plans``)."""
+    ``dense_plan`` (and, for one block kind, of ``bcsr.build_slot_plans``).
+    With ``problems`` = B, the graph holds B problems of equal size side by
+    side (``batched.py``: every batch the B problems' factors one problem
+    after the other) and chi2 is each problem's, (B,)."""
     blocks0 = next(iter(graph.blocks.values())).values
-    chi2 = torch.zeros((), dtype=blocks0.dtype, device=blocks0.device)
+    chi2 = torch.zeros(() if problems is None else (problems,), dtype=blocks0.dtype, device=blocks0.device)
     h_parts: dict[tuple, list] = {}
     g_parts: dict[tuple, list] = {}
     for fb in graph.batches:
         r, jacs, w, c2 = linearize_batch(fb, graph.blocks)
+        if problems is not None:
+            c2 = (fb.loss.loss(r) * fb.weight[:, None]).reshape(problems, -1).sum(1)
         chi2 = chi2 + c2
         wr = w * r
         for J in jacs:

@@ -37,12 +37,12 @@ def reset_host_reads():
 
 
 def cholesky_solve(H, g):
-    """Solve H dx = g for SPD H via Cholesky; NaN where the factorization
-    fails (by design: no host read, no exception)."""
+    """Solve H dx = g for SPD H (..., D, D), g (..., D) via Cholesky; NaN
+    where the factorization fails (by design: no host read, no exception)."""
     L, info = torch.linalg.cholesky_ex(H)
-    y = torch.linalg.solve_triangular(L, g[:, None], upper=False)
-    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[:, 0]
-    return torch.where(info != 0, float("nan"), x)
+    y = torch.linalg.solve_triangular(L, g[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
+    return torch.where((info != 0)[..., None], float("nan"), x)
 
 
 def damp_marquardt_(H, lam, floor=1e-12):

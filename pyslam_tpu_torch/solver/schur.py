@@ -71,7 +71,8 @@ class Segments:
 class SchurPlan:
     """Static tables of a camera / landmark graph.  Index tensors are int64
     on the graph's device.  ``roles`` names each batch: 'obs' (pose,
-    landmark), 'pose' (pose,), 'lm' (landmark,), 'pp' (pose, pose)."""
+    landmark), 'obs_lp' (landmark, pose), 'pose' (pose,), 'lm' (landmark,),
+    'pp' (pose, pose)."""
 
     C: int
     dp: int
@@ -97,23 +98,24 @@ class SchurPlan:
     by_pp_pair: Segments  # the 2 P blocks [PP (i, j), PP^T (j, i)] by block of S
 
 
-def schur_plan(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "landmarks") -> SchurPlan:
-    """Build the plan on the host (numpy) and put its tables on the graph's
-    device.  Raises on a slot pattern the Schur path does not take and on a
-    factor index outside its block, which the reference would clamp
-    silently."""
-    pb, lb = graph.blocks[pose_name], graph.blocks[lm_name]
-    C, L = pb.n, lb.n
-    device = pb.values.device
-    patterns = {(pose_name, lm_name): "obs", (pose_name,): "pose", (lm_name,): "lm", (pose_name, pose_name): "pp"}
+def schur_host_tables(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "landmarks") -> dict:
+    """The plan's index arrays on the host (numpy int64), validated:
+    ``roles``; ``to_pose`` / ``to_lm``, every contribution to a pose's /
+    landmark's block in stacking order; ``cam`` / ``pt``, the observations
+    in the order ``ba_assemble`` stacks W (both slot orders); ``pi`` /
+    ``pj``, the (pose, pose) factors in the order it stacks PP.  Raises on a
+    slot pattern the Schur path does not take and on a factor index outside
+    its block, which the reference would clamp silently."""
+    patterns = {(pose_name, lm_name): "obs", (lm_name, pose_name): "obs_lp", (pose_name,): "pose",
+                (lm_name,): "lm", (pose_name, pose_name): "pp"}
     roles, to_pose, to_lm, cams, pts, pis, pjs = [], [], [], [], [], [], []
     for fb in graph.batches:
         role = patterns.get(tuple(fb.slots))
         if role is None:
             raise ValueError(
                 f"Schur path: unsupported slot pattern {fb.slots}; expected "
-                f"({pose_name},), ({lm_name},), ({pose_name}, {pose_name}) "
-                f"or ({pose_name}, {lm_name})"
+                f"({pose_name},), ({lm_name},), ({pose_name}, {pose_name}), "
+                f"({pose_name}, {lm_name}) or ({lm_name}, {pose_name})"
             )
         idx = [i.detach().cpu().numpy().astype(np.int64) for i in fb.indices]
         for slot, i in zip(fb.slots, idx):
@@ -129,6 +131,11 @@ def schur_plan(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "lan
             to_lm.append(idx[1])
             cams.append(idx[0])
             pts.append(idx[1])
+        elif role == "obs_lp":
+            to_lm.append(idx[0])
+            to_pose.append(idx[1])
+            cams.append(idx[1])
+            pts.append(idx[0])
         elif role == "pose":
             to_pose.append(idx[0])
         elif role == "lm":
@@ -140,6 +147,18 @@ def schur_plan(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "lan
 
     def cat(arrays):
         return np.concatenate(arrays) if arrays else np.zeros(0, np.int64)
+
+    return dict(roles=tuple(roles), to_pose=cat(to_pose), to_lm=cat(to_lm), cam=cat(cams), pt=cat(pts),
+                pi=cat(pis), pj=cat(pjs))
+
+
+def schur_plan(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "landmarks") -> SchurPlan:
+    """Build the plan on the host (numpy, ``schur_host_tables``) and put its
+    tables on the graph's device."""
+    pb, lb = graph.blocks[pose_name], graph.blocks[lm_name]
+    C, L = pb.n, lb.n
+    device = pb.values.device
+    host = schur_host_tables(graph, pose_name, lm_name)
 
     def index(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
@@ -160,13 +179,13 @@ def schur_plan(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "lan
         uniq, dest = np.unique(rows * n_cols + cols, return_inverse=True)
         return index(uniq // n_cols), index(uniq % n_cols), segments(dest.reshape(-1), len(uniq))
 
-    cam, pt, pi, pj = cat(cams), cat(pts), cat(pis), cat(pjs)
+    cam, pt, pi, pj = host["cam"], host["pt"], host["pi"], host["pj"]
     pair_cam, pair_lm, by_pair = pairs(cam, pt, L)
     pp_pair_i, pp_pair_j, by_pp_pair = pairs(np.concatenate([pi, pj]), np.concatenate([pj, pi]), C)
     names = list(graph.blocks)
     return SchurPlan(
         C=C, dp=pb.dof, L=L, dl=lb.dof, pose_first=names.index(pose_name) < names.index(lm_name),
-        roles=tuple(roles), to_pose=segments(cat(to_pose), C), to_lm=segments(cat(to_lm), L),
+        roles=host["roles"], to_pose=segments(host["to_pose"], C), to_lm=segments(host["to_lm"], L),
         cam_idx=index(cam), pt_idx=index(pt), by_cam=segments(cam, C), by_lm=segments(pt, L),
         pair_cam=pair_cam, pair_lm=pair_lm, by_pair=by_pair,
         pp_i=index(pi), pp_j=index(pj), by_pp_i=segments(pi, C), by_pp_j=segments(pj, C),
@@ -231,8 +250,8 @@ def ba_assemble(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "la
     global gradient: the ``assemble_fn`` contract of ``lm.solve``.
 
     Supported batch shapes: (pose,) unary factors -> Hpp; (landmark,) unary
-    -> Hll; (pose, landmark) binary observations -> Hpp + Hll + W; (pose,
-    pose) binary factors -> Hpp + PP.  ``plan`` (from ``schur_plan``) is
+    -> Hll; (pose, landmark) and (landmark, pose) binary observations -> Hpp
+    + Hll + W; (pose, pose) binary factors -> Hpp + PP.  ``plan`` (from ``schur_plan``) is
     built here when not given.
     """
     if plan is None:
@@ -245,7 +264,7 @@ def ba_assemble(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "la
     # contributions in the plan's stacking order
     Hp, gp, Hl, gl, Ws, PPs = [], [], [], [], [], []
     pose, lm = (Hp, gp), (Hl, gl)
-    slots = {"obs": (pose, lm), "pose": (pose,), "lm": (lm,), "pp": (pose, pose)}
+    slots = {"obs": (pose, lm), "obs_lp": (lm, pose), "pose": (pose,), "lm": (lm,), "pp": (pose, pose)}
     for fb, role in zip(graph.batches, plan.roles):
         r, jacs, w, c2 = linearize_batch(fb, graph.blocks)
         chi2 = chi2 + c2
@@ -255,6 +274,8 @@ def ba_assemble(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "la
             g_parts.append(_tmv(J, wr))
         if role == "obs":
             Ws.append(_jtwj(jacs[0], w, jacs[1]))
+        elif role == "obs_lp":
+            Ws.append(_jtwj(jacs[1], w, jacs[0]))
         elif role == "pp":
             # the off-diagonal pose-pose coupling stays per factor: the S
             # solve applies it (dense scatter or two segment sums a product)

@@ -21,7 +21,8 @@ import torch
 from pyslam_tpu_torch.graph import FactorBatch, FactorGraph, build
 from pyslam_tpu_torch.io import synth
 from pyslam_tpu_torch.losses import CauchyLoss, HuberLoss, L1Loss, L2Loss, TDistributionLoss, TukeyLoss
-from pyslam_tpu_torch.solver import assemble, bcsr, cuda_ops, linear, lm, schur
+from pyslam_tpu_torch import solver
+from pyslam_tpu_torch.solver import assemble, bcsr, cuda_ops, linear, lm, schur, schur_sparse, sparse_chol
 from pyslam_tpu_torch.solver.cuda_ops import (
     ell_assemble,
     ell_assemble_plain,
@@ -523,3 +524,97 @@ def test_solve_schur_on_the_card_matches_the_cpu_path(cuda_device, name, mode):
     assert abs(i_g.chi2.item() - i_c.chi2.item()) <= 1e-9 * i_c.chi2.item()
     for n in s_c.blocks:
         assert (s_g.blocks[n].values.cpu() - s_c.blocks[n].values).abs().max().item() <= 1e-6
+
+
+# --------------------------------------------------------------------------
+# The sparse direct paths: sparse_chol, schur_sparse, and the batched fleet
+# --------------------------------------------------------------------------
+
+
+def _manhattan(n_poses, dtype, device):
+    return build.pose_graph(synth.se2_manhattan(n_poses=n_poses, seed=4), dtype=dtype, device=device)
+
+
+def _check_slot_plan(device, perm, offsets, n_slots, C, dtype, seed):
+    """``slot_reduce`` against its plain version on random rows at one
+    plan, two runs bitwise equal."""
+    E = perm.shape[0]
+    contrib = torch.from_numpy(np.random.default_rng(seed).normal(size=(E, C))).to(device, dtype)
+    cuda_ops.reset_launches()
+    out = slot_reduce(contrib, perm, offsets, n_slots)
+    again = slot_reduce(contrib, perm, offsets, n_slots)
+    ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["slot_reduce"] == 2
+    assert torch.equal(out, again)
+    _assert_close(out, ref, KERNEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slot_reduce_at_the_forward_solve_plans_of_sparse_chol(cuda_device, dtype):
+    """Every wave's sum of the multifrontal forward solve (boundary rows by
+    variable, the pad row as the last destination)."""
+    plan = sparse_chol.build_chol_plan(_manhattan(600, dtype, cuda_device))
+    waves = [w for w in sparse_chol._device_waves(plan, cuda_device) if w.fwd_dest.numel()]
+    assert len(waves) > 5
+    for i, w in enumerate(waves):
+        _check_slot_plan(cuda_device, w.fwd_perm, w.fwd_offsets, w.fwd_slots, plan.d, dtype, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slot_reduce_at_the_S_plan_of_schur_sparse(cuda_device, dtype):
+    """The assembly of S: [Hpp, PP, PP^T, -pair blocks] into the ELL slots."""
+    g = build.landmark_slam_2d(synth.landmark_slam_2d(n_poses=300, n_landmarks=60, max_range=6.0, seed=0),
+                               dtype=dtype, device=cuda_device)
+    plan = schur_sparse.build_schur_sparse_plan(g)
+    t = schur_sparse.plan_tables(plan, cuda_device)
+    assert plan.n_pairs > 1000
+    _check_slot_plan(cuda_device, t.perm, t.offsets, t.n_slots, plan.dp * plan.dp, dtype, 7)
+
+
+def _repeats_and_matches_cpu(run, make):
+    """Two runs on the card give the same bits, through slot_reduce and no
+    plain version, with one host read an LM iteration; in f64 the CPU path's
+    iterations, accept sequence and chi2 (1e-9 relative)."""
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    s1, i1 = run(make("cuda"))
+    assert linear.HOST_READS == {"pcg": 0, "lm": i1.iterations}
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    s2, i2 = run(make("cuda"))
+    assert torch.equal(i1.chi2, i2.chi2)
+    for n in s1.blocks:
+        assert torch.equal(s1.blocks[n].values, s2.blocks[n].values)
+    s_c, i_c = run(make("cpu"))
+    assert (i1.iterations, i1.status) == (i_c.iterations, i_c.status)
+    assert i1.accepted.cpu().tolist() == i_c.accepted.tolist()
+    assert abs(i1.chi2.item() - i_c.chi2.item()) <= 1e-9 * i_c.chi2.item()
+
+
+def test_solve_sparse_chol_on_the_card_repeats_bit_for_bit(cuda_device):
+    _repeats_and_matches_cpu(lambda g: sparse_chol.solve_sparse_chol(g, Options(method="lm", max_iters=20)),
+                             lambda device: _manhattan(600, torch.float64, device))
+
+
+def test_solve_schur_sparse_on_the_card_repeats_bit_for_bit(cuda_device):
+    data = synth.landmark_slam_2d(n_poses=300, n_landmarks=60, max_range=6.0, seed=0)
+    _repeats_and_matches_cpu(lambda g: schur_sparse.solve_schur_sparse(g, Options(method="lm", max_iters=20)),
+                             lambda device: build.landmark_slam_2d(data, dtype=torch.float64, device=device))
+
+
+def test_solve_batched_on_the_card_matches_the_cpu_path(cuda_device):
+    datas = [synth.se2_loop(n_poses=40, n_loops=5, seed=s) for s in range(6)]
+    opts = Options(method="lm", max_iters=30)
+    res = {}
+    for device in ("cpu", cuda_device):
+        linear.reset_host_reads()
+        cuda_ops.reset_launches()
+        res[str(device)] = solver.solve_batched(
+            [build.pose_graph(d, dtype=torch.float64, device=device) for d in datas], opts, return_info=True)
+        assert linear.HOST_READS["lm"] == max(res[str(device)][2].iterations)
+    (v_c, c_c, i_c), (v_g, c_g, i_g) = res["cpu"], res[str(cuda_device)]
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    assert i_g.iterations == i_c.iterations and i_g.status == i_c.status
+    assert torch.equal(i_g.accepted.cpu(), i_c.accepted)
+    _assert_close(c_g.cpu(), c_c, 1e-9)
+    _assert_close(v_g["poses"].cpu(), v_c["poses"], 1e-9)

@@ -37,6 +37,11 @@ def test_import_leaves_jax_out():
         "import pyslam_tpu_torch.solver.cuda_ops, pyslam_tpu_torch._ext\n"
         "import pyslam_tpu_torch.sensors, pyslam_tpu_torch.io.bal, pyslam_tpu_torch.solver.schur\n"
         "import pyslam_tpu_torch.graph.build, pyslam_tpu_torch.graph.convert, pyslam_tpu_torch.graph.factor_defs\n"
+        "import pyslam_tpu_torch.solver.plan_cache, pyslam_tpu_torch.solver.sparse_chol\n"
+        "import pyslam_tpu_torch.solver.schur_sparse, pyslam_tpu_torch.solver.batched\n"
+        "from pyslam_tpu_torch.solver import route_auto, solve_auto, solve_batched, solve_sparse_chol\n"
+        "from pyslam_tpu_torch.solver import build_chol_plan, sparse_chol_solve, solve_schur_sparse\n"
+        "from pyslam_tpu_torch.solver import build_schur_sparse_plan\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"

@@ -251,7 +251,9 @@ def test_segment_sums_go_through_slot_reduce():
 
 
 BAD_GRAPHS = {
-    "slots": (lambda fb: dataclasses.replace(fb, slots=("landmarks", "poses"), indices=fb.indices[::-1]),
+    # (landmark, pose) is taken since the sparse Schur path (an observation
+    # batch in the other slot order); a (landmark, landmark) batch is not
+    "slots": (lambda fb: dataclasses.replace(fb, slots=("landmarks", "landmarks"), indices=fb.indices[::-1]),
               "unsupported slot pattern"),
     "camera_index": (lambda fb: dataclasses.replace(fb, indices=(fb.indices[0].clone().fill_(8), fb.indices[1])),
                      "out of range"),

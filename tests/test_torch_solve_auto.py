@@ -1,0 +1,401 @@
+"""The structure dispatch (``route_auto``, ``solve_auto``) and the batched
+fleet solve (``solve_batched``) of the torch port against the JAX
+reference, in f64 on the CPU.
+
+* ``route_auto``: the same route name as the reference on every
+  single-chip graph of the reference's route tests (shape-only stand-ins at
+  Venice / Dubrovnik scale, and real graphs carried across with
+  ``graph_from_numpy``; the large ones are built, never solved).  The one
+  pinned difference: a graph whose observation batch names the landmark
+  first is bundle adjustment to the port and not to the reference.
+* ``solve_auto``: each ported route end to end on a small graph gives the
+  bits of the solver it names; the routes that are not ported and every
+  mesh raise NotImplementedError.
+* ``solve_batched``: each problem's chi2 within 1e-10 relative of the
+  reference's ``solve_batched`` and of its own ``solve``, values within
+  1e-10, the same iteration count, stop code and accept sequence.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_assembly import to_port
+
+import pyslam_tpu.solver as jsolver
+from pyslam_tpu.graph import build as jbuild
+from pyslam_tpu.graph.core import FACTOR_KERNELS as J_FACTOR_KERNELS
+from pyslam_tpu.graph.core import FactorBatch as JFactorBatch
+from pyslam_tpu.graph.core import FactorGraph as JFactorGraph
+from pyslam_tpu.graph.core import VariableBlock as JVariableBlock
+from pyslam_tpu.graph.core import register_factor as j_register_factor
+from pyslam_tpu.io import bal as jbal
+from pyslam_tpu.io import synth as jsynth
+from pyslam_tpu.losses import L2Loss as JL2
+from pyslam_tpu.sensors import StereoCamera as JStereo
+from pyslam_tpu.solver import lm as jlm
+from pyslam_tpu_torch.graph import FactorGraph
+from pyslam_tpu_torch.graph.core import FACTOR_KERNELS, register_factor
+from pyslam_tpu_torch.io import synth as tsynth
+from pyslam_tpu_torch.graph import build as tbuild
+from pyslam_tpu_torch.losses import CauchyLoss
+from pyslam_tpu_torch.solver import (
+    bcsr,
+    lm as tlm,
+    route_auto,
+    schur,
+    schur_sparse,
+    solve_auto,
+    solve_batched,
+    sparse_chol,
+)
+from pyslam_tpu_torch.solver.linear import HOST_READS, reset_host_reads
+
+F64 = jnp.float64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _unload_compiled_programs():
+    """The reference's solves here compile a program per plan; XLA:CPU
+    aborts once a few hundred are loaded in one process (tests/conftest.py),
+    so they are dropped when the module is done."""
+    yield
+    jax.clear_caches()
+
+
+# --------------------------------------------------------------------------
+# Shape-only stand-ins (the reference's route tests), read by both routers
+# --------------------------------------------------------------------------
+
+
+class _FakeBatch:
+    def __init__(self, slots, n):
+        self.slots = slots
+        self.n = n
+
+
+class _FakeBlock:
+    def __init__(self, kind, n, dof, itemsize=4):
+        self.kind = kind
+        self.n = n
+        self.dof = dof
+        self.values = np.zeros((), dtype=np.float32 if itemsize == 4 else np.float64)
+
+
+class _FakeGraph:
+    def __init__(self, blocks, batches):
+        self.blocks = blocks
+        self.batches = batches
+
+    @property
+    def total_dof(self):
+        return sum(b.n * b.dof for b in self.blocks.values())
+
+
+def fake_pose_graph(n_poses, d=6, n_edges=None):
+    blocks = {"poses": _FakeBlock("se3" if d == 6 else "se2", n_poses, d)}
+    return _FakeGraph(blocks, [_FakeBatch(("poses", "poses"), n_edges or int(n_poses * 1.5))])
+
+
+def fake_ba_graph(n_cams, n_pts, n_obs):
+    blocks = {"poses": _FakeBlock("se3", n_cams, 6), "landmarks": _FakeBlock("euclidean", n_pts, 3)}
+    return _FakeGraph(blocks, [_FakeBatch(("poses", "landmarks"), n_obs)])
+
+
+FAKE = {
+    "small_pose_graph": lambda: fake_pose_graph(200),
+    "large_pose_graph": lambda: fake_pose_graph(50_000),
+    "small_ba": lambda: fake_ba_graph(49, 7_000, 30_000),
+    "many_camera_ba": lambda: fake_ba_graph(5_000, 100_000, 500_000),
+    "dubrovnik_class": lambda: fake_ba_graph(300, 3_000_000, 1_500_000),
+    "venice_class": lambda: fake_ba_graph(1_700, 1_000_000, 4_650_000),
+    "large_2d_graph": lambda: fake_pose_graph(20_000, d=3),
+    "large_3d_graph": lambda: fake_pose_graph(50_000, d=6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAKE))
+def test_route_of_shape_only_graphs_is_the_reference_route(name):
+    g = FAKE[name]()
+    assert route_auto(g) == jsolver.route_auto(g)
+
+
+# --------------------------------------------------------------------------
+# Real graphs
+# --------------------------------------------------------------------------
+
+
+def _dense_coobservation():
+    """Many cameras all sharing a few landmarks: S is dense."""
+    rng = np.random.default_rng(0)
+    C, L, M = 1500, 40, 9000
+    blocks = {
+        "poses": JVariableBlock.create("se3", jnp.asarray(np.tile(np.eye(4), (C, 1, 1))), None),
+        "landmarks": JVariableBlock.create("euclidean", jnp.asarray(rng.normal(size=(L, 3)))),
+    }
+    batch = JFactorBatch.create(
+        "reprojection", ("poses", "landmarks"), (rng.integers(0, C, M), rng.integers(0, L, M)),
+        {"obs": jnp.asarray(rng.normal(size=(M, 3))), "sqrt_info": jnp.eye(3),
+         "camera": JStereo(cu=0.0, cv=0.0, fu=1.0, fv=1.0, b=0.1)},
+        JL2(),
+    )
+    return JFactorGraph(blocks, [batch])
+
+
+def _ba_without_observations():
+    """Pose and landmark blocks, (pose, pose) factors only: no Schur shape."""
+    rng = np.random.default_rng(0)
+    C = 1500
+    blocks = {
+        "poses": JVariableBlock.create("se3", jnp.asarray(np.tile(np.eye(4), (C, 1, 1)))),
+        "landmarks": JVariableBlock.create("euclidean", jnp.asarray(rng.normal(size=(5, 3)))),
+    }
+    batch = JFactorBatch.create(
+        "between_se3", ("poses", "poses"), (np.arange(C - 1), np.arange(1, C)),
+        {"T_obs": jnp.asarray(np.tile(np.eye(4), (C - 1, 1, 1))),
+         "sqrt_info": jnp.asarray(np.tile(np.eye(6), (C - 1, 1, 1)))},
+        JL2(),
+    )
+    return JFactorGraph(blocks, [batch])
+
+
+def _mono(cam_cluster, dtype):
+    return jbuild.bal_graph(jbal.perturbed(jbal.synthetic_bal(n_cams=6, n_pts=50, seed=0, cam_cluster=cam_cluster)),
+                            dtype=dtype)
+
+
+REAL = {
+    # name: (builder of the reference graph, dtype of the port's copy, route_auto keywords)
+    "se2_loop_40": (lambda: jbuild.pose_graph(jsynth.se2_loop(n_poses=40, n_loops=6, seed=3), dtype=F64),
+                    torch.float64, {}),
+    "se2_loop_60_small_dense_limit": (
+        lambda: jbuild.pose_graph(jsynth.se2_loop(n_poses=60, n_loops=8, seed=1), dtype=F64), torch.float64,
+        dict(dense_dof_limit=100)),
+    "ba_small": (lambda: jbuild.ba_graph(jsynth.ba_synthetic(n_cams=6, n_pts=40, obs_per_pt=4, seed=8), dtype=F64),
+                 torch.float64, {}),
+    "ba_small_over_hpl_budget": (
+        lambda: jbuild.ba_graph(jsynth.ba_synthetic(n_cams=6, n_pts=40, obs_per_pt=4, seed=8), dtype=F64),
+        torch.float64, dict(dense_hpl_budget_bytes=100)),
+    "stereo_clustered_f32": (
+        lambda: jbuild.ba_graph(jsynth.ba_synthetic(n_cams=6, n_pts=40, obs_per_pt=4, seed=8, cam_cluster=0.05),
+                                dtype=jnp.float32), torch.float32, {}),
+    "mono_clustered_f32": (lambda: _mono(0.05, jnp.float32), torch.float32, {}),
+    "mono_ring_f32": (lambda: _mono(None, jnp.float32), torch.float32, {}),
+    "mono_clustered_f64": (lambda: _mono(0.05, F64), torch.float64, {}),
+    "bal9": (lambda: jbuild.bal_graph(jbal.perturbed(jbal.synthetic_bal(n_cams=6, n_pts=60, seed=2)), dtype=F64,
+                                      optimize_intrinsics=True), torch.float64, {}),
+    "landmark_slam_30": (lambda: jbuild.landmark_slam_2d(jsynth.landmark_slam_2d(n_poses=30, n_landmarks=20, seed=1)),
+                         torch.float32, {}),
+    "landmark_slam_2000": (lambda: jbuild.landmark_slam_2d(jsynth.landmark_slam_2d(
+        n_poses=2000, n_landmarks=300, max_range=10.0, odo_rot_std=0.005, seed=0)), torch.float32, {}),
+    "landmark_slam_60_over_hpl_budget": (
+        lambda: jbuild.landmark_slam_2d(jsynth.landmark_slam_2d(n_poses=60, n_landmarks=40, max_range=4.0, seed=3),
+                                        dtype=F64), torch.float64, dict(dense_hpl_budget_bytes=1)),
+    "dense_coobservation": (_dense_coobservation, torch.float64, {}),
+    "ba_without_observations": (_ba_without_observations, torch.float64, {}),
+}
+
+EXPECTED = {
+    "se2_loop_40": "dense", "se2_loop_60_small_dense_limit": "sparse_chol", "ba_small": "schur_dense",
+    "ba_small_over_hpl_budget": "schur_pcg", "stereo_clustered_f32": "schur_dense",
+    "mono_clustered_f32": "schur_sqrt", "mono_ring_f32": "schur_dense", "mono_clustered_f64": "schur_dense",
+    "bal9": "schur_dense", "landmark_slam_30": "schur_dense", "landmark_slam_2000": "schur_sparse",
+    "landmark_slam_60_over_hpl_budget": "schur_sparse", "dense_coobservation": "schur_pcg",
+    "ba_without_observations": "dense",
+}
+
+
+@functools.cache
+def real(name):
+    make, dtype, kw = REAL[name]
+    jg = make()
+    return jg, to_port(jg, dtype=dtype), kw
+
+
+@pytest.mark.parametrize("name", sorted(REAL))
+def test_route_of_real_graphs_is_the_reference_route(name):
+    jg, tg, kw = real(name)
+    assert jsolver.route_auto(jg, **kw) == EXPECTED[name]
+    assert route_auto(tg, **kw) == EXPECTED[name]
+
+
+# --------------------------------------------------------------------------
+# The is_ba repair: an observation batch that names the landmark first
+# --------------------------------------------------------------------------
+
+
+@register_factor("bearing_range_se2_landmark_first")
+def _landmark_first_kernel(data, lm, pose, compute_jacobians=True):
+    r, jacs = FACTOR_KERNELS["bearing_range_se2"](data, pose, lm, compute_jacobians=compute_jacobians)
+    return r, jacs[::-1]
+
+
+@j_register_factor("bearing_range_se2_landmark_first")
+def _j_landmark_first_kernel(data, lm, pose, compute_jacobians=True):
+    r, jacs = J_FACTOR_KERNELS["bearing_range_se2"](data, pose, lm, compute_jacobians=compute_jacobians)
+    return r, jacs[::-1]
+
+
+def _landmark_first(batches):
+    return [dataclasses.replace(fb, kind=fb.kind + "_landmark_first", slots=fb.slots[::-1], indices=fb.indices[::-1])
+            if fb.slots == ("poses", "landmarks") else fb for fb in batches]
+
+
+def test_is_ba_divergence_landmark_first():
+    """The reference's ``is_ba`` gate sees only (pose, landmark) batches and
+    sends a graph whose observations name the landmark first to the dense
+    path; the port takes either order to the Schur routes, and the solve
+    reaches the dense path's optimum."""
+    jg, tg, _ = real("landmark_slam_60_over_hpl_budget")
+    jswap = JFactorGraph(jg.blocks, _landmark_first(jg.batches))
+    tswap = FactorGraph(tg.blocks, _landmark_first(tg.batches))
+    assert (jsolver.route_auto(jg), route_auto(tg)) == ("schur_dense", "schur_dense")
+    assert (jsolver.route_auto(jswap), route_auto(tswap)) == ("dense", "schur_dense")
+    kw = dict(dense_hpl_budget_bytes=1)
+    assert (jsolver.route_auto(jswap, **kw), route_auto(tswap, **kw)) == ("dense", "schur_sparse")
+    opts = tlm.Options(method="lm", max_iters=20)
+    _, info = solve_auto(tswap, opts, **kw)
+    _, ref = tlm.solve(tswap, opts)
+    _, info_orig = solve_auto(tg, opts, **kw)
+    assert torch.equal(info.chi2, info_orig.chi2)
+    np.testing.assert_allclose(info.chi2.item(), ref.chi2.item(), rtol=1e-9)
+
+
+# --------------------------------------------------------------------------
+# solve_auto end to end
+# --------------------------------------------------------------------------
+
+ROUTES = {
+    "dense": ("se2_loop_40", lambda g, o, **kw: tlm.solve(g, o)),
+    "sparse_chol": ("se2_loop_60_small_dense_limit", lambda g, o, **kw: sparse_chol.solve_sparse_chol(g, o)),
+    "schur_dense": ("ba_small", lambda g, o, **kw: schur.solve_schur(g, o, mode="dense")),
+    "schur_pcg": ("ba_small_over_hpl_budget", lambda g, o, **kw: schur.solve_schur(g, o, mode="pcg")),
+    "schur_sparse": ("landmark_slam_60_over_hpl_budget", lambda g, o, **kw: schur_sparse.solve_schur_sparse(g, o)),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_solve_auto_runs_the_routed_solver(route):
+    name, direct = ROUTES[route]
+    _, tg, kw = real(name)
+    assert route_auto(tg, **kw) == route
+    opts = tlm.Options(method="lm", max_iters=20)
+    reset_host_reads()
+    solved, info = solve_auto(tg, opts, **kw)
+    assert HOST_READS["lm"] == info.iterations
+    ref_solved, ref = direct(tg, opts)
+    assert info.iterations == ref.iterations and torch.equal(info.chi2, ref.chi2)
+    for n, b in solved.blocks.items():
+        assert torch.equal(b.values, ref_solved.blocks[n].values)
+    assert info.chi2.item() < 0.5 * info.cost_history[0].item()
+
+
+def test_solve_auto_ell_route():
+    """An SE(3) pose graph beyond the dense limit takes ``solve_ell``."""
+    g = tbuild.pose_graph(tsynth.se3_sphere(n_poses=40, seed=2), dtype=torch.float64, device="cpu")
+    assert route_auto(g, dense_dof_limit=100) == "ell"
+    opts = tlm.Options(method="lm", max_iters=10)
+    _, info = solve_auto(g, opts, dense_dof_limit=100)
+    _, ref = bcsr.solve_ell(g, opts)
+    assert torch.equal(info.chi2, ref.chi2)
+
+
+def test_solve_auto_refuses_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="item 15"):
+        solve_auto(FAKE["venice_class"]())
+    _, tg, _ = real("mono_clustered_f32")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        solve_auto(tg)
+    _, tg, _ = real("se2_loop_40")
+    for fn in (route_auto, solve_auto):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            fn(tg, mesh=object())
+
+
+# --------------------------------------------------------------------------
+# solve_batched
+# --------------------------------------------------------------------------
+
+
+@functools.cache
+def fleet(n_poses=20, n_loops=3, count=5):
+    jgs = [jbuild.pose_graph(jsynth.se2_loop(n_poses=n_poses, n_loops=n_loops, seed=s), dtype=F64)
+           for s in range(count)]
+    return jgs, [to_port(g) for g in jgs]
+
+
+def _check_against_single_solves(tgs, values, chi2, info, opts):
+    for i, g in enumerate(tgs):
+        s, ref = tlm.solve(g, opts)
+        assert info.iterations[i] == ref.iterations and info.status[i] == ref.status
+        np.testing.assert_array_equal(info.accepted[i].numpy(), ref.accepted.numpy())
+        np.testing.assert_allclose(chi2[i].item(), ref.chi2.item(), rtol=1e-10)
+        np.testing.assert_allclose(info.cost_history[i].numpy(), ref.cost_history.numpy(), rtol=1e-10)
+        np.testing.assert_allclose(info.lambda_history[i].numpy(), ref.lambda_history.numpy(), rtol=1e-12)
+        np.testing.assert_allclose(values["poses"][i].numpy(), s.blocks["poses"].values.numpy(), rtol=0, atol=1e-10)
+
+
+def test_solve_batched_matches_reference_and_single_solves():
+    jgs, tgs = fleet()
+    opts = dict(method="lm", max_iters=25)
+    jvalues, jchi2 = jsolver.solve_batched(jgs, jlm.Options(**opts))
+    reset_host_reads()
+    values, chi2, info = solve_batched(tgs, tlm.Options(**opts), return_info=True)
+    assert HOST_READS["lm"] == max(info.iterations)  # one read of the fleet an iteration
+    assert values["poses"].shape == (5, 20, 3, 3) and chi2.shape == (5,)
+    np.testing.assert_allclose(chi2.numpy(), np.asarray(jchi2), rtol=1e-10)
+    np.testing.assert_allclose(values["poses"].numpy(), np.asarray(jvalues["poses"]), rtol=0, atol=1e-10)
+    _check_against_single_solves(tgs, values, chi2, info, tlm.Options(**opts))
+
+
+OPTIONS = {
+    "gn": dict(method="gn", max_iters=20),
+    "lm_not_speculative": dict(method="lm", max_iters=20, speculative=False),
+    # a start far from the optimum and a tiny first lambda: rejected steps
+    "lm_rejections": dict(method="lm", max_iters=30, lambda_init=1e-9, min_cost_decrease=0.999999),
+    "lm_one_iteration": dict(method="lm", max_iters=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_solve_batched_follows_each_single_solve(name):
+    """Problems of a fleet that stop at different iterations, with
+    rejections, in every supported mode: each follows its own ``solve``."""
+    datas = [tsynth.se2_loop(n_poses=30, n_loops=4, odo_rot_std=0.05 * (1 + s), seed=s) for s in range(4)]
+    tgs = [tbuild.pose_graph(d, loss=CauchyLoss(1.0), dtype=torch.float64, device="cpu") for d in datas]
+    opts = tlm.Options(**OPTIONS[name])
+    values, chi2, info = solve_batched(tgs, opts, return_info=True)
+    _check_against_single_solves(tgs, values, chi2, info, opts)
+    if name == "lm_rejections":
+        assert not info.accepted.all() and len(set(info.iterations)) > 1
+
+
+def test_solve_batched_takes_a_stacked_graph_and_refuses_mixed_structure():
+    _, tgs = fleet()
+    opts = tlm.Options(method="lm", max_iters=25)
+    v_list, c_list = solve_batched(tgs, opts)
+    g0 = tgs[0]
+
+    def stack(get):
+        return torch.stack([get(g) for g in tgs])
+
+    stacked = FactorGraph(
+        {n: dataclasses.replace(b, values=stack(lambda g: g.blocks[n].values),
+                                const_mask=stack(lambda g: g.blocks[n].const_mask))
+         for n, b in g0.blocks.items()},
+        [dataclasses.replace(fb, indices=tuple(stack(lambda g: g.batches[k].indices[s]) for s in range(len(fb.slots))),
+                             data={key: stack(lambda g: g.batches[k].data[key]) for key in fb.data},
+                             weight=stack(lambda g: g.batches[k].weight))
+         for k, fb in enumerate(g0.batches)],
+    )
+    v_stacked, c_stacked = solve_batched(stacked, opts)
+    assert torch.equal(c_list, c_stacked) and torch.equal(v_list["poses"], v_stacked["poses"])
+    other = tbuild.pose_graph(tsynth.se2_loop(n_poses=21, n_loops=3, seed=0), dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="differ"):
+        solve_batched([tgs[0], other], opts)
+    with pytest.raises(NotImplementedError, match="dogleg"):
+        solve_batched(tgs, tlm.Options(method="dogleg"))
