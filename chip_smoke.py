@@ -38,7 +38,20 @@ that it reaches its converged cost and went through the kernels:
   * ``solve_batched`` on a fleet of 16 ``se2_loop(100)`` graphs against 16
     single solves (chi2 1e-4 relative in f32; in f64 the same LM
     iterations, stop codes and accept sequences, chi2 1e-10 relative);
-  * small f64 cross-checks of the card's path against the CPU path.
+  * small f64 cross-checks of the card's path against the CPU path;
+  * Venice-mini (bench config 5's problem, ``ba_synthetic(300, 60000,
+    obs_per_pt=6)``) through ``solve_schur_large``: f32 PCG 1e-4 / 30 and
+    LM 15 under 1.001 x ``venice_mini_ref``, f32 ``linear="dense"``, and
+    f64 ``linear="dense"`` with the settings that produced that reference
+    (``scripts/venice_mini_ref.py``), within 1e-6 of it;
+  * bench config 6 at full size (1,700 cameras, 1,000,000 points, 4,650,850
+    observations; n_chunks 128, PCG 1e-4 / 12, LM 10) through
+    ``prepare_large_ba`` + ``solve_schur_large`` after a one-iteration
+    warm-up, under 1.001 x ``venice_full_conv``, with ``route_auto`` naming
+    ``schur_large`` and ``solve_auto`` running it; ``slot_reduce``'s two
+    kernels at its sums by camera and by landmark, each against the plain
+    version and a second run; its data generation takes 30 to 50 s of host
+    numpy.
 
 Run from the repository root, with no arguments, on a machine with a
 CUDA device and ``nvcc``:
@@ -372,6 +385,66 @@ def index_add_library(contrib, perm, offsets, n_slots):
     return call
 
 
+def slot_reduce_kernel(contrib, perm, offsets, n_slots, long):
+    """One of ``slot_reduce``'s two kernels by name, through the library's
+    entry points (``long``: a block a destination, else a sub-warp), for
+    the measurements that compare the two; the call counts no launch.  The
+    arguments are ``cuda_ops.slot_reduce``'s, on the card, n_slots > 0."""
+    import torch
+
+    from pyslam_tpu_torch import _ext
+    from pyslam_tpu_torch.solver import cuda_ops
+
+    out = torch.empty((n_slots, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
+    fn_name = f"pyslam_slot_reduce_{'long_' if long else ''}{cuda_ops._SUFFIX[contrib.dtype]}"
+    err = getattr(_ext.library(), fn_name)(
+        contrib.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), n_slots, contrib.shape[1],
+        torch.cuda.current_stream(contrib.device).cuda_stream,
+    )
+    cuda_ops._raise_on_error(fn_name, err)
+    return out
+
+
+def check_slot_venice(label, contrib, seg, report):
+    """``slot_reduce`` on one Venice-scale plan: each of its two kernels
+    against the plain version in f32 and f64 and bit for bit against a
+    second run, then the device time of each kernel, of the plain version
+    and of ``index_add_`` beside the call's bound.  The kernel that the
+    shape picks (``slot_reduce_is_long``) gives the kernels line its time
+    (key ``config6_<label>``); the other kernel's time is printed beside."""
+    import torch
+
+    from pyslam_tpu_torch.solver import cuda_ops
+
+    E, width = contrib.shape
+    args = [contrib, seg.perm, seg.offsets, seg.n_slots]
+    picked = cuda_ops.slot_reduce_is_long(E, seg.n_slots)
+    times = {}
+    for long in (True, False):
+        name = "block a destination" if long else "sub-warp a destination"
+        for dtype in (torch.float32, torch.float64):
+            a = [contrib.to(dtype), *args[1:]]
+            out = slot_reduce_kernel(*a, long)
+            again = slot_reduce_kernel(*a, long)
+            ref = cuda_ops.slot_reduce_plain(*a)
+            torch.cuda.synchronize()
+            err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+            tname = str(dtype).split(".")[-1]
+            log(f"slot_reduce {label} [{name}] {tname}: max_abs_err {err!r} max|ref| {scale!r}")
+            check(torch.equal(out, again), f"slot_reduce {label} [{name}] {tname}: two runs differ")
+            check(err <= REL_TOL[tname] * scale, f"slot_reduce {label} [{name}] {tname}: error {err}")
+            if dtype is torch.float32 and long == picked:
+                report["slot_reduce"]["max_abs_err"] = max(report["slot_reduce"]["max_abs_err"], err)
+        times[long] = median_ms(lambda *b: slot_reduce_kernel(*b, long), args, calls=10, inner=5)
+    lib = index_add_library(*args)
+    n_bytes = tensor_bytes(contrib, seg.perm, seg.offsets) + seg.n_slots * width * 4
+    add_times(report, "slot_reduce", f"config6_{label.split()[-1].replace('=', '')}_ms",
+              dict(ms=times[picked], plain_ms=median_ms(cuda_ops.slot_reduce_plain, args, calls=5),
+                   library_ms=median_ms(lib, (), calls=10)), n_bytes, contrib.numel())
+    log(f"slot_reduce {label}: block a destination {times[True]!r} ms, sub-warp a destination {times[False]!r} ms; "
+        f"the shape picks the {'block' if picked else 'sub-warp'} kernel")
+
+
 def main() -> int:
     import tempfile
 
@@ -379,6 +452,7 @@ def main() -> int:
     import torch
 
     # ---- phase 1: device -------------------------------------------------
+    t_start = time.perf_counter()
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no GPU to run on")
     import pyslam_tpu_torch  # noqa: F401  (sets the TF32 flags)
     from pyslam_tpu_torch import _ext
@@ -391,6 +465,7 @@ def main() -> int:
         linear,
         route_auto,
         schur,
+        schur_large,
         schur_sparse,
         solve_auto,
         solve_batched,
@@ -951,8 +1026,8 @@ def main() -> int:
     check(errs["sparse float64"] <= 1e-8, f"schur_sparse_2000: the f64 step is {errs['sparse float64']} from dense")
     # slot_reduce at the assemble_S_ell plan, on the first linear system's blocks
     parts_2k, _, _ = schur.ba_assemble(g_2k)
-    Hpp_2k, L_2k, W_2k, _ = schur._schur_reduce(parts_2k, torch.tensor(1e-4, device=dev), "lm")
-    Cp = W_2k[tables.pair_a] @ schur._binv(L_2k)[tables.pair_l] @ W_2k[tables.pair_b].transpose(-1, -2)
+    Hpp_2k, Hll_inv_2k, W_2k, _ = schur._schur_reduce(parts_2k, torch.tensor(1e-4, device=dev), "lm")
+    Cp = W_2k[tables.pair_a] @ Hll_inv_2k[tables.pair_l] @ W_2k[tables.pair_b].transpose(-1, -2)
     PP_2k = parts_2k["PP"]
     contrib = torch.cat([Hpp_2k, PP_2k, PP_2k.transpose(-1, -2), -Cp]).reshape(-1, 9).contiguous()
     log(f"schur_sparse assemble_S_ell: contributions {tuple(contrib.shape)} into {tables.n_slots} ELL slots")
@@ -1017,6 +1092,136 @@ def main() -> int:
                                                   Options(method="lm", max_iters=30), leaf_size=8)[::-1]
            for where in ("cpu", "cuda")}
     cross_check("landmark_slam_2d(40, 25) solve_schur_sparse", res)
+    log(f"phases 1-18: {time.perf_counter() - t_start!r} s")
+
+    # ---- phase 19: Venice-mini (config 5's problem) through solve_schur_large
+    t_phase = time.perf_counter()
+    vm = synth.ba_synthetic(n_cams=300, n_pts=60000, obs_per_pt=6, seed=0)
+    g_vm = build.ba_graph(vm)
+    opts_vm = Options(method="lm", max_iters=15)
+
+    def run_vm(**kw):
+        solved, chi2, hist = schur_large.solve_schur_large(g_vm, opts_vm, **kw)
+        return solved, chi2, hist, solved.blocks["poses"].values[0, 0, 0].item()
+
+    for linear_vm, kw_vm in (("pcg", dict(pcg_rtol=1e-4, pcg_max_iters=30)), ("dense", dict(linear="dense"))):
+        path = f"venice_mini_{linear_vm}"
+        run_vm(**kw_vm)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        schur_large.reset_cg_iterations()
+        t0 = time.perf_counter()
+        (solved_vm, chi2_vm, hist_vm, _), launches, reads = drive(path, lambda: run_vm(**kw_vm), ("slot_reduce",))
+        wall = time.perf_counter() - t0
+        cg = schur_large.cg_iterations()
+        log(f"solve {path} f32 (300 cameras, 60,000 points, {g_vm.batches[0].n} observations): wall {1e3 * wall!r} "
+            f"ms, LM iterations {reads['lm'] - 1}, accepted {len(hist_vm) - 1}, chi2 {hist_vm[0]!r} -> {chi2_vm!r}, "
+            f"CG iterations per linear solve {cg}, host reads {reads}, launches {launches}, peak memory "
+            f"{torch.cuda.max_memory_allocated()} B")
+        if linear_vm == "pcg":
+            gate("venice_mini f32 pcg", chi2_vm, 1.001, standin["venice_mini_ref"]["chi2"])
+        else:
+            check(np.isfinite(chi2_vm) and chi2_vm < 0.01 * hist_vm[0], f"{path}: chi2 {hist_vm[0]} -> {chi2_vm}")
+        check_poses(path, solved_vm, (300, 4, 4))
+    # the settings that produced venice_mini_ref (scripts/venice_mini_ref.py), in f64
+    t0 = time.perf_counter()
+    _, chi2_vm64, hist_vm64 = schur_large.solve_schur_large(
+        build.ba_graph(vm, dtype=torch.float64), Options(method="lm", max_iters=60, min_cost_decrease=1.0 - 1e-9),
+        n_chunks=16, linear="dense")
+    ref_vm = standin["venice_mini_ref"]["chi2"]
+    gap_vm = abs(chi2_vm64 - ref_vm) / ref_vm
+    log(f"venice_mini f64 dense to convergence: chi2 {chi2_vm64!r} in {len(hist_vm64) - 1} accepted steps "
+        f"({time.perf_counter() - t0!r} s); venice_mini_ref {ref_vm!r}, relative gap {gap_vm!r}")
+    check(gap_vm <= 1e-6, f"venice_mini f64 dense: chi2 {chi2_vm64} is {gap_vm} from {ref_vm}")
+    log(f"phase 19 (Venice-mini): {time.perf_counter() - t_phase!r} s")
+
+    # ---- phase 20: bench config 6 at full size ------------------------------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    v6 = synth.ba_synthetic(n_cams=1700, n_pts=1_000_000, obs_per_pt=5, seed=0)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_6 = build.ba_graph(v6)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_obs6 = g_6.batches[0].n
+    check((g_6.blocks["poses"].n, g_6.blocks["landmarks"].n, n_obs6) == (1700, 1_000_000, 4_650_850),
+          f"config6: {g_6.blocks['poses'].n} cameras, {g_6.blocks['landmarks'].n} points, {n_obs6} observations")
+    route_6 = route_auto(g_6)
+    check(route_6 == "schur_large", f"config6: route {route_6!r}, expected 'schur_large'")
+    common6 = dict(n_chunks=128, pcg_rtol=1e-4, pcg_max_iters=12)
+    t0 = time.perf_counter()
+    plan_6 = schur_large.prepare_large_ba(g_6, common6["n_chunks"])
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    schur_large.solve_schur_large(g_6, Options(method="lm", max_iters=1), plan=plan_6, **common6)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    log(f"config6: data {t_data!r} s, ba_graph {t_build!r} s, prepare_large_ba {t_plan!r} s, warm-up (one LM "
+        f"iteration) {t_warm!r} s; route {route_6!r}")
+    opts6 = Options(method="lm", max_iters=10)
+
+    def run_6():
+        solved, chi2, hist = schur_large.solve_schur_large(g_6, opts6, plan=plan_6, **common6)
+        torch.cuda.synchronize()
+        return solved, chi2, hist, solved.blocks["poses"].values[0, 0, 0].item()
+
+    torch.cuda.reset_peak_memory_stats()
+    schur_large.reset_cg_iterations()
+    t0 = time.perf_counter()
+    (solved_6, chi2_6, hist_6, _), launches, reads = drive("config6_venice", run_6, ("slot_reduce",))
+    wall6 = time.perf_counter() - t0
+    peak6 = torch.cuda.max_memory_allocated()
+    cg6 = schur_large.cg_iterations()
+    iters6 = len(cg6)
+    g_gt = build.ba_graph(v6, init="gt")
+    chi2_gt = schur_large._cost(plan_6, g_gt.blocks["poses"].values, g_gt.blocks["landmarks"].values).item()
+    del g_gt
+    log(f"solve config6 f32 (1,700 cameras, 1,000,000 points, {n_obs6} observations; n_chunks 128, PCG 1e-4 / 12, "
+        f"LM 10): wall {wall6!r} s, LM iterations {iters6}, accepted {len(hist_6) - 1} (rejected "
+        f"{iters6 - len(hist_6) + 1}), s per LM iteration {wall6 / max(iters6, 1)!r}, s per accepted step "
+        f"{wall6 / max(len(hist_6) - 1, 1)!r}, chi2 {hist_6!r}, ground-truth chi2 {chi2_gt!r}, CG iterations per "
+        f"linear solve {cg6}, host reads {reads}, launches {launches}, peak memory {peak6} B")
+    gate("config6 venice_full_conv", chi2_6, 1.001, standin["venice_full_conv"]["chi2"])
+    check_poses("config6", solved_6, (1700, 4, 4))
+    check(torch.isfinite(solved_6.blocks["landmarks"].values).all().item(), "config6: non-finite landmarks")
+    # the dispatch runs the route (one LM iteration, the plan built inside)
+    (auto_6, hist_auto), launches, reads = drive(
+        "config6_solve_auto", lambda: solve_auto(g_6, Options(method="lm", max_iters=1)), ("slot_reduce",))
+    log(f"config6 solve_auto (max_iters 1): history {hist_auto!r}, launches {launches}, host reads {reads}")
+    check(len(hist_auto) >= 1 and np.isfinite(hist_auto[-1]) and hist_auto[-1] <= hist_6[0],
+          f"config6 solve_auto: history {hist_auto}")
+    del auto_6, solved_6
+    log(f"phase 20 (config 6): {time.perf_counter() - t_phase!r} s")
+
+    # ---- phase 21: slot_reduce at the Venice shapes, both kernels -----------
+    # The sums of config 6 by camera (4,650,850 rows into 1,700: the 27 terms
+    # of a linearization, the 21 of D, the 6 of a Schur product) and by
+    # landmark (into 1,000,000: 9 and 3), on rows drawn from a seeded
+    # generator on the card.
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, seg, width in (("camera", plan_6.by_cam, 27), ("camera", plan_6.by_cam, 21),
+                              ("camera", plan_6.by_cam, 6), ("landmark", plan_6.by_lm, 9),
+                              ("landmark", plan_6.by_lm, 3)):
+        contrib = torch.randn((n_obs6, width), generator=gen, device=dev)
+        check_slot_venice(f"config6 by {label} C={width}", contrib, seg, report)
+        del contrib
+    del plan_6, g_6, v6
+    torch.cuda.empty_cache()
+    log(f"phase 21 (slot_reduce at the Venice shapes): {time.perf_counter() - t_phase!r} s")
+
+    # ---- phase 22: f64 cross-check of solve_schur_large, CPU vs card ------
+    ba_s = synth.ba_synthetic(n_cams=8, n_pts=64, seed=3)
+    res = {where: schur_large.solve_schur_large(build.ba_graph(ba_s, dtype=torch.float64, device=where),
+                                                Options(method="lm", max_iters=12), n_chunks=4)
+           for where in ("cpu", "cuda")}
+    (s_c, c_c, h_c), (s_g, c_g, h_g) = res["cpu"], res["cuda"]
+    pose_err = (s_c.blocks["poses"].values - s_g.blocks["poses"].values.cpu()).abs().max().item()
+    log(f"f64 ba_synthetic(8, 64) solve_schur_large: cpu {h_c!r}; cuda {h_g!r}; pose diff {pose_err!r}")
+    check(len(h_c) == len(h_g) and abs(c_c - c_g) <= 1e-8 * c_c and pose_err <= 1e-6,
+          "solve_schur_large: the CPU and CUDA paths differ")
+    log(f"total: {time.perf_counter() - t_start!r} s")
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
                "ell_pcg": "pyslam_tpu_torch/csrc/ell_pcg.cu",
@@ -1033,7 +1238,7 @@ def main() -> int:
     main_paths = ("sphere2500", "sphere2500_dogleg", "config1_se2_loop_cauchy", "config1_se2_loop_l2",
                   "config2_m3500_g2o", "config7_sim3_400", "config4_ba_schur_pcg", "config4_ba_schur_dense",
                   "config8_landmark_slam_800", "config2_sparse_chol", "sparse_chol_5000", "schur_sparse_2000",
-                  "batched_fleet_16")
+                  "batched_fleet_16", "venice_mini_pcg", "venice_mini_dense", "config6_venice", "config6_solve_auto")
     kernels = [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
              launches=sum(launches_by_path[p].get(k, 0) for p in main_paths),

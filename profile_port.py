@@ -3,7 +3,7 @@
 time, the device's busy share and, for the dense cells, the host time of
 each phase of an iteration.
 
-    python3 profile_port.py [--cells sphere2500,config1,config2,config7,config4,config4_dense]
+    python3 profile_port.py [--cells sphere2500,config1,...,venice_mini,config6]
                             [--reps 7] [--root DIR]
 
 Each cell is the one ``chip_smoke.py`` drives (f32, the reference
@@ -58,6 +58,21 @@ plans (``build_chol_plan`` / ``build_schur_sparse_plan``), the assembly,
 ``_solve_factored`` at the start point, and ``retract_all``; and the
 ``slot_reduce`` launches and host reads of one solve.
 
+Cells of ``solve_schur_large`` (f32, the plan built once, outside the
+timing): ``venice_mini`` (bench config 5's problem, 300 cameras / 60,000
+points, PCG 1e-4 / 30, LM 15) and ``config6`` (1,700 cameras / 1,000,000
+points / 4,650,850 observations, n_chunks 128, PCG 1e-4 / 12, LM 10; at
+most 3 repetitions).  Their iterations are the accepted LM steps.  Host ms
+per call: the plan's parts (the indices to the host, the stable argsort by
+camera, the landmark plan, the whole ``prepare_large_ba``) and
+``build_dense_pairs``; ``_linearize``, the cost-only pass, ``_reduce``
+(damping, Hll⁻¹, g_red, D), the block inverse of D, one Schur product, one
+CG loop (with its iterations) and the back-substitution at the start
+point; the CG loop alone on those inputs, ``pcg_guarded_plain`` below (a
+read an iteration, no masks) against ``schur_large._pcg`` read every
+fourth iteration and never, 30 turns each in alternation; then one solve's
+``slot_reduce`` launches, host reads, CG iterations and peak memory.
+
 The extra cell ``config4_pcg_loops`` (not in the default list) times
 config 4 in 'pcg' mode under each way of running the CG loop: the plain
 host loop of ``linear.pcg_solve`` (the stop test read every iteration,
@@ -68,6 +83,15 @@ outside (``schur.pcg_solve``); each must give the same LM iterations and
 chi2.  They take turns solve by solve
 (``--reps`` rounds of one solve each after a warm-up round), so that a
 drift of the host's speed falls on all alike.
+
+The extra cell ``slot_sweep`` (not in the default list) times both
+kernels of ``slot_reduce`` on random plans of 1,024 to 131,072
+destinations (the measurement behind ``cuda_ops.slot_reduce_is_long``).
+
+The extra cell ``block_idioms`` (not in the default list) times the Schur
+path's small block products at config 6's shapes in two forms, batched
+``@`` and broadcast products, and Hll's inverse by Cholesky and by the
+adjugate.
 
 The extra cell ``kernels`` (not in the default list) is no solve: it runs
 sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
@@ -94,7 +118,7 @@ import time
 from typing import NamedTuple
 
 CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense", "config8", "config2_sparse_chol",
-         "sparse_chol_5000", "schur_sparse_2000", "fleet16")
+         "sparse_chol_5000", "schur_sparse_2000", "fleet16", "venice_mini", "config6")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
@@ -148,6 +172,38 @@ def pcg_solve_masked(matvec, b, precond, rtol=1e-6, max_iters=500, read_every=0)
         p = torch.where(go, z + (rz_new / rz) * p, p)
         rz = torch.where(go, rz_new, rz)
         it = it + go
+    return x, it
+
+
+def pcg_guarded_plain(matvec, precond, b, rtol, max_iters):
+    """``schur_large._pcg`` with its stop test read by the host before every
+    iteration and no masks: the loop the ``venice_mini`` and ``config6``
+    cells time it against.  Returns (x, iterations)."""
+    import torch
+
+    from pyslam_tpu_torch.solver.linear import HOST_READS
+
+    x = torch.zeros_like(b)
+    r, z = b, precond(b)
+    p, rz, rn2 = z, torch.dot(b, z), torch.dot(b, b)
+    tol2 = (rtol * torch.linalg.norm(b)) ** 2
+    it = 0
+    while it < max_iters:
+        HOST_READS["pcg"] += 1
+        if not bool(rn2 > tol2):
+            break
+        Ap = matvec(p)
+        pAp = torch.dot(p, Ap)
+        ok = (rz > 0.0) & (pAp > 0.0)
+        alpha = torch.where(ok, rz / torch.where(ok, pAp, 1.0), 0.0)
+        x = x + alpha * p
+        r = torch.where(ok, r - alpha * Ap, r)
+        z = precond(r)
+        rz_new = torch.where(ok, torch.dot(r, z), rz)
+        beta = torch.where(ok, rz_new / torch.where(ok, rz, 1.0), 0.0)
+        p = torch.where(ok, z + beta * p, p)
+        rz, rn2 = rz_new, torch.dot(r, r)
+        it += 1
     return x, it
 
 
@@ -240,6 +296,157 @@ def make_cell(name, dev):
     return g, o, lambda: solve(g, o)
 
 
+class LargeInfo(NamedTuple):
+    """What the timing loop reads of a ``solve_schur_large`` solve."""
+
+    chi2: object  # 0-dim tensor: the final chi2
+    iterations: int  # accepted LM steps
+    status: None
+
+
+def large_cell(name, dev):
+    """(graph, options, plan, common) of a ``solve_schur_large`` cell:
+    Venice-mini (bench config 5's problem, PCG 1e-4 / 30, LM 15) or bench
+    config 6 at full size (n_chunks 128, PCG 1e-4 / 12, LM 10)."""
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import schur_large
+    from pyslam_tpu_torch.solver.lm import Options
+
+    if name == "venice_mini":
+        data = synth.ba_synthetic(n_cams=300, n_pts=60000, obs_per_pt=6, seed=0)
+        o, common = Options(method="lm", max_iters=15), dict(n_chunks=16, pcg_rtol=1e-4, pcg_max_iters=30)
+    else:
+        t0 = time.perf_counter()
+        data = synth.ba_synthetic(n_cams=1700, n_pts=1_000_000, obs_per_pt=5, seed=0)
+        print(f"   config6 data generation {time.perf_counter() - t0!r} s", flush=True)
+        o, common = Options(method="lm", max_iters=10), dict(n_chunks=128, pcg_rtol=1e-4, pcg_max_iters=12)
+    g = build.ba_graph(data, device=dev)
+    return g, o, schur_large.prepare_large_ba(g, common["n_chunks"]), common
+
+
+def run_large(g, o, plan, common):
+    from pyslam_tpu_torch.solver import schur_large
+
+    _, chi2, hist = schur_large.solve_schur_large(g, o, plan=plan, **common)
+    import torch
+
+    return None, LargeInfo(torch.tensor(chi2), len(hist) - 1, None)
+
+
+def large_split(name, g, o, plan, common, reps, run, cg_rounds=30):
+    """Host ms of the phases of a ``solve_schur_large`` cell, one solve's
+    counts, and the CG loop alone read every iteration against every fourth
+    and never (``cg_rounds`` turns)."""
+    import torch
+
+    from pyslam_tpu_torch.solver import cuda_ops, linear, schur, schur_large
+    from pyslam_tpu_torch.solver.cuda_ops import _stable_argsort, slot_plan
+
+    pb, fb = g.blocks["poses"], g.batches[0]
+    cam = fb.indices[0].cpu().numpy()
+    pt = fb.indices[1].cpu().numpy()
+    order = _stable_argsort(cam, pb.n)
+    split = dict(
+        indices_to_host=host_ms(lambda: (fb.indices[0].cpu().numpy(), fb.indices[1].cpu().numpy()), reps),
+        argsort_by_camera=host_ms(lambda: _stable_argsort(cam, pb.n), reps),
+        slot_plan_by_landmark=host_ms(lambda: slot_plan(pt[order], g.blocks["landmarks"].n), reps),
+        prepare_large_ba=host_ms(lambda: schur_large.prepare_large_ba(g, common["n_chunks"]), reps),
+        build_dense_pairs=host_ms(lambda: schur_large.build_dense_pairs(plan), 1),
+    )
+    lam = o.lambda_init
+    rtol, max_iters = common["pcg_rtol"], common["pcg_max_iters"]
+    parts = schur_large._linearize(plan, plan.poses, plan.lms)[1]
+    Hll_inv, g_red, D, Hpp = schur_large._reduce(parts, lam, o.method)
+    precond = schur.block_jacobi(schur._binv(schur._cholesky(D)))
+    matvec = schur.schur_matvec(plan, Hpp, Hll_inv, parts["W"], parts["PP"])
+    b = g_red.reshape(-1)
+    x, it = pcg_guarded_plain(matvec, precond, b, rtol, max_iters)
+    split.update(
+        linearize=host_ms(lambda: schur_large._linearize(plan, plan.poses, plan.lms), reps),
+        cost_only=host_ms(lambda: schur_large._cost(plan, plan.poses, plan.lms), reps),
+        reduce=host_ms(lambda: schur_large._reduce(parts, lam, o.method), reps),
+        block_inverse_of_D=host_ms(lambda: schur._binv(schur._cholesky(D)), reps),
+        schur_product=host_ms(lambda: matvec(b), reps),
+        pcg_loop=host_ms(lambda: schur_large._pcg(matvec, precond, b, rtol, max_iters), reps),
+        pcg_iterations=int(it),
+        back_substitute_and_retract=host_ms(
+            lambda: schur_large._back_substitute_retract(parts, Hll_inv, plan.poses, plan.lms, x), reps),
+    )
+    # the CG loop alone on these inputs: the plain loop (a read an
+    # iteration) against the masked loop read every 4th iteration and
+    # never (always to the cap), in turns, the same iterate from each
+    loops = {"plain, a read an iteration": pcg_guarded_plain,
+             "masked, a read every 4": functools.partial(schur_large._pcg, read_every=4),
+             "masked, never read": functools.partial(schur_large._pcg, read_every=0)}
+    loop_ms = {label: [] for label in loops}
+    for rep in range(cg_rounds + 1):  # round 0 warms up and is not kept
+        for label, loop in loops.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xl, _ = loop(matvec, precond, b, rtol, max_iters)
+            torch.cuda.synchronize()
+            if rep:
+                loop_ms[label].append(1e3 * (time.perf_counter() - t0))
+            else:
+                print(f"   CG loop [{label}]: |x - x_plain| {(xl - x).abs().max().item()!r}", flush=True)
+    for label, w in loop_ms.items():
+        q = statistics.quantiles(w, n=4)
+        print(f"   CG loop alone [{label}]: median of {cg_rounds} {statistics.median(w)!r} ms, quartiles {q[0]!r} "
+              f"to {q[2]!r}, least {min(w)!r}", flush=True)
+    split["cg_loop_alone_ms"] = {label: statistics.median(w) for label, w in loop_ms.items()}
+    del parts, Hll_inv, g_red, D, Hpp, precond, matvec
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    schur_large.reset_cg_iterations()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    split.update(slot_reduce_launches_per_solve=cuda_ops.LAUNCHES["slot_reduce"],
+                 host_reads_per_solve=dict(linear.HOST_READS), cg_iterations=schur_large.cg_iterations(),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return split
+
+
+def block_idioms(dev):
+    """Device ms of the Schur path's small block products at config 6's
+    shapes (4,650,850 observations, 1,000,000 landmarks, 1,700 cameras; one
+    linearization chunk of 36,335 observations), on random f32 blocks:
+    batched ``@`` against the broadcast products summed over the short axis
+    of ``schur.py`` (``_mv``, ``_tmv``, ``_mm``, ``_jtwj``), and Hll⁻¹ by
+    ``schur._binv`` of ``_cholesky`` against the adjugate
+    (``bcsr.sym_block_inv``), each pair on the same inputs."""
+    import torch
+
+    from chip_smoke import median_ms
+    from pyslam_tpu_torch.solver import bcsr, schur
+
+    M, L, C, n = 4_650_850, 1_000_000, 1700, 36_335
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    W, x_obs, t_obs, J, w = randn(M, 6, 3), randn(M, 3), randn(M, 6), randn(n, 3, 9), randn(n, 3).abs()
+    A = randn(L, 3, 3)
+    Hll = A @ A.transpose(1, 2) + 3.0 * torch.eye(3, device=dev)
+    Hll_inv = bcsr.sym_block_inv(Hll)
+    li = torch.randint(0, L, (M,), generator=gen, device=dev)
+    pairs = {
+        "W x (M, 6 x 3)": (lambda: (W @ x_obs[..., None])[..., 0], lambda: schur._mv(W, x_obs)),
+        "W^T t (M, 6 x 3)": (lambda: (t_obs[:, None, :] @ W)[:, 0], lambda: schur._tmv(W, t_obs)),
+        "Hll^-1 v (L, 3 x 3)": (lambda: (Hll_inv @ x_obs[:L, :, None])[..., 0], lambda: schur._mv(Hll_inv, x_obs[:L])),
+        "W Hll^-1 W^T (M)": (lambda: W @ Hll_inv[li] @ W.transpose(1, 2),
+                             lambda: schur._mm(schur._mm(W, Hll_inv[li]), W.transpose(1, 2))),
+        "J^T w J (chunk, 3 x 9)": (lambda: J.transpose(1, 2) @ (w[..., None] * J), lambda: schur._jtwj(J, w, J)),
+        "Hll^-1 (L, 3 x 3), Cholesky / adjugate": (lambda: schur._binv(schur._cholesky(Hll)),
+                                                   lambda: bcsr.sym_block_inv(Hll)),
+    }
+    for label, (mm, bc) in pairs.items():
+        t = [median_ms(f, (), calls=7) for f in (mm, bc, mm, bc)]
+        print(f"   block idiom {label}: first (batched @ or Cholesky) {t[0]!r} / {t[2]!r} ms, second (broadcast or "
+              f"adjugate) {t[1]!r} / {t[3]!r} ms", flush=True)
+
+
 class FleetInfo(NamedTuple):
     """What the timing loop reads of a fleet solve."""
 
@@ -259,15 +466,13 @@ def sparse_split(name, g, o, dev, reps, run):
         plan = schur_sparse.build_schur_sparse_plan(g)
         tables = schur_sparse.plan_tables(plan, dev)
         parts, gv, _ = schur.ba_assemble(g)
-        Hpp, L_ll, W, g_red = schur._schur_reduce(parts, lam, o.method)
-        Hll_inv = schur._binv(L_ll)
+        Hpp, Hll_inv, W, g_red = schur._schur_reduce(parts, lam, o.method)
         He = schur_sparse.assemble_S_ell(plan, tables, Hpp, parts["PP"], W, Hll_inv)
         chol, rhs = plan.chol, g_red.reshape(-1)
         split = dict(
             build_schur_sparse_plan=host_ms(lambda: schur_sparse.build_schur_sparse_plan(g), reps),
             ba_assemble=host_ms(lambda: schur.ba_assemble(g, plan=parts["plan"]), reps),
-            schur_reduce_and_Hll_inverse=host_ms(lambda: schur._binv(schur._schur_reduce(parts, lam, o.method)[1]),
-                                                 reps),
+            schur_reduce_and_Hll_inverse=host_ms(lambda: schur._schur_reduce(parts, lam, o.method), reps),
             assemble_S_ell=host_ms(lambda: schur_sparse.assemble_S_ell(plan, tables, Hpp, parts["PP"], W, Hll_inv),
                                    reps),
         )
@@ -378,7 +583,7 @@ def schur_split(g, o, dev, reps, run):
     plan = schur.schur_plan(g)
     parts, gv, _ = schur.ba_assemble(g, plan=plan)
     lam = torch.tensor(o.lambda_init, dtype=gv.dtype, device=dev)
-    Hpp, L_ll, W, g_red = schur._schur_reduce(parts, lam, o.method)
+    Hpp, Hll_inv, W, g_red = schur._schur_reduce(parts, lam, o.method)
     dx = schur.schur_solve_dense(parts, gv, lam, o)
     dx_p = dx.reshape(-1)[: plan.C * plan.dp].reshape(plan.C, plan.dp)  # any vector of the shape will do
 
@@ -417,7 +622,7 @@ def schur_split(g, o, dev, reps, run):
         schur_solve_pcg=host_ms(pcg_step, reps),
         pcg_loop=statistics.median(loop_ms[1:]),
         pcg_loop_iterations=loop_iterations[-1],
-        back_substitute=host_ms(lambda: schur._back_substitute(L_ll, W, plan, parts["g_l"], dx_p), reps),
+        back_substitute=host_ms(lambda: schur._back_substitute(Hll_inv, W, plan, parts["g_l"], dx_p), reps),
         retract_all=host_ms(lambda: g.retract_all(dx), reps),
         **counts,
     )
@@ -491,6 +696,34 @@ def kernel_split(dev, dev_us, calls=50):
                 print(f"   {dev_us(e) / e.count:10.3f} us  {e.key[:110]}")
 
 
+def slot_sweep(dev):
+    """Device time of each of ``slot_reduce``'s two kernels, named, on
+    random plans of 1,024 to 131,072 destinations of 64 to 2,736 rows each
+    (at most 24M rows), widths 6 and 27: what ``slot_reduce_is_long``'s
+    rule was set from."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import median_ms, slot_reduce_kernel
+    from pyslam_tpu_torch.solver import cuda_ops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n_slots in (1024, 1700, 4096, 8192, 16384, 32768, 65536, 131072):
+        for rows in (64, 128, 300, 2736):
+            E = n_slots * rows
+            if E > 24_000_000:
+                continue
+            sp = cuda_ops.slot_plan(np.random.default_rng(0).integers(0, n_slots, E), n_slots)
+            perm, off = torch.as_tensor(sp.perm, device=dev), torch.as_tensor(sp.offsets, device=dev)
+            for C in (6, 27):
+                x = torch.randn((E, C), generator=gen, device=dev)
+                t = {long: median_ms(lambda *a, long=long: slot_reduce_kernel(*a, long), [x, perm, off, n_slots],
+                                     calls=7, inner=3) for long in (True, False)}
+                print(f"   slot_reduce {n_slots} destinations x {rows} rows, width {C}: block {t[True]!r} ms, "
+                      f"sub-warp {t[False]!r} ms, sub-warp / block {t[False] / t[True]!r}, the rule picks "
+                      f"{'block' if cuda_ops.slot_reduce_is_long(E, n_slots) else 'sub-warp'}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cells", default=",".join(CELLS))
@@ -524,7 +757,19 @@ def main() -> int:
         if name == "config4_pcg_loops":
             pcg_loop_variants(dev, args.reps)
             continue
-        g, o, run = make_cell(name, dev)
+        if name == "slot_sweep":
+            slot_sweep(dev)
+            continue
+        if name == "block_idioms":
+            block_idioms(dev)
+            continue
+        if name in ("venice_mini", "config6"):
+            t0 = time.perf_counter()
+            g, o, plan, common = large_cell(name, dev)
+            print(f"   {name}: graph and plan {time.perf_counter() - t0!r} s", flush=True)
+            run = functools.partial(run_large, g, o, plan, common)
+        else:
+            g, o, run = make_cell(name, dev)
         run()
         torch.cuda.synchronize()
         walls = []
@@ -549,7 +794,9 @@ def main() -> int:
         print(f"   runtime calls per solve {({e.key: e.count for e in ka if e.key in RUNTIME_CALLS})}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"   {dev_us(e) / 1e3:10.4f} ms  x{e.count:5d}  {e.key[:110]}")
-        if name == "sphere2500":
+        if name in ("venice_mini", "config6"):
+            split = large_split(name, g, o, plan, common, min(args.reps, 3) if name == "config6" else args.reps, run)
+        elif name == "sphere2500":
             split = ell_split(g, o, dev, args.reps)
         elif name.startswith("config4") or name == "config8":
             split = schur_split(g, o, dev, args.reps, run)

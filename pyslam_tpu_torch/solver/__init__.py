@@ -4,10 +4,11 @@ the ``solve_ell`` pose-graph path (direct-to-ELL assembly, block-Jacobi
 PCG), the Schur-complement path of bundle adjustment and landmark SLAM
 (``ba_assemble``, ``solve_schur`` in its 'dense' and 'pcg' modes), the
 multifrontal sparse Cholesky (``solve_sparse_chol``) and SPARSE_SCHUR
-(``solve_schur_sparse``), the structure dispatch (``route_auto``,
-``solve_auto``), the batched fleet solve (``solve_batched``) and the four
-CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
-``ell_assemble``)."""
+(``solve_schur_sparse``), Venice-scale bundle adjustment
+(``solve_schur_large`` on the shared host LM loop ``host_lm_loop``), the
+structure dispatch (``route_auto``, ``solve_auto``), the batched fleet
+solve (``solve_batched``) and the four CUDA kernels (``ell_matvec``,
+``ell_pcg``, ``slot_reduce``, ``ell_assemble``)."""
 
 import numpy as np
 
@@ -46,10 +47,12 @@ from .cuda_ops import (
     slot_reduce,
     slot_reduce_plain,
 )
+from .host_loop import host_lm_loop, host_lm_loop_speculative
 from .linear import HOST_READS, cholesky_solve, damp_marquardt, pcg_solve
 from .lm import STATUS_NAMES, Options, SolveInfo, solve, solve_one_iter
 from .batched import BatchedSolveInfo, solve_batched
 from .schur import ba_assemble, solve_schur
+from .schur_large import prepare_large_ba, solve_schur_large
 from .schur_sparse import (
     SchurSparsePlan,
     assemble_S_ell,
@@ -113,6 +116,10 @@ __all__ = [
     "solve_batched",
     "route_auto",
     "solve_auto",
+    "host_lm_loop",
+    "host_lm_loop_speculative",
+    "solve_schur_large",
+    "prepare_large_ba",
 ]
 
 
@@ -283,16 +290,18 @@ def solve_auto(
     """Structure-dispatching solve: runs the path ``route_auto`` names.
 
     * camera + landmark blocks -> Schur complement: ``solve_schur`` in
-      'dense' mode (few cameras) or 'pcg' mode, or ``solve_schur_sparse``
-      (many poses, sparse co-observation);
+      'dense' mode (few cameras) or 'pcg' mode, ``solve_schur_sparse``
+      (many poses, sparse co-observation), or ``solve_schur_large`` (more
+      than 2,000,000 observations of 6-dof cameras);
     * single variable block, total dof <= dense_dof_limit -> dense Cholesky;
       larger -> ``solve_sparse_chol`` (3-dof SE(2) / euclidean) or
       ``solve_ell`` (block-Jacobi PCG);
     * anything else -> the dense path.
 
-    The routes ``schur_large`` and ``schur_sqrt`` and every mesh route are
-    not ported: they raise NotImplementedError, and no other solver stands
-    in for them.  Returns (solved_graph, SolveInfo)."""
+    The route ``schur_sqrt`` and every mesh route are not ported: they
+    raise NotImplementedError, and no other solver stands in for them.
+    Returns (solved_graph, SolveInfo); on ``schur_large``, as in the
+    reference, (solved_graph, cost_history)."""
     opts = options if options is not None else Options()
     route = route_auto(
         graph,
@@ -301,14 +310,16 @@ def solve_auto(
         dense_hpl_budget_bytes=dense_hpl_budget_bytes,
         schur_sparse_pair_budget=schur_sparse_pair_budget,
     )
-    if route in ("schur_large", "schur_sqrt"):
-        item = {"schur_large": 15, "schur_sqrt": 18}[route]
-        raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item {item})")
+    if route == "schur_sqrt":
+        raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item 18)")
     kinds = {name: b.kind for name, b in graph.blocks.items()}
     names = dict(
         pose_name=next((n for n, k in kinds.items() if k != "euclidean"), None),
         lm_name=next((n for n, k in kinds.items() if k == "euclidean"), None),
     )
+    if route == "schur_large":
+        solved, _, history = solve_schur_large(graph, opts, **names)
+        return solved, history
     if route == "sparse_chol":
         return solve_sparse_chol(graph, opts)
     if route == "schur_sparse":

@@ -306,17 +306,28 @@ def slot_reduce_plain(contrib, perm, offsets, n_slots):
 
 
 # A sum into few destinations of many rows each takes the kernel that gives
-# a destination a whole block (csrc/slot_reduce.cu says why): at most this
-# many destinations, with at least this many rows each on average.
-LONG_MAX_SLOTS = 1024
+# a destination a whole block (csrc/slot_reduce.cu says why): up to
+# LONG_SLOTS destinations, those with at least LONG_MIN_ROWS rows each on
+# average; past that, the rows a destination needs grow in proportion to
+# the destinations.  The block kernel's time grows with its blocks, the
+# sub-warp kernel's with the longest chain of rows and falls as more
+# sub-warps fill the card: measured on an H100 from 1,024 to 131,072
+# destinations of 64 to 2,736 rows (PERF.md), the rule picks the faster
+# kernel at every point of width 6; at width 27 (no template: the sub-warp
+# kernel sums one column a lane) the block kernel also wins at points the
+# rule gives the sub-warp, by up to 4.9 times at 4,096 destinations of 128
+# rows.
+LONG_SLOTS = 1024
 LONG_MIN_ROWS = 64
 
 
 def slot_reduce_is_long(E: int, n_slots: int) -> bool:
     """Whether ``slot_reduce`` sums this shape with a block per destination
-    (few destinations of many rows) and not a sub-warp.  The shape alone
-    decides, so one plan always sums in one order."""
-    return n_slots <= LONG_MAX_SLOTS and E >= LONG_MIN_ROWS * n_slots
+    (few destinations of many rows) and not a sub-warp: at least
+    ``LONG_MIN_ROWS * max(1, n_slots / LONG_SLOTS)`` rows a destination on
+    average.  The shape alone decides, so one plan always sums in one
+    order."""
+    return E * LONG_SLOTS >= LONG_MIN_ROWS * n_slots * max(n_slots, LONG_SLOTS)
 
 
 def slot_reduce(contrib, perm, offsets, n_slots):

@@ -198,19 +198,30 @@ def schur_plan(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "lan
 # --------------------------------------------------------------------------
 
 
+# The small block products are broadcast products summed over the short
+# axis, not ``torch.matmul``: a batched product of millions of 3 x 3 or
+# 6 x 3 blocks, one block a batch entry, is what cuBLAS is worst at (on an
+# H100 at bench config 6's shapes, 6 to 13 times slower: PERF.md).
+
+
 def _mv(A, x):
     """Batched A x."""
-    return (A @ x[..., None])[..., 0]
+    return (A * x[..., None, :]).sum(-1)
 
 
 def _tmv(A, x):
     """Batched A^T x."""
-    return (x[..., None, :] @ A)[..., 0, :]
+    return (A * x[..., :, None]).sum(-2)
+
+
+def _mm(A, B):
+    """Batched A B: (..., a, k), (..., k, b) -> (..., a, b)."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
 
 
 def _jtwj(Ja, w, Jb):
     """Per-factor Ja^T diag(w) Jb: (F, m, a), (F, m), (F, m, b) -> (F, a, b)."""
-    return Ja.transpose(1, 2) @ (w[..., None] * Jb)
+    return _mm(Ja.transpose(-1, -2), w[..., None] * Jb)
 
 
 def _cholesky(A):
@@ -218,12 +229,6 @@ def _cholesky(A):
     definite (no exception, no host read)."""
     L, info = torch.linalg.cholesky_ex(A)
     return torch.where((info != 0)[..., None, None], float("nan"), L)
-
-
-def _binv_apply(L, x):
-    """Solve A y = x for batched SPD A given its Cholesky factors L."""
-    y = torch.linalg.solve_triangular(L, x[..., None], upper=False)
-    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
 
 
 def _binv(L):
@@ -295,29 +300,33 @@ def ba_assemble(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "la
     g_l = -total(plan.to_lm, gl, (dl,))
     W = stack(Ws, (dp, dl))
     PP = stack(PPs, (dp, dp))
-
-    # Constant variables: zero their blocks everywhere, unit diagonal so the
-    # factorizations stay SPD and their tangent update is exactly 0.
-    free_p = (~pb.const_mask).to(dtype)
-    free_l = (~lb.const_mask).to(dtype)
-    eye_p = torch.eye(dp, dtype=dtype, device=device)
-    eye_l = torch.eye(dl, dtype=dtype, device=device)
-    Hpp = Hpp * free_p[:, None, None] + (1.0 - free_p)[:, None, None] * eye_p
-    g_p = g_p * free_p[:, None]
-    g_l = g_l * free_l[:, None]
-    # Unobserved free landmarks (all-zero Hll block) also get a unit diagonal:
-    # their g_l is 0, so dx_l = 0 and they are inert.
-    dead_l = (torch.diagonal(Hll, dim1=-2, dim2=-1).sum(-1) == 0.0).to(dtype)
-    live_l = free_l * (1.0 - dead_l)
-    Hll = Hll * live_l[:, None, None] + (1.0 - live_l)[:, None, None] * eye_l
-    W = W * free_p[plan.cam_idx][:, None, None] * live_l[plan.pt_idx][:, None, None]
-    PP = PP * free_p[plan.pp_i][:, None, None] * free_p[plan.pp_j][:, None, None]
-
+    Hpp, g_p, Hll, g_l, W, PP = mask_constants(plan, Hpp, g_p, Hll, g_l, W, PP, (~pb.const_mask).to(dtype),
+                                               (~lb.const_mask).to(dtype))
     parts = dict(
         Hpp=Hpp, Hll=Hll, W=W, g_p=g_p, g_l=g_l, cam_idx=plan.cam_idx, pt_idx=plan.pt_idx,
         PP=PP, pp_i=plan.pp_i, pp_j=plan.pp_j, pose_first=plan.pose_first, plan=plan,
     )
     return parts, _concat_dx(parts, g_p, g_l), chi2
+
+
+def mask_constants(plan, Hpp, g_p, Hll, g_l, W, PP, free_p, free_l):
+    """Constant variables (``free_*`` 0.0): zero their blocks everywhere,
+    unit diagonal so the factorizations stay SPD and their tangent update
+    is exactly 0.  Unobserved free landmarks (all-zero Hll block) likewise:
+    their g_l is 0, so dx_l = 0 and they are inert.  ``plan`` gives the
+    observations' and the (pose, pose) factors' indices (``cam_idx``,
+    ``pt_idx``, ``pp_i``, ``pp_j``).  Returns (Hpp, g_p, Hll, g_l, W, PP)."""
+    eye_p = torch.eye(Hpp.shape[-1], dtype=Hpp.dtype, device=Hpp.device)
+    eye_l = torch.eye(Hll.shape[-1], dtype=Hll.dtype, device=Hll.device)
+    Hpp = Hpp * free_p[:, None, None] + (1.0 - free_p)[:, None, None] * eye_p
+    g_p = g_p * free_p[:, None]
+    dead_l = (torch.diagonal(Hll, dim1=-2, dim2=-1).sum(-1) == 0.0).to(Hll.dtype)
+    live_l = free_l * (1.0 - dead_l)
+    Hll = Hll * live_l[:, None, None] + (1.0 - live_l)[:, None, None] * eye_l
+    g_l = g_l * live_l[:, None]
+    W = W * free_p[plan.cam_idx][:, None, None] * live_l[plan.pt_idx][:, None, None]
+    PP = PP * free_p[plan.pp_i][:, None, None] * free_p[plan.pp_j][:, None, None]
+    return Hpp, g_p, Hll, g_l, W, PP
 
 
 def _concat_dx(parts, dx_p, dx_l):
@@ -338,23 +347,65 @@ def _damp_blocks(H, lam, floor=1e-12):
 
 
 def _schur_reduce(parts, lam, method):
-    """Damp, factorize Hll, and form the reduced RHS.  Returns the pieces the
-    solve modes share."""
+    """Damp, invert Hll (by its Cholesky factors: NaN blocks where one is
+    not positive definite), and form the reduced RHS.  Returns the pieces
+    the solve modes share: (damped Hpp, Hll^-1, W, g_red)."""
     Hpp, Hll, W, plan = parts["Hpp"], parts["Hll"], parts["W"], parts["plan"]
     if method == "lm":
         Hpp = _damp_blocks(Hpp, lam)
         Hll = _damp_blocks(Hll, lam)
-    L_ll = _cholesky(Hll)
+    Hll_inv = _binv(_cholesky(Hll))
     # reduced gradient: g_p - W Hll^-1 g_l  (per-observation gather, segment sum)
-    t = _binv_apply(L_ll, parts["g_l"])
+    t = _mv(Hll_inv, parts["g_l"])
     g_red = parts["g_p"] - plan.by_cam.sum(_mv(W, t[plan.pt_idx]))
-    return Hpp, L_ll, W, g_red
+    return Hpp, Hll_inv, W, g_red
 
 
-def _back_substitute(L_ll, W, plan, g_l, dx_p):
+def _back_substitute(Hll_inv, W, plan, g_l, dx_p):
     """dx_l = Hll^-1 (g_l - W^T dx_p), per-landmark batched."""
     t = g_l - plan.by_lm.sum(_tmv(W, dx_p[plan.cam_idx]))
-    return _binv_apply(L_ll, t)
+    return _mv(Hll_inv, t)
+
+
+def schur_block_diag(plan, Hpp, Hll_inv, W):
+    """The exact block diagonal of S: D_c = Hpp_c - sum_{m: cam_m = c} W_m
+    Hll^-1 W_m^T (cross terms vanish because a camera observes a landmark at
+    most once; a duplicate observation only makes the preconditioner
+    approximate, never the solve wrong).  ``Hpp`` as damped."""
+    return Hpp - plan.by_cam.sum(_mm(_mm(W, Hll_inv[plan.pt_idx]), W.transpose(-1, -2)))
+
+
+def schur_matvec(plan, Hpp, Hll_inv, W, PP):
+    """x (C dp,) -> S x, S = Hpp + the pose-pose couplings PP - W Hll^-1
+    W^T, never formed: two gathers, two segment sums and a batched dl x dl
+    product (two more sums with couplings).  ``plan`` gives the index
+    tensors and the ``slot_reduce`` plans by camera, landmark and either
+    pose of a coupling."""
+    C, dp = Hpp.shape[0], Hpp.shape[-1]
+    ci, li, pp_i, pp_j = plan.cam_idx, plan.pt_idx, plan.pp_i, plan.pp_j
+
+    def matvec(x):
+        xb = x.reshape(C, dp)
+        y = _mv(Hpp, xb)
+        if PP.shape[0]:  # pose-pose coupling (full-SLAM between factors)
+            y = y + plan.by_pp_i.sum(_mv(PP, xb[pp_j]))
+            y = y + plan.by_pp_j.sum(_tmv(PP, xb[pp_i]))
+        t = _mv(Hll_inv, plan.by_lm.sum(_tmv(W, xb[ci])))
+        y = y - plan.by_cam.sum(_mv(W, t[li]))
+        return y.reshape(-1)
+
+    return matvec
+
+
+def block_jacobi(D_inv):
+    """The block-Jacobi preconditioner r -> D^-1 r from explicit inverse
+    blocks D_inv (C, dp, dp)."""
+    C, dp = D_inv.shape[0], D_inv.shape[-1]
+
+    def precond(r):
+        return _mv(D_inv, r.reshape(C, dp)).reshape(-1)
+
+    return precond
 
 
 def schur_solve_dense(parts, g, lam, opt: _lm.Options):
@@ -362,9 +413,8 @@ def schur_solve_dense(parts, g, lam, opt: _lm.Options):
     blockdiag(Hpp) - Hpl Hll^-1 Hpl^T by two matrix products, dense
     Cholesky."""
     plan = parts["plan"]
-    Hpp, L_ll, W, g_red = _schur_reduce(parts, lam, opt.method)
+    Hpp, Hll_inv, W, g_red = _schur_reduce(parts, lam, opt.method)
     C, dp, L, dl = plan.C, plan.dp, plan.L, plan.dl
-    Hll_inv = _binv(L_ll)
     # a camera that sees a landmark twice adds both blocks: summed by pair,
     # then one write per block
     Hpl = Hpp.new_zeros((C, dp, L, dl))
@@ -380,7 +430,7 @@ def schur_solve_dense(parts, g, lam, opt: _lm.Options):
         blocks = plan.by_pp_pair.sum(torch.cat([PP, PP.transpose(-1, -2)]))
         S[plan.pp_pair_i, :, plan.pp_pair_j, :] += blocks  # unique blocks
     dx_p = cholesky_solve(S.reshape(C * dp, C * dp), g_red.reshape(-1)).reshape(C, dp)
-    dx_l = _back_substitute(L_ll, W, plan, parts["g_l"], dx_p)
+    dx_l = _back_substitute(Hll_inv, W, plan, parts["g_l"], dx_p)
     return _concat_dx(parts, dx_p, dx_l)
 
 
@@ -389,39 +439,16 @@ def schur_solve_pcg(parts, g, lam, opt: _lm.Options, rtol=1e-8, max_iters=200):
     S is two gathers, two segment sums and a batched dl x dl product.
     Preconditioner: the exact diagonal blocks of S."""
     plan = parts["plan"]
-    Hpp, L_ll, W, g_red = _schur_reduce(parts, lam, opt.method)
+    Hpp, Hll_inv, W, g_red = _schur_reduce(parts, lam, opt.method)
     C, dp = plan.C, plan.dp
-    Hll_inv = _binv(L_ll)
-    ci, li = plan.cam_idx, plan.pt_idx
-
-    # Exact block diagonal of S: D_c = Hpp_c - sum_{m: cam_m = c} Y_m W_m^T
-    # (cross terms vanish because a camera observes a landmark at most once;
-    # a duplicate observation only makes the preconditioner approximate,
-    # never the solve wrong).
     # Applied as an explicit inverse (one batched product an iteration, as
     # ``solve_ell`` applies its block-Jacobi inverse) where the reference
     # solves with the two triangular factors.
-    Y = W @ Hll_inv[li]
-    D_inv = _binv(_cholesky(Hpp - plan.by_cam.sum(Y @ W.transpose(-1, -2))))
-
-    PP, pp_i, pp_j = parts["PP"], plan.pp_i, plan.pp_j
-
-    def matvec(x):
-        xb = x.reshape(C, dp)
-        y = _mv(Hpp, xb)
-        if PP.shape[0]:  # pose-pose coupling (full-SLAM between factors)
-            y = y + plan.by_pp_i.sum(_mv(PP, xb[pp_j]))
-            y = y + plan.by_pp_j.sum(_tmv(PP, xb[pp_i]))
-        t = _mv(Hll_inv, plan.by_lm.sum(_tmv(W, xb[ci])))
-        y = y - plan.by_cam.sum(_mv(W, t[li]))
-        return y.reshape(-1)
-
-    def precond(r):
-        return _mv(D_inv, r.reshape(C, dp)).reshape(-1)
-
+    precond = block_jacobi(_binv(_cholesky(schur_block_diag(plan, Hpp, Hll_inv, W))))
+    matvec = schur_matvec(plan, Hpp, Hll_inv, W, parts["PP"])
     dx_p, _ = pcg_solve(matvec, g_red.reshape(-1), precond=precond, rtol=rtol, max_iters=max_iters)
     dx_p = dx_p.reshape(C, dp)
-    dx_l = _back_substitute(L_ll, W, plan, parts["g_l"], dx_p)
+    dx_l = _back_substitute(Hll_inv, W, plan, parts["g_l"], dx_p)
     return _concat_dx(parts, dx_p, dx_l)
 
 

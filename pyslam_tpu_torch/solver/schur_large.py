@@ -1,0 +1,561 @@
+"""Venice-scale bundle adjustment on one device: the Schur path with its
+plan built once per graph structure.
+
+Counterpart of ``pyslam_tpu/solver/schur_large.py`` (``prepare_large_ba``,
+``solve_schur_large``, ``build_dense_pairs``, ``DensePairs``, ``LargeBA``),
+with the reference's semantics and another layout.  The reference stores
+every per-observation quantity component-major, sums by camera with cumsum
+boundary differences and drives long CG runs in host segments, three
+answers to a TPU's tile padding, slow scatters and program time limit.  A
+GPU has none of the three, so here:
+
+* per-observation blocks keep their natural layout: W (M, 6, 3) is 335 MB
+  in f32 at 4.65M observations;
+* the observations are sorted stably by camera once (``prepare_large_ba``),
+  and every sum by camera or by landmark is ``cuda_ops.slot_reduce`` over a
+  plan built then: the same order, and the same bits, on every call;
+* the linearization runs the port's factor kernel over ``n_chunks`` chunks
+  of the observation axis (the chunk bounds the memory of the Jacobians)
+  and writes each observation's rows into full-length buffers (6 camera
+  gradient and 21 camera Hessian terms, 3 landmark gradient and 6 landmark
+  Hessian terms, the 18 of W, its cost), which are then summed once, so
+  ``n_chunks`` changes no result;
+* PCG on the reduced camera system applies its stop rule before every
+  iteration at every budget, on the device; the reference does so only for
+  budgets up to 60 and tests larger ones every 25 iterations (its
+  ``_pcg_segment``).
+
+The Schur algebra is ``solver/schur.py``'s, on this plan: the masks
+(``mask_constants``), the damping, Hll⁻¹ and the reduced gradient
+(``_schur_reduce``), the block diagonal of S (``schur_block_diag``), the
+Schur product (``schur_matvec``) and the back-substitution.  A 3 x 3
+landmark block or a 6 x 6 block of D that is not positive definite
+factors to NaN, without a host read; the LM loop rejects that step.
+
+The LM loop is ``host_loop.host_lm_loop_speculative`` (default) or
+``host_lm_loop`` with the cost-only pass; both read once an LM iteration.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..graph.core import FACTOR_KERNELS, FactorGraph, VariableBlock, retract
+from . import lm as _lm
+from .cuda_ops import _stable_argsort, slot_plan
+from .host_loop import host_lm_loop, host_lm_loop_speculative
+from .linear import HOST_READS, cholesky_solve
+from .schur import (Segments, _back_substitute, _binv, _cholesky, _jtwj, _mm, _schur_reduce, _tmv, block_jacobi,
+                    mask_constants, schur_block_diag, schur_matvec)
+
+# --------------------------------------------------------------------------
+# The plan
+# --------------------------------------------------------------------------
+
+
+# One observation's rows in the order they are stored: the camera gradient
+# (6) and upper Hessian (21), the landmark gradient (3) and upper Hessian
+# (6), W (18); as positions in [g (9) | H (81)] of the joint 9-column
+# Jacobian [J_camera | J_landmark].
+_ROWS = np.array(
+    list(range(6))
+    + [9 + 9 * i + j for i in range(6) for j in range(i, 6)]
+    + list(range(6, 9))
+    + [9 + 9 * i + j for i in range(6, 9) for j in range(i, 9)]
+    + [9 + 9 * i + j for i in range(6) for j in range(6, 9)]
+)
+
+
+@dataclasses.dataclass
+class LargeBA:
+    """The plan of one camera / landmark graph structure, on the graph's
+    device: the observations sorted stably by camera, the ``slot_reduce``
+    plans of every sum, the pose-unary and (pose, pose) batches, and the
+    variable values of the graph it was built from."""
+
+    kind: str  # the observation batch's factor kind
+    loss: object
+    pose_first: bool  # the observation batch's slots are (pose, landmark)
+    C: int
+    L: int
+    M: int  # observations
+    Mp: int  # M rounded up to a multiple of n_chunks: the chunk grid
+    n_chunks: int
+    poses: torch.Tensor  # (C, 4, 4)
+    lms: torch.Tensor  # (L, 3)
+    free_p: torch.Tensor  # (C,) 1.0 free, 0.0 constant
+    free_l: torch.Tensor  # (L,)
+    obs_data: dict  # per-observation tensors in camera order; other values as given
+    per_obs: frozenset  # the keys of obs_data that carry the observation axis
+    weight: torch.Tensor  # (M,) in camera order
+    cam_idx: torch.Tensor  # (M,) int64, ascending
+    pt_idx: torch.Tensor  # (M,) int64
+    by_cam: Segments  # the M observations by camera
+    by_lm: Segments  # ... by landmark
+    unary: tuple  # the pose-unary and (pose, pose) batches, in graph order
+    by_pose_u: Segments  # their Hessian and gradient rows by pose
+    pp_i: torch.Tensor  # (E,) the (pose, pose) factors, int64
+    pp_j: torch.Tensor
+    by_pp_i: Segments
+    by_pp_j: Segments
+    rows: torch.Tensor  # _ROWS on the device: the linearization's row gather
+    # co-observation pair tables of linear="dense" (build_dense_pairs); None
+    # until that solve first needs them
+    pairs: "DensePairs | None" = None
+
+
+def _ceil_to(x, m):
+    return -(-x // m) * m
+
+
+def _host_index(t, n, what):
+    """A factor index tensor on the host (int64), checked against [0, n)."""
+    i = t.detach().cpu().numpy().astype(np.int64)
+    if len(i) and (i.min() < 0 or i.max() >= n):
+        raise ValueError(f"{what}: index out of range [0, {n}) (min {i.min()}, max {i.max()})")
+    return i
+
+
+def _segments(dest, n_slots, device):
+    sp = slot_plan(dest, n_slots)
+    return Segments(torch.as_tensor(sp.perm, device=device), torch.as_tensor(sp.offsets, device=device), n_slots)
+
+
+def prepare_large_ba(
+    graph: FactorGraph,
+    n_chunks: int = 16,
+    pose_name: str = "poses",
+    lm_name: str = "landmarks",
+) -> LargeBA:
+    """Build the plan of ``graph`` on the host and put it on the graph's
+    device.  The graph holds ``se3`` poses, 3-dof landmarks, exactly one
+    observation batch (either slot order) and otherwise pose-unary and
+    (pose, pose) batches."""
+    pb, lb = graph.blocks[pose_name], graph.blocks[lm_name]
+    if pb.kind != "se3" or lb.dof != 3:
+        raise ValueError(
+            f"{pose_name}/{lm_name} must be se3 poses + 3-dof landmarks "
+            f"(got {pb.kind!r} / {lb.dof}-dof); use solve_schur / "
+            "solve_auto for other manifolds"
+        )
+    obs = [b for b in graph.batches if tuple(b.slots) in ((pose_name, lm_name), (lm_name, pose_name))]
+    unary = [b for b in graph.batches if tuple(b.slots) in ((pose_name,), (pose_name, pose_name))]
+    if len(obs) != 1 or len(unary) + 1 != len(graph.batches):
+        raise ValueError(
+            "schur_large supports one pose-landmark batch plus pose-unary and "
+            "pose-pose (between) batches"
+        )
+    (fb,) = obs
+    C, L, M = pb.n, lb.n, fb.n
+    device, dtype = pb.values.device, pb.values.dtype
+    pose_first = tuple(fb.slots) == (pose_name, lm_name)
+    cam_t, pt_t = fb.indices if pose_first else fb.indices[::-1]
+    cam = _host_index(cam_t, C, f"factor batch {fb.kind!r} slot {pose_name!r}")
+    pt = _host_index(pt_t, L, f"factor batch {fb.kind!r} slot {lm_name!r}")
+
+    # the observations in camera order (stable): the sums by camera read
+    # their rows in order, and the gathers of the linearization walk the
+    # cameras one after the other
+    order_np = _stable_argsort(cam, C) if M else np.zeros(0, np.int64)
+    cam_s, pt_s = cam[order_np], pt[order_np]
+    order = torch.as_tensor(order_np.astype(np.int64), device=device)
+    obs_data, per_obs = {}, set()
+    for k, v in fb.data.items():
+        if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == M:
+            obs_data[k] = v[order].contiguous()
+            per_obs.add(k)
+        else:  # no observation axis: a camera, one sqrt_info for the batch
+            obs_data[k] = v
+
+    u_dest, pis, pjs = [], [], []
+    for u in unary:
+        idx = [_host_index(i, C, f"factor batch {u.kind!r} slot {pose_name!r}") for i in u.indices]
+        u_dest += idx
+        if len(idx) == 2:
+            pis.append(idx[0])
+            pjs.append(idx[1])
+
+    def cat(arrays):
+        return np.concatenate(arrays) if arrays else np.zeros(0, np.int64)
+
+    pi, pj = cat(pis), cat(pjs)
+    return LargeBA(
+        kind=fb.kind, loss=fb.loss, pose_first=pose_first, C=C, L=L, M=M,
+        Mp=_ceil_to(M, n_chunks), n_chunks=n_chunks,
+        poses=pb.values, lms=lb.values,
+        free_p=(~pb.const_mask).to(dtype), free_l=(~lb.const_mask).to(dtype),
+        obs_data=obs_data, per_obs=frozenset(per_obs), weight=fb.weight[order].contiguous(),
+        cam_idx=torch.as_tensor(cam_s, device=device), pt_idx=torch.as_tensor(pt_s, device=device),
+        by_cam=_segments(cam_s, C, device), by_lm=_segments(pt_s, L, device),
+        unary=tuple(unary), by_pose_u=_segments(cat(u_dest), C, device),
+        pp_i=torch.as_tensor(pi, device=device), pp_j=torch.as_tensor(pj, device=device),
+        by_pp_i=_segments(pi, C, device), by_pp_j=_segments(pj, C, device),
+        rows=torch.as_tensor(_ROWS, device=device),
+    )
+
+
+def _from_upper(rows, n):
+    """(N, n(n+1)/2) upper-triangle rows -> symmetric (N, n, n) blocks."""
+    i, j = torch.triu_indices(n, n, device=rows.device)
+    out = rows.new_zeros((rows.shape[0], n, n))
+    out[:, i, j] = rows
+    out[:, j, i] = rows  # the diagonal twice, the same value
+    return out
+
+
+# --------------------------------------------------------------------------
+# Linearization
+# --------------------------------------------------------------------------
+
+
+def _observations(plan, lo, hi, poses, lms, want_grad):
+    """Residuals and (camera, landmark) Jacobians of observations [lo, hi)."""
+    data = {k: (v[lo:hi] if k in plan.per_obs else v) for k, v in plan.obs_data.items()}
+    T, X = poses[plan.cam_idx[lo:hi]], lms[plan.pt_idx[lo:hi]]
+    args = (T, X) if plan.pose_first else (X, T)
+    r, jacs = FACTOR_KERNELS[plan.kind](data, *args, compute_jacobians=want_grad)
+    if want_grad and not plan.pose_first:
+        jacs = jacs[::-1]
+    return r, jacs
+
+
+def _chunks(plan):
+    chunk = plan.Mp // plan.n_chunks
+    for k in range(plan.n_chunks):
+        lo, hi = k * chunk, min((k + 1) * chunk, plan.M)
+        if lo < hi:
+            yield lo, hi
+
+
+def _unary(plan, poses, want_grad):
+    """chi2 of the pose-unary and (pose, pose) batches; with ``want_grad``
+    also their Hessian blocks and gradient rows summed by pose, (C, 6, 6)
+    and (C, 6), and the per-factor couplings PP (E, 6, 6)."""
+    chi2 = poses.new_zeros(())
+    rows, PPs = [], []
+    for u in plan.unary:
+        r, jacs = FACTOR_KERNELS[u.kind](u.data, *(poses[i] for i in u.indices), compute_jacobians=want_grad)
+        chi2 = chi2 + torch.sum(u.loss.loss(r) * u.weight[:, None])
+        if not want_grad:
+            continue
+        w = u.loss.weight(r) * u.weight[:, None]
+        rows += [torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, 36)], 1) for J in jacs]
+        if len(jacs) == 2:
+            PPs.append(_jtwj(jacs[0], w, jacs[1]))
+    if not want_grad:
+        return chi2
+    sums = plan.by_pose_u.sum(torch.cat(rows)) if rows else poses.new_zeros((plan.C, 42))
+    PP = torch.cat(PPs) if PPs else poses.new_zeros((0, 6, 6))
+    return chi2, sums[:, 6:].reshape(-1, 6, 6), sums[:, :6], PP
+
+
+def _cost(plan, poses, lms):
+    """chi2 at (poses, lms) without Jacobians: the cost-only pass."""
+    cost = poses.new_empty(plan.M)
+    for lo, hi in _chunks(plan):
+        r, _ = _observations(plan, lo, hi, poses, lms, False)
+        cost[lo:hi] = (plan.loss.loss(r) * plan.weight[lo:hi, None]).sum(1)
+    return cost.sum() + _unary(plan, poses, False)
+
+
+def _linearize(plan, poses, lms):
+    """The normal equations at (poses, lms): (chi2, parts), ``parts`` the
+    pieces ``schur._schur_reduce`` reads (Hpp, g_p, Hll, g_l, W, PP and the
+    plan), masked by ``schur.mask_constants``."""
+    M = plan.M
+    cost = poses.new_empty(M)
+    rows = poses.new_empty((M, len(_ROWS)))
+    for lo, hi in _chunks(plan):
+        r, jacs = _observations(plan, lo, hi, poses, lms, True)
+        J = torch.cat(jacs, -1)  # (n, m, 9)
+        w = plan.loss.weight(r) * plan.weight[lo:hi, None]
+        cost[lo:hi] = (plan.loss.loss(r) * plan.weight[lo:hi, None]).sum(1)
+        rows[lo:hi] = torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, 81)], 1)[:, plan.rows]
+    cam = plan.by_cam.sum(rows[:, :27])
+    lm = plan.by_lm.sum(rows[:, 27:36])
+    c_u, H_u, g_u, PP = _unary(plan, poses, True)
+    Hpp, g_p, Hll, g_l, W, PP = mask_constants(
+        plan, _from_upper(cam[:, 6:], 6) + H_u, -cam[:, :6] - g_u, _from_upper(lm[:, 3:], 3), -lm[:, :3],
+        rows[:, 36:].reshape(M, 6, 3), PP, plan.free_p, plan.free_l)
+    return cost.sum() + c_u, dict(Hpp=Hpp, g_p=g_p, Hll=Hll, g_l=g_l, W=W, PP=PP, plan=plan)
+
+
+# --------------------------------------------------------------------------
+# The linear solve
+# --------------------------------------------------------------------------
+
+
+# The CG iterations of the most recent linear solves (0-dim tensors on the
+# device until ``cg_iterations`` reads them).
+_CG_ITERATIONS: collections.deque = collections.deque(maxlen=4096)
+
+# The host reads the CG stop test before iterations 0, CG_READ_EVERY,
+# 2 CG_READ_EVERY, ...; 0: never, and a linear solve runs to its budget,
+# its iterate frozen from the iteration where the test fails.  Timed alone
+# against a read every iteration on an H100 (``profile_port.py``, PERF.md):
+# never reading was the fastest on config 6 and Venice-mini, whose solves
+# all run to their budgets.
+CG_READ_EVERY = 0
+
+
+def reset_cg_iterations():
+    _CG_ITERATIONS.clear()
+
+
+def cg_iterations() -> list:
+    """The CG iterations of each linear solve since ``reset_cg_iterations``
+    (at most the last 4096), read from the device here."""
+    return [int(n) for n in _CG_ITERATIONS]
+
+
+def _pcg(matvec, precond, b, rtol, max_iters, read_every=CG_READ_EVERY):
+    """PCG from x0 = 0, the reference's fused loop: stop when ||r||² <=
+    (rtol ||b||)² (tested before each iteration; NaN stops) or after
+    ``max_iters`` iterations; where rz <= 0 or pAp <= 0 (exact convergence,
+    breakdown) the iteration keeps r and p as they are.  The stop test is
+    applied on the device (``torch.where`` keeps x, r and p once it has
+    failed) and read by the host every ``read_every`` iterations, where the
+    loop ends if it has failed.  Returns (x, iterations), the count a 0-dim
+    int64 tensor on b's device."""
+    x = torch.zeros_like(b)
+    r, z = b, precond(b)
+    p, rz, rn2 = z, torch.dot(b, z), torch.dot(b, b)
+    tol2 = (rtol * torch.linalg.norm(b)) ** 2
+    run = torch.ones((), dtype=torch.bool, device=b.device)
+    done = torch.zeros((), dtype=torch.int64, device=b.device)
+    for k in range(max_iters):
+        run = run & (rn2 > tol2)
+        if read_every and k % read_every == 0:
+            HOST_READS["pcg"] += 1
+            if not bool(run):
+                break
+        Ap = matvec(p)
+        pAp = torch.dot(p, Ap)
+        ok = (rz > 0.0) & (pAp > 0.0)
+        step = run & ok
+        alpha = torch.where(ok, rz / torch.where(ok, pAp, 1.0), 0.0)
+        x = torch.where(run, x + alpha * p, x)
+        r = torch.where(step, r - alpha * Ap, r)
+        z = precond(r)
+        rz_new = torch.where(step, torch.dot(r, z), rz)
+        beta = torch.where(ok, rz_new / torch.where(ok, rz, 1.0), 0.0)
+        p = torch.where(step, z + beta * p, p)
+        rz, rn2 = rz_new, torch.dot(r, r)
+        done = done + run
+    return x, done
+
+
+def _reduce(parts, lam, method):
+    """``schur._schur_reduce`` (LM damping, Hll⁻¹, the reduced gradient)
+    and the exact block diagonal D of S: (Hll_inv, g_red, D, damped Hpp)."""
+    Hpp, Hll_inv, W, g_red = _schur_reduce(parts, lam, method)
+    return Hll_inv, g_red, schur_block_diag(parts["plan"], Hpp, Hll_inv, W), Hpp
+
+
+def _solve_pcg(parts, lam, method, rtol, max_iters):
+    """PCG on S dx = g_red under the block inverse of D."""
+    Hll_inv, g_red, D, Hpp = _reduce(parts, lam, method)
+    matvec = schur_matvec(parts["plan"], Hpp, Hll_inv, parts["W"], parts["PP"])
+    x, it = _pcg(matvec, block_jacobi(_binv(_cholesky(D))), g_red.reshape(-1), rtol, max_iters)
+    _CG_ITERATIONS.append(it)
+    return Hll_inv, x
+
+
+def _back_substitute_retract(parts, Hll_inv, poses, lms, x):
+    """dx_l = Hll⁻¹ (g_l - Wᵀ dx_p) (``schur._back_substitute``; a constant
+    or dead landmark's row is 0, as the masks leave it), the retraction and
+    the reference's update norm."""
+    plan = parts["plan"]
+    dx_p = x.reshape(plan.C, 6) * plan.free_p[:, None]
+    dx_l = _back_substitute(Hll_inv, parts["W"], plan, parts["g_l"], dx_p)
+    dx_norm = torch.sqrt(torch.sum(dx_p**2) + torch.sum(dx_l**2))
+    return (retract("se3", poses, dx_p), lms + dx_l), dx_norm
+
+
+# --------------------------------------------------------------------------
+# linear="dense": S assembled from the co-observation pairs
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DensePairs:
+    """Co-observation pair tables of the dense-S solve.
+
+    One row per unordered pair of observations (a, b), a != b, of one
+    landmark, oriented so that camera(a) <= camera(b); a and b index the
+    plan's camera-ordered observations.
+    ``by_block`` sums the 36 entries of every contribution to a block of
+    S above the diagonal or on it — the P pair products, then half of each
+    camera's diagonal block, then each (pose, pose) coupling — into the
+    unique blocks (``block_i``, ``block_j``).  Host-built once per
+    observation pattern."""
+
+    P: int
+    n_pair_chunks: int
+    pair_a: torch.Tensor  # (P,) int64
+    pair_b: torch.Tensor
+    block_i: torch.Tensor  # (U,) int64
+    block_j: torch.Tensor
+    by_block: Segments
+
+
+def build_dense_pairs(plan: LargeBA, n_pair_chunks: int = 4) -> DensePairs:
+    """Enumerate the co-observation pairs of ``plan``'s graph on the host
+    (``schur_sparse._coobservation_pairs``) and the plan of their sum into
+    the blocks of S."""
+    from .schur_sparse import _coobservation_pairs
+
+    C = plan.C
+    ci = plan.cam_idx.cpu().numpy()
+    li = plan.pt_idx.cpu().numpy()
+    pa, pb, _ = _coobservation_pairs(ci, li, plan.L)
+    keep = pa < pb  # one row per unordered pair; symmetrization restores (b, a)
+    pa, pb = pa[keep].astype(np.int64), pb[keep].astype(np.int64)
+    i, j = ci[pa], ci[pb]
+    swap = i > j
+    pa, pb = np.where(swap, pb, pa), np.where(swap, pa, pb)
+    q = np.minimum(i, j) * C + np.maximum(i, j)
+    cams = np.arange(C, dtype=np.int64)
+    pp_q = plan.pp_i.cpu().numpy() * C + plan.pp_j.cpu().numpy()
+    keys = np.concatenate([q, cams * (C + 1), pp_q])
+    uniq, dest = np.unique(keys, return_inverse=True)
+    device = plan.cam_idx.device
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
+
+    return DensePairs(
+        P=len(pa), n_pair_chunks=n_pair_chunks, pair_a=t(pa), pair_b=t(pb),
+        block_i=t(uniq // C), block_j=t(uniq % C), by_block=_segments(dest.reshape(-1), len(uniq), device),
+    )
+
+
+def _dense_S(pairs, parts, Hll_inv, D):
+    """The reduced camera system S (6C, 6C) = D - sym(Σ_pairs W_a Hll⁻¹
+    W_bᵀ) + couplings: D at half weight and the pair products summed into
+    unique blocks above the diagonal, then S_pre + S_preᵀ."""
+    plan, W, PP = parts["plan"], parts["W"], parts["PP"]
+    C, li = plan.C, plan.pt_idx
+    blocks = W.new_empty((pairs.P, 36))
+    chunk = max(-(-pairs.P // max(pairs.n_pair_chunks, 1)), 1)
+    for lo in range(0, pairs.P, chunk):
+        a, b = pairs.pair_a[lo:lo + chunk], pairs.pair_b[lo:lo + chunk]
+        blocks[lo:lo + chunk] = -_mm(_mm(W[a], Hll_inv[li[a]]), W[b].transpose(-1, -2)).reshape(-1, 36)
+    sums = pairs.by_block.sum(torch.cat([blocks, 0.5 * D.reshape(C, 36), PP.reshape(-1, 36)]))
+    S = W.new_zeros((C, C, 6, 6))
+    S[pairs.block_i, pairs.block_j] = sums.reshape(-1, 6, 6)  # unique blocks
+    S = S.transpose(1, 2).reshape(6 * C, 6 * C)
+    return S + S.T
+
+
+def _solve_dense(pairs, parts, lam, method):
+    """The exact solve of S dx = g_red: Jacobi equilibration to a unit
+    diagonal, Cholesky (NaN where it fails) and two triangular solves."""
+    Hll_inv, g_red, D, _ = _reduce(parts, lam, method)
+    S = _dense_S(pairs, parts, Hll_inv, D)
+    s = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-30))
+    x = cholesky_solve(S * s[:, None] * s[None, :], g_red.reshape(-1) * s)
+    return Hll_inv, x * s
+
+
+# --------------------------------------------------------------------------
+# The solve
+# --------------------------------------------------------------------------
+
+
+def solve_schur_large(
+    graph: FactorGraph,
+    options: _lm.Options = _lm.Options(),
+    n_chunks: int = 16,
+    pose_name: str = "poses",
+    lm_name: str = "landmarks",
+    pcg_rtol: float = 1e-4,
+    pcg_max_iters: int = 30,
+    speculative: bool = True,
+    dual_order: bool = True,
+    plan: "LargeBA | None" = None,
+    linear: str = "pcg",
+    n_pair_chunks: int = 4,
+    precond: str = "jacobi",
+    cluster_size: int = 64,
+    stale_refresh: int = 3,
+):
+    """Venice-scale Schur LM on one device.  Returns (solved_graph,
+    final_chi2, cost_history): the last accepted cost and the accepted
+    costs, initial cost first, as Python floats.
+
+    ``plan``: a prebuilt ``prepare_large_ba(graph, n_chunks)`` to reuse
+    across solves of the same graph structure; it carries the variable
+    values of the graph it was built from, so pass a plan built from this
+    same graph.
+
+    ``linear="pcg"`` solves the reduced camera system by PCG from x0 = 0
+    under its exact block diagonal (``pcg_rtol``, ``pcg_max_iters``);
+    ``linear="dense"`` assembles S from the co-observation pairs (built on
+    the plan once) and factors it.  ``speculative=True`` runs
+    ``host_lm_loop_speculative`` (one gradient linearization an
+    iteration), else ``host_lm_loop`` with a cost-only pass at each trial.
+
+    ``dual_order`` is the reference's TPU layout switch (a landmark-ordered
+    copy of W for its cumsum sums); here every sum goes through one
+    ``slot_reduce`` plan, so it has no effect.  ``precond="cluster"`` and
+    ``precond="stale"`` are not ported (NotImplementedError, ROADMAP item
+    15a); with ``linear="dense"`` the reference ignores ``precond`` and so
+    does this.  ``cluster_size`` and ``stale_refresh`` belong to them."""
+    lb = plan if plan is not None else prepare_large_ba(graph, n_chunks, pose_name, lm_name)
+    if linear not in ("pcg", "dense"):
+        raise ValueError(f"linear must be 'pcg' or 'dense', got {linear!r}")
+    if precond not in ("jacobi", "cluster", "stale"):
+        raise ValueError(f"precond must be 'jacobi', 'cluster' or 'stale', got {precond!r}")
+    if linear == "pcg" and precond in ("cluster", "stale"):
+        if pcg_max_iters > 60:
+            raise ValueError(f"precond={precond!r} runs in the fused PCG path only (pcg_max_iters <= 60)")
+        raise NotImplementedError(f"solve_schur_large: precond={precond!r} is not ported yet (ROADMAP item 15a)")
+    pairs = None
+    if linear == "dense":
+        if lb.pairs is None or lb.pairs.n_pair_chunks != n_pair_chunks:
+            lb.pairs = build_dense_pairs(lb, n_pair_chunks)
+        pairs = lb.pairs
+
+    def linearize(state):
+        return _linearize(lb, *state)
+
+    def solve_from(state, lin, lam):
+        parts = lin[1]
+        if pairs is not None:
+            Hll_inv, x = _solve_dense(pairs, parts, lam, options.method)
+        else:
+            Hll_inv, x = _solve_pcg(parts, lam, options.method, pcg_rtol, pcg_max_iters)
+        return _back_substitute_retract(parts, Hll_inv, *state, x)
+
+    if speculative:
+        (poses, lms), history, _ = host_lm_loop_speculative(linearize, solve_from, (lb.poses, lb.lms), options)
+    else:
+
+        def lm_step(state, lam):
+            lin = linearize(state)
+            trial, dx_norm = solve_from(state, lin, lam)
+            chi2 = lin[0]
+            del lin
+            return trial, chi2, _cost(lb, *trial), dx_norm
+
+        (poses, lms), history, _ = host_lm_loop(lm_step, (lb.poses, lb.lms), options)
+
+    pb, lb_blk = graph.blocks[pose_name], graph.blocks[lm_name]
+    new_blocks = dict(graph.blocks)
+    new_blocks[pose_name] = VariableBlock(pb.kind, poses, pb.const_mask)
+    new_blocks[lm_name] = VariableBlock(lb_blk.kind, lms, lb_blk.const_mask)
+    return FactorGraph(new_blocks, graph.batches), history[-1], history
+
+
+__all__ = [
+    "solve_schur_large",
+    "prepare_large_ba",
+    "build_dense_pairs",
+    "DensePairs",
+    "LargeBA",
+]

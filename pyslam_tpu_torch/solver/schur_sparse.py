@@ -37,7 +37,7 @@ from ..graph.core import FactorBatch, FactorGraph
 from . import lm as _lm
 from .cuda_ops import slot_plan, slot_reduce
 from .plan_cache import ClosureCache, content_key
-from .schur import _back_substitute, _binv, _concat_dx, _schur_reduce, ba_assemble, schur_host_tables, schur_plan
+from .schur import _back_substitute, _concat_dx, _mm, _schur_reduce, ba_assemble, schur_host_tables, schur_plan
 from .sparse_chol import CholPlan, _device_waves, _factorize, _solve_factored, build_chol_plan
 
 
@@ -187,7 +187,7 @@ def assemble_S_ell(plan: SchurSparsePlan, tables: SchurSparseTables, Hpp, PP, W,
     """S = Hpp + PP couplings - W Hll^-1 W^T into the symmetric-ELL store:
     one batched product over the co-observation pairs + one ``slot_reduce``."""
     dp = Hpp.shape[1]
-    Cp = W[tables.pair_a] @ Hll_inv[tables.pair_l] @ W[tables.pair_b].transpose(-1, -2)
+    Cp = _mm(_mm(W[tables.pair_a], Hll_inv[tables.pair_l]), W[tables.pair_b].transpose(-1, -2))
     contrib = torch.cat([Hpp, PP, PP.transpose(-1, -2), -Cp]).reshape(-1, dp * dp)
     He = slot_reduce(contrib, tables.perm, tables.offsets, tables.n_slots)
     return He.reshape(plan.chol.ell.nb, plan.chol.ell.K, dp, dp)
@@ -195,14 +195,13 @@ def assemble_S_ell(plan: SchurSparsePlan, tables: SchurSparseTables, Hpp, PP, W,
 
 def schur_solve_sparse(parts, g, lam, opt: _lm.Options, plan: SchurSparsePlan, tables: SchurSparseTables):
     """One exact SPARSE_SCHUR linear solve."""
-    Hpp, L_ll, W, g_red = _schur_reduce(parts, lam, opt.method)
+    Hpp, Hll_inv, W, g_red = _schur_reduce(parts, lam, opt.method)
     C, dp = Hpp.shape[0], Hpp.shape[1]
-    Hll_inv = _binv(L_ll)
     He = assemble_S_ell(plan, tables, Hpp, parts["PP"], W, Hll_inv)
     # damping already applied to Hpp/Hll by _schur_reduce; factor directly
     factors = _factorize(plan.chol, He)
     dx_p = _solve_factored(plan.chol, factors, g_red.reshape(-1)).reshape(C, dp)
-    dx_l = _back_substitute(L_ll, W, parts["plan"], parts["g_l"], dx_p)
+    dx_l = _back_substitute(Hll_inv, W, parts["plan"], parts["g_l"], dx_p)
     return _concat_dx(parts, dx_p, dx_l)
 
 

@@ -14,6 +14,9 @@ JAX reference.  ``ell_pcg`` runs many dependent iterations, each with its
 dot products summed in another order than ``torch.dot``: see ``PCG_TOL``.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,9 @@ from pyslam_tpu_torch.solver.cuda_ops import (
 )
 from pyslam_tpu_torch.solver.lm import Options
 from pyslam_tpu_torch.testing import se3_stress_graph
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import slot_reduce_kernel  # noqa: E402  (the repository root's script: each kernel by name)
 
 DENSE_GRAPHS = {
     "se2": lambda: synth.se2_loop(n_poses=30, n_loops=4, seed=0),
@@ -139,7 +145,8 @@ def test_slot_reduce_kernel_matches_plain(cuda_device, n_slots, E, C, dtype):
     ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["slot_reduce"] == 2
-    assert cuda_ops.slot_reduce_is_long(E, n_slots) == (n_slots <= 1024 and E >= 64 * n_slots)
+    assert cuda_ops.slot_reduce_is_long(E, n_slots) == (
+        E * cuda_ops.LONG_SLOTS >= cuda_ops.LONG_MIN_ROWS * n_slots * max(n_slots, cuda_ops.LONG_SLOTS))
     assert torch.equal(out, again)  # no atomics: the same bits every run
     if E:
         _assert_close(out, ref, KERNEL_TOL[dtype])
@@ -149,6 +156,34 @@ def test_slot_reduce_kernel_matches_plain(cuda_device, n_slots, E, C, dtype):
         assert torch.equal(out[slot].cpu(), _ordered_sum(rows, cuda_ops.slot_reduce_is_long(E, n_slots)))
     else:
         assert not out.any()
+
+
+# Past 1,024 destinations of many rows each: the sums of bench config 6 by
+# camera (1,700 destinations, about 2,736 rows each, cut to 300 here) at
+# the widths of a linearization, of D and of a Schur product, and by
+# landmark (about 4.65 rows each) at the widths 9 and 3.
+VENICE_SLOT_SHAPES = [(1700, 1700 * 300, 27), (1700, 1700 * 300, 21), (1700, 1700 * 300, 6),
+                      (2048, 2048 * 70, 6), (200_000, 930_000, 9), (200_000, 930_000, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_slots,E,C", VENICE_SLOT_SHAPES)
+def test_slot_reduce_both_kernels_past_1024_destinations(cuda_device, n_slots, E, C, dtype):
+    """Each kernel, named, against the plain version and bit for bit across
+    two runs; the dispatch takes one of them by the shape alone."""
+    rng = np.random.default_rng(7)
+    plan = bcsr.slot_plan(rng.integers(0, n_slots, E), n_slots)
+    contrib = torch.from_numpy(rng.normal(size=(E, C))).to(cuda_device, dtype)
+    perm = torch.from_numpy(plan.perm).to(cuda_device)
+    offsets = torch.from_numpy(plan.offsets).to(cuda_device)
+    ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
+    outs = {}
+    for long in (True, False):
+        outs[long] = slot_reduce_kernel(contrib, perm, offsets, n_slots, long)
+        assert torch.equal(outs[long], slot_reduce_kernel(contrib, perm, offsets, n_slots, long))
+        _assert_close(outs[long], ref, KERNEL_TOL[dtype])
+    picked = cuda_ops.slot_reduce_is_long(E, n_slots)
+    assert torch.equal(slot_reduce(contrib, perm, offsets, n_slots), outs[picked])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -524,6 +559,26 @@ def test_solve_schur_on_the_card_matches_the_cpu_path(cuda_device, name, mode):
     assert abs(i_g.chi2.item() - i_c.chi2.item()) <= 1e-9 * i_c.chi2.item()
     for n in s_c.blocks:
         assert (s_g.blocks[n].values.cpu() - s_c.blocks[n].values).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("linear", ["pcg", "dense"])
+def test_solve_schur_large_on_the_card_matches_the_cpu_path(cuda_device, linear):
+    from pyslam_tpu_torch.solver import schur_large
+
+    data = synth.ba_synthetic(n_cams=8, n_pts=64, seed=3)
+    opts = Options(method="lm", max_iters=12)
+    s_c, c_c, h_c = schur_large.solve_schur_large(build.ba_graph(data, dtype=torch.float64, device="cpu"), opts,
+                                                  n_chunks=4, linear=linear)
+    cuda_ops.reset_launches()
+    g = build.ba_graph(data, dtype=torch.float64, device=cuda_device)
+    s_g, c_g, h_g = schur_large.solve_schur_large(g, opts, n_chunks=4, linear=linear)
+    again = schur_large.solve_schur_large(g, opts, n_chunks=4, linear=linear)
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    assert len(h_g) == len(h_c) and h_g[-1] < h_g[0]
+    np.testing.assert_allclose(h_g, h_c, rtol=1e-9)
+    assert again[2] == h_g and torch.equal(again[0].blocks["poses"].values, s_g.blocks["poses"].values)
+    for n in s_c.blocks:
+        assert (s_g.blocks[n].values.cpu() - s_c.blocks[n].values).abs().max().item() <= 1e-8
 
 
 # --------------------------------------------------------------------------

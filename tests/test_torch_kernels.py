@@ -140,11 +140,14 @@ def test_slot_plan_sorts_as_numpy_stable_argsort(n_slots, E):
 
 def test_slot_reduce_kernel_choice_reads_the_shape_only():
     """Few destinations of many rows take the block-per-destination kernel:
-    the Schur sums by camera of bench config 4, not its sums by landmark,
-    not the assemblies of the pose-graph cells."""
+    the Schur sums by camera of bench configs 4 and 6, not their sums by
+    landmark, not the assemblies of the pose-graph cells.  Past 1,024
+    destinations the rows a destination needs grow with the destinations."""
     long = cuda_ops.slot_reduce_is_long
     assert long(25769, 49) and long(64, 1) and long(1024 * 64, 1024)
-    assert not long(25769, 7000) and not long(19792, 22500) and not long(63, 1) and not long(10**6, 1025)
+    assert long(4_650_850, 1700) and long(10**6, 1025) and long(4096 * 256, 4096)
+    assert not long(25769, 7000) and not long(19792, 22500) and not long(63, 1)
+    assert not long(4_650_850, 1_000_000) and not long(1700 * 64, 1700) and not long(16384 * 300, 16384)
     assert not long(0, 5)
 
 

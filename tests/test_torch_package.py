@@ -42,6 +42,8 @@ def test_import_leaves_jax_out():
         "from pyslam_tpu_torch.solver import route_auto, solve_auto, solve_batched, solve_sparse_chol\n"
         "from pyslam_tpu_torch.solver import build_chol_plan, sparse_chol_solve, solve_schur_sparse\n"
         "from pyslam_tpu_torch.solver import build_schur_sparse_plan\n"
+        "import pyslam_tpu_torch.solver.host_loop, pyslam_tpu_torch.solver.schur_large\n"
+        "from pyslam_tpu_torch.solver import host_lm_loop, solve_schur_large, prepare_large_ba\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"

@@ -133,8 +133,8 @@ def test_assemble_S_ell_is_the_dense_S():
     plan = tss.build_schur_sparse_plan(tg, leaf_size=4)
     parts, _, _ = tschur.ba_assemble(tg)
     lam = torch.tensor(1e-3, dtype=torch.float64)
-    Hpp, L_ll, W, _ = tschur._schur_reduce(parts, lam, "lm")
-    He = tss.assemble_S_ell(plan, tss.plan_tables(plan, "cpu"), Hpp, parts["PP"], W, tschur._binv(L_ll))
+    Hpp, Hll_inv, W, _ = tschur._schur_reduce(parts, lam, "lm")
+    He = tss.assemble_S_ell(plan, tss.plan_tables(plan, "cpu"), Hpp, parts["PP"], W, Hll_inv)
     C, dp, K = plan.C, plan.dp, plan.chol.K
     S = torch.zeros(C, dp, C, dp, dtype=torch.float64)
     cols = torch.as_tensor(plan.chol.ell.cols, dtype=torch.int64)
@@ -143,7 +143,6 @@ def test_assemble_S_ell_is_the_dense_S():
     S[rows[valid], :, cols[valid], :] = He[valid]
     # the dense S from the same parts
     sp = parts["plan"]
-    Hll_inv = tschur._binv(L_ll)
     Hpl = torch.zeros(C, dp, sp.L, sp.dl, dtype=torch.float64)
     Hpl[sp.pair_cam, :, sp.pair_lm, :] = sp.by_pair.sum(W)
     Y = torch.einsum("alk,lkj->alj", Hpl.reshape(C * dp, sp.L, sp.dl), Hll_inv)

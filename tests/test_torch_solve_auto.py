@@ -9,8 +9,9 @@ reference, in f64 on the CPU.
   pinned difference: a graph whose observation batch names the landmark
   first is bundle adjustment to the port and not to the reference.
 * ``solve_auto``: each ported route end to end on a small graph gives the
-  bits of the solver it names; the routes that are not ported and every
-  mesh raise NotImplementedError.
+  bits of the solver it names (``schur_large`` forced on a small graph,
+  its gate checked on real graphs of 2,000,000 and 2,000,001
+  observations); ``schur_sqrt`` and every mesh raise NotImplementedError.
 * ``solve_batched``: each problem's chi2 within 1e-10 relative of the
   reference's ``solve_batched`` and of its own ``solve``, values within
   1e-10, the same iteration count, stop code and accept sequence.
@@ -304,9 +305,70 @@ def test_solve_auto_ell_route():
     assert torch.equal(info.chi2, ref.chi2)
 
 
+def _venice_class_arrays(n_obs, n_cams=10, obs_per_pt=5):
+    """A stereo BA problem past or at the ``schur_large`` gate of 2,000,000
+    observations, as numpy arrays: cheap to build, never solved."""
+    n_pts = -(-n_obs // obs_per_pt)
+    rng = np.random.default_rng(0)
+    T = np.tile(np.eye(4, dtype=np.float32), (n_cams, 1, 1))
+    T[:, 2, 3] = 10.0
+    pts = rng.normal(size=(n_pts, 3)).astype(np.float32)
+    pt_idx = np.repeat(np.arange(n_pts), obs_per_pt)[:n_obs]
+    cam_idx = np.arange(n_obs) % n_cams
+    obs = np.zeros((n_obs, 3), np.float32)
+    blocks = {"poses": dict(kind="se3", values=T, const_mask=np.arange(n_cams) == 0),
+              "landmarks": dict(kind="euclidean", values=pts, const_mask=np.zeros(n_pts, bool))}
+    camera = dict(cu=320.0, cv=240.0, fu=500.0, fv=500.0, b=0.3, w=640, h=480)
+    batch = dict(kind="reprojection", slots=("poses", "landmarks"), indices=[cam_idx, pt_idx],
+                 data={"obs": obs, "sqrt_info": np.eye(3, dtype=np.float32)}, weight=np.ones(n_obs, np.float32),
+                 camera=camera)
+    return blocks, batch
+
+
+@pytest.mark.parametrize("n_obs,expected", [(2_000_001, "schur_large"), (2_000_000, "schur_dense")])
+def test_route_schur_large_on_a_real_graph(n_obs, expected):
+    """A real graph of either package just past and just at the gate."""
+    from pyslam_tpu_torch.graph import convert
+
+    blocks, batch = _venice_class_arrays(n_obs)
+    camera = batch.pop("camera")
+    t_batch = dict(batch, data={**batch["data"], "camera": ("StereoCamera", camera)}, loss=("L2Loss", {}))
+    tg = convert.graph_from_numpy(blocks, [t_batch], dtype=torch.float32, device="cpu")
+    jb = {n: JVariableBlock(b["kind"], jnp.asarray(b["values"]), jnp.asarray(b["const_mask"]))
+          for n, b in blocks.items()}
+    jg = JFactorGraph(jb, [JFactorBatch.create(
+        kind="reprojection", slots=batch["slots"], indices=tuple(batch["indices"]),
+        data={"obs": jnp.asarray(batch["data"]["obs"]), "sqrt_info": jnp.asarray(batch["data"]["sqrt_info"]),
+              "camera": JStereo(**camera)}, loss=JL2())])
+    assert tg.batches[0].n == n_obs
+    assert jsolver.route_auto(jg) == route_auto(tg) == expected
+
+
+def test_solve_auto_runs_schur_large(monkeypatch):
+    """The ``schur_large`` route runs ``solve_schur_large`` with the
+    reference's arguments and returns the reference's (solved_graph,
+    cost_history).  The route is forced on a small graph: the real gate
+    needs more than 2,000,000 observations."""
+    from pyslam_tpu.solver.schur_large import solve_schur_large as j_solve_schur_large
+    from pyslam_tpu_torch import solver as tsolver
+    from pyslam_tpu_torch.solver.schur_large import solve_schur_large
+
+    jg, tg, _ = real("ba_small")
+    monkeypatch.setattr(tsolver, "route_auto", lambda *a, **kw: "schur_large")
+    monkeypatch.setattr(jsolver, "route_auto", lambda *a, **kw: "schur_large")
+    opts = dict(method="lm", max_iters=15)
+    solved, hist = solve_auto(tg, tlm.Options(**opts))
+    ref_solved, ref_chi2, ref_hist = solve_schur_large(tg, tlm.Options(**opts))
+    assert hist == ref_hist and ref_chi2 == hist[-1] and hist[-1] < 0.5 * hist[0]
+    for n, b in solved.blocks.items():
+        assert torch.equal(b.values, ref_solved.blocks[n].values)
+    _, j_hist = jsolver.solve_auto(jg, jlm.Options(**opts))
+    np.testing.assert_allclose(hist, j_hist, rtol=1e-9)
+    _, _, j_direct = j_solve_schur_large(jg, jlm.Options(**opts))
+    assert j_hist == j_direct
+
+
 def test_solve_auto_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        solve_auto(FAKE["venice_class"]())
     _, tg, _ = real("mono_clustered_f32")
     with pytest.raises(NotImplementedError, match="item 18"):
         solve_auto(tg)
