@@ -51,7 +51,21 @@ that it reaches its converged cost and went through the kernels:
     ``schur_large`` and ``solve_auto`` running it; ``slot_reduce``'s two
     kernels at its sums by camera and by landmark, each against the plain
     version and a second run; its data generation takes 30 to 50 s of host
-    numpy.
+    numpy;
+  * the multi-device layer (``dist/``) on a process group of one rank over
+    NCCL (a ``file://`` store in a temporary directory): bench config 5,
+    Venice-mini through ``solve_schur_sharded`` (PCG 1e-4 / 30, LM 15)
+    under 1.001 x ``venice_mini_ref`` and within 1e-4 of
+    ``solve_schur_large``; sphere2500 through ``solve_pose_sharded`` under
+    its gate, its CG products the ``ell_matvec`` kernel; ``slot_reduce`` at
+    the plans of both (config 5's sums by camera and by landmark, the
+    pose-sharded assembly's Hessian blocks and gradient rows); config 7
+    through ``solve_factor_parallel`` within 1e-4 of the dense path;
+    ``ell_matvec`` at the sharded shape (rank 0 of 2 of sphere2500 against
+    the whole x);
+    and two ranks spawned on the one card over gloo (NCCL refuses two ranks
+    on one GPU), config 4's graph and a 500-pose sphere each within 1e-4 of
+    one rank.
 
 Run from the repository root, with no arguments, on a machine with a
 CUDA device and ``nvcc``:
@@ -1119,6 +1133,7 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated()} B")
         if linear_vm == "pcg":
             gate("venice_mini f32 pcg", chi2_vm, 1.001, standin["venice_mini_ref"]["chi2"])
+            chi2_vm_pcg = chi2_vm  # config 5's path is held to it (phase 24)
         else:
             check(np.isfinite(chi2_vm) and chi2_vm < 0.01 * hist_vm[0], f"{path}: chi2 {hist_vm[0]} -> {chi2_vm}")
         check_poses(path, solved_vm, (300, 4, 4))
@@ -1221,6 +1236,9 @@ def main() -> int:
     log(f"f64 ba_synthetic(8, 64) solve_schur_large: cpu {h_c!r}; cuda {h_g!r}; pose diff {pose_err!r}")
     check(len(h_c) == len(h_g) and abs(c_c - c_g) <= 1e-8 * c_c and pose_err <= 1e-6,
           "solve_schur_large: the CPU and CUDA paths differ")
+    sharded_phases(dict(dev=dev, drive=drive, gate=gate, check_poses=check_poses, report=report, standin=standin,
+                        chi2_ref=chi2_ref, g_vm=g_vm, chi2_vm_pcg=chi2_vm_pcg, sphere=graph, x_sphere=x,
+                        g_7=g_7, chi2_7=chi2_7))
     log(f"total: {time.perf_counter() - t_start!r} s")
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
@@ -1238,7 +1256,8 @@ def main() -> int:
     main_paths = ("sphere2500", "sphere2500_dogleg", "config1_se2_loop_cauchy", "config1_se2_loop_l2",
                   "config2_m3500_g2o", "config7_sim3_400", "config4_ba_schur_pcg", "config4_ba_schur_dense",
                   "config8_landmark_slam_800", "config2_sparse_chol", "sparse_chol_5000", "schur_sparse_2000",
-                  "batched_fleet_16", "venice_mini_pcg", "venice_mini_dense", "config6_venice", "config6_solve_auto")
+                  "batched_fleet_16", "venice_mini_pcg", "venice_mini_dense", "config6_venice", "config6_solve_auto",
+                  "config5_schur_sharded", "sphere2500_pose_sharded", "config7_factor_parallel")
     kernels = [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
              launches=sum(launches_by_path[p].get(k, 0) for p in main_paths),
@@ -1255,6 +1274,263 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def sharded_bsr(He, cols, start, n_x):
+    """The rows of one rank's sharded ELL store as a
+    ``torch.sparse_bsr_tensor`` against the x of every rank (padding slots,
+    whose column is the row itself, dropped; columns ascending), for the
+    library yardstick of ``ell_matvec`` at the sharded shape."""
+    import numpy as np
+    import torch
+
+    nb_local, K, d, _ = He.shape
+    c = cols.cpu().numpy().astype(np.int64)
+    valid = np.ones_like(c, bool)
+    valid[:, 1:] = c[:, 1:] != (start + np.arange(nb_local))[:, None]
+    order = np.argsort(np.where(valid, c, np.iinfo(np.int64).max), axis=1, kind="stable")
+    keep = np.take_along_axis(valid, order, axis=1)
+    col = np.take_along_axis(c, order, axis=1)[keep]
+    crow = np.concatenate([[0], np.cumsum(valid.sum(1))])
+    flat = torch.from_numpy((np.arange(nb_local)[:, None] * K + order)[keep]).to(He.device)
+    return torch.sparse_bsr_tensor(torch.from_numpy(crow).to(He.device), torch.from_numpy(col).to(He.device),
+                                   He.reshape(-1, d, d)[flat].contiguous(), size=(nb_local * d, n_x * d))
+
+
+def _two_ranks_on_one_card(mesh):
+    """Phase 27's rank: the two collectives on CUDA tensors over gloo, then
+    config 4's graph through ``solve_schur_sharded`` and a 500-pose sphere
+    through ``solve_pose_sharded``."""
+    import torch
+
+    from pyslam_tpu_torch import dist
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import cuda_ops
+    from pyslam_tpu_torch.solver.lm import Options
+
+    dev = mesh.device
+    t = mesh.psum(torch.full((3,), float(mesh.rank + 1), device=dev))
+    gathered = mesh.all_gather(torch.full((mesh.rank + 1, 2), float(mesh.rank), device=dev), [1, 2])
+    out = dict(backend=mesh.backend, device=str(t.device), psum=t.tolist(), gathered=gathered.tolist())
+    cuda_ops.reset_launches()
+    _, out["chi2_ba"], out["hist_ba"] = dist.solve_schur_sharded(
+        build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0)), mesh, Options(method="lm", max_iters=25),
+        pcg_rtol=1e-4, pcg_max_iters=30)
+    _, out["chi2_pose"], out["hist_pose"] = dist.solve_pose_sharded(
+        build.pose_graph(synth.se3_sphere(n_poses=500, seed=0)), mesh,
+        Options(method="lm", max_iters=30, min_cost_decrease=0.999), pcg_rtol=3e-6, pcg_max_iters=120)
+    out["launches"] = dict(cuda_ops.LAUNCHES)
+    return out
+
+
+def sharded_phases(ctx):
+    """Phases 23 to 27: the multi-device layer (``dist/``) on the card.
+    ``ctx`` carries what ``main`` built and measured before: the device,
+    its helpers (``drive``, ``gate``, ``check_poses``), the kernels report,
+    the reference costs, the Venice-mini graph and phase 19's PCG chi2,
+    sphere2500's graph and random x, config 7's graph and phase 8's chi2."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from pyslam_tpu_torch import dist
+    from pyslam_tpu_torch.dist import pose_sharded, schur_reduce
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import cuda_ops, schur_large
+    from pyslam_tpu_torch.solver.lm import Options
+    from pyslam_tpu_torch.testing import run_ranks
+
+    dev, drive, gate, check_poses, report = (ctx[k] for k in ("dev", "drive", "gate", "check_poses", "report"))
+    standin = ctx["standin"]
+    with tempfile.TemporaryDirectory() as store:
+        try:
+            # ---- phase 23: a process group of one rank on NCCL -------------
+            t_phase = time.perf_counter()
+            dist.init_distributed(f"file://{os.path.join(store, 'world')}", world_size=1, rank=0)
+            mesh = dist.make_mesh(axis_name="l")
+            ones = mesh.psum(torch.arange(3.0, device=dev))
+            check(mesh.backend == "nccl" and mesh.size == 1 and mesh.device.type == "cuda"
+                  and torch.equal(ones, torch.arange(3.0, device=dev)), f"process group: {mesh}")
+            mesh.barrier()
+            log(f"process group: backend {mesh.backend}, world size {mesh.size}, rank {mesh.rank}, device "
+                f"{mesh.device}, NCCL {torch.cuda.nccl.version()}; {time.perf_counter() - t_phase!r} s")
+
+            # ---- phase 24: bench config 5 through solve_schur_sharded -------
+            # phase 19's Venice-mini graph, the settings of bench/run.py:249-262
+            t_phase = time.perf_counter()
+            g_vm = ctx["g_vm"]
+            opts5 = Options(method="lm", max_iters=15)
+
+            def run5():
+                return dist.solve_schur_sharded(g_vm, mesh, opts5, pcg_rtol=1e-4, pcg_max_iters=30)
+
+            t0 = time.perf_counter()
+            run5()  # warm-up
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            schur_large.reset_cg_iterations()
+            dist.reset_collectives()
+            t0 = time.perf_counter()
+            (solved5, chi2_5, hist5), launches, reads = drive("config5_schur_sharded", run5, ("slot_reduce",))
+            wall = time.perf_counter() - t0
+            coll, cg5, peak = dict(dist.COLLECTIVES), schur_large.cg_iterations(), torch.cuda.max_memory_allocated()
+            iters = len(cg5)
+            log(f"solve config5_schur_sharded f32 (300 cameras, 60,000 points, {g_vm.batches[0].n} observations, "
+                f"1 rank): wall {1e3 * wall!r} ms (warm-up {1e3 * warm!r} ms), LM iterations {iters}, accepted "
+                f"{len(hist5) - 1}, chi2 {hist5[0]!r} -> {chi2_5!r}, CG iterations per linear solve {cg5}, host "
+                f"reads {reads}, launches {launches}, collectives {coll}, peak memory {peak} B")
+            gate("config5 venice_mini through solve_schur_sharded", chi2_5, 1.001, standin["venice_mini_ref"]["chi2"])
+            gap = abs(chi2_5 - ctx["chi2_vm_pcg"]) / ctx["chi2_vm_pcg"]
+            log(f"config5: solve_schur_large's chi2 {ctx['chi2_vm_pcg']!r}, relative gap {gap!r}")
+            check(gap <= 1e-4, f"config5: chi2 {chi2_5} is {gap} from solve_schur_large's")
+            check(reads == {"pcg": 0, "lm": iters}, f"config5: host reads {reads}, expected one per LM iteration")
+            check(coll == {"psum": iters * (4 + 30), "all_gather": 1}, f"config5: collectives {coll}")
+            check_poses("config5", solved5, (300, 4, 4))
+            check(torch.isfinite(solved5.blocks["landmarks"].values).all().item(), "config5: non-finite landmarks")
+            del solved5
+
+            # slot_reduce at config 5's sums, on the rank's plans: the rows of
+            # the linearization at the start point by camera (6 + 36) and by
+            # landmark (3 + 9), then seeded rows at the widths of g_red (6)
+            # and D (36) by camera and of a Schur product (6 by camera, 3 by
+            # landmark)
+            sb = dist.shard_ba(g_vm, mesh)
+            r, (Jc, Jl) = schur_reduce._observations(sb, sb.poses, sb.lms, True)
+            w = sb.loss.weight(r) * sb.weight[:, None]
+            rows5 = (schur_reduce._rows(Jc, w, w * r), schur_reduce._rows(Jl, w, w * r))
+            del r, Jc, Jl, w
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            M5 = rows5[0].shape[0]
+            for label, contrib, seg in (("linearization by camera", rows5[0], sb.by_cam),
+                                        ("linearization by landmark", rows5[1], sb.by_lm),
+                                        ("g_red by camera", torch.randn((M5, 6), generator=gen, device=dev), sb.by_cam),
+                                        ("D by camera", torch.randn((M5, 36), generator=gen, device=dev), sb.by_cam),
+                                        ("S product, by landmark", torch.randn((M5, 3), generator=gen, device=dev),
+                                         sb.by_lm),
+                                        ("S product, by camera", torch.randn((M5, 6), generator=gen, device=dev),
+                                         sb.by_cam)):
+                log(f"config5 {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
+                check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                             [contrib, seg.perm, seg.offsets, seg.n_slots], report, "config5_ms", flop=contrib.numel(),
+                             library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots))
+            del sb, rows5, contrib
+            log(f"phase 24 (config 5): {time.perf_counter() - t_phase!r} s")
+
+            # ---- phase 25: sphere2500 through solve_pose_sharded ------------
+            t_phase = time.perf_counter()
+            sphere = ctx["sphere"]
+            mesh_p = dist.make_mesh(axis_name="p")
+            opts25 = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
+
+            def run25():
+                return dist.solve_pose_sharded(sphere, mesh_p, opts25, pcg_rtol=3e-6, pcg_max_iters=120)
+
+            run25()
+            torch.cuda.synchronize()
+            dist.reset_collectives()
+            t0 = time.perf_counter()
+            (solved25, chi2_25, hist25), launches, reads = drive("sphere2500_pose_sharded", run25,
+                                                                 ("ell_matvec", "slot_reduce"))
+            wall = time.perf_counter() - t0
+            coll, iters = dict(dist.COLLECTIVES), reads["lm"]
+            log(f"solve sphere2500_pose_sharded f32 (1 rank): wall {1e3 * wall!r} ms, LM iterations {iters}, "
+                f"accepted {len(hist25) - 1}, chi2 {hist25[0]!r} -> {chi2_25!r}, ell_matvec launches "
+                f"{launches['ell_matvec']}, host reads {reads}, launches {launches}, collectives {coll}")
+            gate("sphere2500 through solve_pose_sharded", chi2_25, 1.001, ctx["chi2_ref"])
+            check(launches["ell_matvec"] == 120 * iters > 0 and reads["pcg"] == 0,
+                  f"sphere2500_pose_sharded: {launches['ell_matvec']} ell_matvec launches for {iters} LM iterations")
+            check_poses("sphere2500_pose_sharded", solved25, (N_POSES, 4, 4))
+
+            # slot_reduce at the rank's assembly plans, on the rows of the
+            # first linearization: Hessian blocks into the ELL store (36) and
+            # gradient rows (6)
+            sp1 = dist.shard_pose_graph(sphere, mesh_p)
+            _, h_rows, g_rows = pose_sharded._contributions(sp1, mesh_p.all_gather(sp1.pose_slab, sp1.counts))
+            for label, contrib, seg in (("Hessian blocks", h_rows, sp1.h_seg), ("gradient rows", g_rows, sp1.g_seg)):
+                log(f"sphere2500_pose_sharded {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} "
+                    f"destinations")
+                check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                             [contrib, seg.perm, seg.offsets, seg.n_slots], report, "pose_sharded_ms",
+                             flop=contrib.numel(), library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots))
+            del sp1, h_rows, g_rows
+            log(f"phase 25 (sphere2500 sharded): {time.perf_counter() - t_phase!r} s")
+
+            # ell_matvec at the sharded shape: rank 0 of 2's rows of sphere2500
+            # (its BFS partition) against the whole x, on seeded random blocks
+            two = dist.Mesh(group=None, rank=0, size=2, device=dev, backend="nccl", axis_name="p")
+            sp = dist.shard_pose_graph(sphere, two)
+            Pr, K = sp.cols.shape
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            He_s = torch.randn((Pr, K, 6, 6), generator=gen, device=dev)
+            pad = (torch.arange(K, device=dev)[None, :] > 0) & (sp.cols.long() == torch.arange(Pr, device=dev)[:, None])
+            He_s[pad] = 0.0  # padding slots hold zero blocks, as an assembled store does
+            x_s = ctx["x_sphere"]
+            bsr_s = sharded_bsr(He_s, sp.cols, 0, sp.nb)
+            log(f"ell_matvec sharded shape: rows {Pr} of {sp.nb} (rank 0 of 2), K {K}, x {tuple(x_s.shape)}")
+            check_kernel("ell_matvec", cuda_ops.ell_matvec, cuda_ops.ell_matvec_plain, [He_s, sp.cols, x_s], report,
+                         "pose_sharded_ms", flop=2 * Pr * K * 36, library=lambda: (bsr_s @ x_s[:, None])[:, 0])
+
+            # ---- phase 26: config 7 through solve_factor_parallel -----------
+            t_phase = time.perf_counter()
+            mesh_f = dist.make_mesh()
+            opts7 = Options(method="lm", max_iters=50)
+
+            def run26():
+                return dist.solve_factor_parallel(ctx["g_7"], mesh_f, opts7)
+
+            run26()
+            torch.cuda.synchronize()
+            dist.reset_collectives()
+            t0 = time.perf_counter()
+            (solved26, chi2_26, hist26), launches, reads = drive("config7_factor_parallel", run26, ("slot_reduce",))
+            wall = time.perf_counter() - t0
+            coll = dict(dist.COLLECTIVES)
+            gap = abs(chi2_26 - ctx["chi2_7"]) / ctx["chi2_7"]
+            log(f"solve config7_factor_parallel f32 (1 rank): wall {1e3 * wall!r} ms, LM iterations {reads['lm']}, "
+                f"chi2 {hist26[0]!r} -> {chi2_26!r}; the dense path's {ctx['chi2_7']!r}, relative gap {gap!r}; "
+                f"launches {launches}, collectives {coll}")
+            gate("config7 sim3_loop_400 through solve_factor_parallel", chi2_26, STANDIN_GATE,
+                 standin["sim3_loop_400"]["chi2"])
+            check(gap <= 1e-4, f"config7_factor_parallel: chi2 {chi2_26} is {gap} from the dense path's")
+            check(coll == {"psum": 3 * reads["lm"], "all_gather": 0}, f"config7_factor_parallel: collectives {coll}")
+            check_poses("config7_factor_parallel", solved26, (400, 4, 4))
+            log(f"phase 26 (config 7 factor-parallel): {time.perf_counter() - t_phase!r} s")
+
+            # ---- phase 27: two ranks on the one card, over gloo -------------
+            # NCCL refuses two ranks on one GPU; gloo takes CUDA tensors.  The
+            # same two solves at world size 1 (this process, NCCL) first.
+            t_phase = time.perf_counter()
+            _, ref_ba, _ = dist.solve_schur_sharded(build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0)),
+                                                    mesh, Options(method="lm", max_iters=25), pcg_rtol=1e-4,
+                                                    pcg_max_iters=30)
+            _, ref_pose, _ = dist.solve_pose_sharded(build.pose_graph(synth.se3_sphere(n_poses=500, seed=0)), mesh,
+                                                     Options(method="lm", max_iters=30, min_cost_decrease=0.999),
+                                                     pcg_rtol=3e-6, pcg_max_iters=120)
+            os.mkdir(os.path.join(store, "two"))
+            ranks = run_ranks(_two_ranks_on_one_card, 2, os.path.join(store, "two"), backend="gloo", device="cuda",
+                              timeout_s=300.0)
+            for rank, out in enumerate(ranks):
+                gap_ba, gap_pose = (abs(out["chi2_ba"] - ref_ba) / ref_ba, abs(out["chi2_pose"] - ref_pose) / ref_pose)
+                log(f"two ranks on one card, rank {rank}: {out['backend']} on {out['device']}, psum {out['psum']}, "
+                    f"gather {out['gathered']}; config4 chi2 {out['chi2_ba']!r} (1 rank {ref_ba!r}, gap {gap_ba!r}, "
+                    f"{len(out['hist_ba']) - 1} accepted); se3_sphere(500) chi2 {out['chi2_pose']!r} (1 rank "
+                    f"{ref_pose!r}, gap {gap_pose!r}); launches {out['launches']}")
+                check(out["backend"] == "gloo" and out["device"].startswith("cuda") and out["psum"] == [3.0] * 3
+                      and out["gathered"] == [[0.0, 0.0], [1.0, 1.0], [1.0, 1.0]], f"rank {rank}: gloo on the card")
+                check(gap_ba <= 1e-4 and gap_pose <= 1e-4, f"rank {rank}: two ranks part from one")
+                check(out["launches"]["slot_reduce"] > 0 and out["launches"]["ell_matvec"] > 0
+                      and out["launches"]["slot_reduce_plain"] == out["launches"]["ell_matvec_plain"] == 0,
+                      f"rank {rank}: launches {out['launches']}")
+            check(ranks[0]["chi2_ba"] == ranks[1]["chi2_ba"] and ranks[0]["chi2_pose"] == ranks[1]["chi2_pose"],
+                  "the two ranks returned different solves")
+            log(f"phase 27 (two ranks, one card): {time.perf_counter() - t_phase!r} s")
+        finally:
+            if tdist.is_initialized():
+                tdist.destroy_process_group()
 
 
 def cross_check(label, res, rel=1e-8):

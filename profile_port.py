@@ -58,6 +58,13 @@ plans (``build_chol_plan`` / ``build_schur_sparse_plan``), the assembly,
 ``_solve_factored`` at the start point, and ``retract_all``; and the
 ``slot_reduce`` launches and host reads of one solve.
 
+The cell ``config5`` is bench config 5 on its own path: Venice-mini through
+``dist.solve_schur_sharded`` on a 1-rank NCCL mesh (f32, PCG 1e-4 / 30, LM
+15; at least 9 repetitions), with the host ms of ``shard_ba``, of one LM
+step with and without its CG loop and of one ``psum``, and one solve's
+collectives, ``slot_reduce`` launches, host reads, CG iterations and peak
+memory.  Every cell prints its median wall with the quartiles.
+
 Cells of ``solve_schur_large`` (f32, the plan built once, outside the
 timing): ``venice_mini`` (bench config 5's problem, 300 cameras / 60,000
 points, PCG 1e-4 / 30, LM 15) and ``config6`` (1,700 cameras / 1,000,000
@@ -83,6 +90,13 @@ outside (``schur.pcg_solve``); each must give the same LM iterations and
 chi2.  They take turns solve by solve
 (``--reps`` rounds of one solve each after a warm-up round), so that a
 drift of the host's speed falls on all alike.
+
+The extra cell ``sharded_cg_reads`` (not in the default list) runs
+``solve_pose_sharded`` and ``solve_schur_sharded`` on graphs whose CG
+stops well inside its default budget, with the stop test read never (what
+the solvers run), every iteration and every 8th, in turns (at least 9
+rounds), on a 1-rank NCCL mesh: the median wall with quartiles, the CG
+iterations and the collectives of a solve under each.
 
 The extra cell ``slot_sweep`` (not in the default list) times both
 kernels of ``slot_reduce`` on random plans of 1,024 to 131,072
@@ -118,7 +132,7 @@ import time
 from typing import NamedTuple
 
 CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense", "config8", "config2_sparse_chol",
-         "sparse_chol_5000", "schur_sparse_2000", "fleet16", "venice_mini", "config6")
+         "sparse_chol_5000", "schur_sparse_2000", "fleet16", "venice_mini", "config6", "config5")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
@@ -186,7 +200,7 @@ def pcg_guarded_plain(matvec, precond, b, rtol, max_iters):
     x = torch.zeros_like(b)
     r, z = b, precond(b)
     p, rz, rn2 = z, torch.dot(b, z), torch.dot(b, b)
-    tol2 = (rtol * torch.linalg.norm(b)) ** 2
+    tol2 = rtol**2 * rn2
     it = 0
     while it < max_iters:
         HOST_READS["pcg"] += 1
@@ -405,6 +419,137 @@ def large_split(name, g, o, plan, common, reps, run, cg_rounds=30):
                  host_reads_per_solve=dict(linear.HOST_READS), cg_iterations=schur_large.cg_iterations(),
                  peak_memory_bytes=torch.cuda.max_memory_allocated())
     return split
+
+
+# The temporary directory of the process group's ``file://`` store, removed
+# after the group is destroyed at the end of ``main``.
+_STORE = []
+
+
+def one_rank_mesh(dev, axis_name):
+    """A mesh over a process group of one rank on NCCL, the group started
+    on first use over a ``file://`` store in a temporary directory."""
+    import torch.distributed as tdist
+
+    from pyslam_tpu_torch import dist
+
+    if not tdist.is_initialized():
+        _STORE.append(tempfile.TemporaryDirectory())
+        dist.init_distributed(f"file://{os.path.join(_STORE[-1].name, 'world')}", world_size=1, rank=0, device=dev)
+    return dist.make_mesh(axis_name=axis_name, device=dev)
+
+
+def sharded_cell(dev):
+    """(graph, options, run) of bench config 5 on its own path: Venice-mini
+    through ``dist.solve_schur_sharded`` on a 1-rank NCCL mesh (PCG 1e-4 /
+    30, LM 15)."""
+    from pyslam_tpu_torch import dist
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver.lm import Options
+
+    mesh = one_rank_mesh(dev, "l")
+    g = build.ba_graph(synth.ba_synthetic(n_cams=300, n_pts=60000, obs_per_pt=6, seed=0), device=dev)
+    o = Options(method="lm", max_iters=15)
+
+    def run():
+        import torch
+
+        _, chi2, hist = dist.solve_schur_sharded(g, mesh, o, pcg_rtol=1e-4, pcg_max_iters=30)
+        return None, LargeInfo(torch.tensor(chi2), len(hist) - 1, None)
+
+    return g, o, mesh, run
+
+
+def sharded_split(g, o, mesh, reps, run):
+    """Host ms of ``shard_ba`` (the plan), of one LM step at the start
+    point with its CG budget of 30 and with none (their difference is the
+    CG loop), and of one ``psum`` of the camera blocks and gradient; then
+    one solve's counts: collectives, ``slot_reduce`` launches, host reads,
+    CG iterations and peak memory."""
+    import torch
+
+    from pyslam_tpu_torch import dist
+    from pyslam_tpu_torch.dist.schur_reduce import make_sharded_schur_step
+    from pyslam_tpu_torch.solver import cuda_ops, linear, schur_large
+
+    sb = dist.shard_ba(g, mesh)
+    state, lam = (sb.poses, sb.lms), o.lambda_init
+    steps = {n: make_sharded_schur_step(sb, o, 1e-4, n) for n in (30, 0)}
+    cam = torch.zeros(sb.C * (sb.dp + sb.dp * sb.dp), dtype=sb.poses.dtype, device=sb.poses.device)
+    split = dict(shard_ba=host_ms(lambda: dist.shard_ba(g, mesh), reps),
+                 lm_step=host_ms(lambda: steps[30](state, lam), reps),
+                 lm_step_without_cg=host_ms(lambda: steps[0](state, lam), reps),
+                 psum_of_camera_blocks=host_ms(lambda: mesh.psum(cam), reps))
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    schur_large.reset_cg_iterations()
+    dist.reset_collectives()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    split.update(collectives_per_solve=dict(dist.COLLECTIVES),
+                 slot_reduce_launches_per_solve=cuda_ops.LAUNCHES["slot_reduce"],
+                 host_reads_per_solve=dict(linear.HOST_READS), cg_iterations=schur_large.cg_iterations(),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return split
+
+
+def sharded_cg_reads(dev, reps):
+    """The sharded solvers on graphs whose CG stops well inside its budget,
+    with the host reading the stop test never (``CG_READ_EVERY = 0``, what
+    the solvers run: every linear solve pays its whole budget, a collective
+    or three each iteration), every iteration and every 8th, in turns solve
+    by solve after a warm-up round, on a 1-rank NCCL mesh (f32).  Per
+    variant: the median wall with its quartiles, the CG iterations of each
+    linear solve, the collectives of one solve, and the chi2, which must be
+    the same bits under every variant (the frozen iterate is the one an
+    early exit returns)."""
+    import torch
+
+    from pyslam_tpu_torch import dist
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import schur_large
+    from pyslam_tpu_torch.solver.lm import Options
+
+    mesh = one_rank_mesh(dev, "f")
+    cases = {
+        "solve_pose_sharded, se3_sphere(500), PCG 1e-4 / 250 (the default budget), LM 10": functools.partial(
+            dist.solve_pose_sharded, build.pose_graph(synth.se3_sphere(n_poses=500, seed=0), device=dev), mesh,
+            Options(method="lm", max_iters=10), pcg_rtol=1e-4),
+        "solve_schur_sharded, config 4's graph, PCG 1e-4 / 200 (the default budget), LM 10": functools.partial(
+            dist.solve_schur_sharded, build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0), device=dev),
+            mesh, Options(method="lm", max_iters=10), pcg_rtol=1e-4),
+    }
+    variants = (0, 1, 8)
+    for label, solve in cases.items():
+        walls, seen = {n: [] for n in variants}, {}
+        try:
+            for rep in range(reps + 1):  # round 0 warms up and is not kept
+                for n in variants:
+                    schur_large.CG_READ_EVERY = n
+                    schur_large.reset_cg_iterations()
+                    dist.reset_collectives()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, chi2, hist = solve()
+                    wall = 1e3 * (time.perf_counter() - t0)
+                    if rep:
+                        walls[n].append(wall)
+                    seen[n] = (chi2, len(hist) - 1, schur_large.cg_iterations(), dict(dist.COLLECTIVES))
+        finally:
+            schur_large.CG_READ_EVERY = 0
+        print(f"== sharded CG reads: {label}", flush=True)
+        for n in variants:
+            q = statistics.quantiles(walls[n], n=4)
+            chi2, accepted, cg, coll = seen[n]
+            print(f"   read {'never' if n == 0 else f'every {n}'}: wall median of {reps} {statistics.median(walls[n])!r} "
+                  f"ms, quartiles {q[0]!r} to {q[2]!r}; chi2 {chi2!r}, {accepted} accepted, CG iterations {cg}, "
+                  f"collectives {coll}", flush=True)
+        same = len({seen[n][0] for n in variants}) == 1
+        print(f"   chi2 the same bits under every variant: {same}", flush=True)
+        if not same:
+            raise SystemExit(f"sharded CG reads: {label}: the variants' chi2 differ")
 
 
 def block_idioms(dev):
@@ -763,24 +908,33 @@ def main() -> int:
         if name == "block_idioms":
             block_idioms(dev)
             continue
+        if name == "sharded_cg_reads":
+            sharded_cg_reads(dev, max(args.reps, 9))
+            continue
+        reps = args.reps
         if name in ("venice_mini", "config6"):
             t0 = time.perf_counter()
             g, o, plan, common = large_cell(name, dev)
             print(f"   {name}: graph and plan {time.perf_counter() - t0!r} s", flush=True)
             run = functools.partial(run_large, g, o, plan, common)
+        elif name == "config5":
+            g, o, mesh, run = sharded_cell(dev)
+            reps = max(reps, 9)
         else:
             g, o, run = make_cell(name, dev)
         run()
         torch.cuda.synchronize()
         walls = []
-        for _ in range(args.reps):
+        for _ in range(reps):
             t0 = time.perf_counter()
             _, info = run()
             chi2 = info.chi2.item()
             walls.append(1e3 * (time.perf_counter() - t0))
         wall = statistics.median(walls)
-        print(f"== {name}: wall median of {args.reps} {wall!r} ms (all {[round(w, 3) for w in walls]}); "
-              f"LM iterations {info.iterations} status {info.status} chi2 {chi2!r}", flush=True)
+        quartiles = statistics.quantiles(walls, n=4) if len(walls) > 1 else [wall] * 3
+        print(f"== {name}: wall median of {reps} {wall!r} ms, quartiles {quartiles[0]!r} to {quartiles[2]!r} (all "
+              f"{[round(w, 3) for w in walls]}); LM iterations {info.iterations} status {info.status} chi2 {chi2!r}",
+              flush=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             _, info = run()
@@ -794,7 +948,9 @@ def main() -> int:
         print(f"   runtime calls per solve {({e.key: e.count for e in ka if e.key in RUNTIME_CALLS})}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"   {dev_us(e) / 1e3:10.4f} ms  x{e.count:5d}  {e.key[:110]}")
-        if name in ("venice_mini", "config6"):
+        if name == "config5":
+            split = sharded_split(g, o, mesh, reps, run)
+        elif name in ("venice_mini", "config6"):
             split = large_split(name, g, o, plan, common, min(args.reps, 3) if name == "config6" else args.reps, run)
         elif name == "sphere2500":
             split = ell_split(g, o, dev, args.reps)
@@ -807,6 +963,12 @@ def main() -> int:
         else:
             split = dense_split(g, o, dev, args.reps)
         print(f"   host ms per call (median of {args.reps}, synchronised): {split}", flush=True)
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+    for store in _STORE:
+        store.cleanup()
     return 0
 
 

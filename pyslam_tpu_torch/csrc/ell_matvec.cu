@@ -6,7 +6,9 @@
 //
 // He (nb, K, d, d) row-major, the store assemble_ell writes (diagonal block
 // at slot k = 0, zero blocks in padding slots, whose cols name the row
-// itself); cols (nb, K) int32; x, y (nb*d,).
+// itself); cols (nb, K) int32 in [0, n_x); x (n_x*d,), y (nb*d,): n_x is nb
+// for a whole matrix, and larger for the rows of one rank of a sharded
+// solve against the x of every rank (dist/pose_sharded.py).
 //
 // Replaces pyslam_tpu/solver/pallas_ops.py::ell_matvec_lane_major (and
 // its wrapper ell_matvec_pallas).  The TPU kernel took a pre-gathered,

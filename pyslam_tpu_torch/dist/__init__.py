@@ -1,0 +1,72 @@
+"""The multi-device layer of the port, on ``torch.distributed``.
+
+Counterpart of ``pyslam_tpu/dist``.  One process per device (multi-
+controller SPMD, PyTorch's idiom): every rank calls the same entry point
+with the whole graph, builds the same host plans, keeps its own shard on
+``mesh.device`` and gets back the whole solved graph.  NCCL on CUDA
+devices, gloo on the CPU.
+
+  * ``mesh``            — ``init_distributed``, ``make_mesh``, the ``Mesh``
+                          and its two collectives (``psum``, ``all_gather``)
+  * ``factor_parallel`` — factors split over the ranks, H, g and chi2
+                          summed (the data-parallel analogue)
+  * ``partitioner``     — variable-block partitioning, numpy
+  * ``pose_sharded``    — variable-sharded pose graphs (the tensor-parallel
+                          analogue)
+  * ``schur_reduce``    — landmark-sharded Schur bundle adjustment (bench
+                          config 5's path)
+
+The mesh is one-dimensional, so the reference's ``axis`` arguments (the
+mesh axis to shard over) are not taken, and a step closes over the
+rank's shard instead of taking the sharded arrays (``make_sharded_lm_step``
+returns the rank's graph where the reference returns the padded one).
+Not ported yet: ``solve_schur_cm`` (ROADMAP item 16b) and the sharded
+marginals (item 19); they raise NotImplementedError.
+"""
+
+from .factor_parallel import make_sharded_lm_step, pad_batch, shard_graph, solve_factor_parallel
+from .mesh import COLLECTIVES, Mesh, init_distributed, make_mesh, reset_collectives
+from .partitioner import Partition, cut_stats, partition_landmarks, partition_poses_bfs
+from .pose_sharded import shard_pose_graph, solve_pose_sharded
+from .schur_reduce import shard_ba, solve_schur_sharded
+
+
+def solve_schur_cm(*args, **kwargs):
+    """The reference's component-major sharded Schur solve: not ported."""
+    raise NotImplementedError(
+        "solve_schur_cm is not ported yet (ROADMAP item 16b: the component-major sharded Schur path, on "
+        "dist/'s collectives and solve_schur_large's per-rank machinery)")
+
+
+def sharded_pose_marginals(*args, **kwargs):
+    """The reference's distributed pose marginals: not ported."""
+    raise NotImplementedError("sharded_pose_marginals is not ported yet (ROADMAP item 19, covariance)")
+
+
+def sharded_landmark_marginals(*args, **kwargs):
+    """The reference's distributed landmark marginals: not ported."""
+    raise NotImplementedError("sharded_landmark_marginals is not ported yet (ROADMAP item 19, covariance)")
+
+
+__all__ = [
+    "COLLECTIVES",
+    "Mesh",
+    "make_mesh",
+    "init_distributed",
+    "reset_collectives",
+    "make_sharded_lm_step",
+    "pad_batch",
+    "shard_graph",
+    "solve_factor_parallel",
+    "Partition",
+    "cut_stats",
+    "partition_landmarks",
+    "partition_poses_bfs",
+    "shard_ba",
+    "solve_schur_sharded",
+    "sharded_pose_marginals",
+    "sharded_landmark_marginals",
+    "solve_schur_cm",
+    "shard_pose_graph",
+    "solve_pose_sharded",
+]

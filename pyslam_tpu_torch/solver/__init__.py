@@ -6,9 +6,10 @@ PCG), the Schur-complement path of bundle adjustment and landmark SLAM
 multifrontal sparse Cholesky (``solve_sparse_chol``) and SPARSE_SCHUR
 (``solve_schur_sparse``), Venice-scale bundle adjustment
 (``solve_schur_large`` on the shared host LM loop ``host_lm_loop``), the
-structure dispatch (``route_auto``, ``solve_auto``), the batched fleet
-solve (``solve_batched``) and the four CUDA kernels (``ell_matvec``,
-``ell_pcg``, ``slot_reduce``, ``ell_assemble``)."""
+structure dispatch (``route_auto``, ``solve_auto``; their mesh routes
+run ``dist/``), the batched fleet solve (``solve_batched``) and the four
+CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
+``ell_assemble``)."""
 
 import numpy as np
 
@@ -165,14 +166,69 @@ def _host(t):
     return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
 
 
+def _mesh_route(graph, is_ba, lie_blocks, euc_blocks, n_dev, dense_dof_limit, device_hbm_budget_bytes, tiny_dof,
+                cm_obs_crossover):
+    """The route on a mesh of ``n_dev`` > 1 ranks, as the reference decides
+    it (``pyslam_tpu/solver/__init__.py:176-222``), with the sizes priced in
+    the logical bytes of the port's tensors; the reference prices a block
+    as one (8, 128) f32 tile of a TPU's memory (``_TILE_BYTES``)."""
+    blocks = graph.blocks
+    if is_ba:
+        pose_name, lm_name = lie_blocks[0], euc_blocks[0]
+        obs_slots = ((pose_name, lm_name), (lm_name, pose_name))
+        n_obs = sum(fb.n for fb in graph.batches if tuple(fb.slots) in obs_slots)
+        pb, lb = blocks[pose_name], blocks[lm_name]
+        obs_per_dev = n_obs // n_dev
+        # what a rank of schur_reduce holds for one observation: W, its
+        # camera block and gradient row, its landmark block and gradient row
+        dp, dl = pb.dof, lb.dof
+        slab_bytes = obs_per_dev * (dp * dl + dp * dp + dp + dl * dl + dl) * pb.values.dtype.itemsize
+        # the component-major layout is specialized to (6, 3)-dof blocks;
+        # 9-dof bal_cam9 graphs stay on the dof-generic schur_reduce
+        if dp == 6 and (slab_bytes > device_hbm_budget_bytes or obs_per_dev > cm_obs_crossover):
+            return "schur_cm"
+        return "schur_reduce"
+    if len(blocks) == 1:
+        if graph.total_dof <= tiny_dof:
+            return "factor_parallel"
+        blk = next(iter(blocks.values()))
+        # the symmetric ELL store: nb rows of K blocks; K ~ 1 + twice the
+        # mean degree (the largest degree is about twice the mean)
+        n_edges = sum(fb.n for fb in graph.batches if len(set(fb.slots)) == 1 and len(fb.slots) == 2)
+        K_est = 1 + int(np.ceil(2 * n_edges / max(blk.n, 1))) * 2
+        ell_bytes = blk.n * K_est * blk.dof * blk.dof * blk.values.dtype.itemsize
+        return "pose_sharded" if ell_bytes > device_hbm_budget_bytes else "ell"
+    # other multi-block graphs: factor_parallel is block-structure-agnostic,
+    # up to the dense-solve ceiling; beyond it no sharded path applies
+    if graph.total_dof <= dense_dof_limit:
+        return "factor_parallel"
+    import warnings
+
+    warnings.warn(
+        "route_auto: no sharded path supports this multi-block graph "
+        f"({len(blocks)} variable blocks, total_dof={graph.total_dof} > "
+        f"dense_dof_limit={dense_dof_limit}); solving REPLICATED on a "
+        "single device.  Supported mesh routes: 2-block BA "
+        "(schur_reduce/schur_cm), single-block pose graphs "
+        "(ell/pose_sharded), any-structure graphs up to "
+        "dense_dof_limit (factor_parallel).",
+        stacklevel=4,
+    )
+    return "_single"
+
+
 def route_auto(
     graph,
     mesh=None,
     dense_dof_limit: int = 12000,
     dense_hpl_budget_bytes: int = 1 << 30,
+    device_hbm_budget_bytes: int = 10 << 30,
+    tiny_dof: int = 2000,
     schur_sparse_pair_budget: int = 2_000_000,
+    cm_obs_crossover: int = 250_000,
 ):
-    """Name of the solve path ``solve_auto`` picks for this graph.
+    """Name of the solve path ``solve_auto`` picks for this graph (and
+    mesh).
 
     Single-chip routes, decided as in the reference with its thresholds
     (dof counts and logical bytes): ``dense`` / ``sparse_chol`` / ``ell`` /
@@ -184,15 +240,18 @@ def route_auto(
     batch between them in EITHER slot order (the reference sees only
     (pose, landmark) and sends a (landmark, pose) graph to the dense path).
 
-    ``mesh``: the sharded routes are not ported; any mesh raises
-    NotImplementedError.  The reference's knobs that price only those
-    routes (``device_hbm_budget_bytes``, ``tiny_dof``,
-    ``cm_obs_crossover``) come with them."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "route_auto: the mesh routes (factor_parallel, pose_sharded, schur_reduce, schur_cm) come with "
-            "the port of dist/ (ROADMAP item 16)"
-        )
+    Mesh routes (``mesh`` a ``dist.Mesh`` of more than one rank; a 1-rank
+    mesh takes the single-chip routes): ``factor_parallel`` (single-block
+    graphs of at most ``tiny_dof`` dof, and other multi-block graphs up to
+    ``dense_dof_limit``), ``pose_sharded`` (single-block graphs whose ELL
+    store exceeds ``device_hbm_budget_bytes``; below it ``ell``,
+    replicated), ``schur_reduce`` (camera + landmark), ``schur_cm`` (6-dof
+    camera + landmark graphs whose observations per rank exceed the budget
+    or ``cm_obs_crossover``), and ``_single`` with a warning for a
+    multi-block graph beyond the dense ceiling.  Sizes are logical bytes of
+    the port's tensors, not the reference's TPU tiles, so the two part on
+    some graphs (a pose graph of 1.5 M SE(3) poses and 6 M edges is
+    ``ell`` here and ``pose_sharded`` there)."""
     blocks = graph.blocks
     kinds = {name: b.kind for name, b in blocks.items()}
     lie_blocks = [n for n, k in kinds.items() if k != "euclidean"]
@@ -210,6 +269,10 @@ def route_auto(
             for fb in graph.batches
         )
     )
+    n_dev = 1 if mesh is None else mesh.size
+    if n_dev > 1:
+        return _mesh_route(graph, is_ba, lie_blocks, euc_blocks, n_dev, dense_dof_limit, device_hbm_budget_bytes,
+                           tiny_dof, cm_obs_crossover)
 
     if is_ba:
         pose_name, lm_name = lie_blocks[0], euc_blocks[0]
@@ -285,7 +348,9 @@ def solve_auto(
     mesh=None,
     dense_dof_limit: int = 12000,
     dense_hpl_budget_bytes: int = 1 << 30,
+    device_hbm_budget_bytes: int = 10 << 30,
     schur_sparse_pair_budget: int = 2_000_000,
+    cm_obs_crossover: int = 250_000,
 ):
     """Structure-dispatching solve: runs the path ``route_auto`` names.
 
@@ -298,25 +363,46 @@ def solve_auto(
       ``solve_ell`` (block-Jacobi PCG);
     * anything else -> the dense path.
 
-    The route ``schur_sqrt`` and every mesh route are not ported: they
-    raise NotImplementedError, and no other solver stands in for them.
-    Returns (solved_graph, SolveInfo); on ``schur_large``, as in the
-    reference, (solved_graph, cost_history)."""
+    With ``mesh`` (a ``dist.Mesh`` of more than one rank; every rank calls
+    this with the whole graph): ``dist.solve_factor_parallel``,
+    ``dist.solve_pose_sharded`` or ``dist.solve_schur_sharded``, as
+    ``route_auto`` decides; ``ell`` solves replicated on every rank, and
+    ``_single`` (after its warning) the dense path.
+
+    The routes ``schur_sqrt`` (ROADMAP item 18) and ``schur_cm`` (item 16b)
+    are not ported: they raise NotImplementedError, and no other solver
+    stands in for them.  Returns (solved_graph, SolveInfo); on
+    ``schur_large`` and the mesh routes, as in the reference,
+    (solved_graph, cost_history)."""
     opts = options if options is not None else Options()
     route = route_auto(
         graph,
         mesh=mesh,
         dense_dof_limit=dense_dof_limit,
         dense_hpl_budget_bytes=dense_hpl_budget_bytes,
+        device_hbm_budget_bytes=device_hbm_budget_bytes,
         schur_sparse_pair_budget=schur_sparse_pair_budget,
+        cm_obs_crossover=cm_obs_crossover,
     )
     if route == "schur_sqrt":
         raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item 18)")
+    if route == "schur_cm":
+        raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item 16b)")
     kinds = {name: b.kind for name, b in graph.blocks.items()}
     names = dict(
         pose_name=next((n for n, k in kinds.items() if k != "euclidean"), None),
         lm_name=next((n for n, k in kinds.items() if k == "euclidean"), None),
     )
+    if route in ("factor_parallel", "pose_sharded", "schur_reduce"):
+        from .. import dist
+
+        if route == "factor_parallel":
+            solved, _, history = dist.solve_factor_parallel(graph, mesh, opts)
+        elif route == "pose_sharded":
+            solved, _, history = dist.solve_pose_sharded(graph, mesh, opts)
+        else:
+            solved, _, history = dist.solve_schur_sharded(graph, mesh, opts, **names)
+        return solved, history
     if route == "schur_large":
         solved, _, history = solve_schur_large(graph, opts, **names)
         return solved, history

@@ -105,14 +105,18 @@ def _raise_on_error(fn_name, err):
 def ell_matvec_plain(He, cols, x):
     """Plain version: gather + batched contraction."""
     LAUNCHES["ell_matvec_plain"] += 1
-    nb, K, d, _ = He.shape
-    xg = x.reshape(nb, d)[cols]  # (nb, K, d)
+    d = He.shape[2]
+    xg = x.reshape(-1, d)[cols]  # (nb, K, d)
     return torch.einsum("rkij,rkj->ri", He, xg).reshape(-1)
 
 
 def ell_matvec(He, cols, x):
     """y (nb*d,) = sum_k He[r, k] @ x[cols[r, k]] for He (nb, K, d, d)
-    contiguous, cols (nb, K) int32 with entries in [0, nb), x (nb*d,)."""
+    contiguous, cols (nb, K) int32 and x (n_x*d,) with cols in [0, n_x).
+    n_x is nb for the product of a whole matrix; a rank of a sharded solve
+    (``dist/pose_sharded.py``) multiplies its nb rows by the x of every
+    rank.  The range of cols is the caller's to check on the host, when it
+    builds them."""
     if He.dim() != 4 or He.shape[2] != He.shape[3]:
         raise ValueError(f"He: shape {tuple(He.shape)}, expected (nb, K, d, d)")
     nb, K, d, _ = He.shape
@@ -120,12 +124,14 @@ def ell_matvec(He, cols, x):
         raise TypeError(f"He: dtype {He.dtype}, expected float32 or float64")
     _check("He", He, He.dtype, (nb, K, d, d))
     _check("cols", cols, torch.int32, (nb, K))
-    _check("x", x, He.dtype, (nb * d,))
+    if x.dim() != 1 or d == 0 or x.shape[0] % d:
+        raise ValueError(f"x: shape {tuple(x.shape)}, expected (n_x * {d},)")
+    _check("x", x, He.dtype, (x.shape[0],))
     if _route(He, cols, x) == "cpu":
         return ell_matvec_plain(He, cols, x)
     from .._ext import library
 
-    y = torch.empty_like(x)
+    y = x.new_empty(nb * d)
     fn_name = f"pyslam_ell_matvec_{_SUFFIX[He.dtype]}"
     err = getattr(library(), fn_name)(
         He.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), nb, K, d,

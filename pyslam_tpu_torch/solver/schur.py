@@ -346,18 +346,21 @@ def _damp_blocks(H, lam, floor=1e-12):
     return H + lam * torch.diag_embed(d)
 
 
-def _schur_reduce(parts, lam, method):
+def _schur_reduce(parts, lam, method, cam_sum=None):
     """Damp, invert Hll (by its Cholesky factors: NaN blocks where one is
     not positive definite), and form the reduced RHS.  Returns the pieces
-    the solve modes share: (damped Hpp, Hll^-1, W, g_red)."""
+    the solve modes share: (damped Hpp, Hll^-1, W, g_red).  ``cam_sum``:
+    the sum of per-observation rows by camera, ``plan.by_cam.sum`` where it
+    is None (the landmark-sharded solver adds a sum over the ranks)."""
     Hpp, Hll, W, plan = parts["Hpp"], parts["Hll"], parts["W"], parts["plan"]
+    cam_sum = cam_sum or plan.by_cam.sum
     if method == "lm":
         Hpp = _damp_blocks(Hpp, lam)
         Hll = _damp_blocks(Hll, lam)
     Hll_inv = _binv(_cholesky(Hll))
     # reduced gradient: g_p - W Hll^-1 g_l  (per-observation gather, segment sum)
     t = _mv(Hll_inv, parts["g_l"])
-    g_red = parts["g_p"] - plan.by_cam.sum(_mv(W, t[plan.pt_idx]))
+    g_red = parts["g_p"] - cam_sum(_mv(W, t[plan.pt_idx]))
     return Hpp, Hll_inv, W, g_red
 
 
@@ -367,22 +370,26 @@ def _back_substitute(Hll_inv, W, plan, g_l, dx_p):
     return _mv(Hll_inv, t)
 
 
-def schur_block_diag(plan, Hpp, Hll_inv, W):
+def schur_block_diag(plan, Hpp, Hll_inv, W, cam_sum=None):
     """The exact block diagonal of S: D_c = Hpp_c - sum_{m: cam_m = c} W_m
     Hll^-1 W_m^T (cross terms vanish because a camera observes a landmark at
     most once; a duplicate observation only makes the preconditioner
-    approximate, never the solve wrong).  ``Hpp`` as damped."""
-    return Hpp - plan.by_cam.sum(_mm(_mm(W, Hll_inv[plan.pt_idx]), W.transpose(-1, -2)))
+    approximate, never the solve wrong).  ``Hpp`` as damped; ``cam_sum`` as
+    in ``_schur_reduce``."""
+    cam_sum = cam_sum or plan.by_cam.sum
+    return Hpp - cam_sum(_mm(_mm(W, Hll_inv[plan.pt_idx]), W.transpose(-1, -2)))
 
 
-def schur_matvec(plan, Hpp, Hll_inv, W, PP):
+def schur_matvec(plan, Hpp, Hll_inv, W, PP, cam_sum=None):
     """x (C dp,) -> S x, S = Hpp + the pose-pose couplings PP - W Hll^-1
     W^T, never formed: two gathers, two segment sums and a batched dl x dl
     product (two more sums with couplings).  ``plan`` gives the index
     tensors and the ``slot_reduce`` plans by camera, landmark and either
-    pose of a coupling."""
+    pose of a coupling; ``cam_sum`` as in ``_schur_reduce`` (the couplings
+    are not part of it)."""
     C, dp = Hpp.shape[0], Hpp.shape[-1]
     ci, li, pp_i, pp_j = plan.cam_idx, plan.pt_idx, plan.pp_i, plan.pp_j
+    cam_sum = cam_sum or plan.by_cam.sum
 
     def matvec(x):
         xb = x.reshape(C, dp)
@@ -391,7 +398,7 @@ def schur_matvec(plan, Hpp, Hll_inv, W, PP):
             y = y + plan.by_pp_i.sum(_mv(PP, xb[pp_j]))
             y = y + plan.by_pp_j.sum(_tmv(PP, xb[pp_i]))
         t = _mv(Hll_inv, plan.by_lm.sum(_tmv(W, xb[ci])))
-        y = y - plan.by_cam.sum(_mv(W, t[li]))
+        y = y - cam_sum(_mv(W, t[li]))
         return y.reshape(-1)
 
     return matvec

@@ -231,10 +231,10 @@ def _chunks(plan):
             yield lo, hi
 
 
-def _unary(plan, poses, want_grad):
+def _unary(plan, poses, want_grad, dp=6):
     """chi2 of the pose-unary and (pose, pose) batches; with ``want_grad``
-    also their Hessian blocks and gradient rows summed by pose, (C, 6, 6)
-    and (C, 6), and the per-factor couplings PP (E, 6, 6)."""
+    also their Hessian blocks and gradient rows summed by pose, (C, dp, dp)
+    and (C, dp), and the per-factor couplings PP (E, dp, dp)."""
     chi2 = poses.new_zeros(())
     rows, PPs = [], []
     for u in plan.unary:
@@ -243,14 +243,14 @@ def _unary(plan, poses, want_grad):
         if not want_grad:
             continue
         w = u.loss.weight(r) * u.weight[:, None]
-        rows += [torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, 36)], 1) for J in jacs]
+        rows += [torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, dp * dp)], 1) for J in jacs]
         if len(jacs) == 2:
             PPs.append(_jtwj(jacs[0], w, jacs[1]))
     if not want_grad:
         return chi2
-    sums = plan.by_pose_u.sum(torch.cat(rows)) if rows else poses.new_zeros((plan.C, 42))
-    PP = torch.cat(PPs) if PPs else poses.new_zeros((0, 6, 6))
-    return chi2, sums[:, 6:].reshape(-1, 6, 6), sums[:, :6], PP
+    sums = plan.by_pose_u.sum(torch.cat(rows)) if rows else poses.new_zeros((plan.C, dp + dp * dp))
+    PP = torch.cat(PPs) if PPs else poses.new_zeros((0, dp, dp))
+    return chi2, sums[:, dp:].reshape(-1, dp, dp), sums[:, :dp], PP
 
 
 def _cost(plan, poses, lms):
@@ -312,19 +312,32 @@ def cg_iterations() -> list:
     return [int(n) for n in _CG_ITERATIONS]
 
 
-def _pcg(matvec, precond, b, rtol, max_iters, read_every=CG_READ_EVERY):
+def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None):
     """PCG from x0 = 0, the reference's fused loop: stop when ||r||² <=
-    (rtol ||b||)² (tested before each iteration; NaN stops) or after
+    rtol² ||b||² (tested before each iteration; NaN stops) or after
     ``max_iters`` iterations; where rz <= 0 or pAp <= 0 (exact convergence,
     breakdown) the iteration keeps r and p as they are.  The stop test is
     applied on the device (``torch.where`` keeps x, r and p once it has
     failed) and read by the host every ``read_every`` iterations, where the
-    loop ends if it has failed.  Returns (x, iterations), the count a 0-dim
-    int64 tensor on b's device."""
+    loop ends if it has failed (None: ``CG_READ_EVERY`` at the time of the
+    call, which every solver that runs this loop takes).  ``psum``: for
+    vectors split over ranks, each rank holding its rows
+    (``dist/pose_sharded.py``), the sum over the ranks of a vector of dot
+    products, so that every rank tests and scales by the same numbers.
+    Returns (x, iterations), the count a 0-dim int64 tensor on b's
+    device."""
+
+    def dots(*pairs):
+        if psum is None:
+            return [torch.dot(u, v) for u, v in pairs]
+        return psum(torch.stack([torch.dot(u, v) for u, v in pairs])).unbind()
+
+    if read_every is None:
+        read_every = CG_READ_EVERY
     x = torch.zeros_like(b)
     r, z = b, precond(b)
-    p, rz, rn2 = z, torch.dot(b, z), torch.dot(b, b)
-    tol2 = (rtol * torch.linalg.norm(b)) ** 2
+    rz, rn2 = dots((b, z), (b, b))
+    p, tol2 = z, rtol**2 * rn2
     run = torch.ones((), dtype=torch.bool, device=b.device)
     done = torch.zeros((), dtype=torch.int64, device=b.device)
     for k in range(max_iters):
@@ -334,32 +347,36 @@ def _pcg(matvec, precond, b, rtol, max_iters, read_every=CG_READ_EVERY):
             if not bool(run):
                 break
         Ap = matvec(p)
-        pAp = torch.dot(p, Ap)
+        (pAp,) = dots((p, Ap))
         ok = (rz > 0.0) & (pAp > 0.0)
         step = run & ok
         alpha = torch.where(ok, rz / torch.where(ok, pAp, 1.0), 0.0)
         x = torch.where(run, x + alpha * p, x)
         r = torch.where(step, r - alpha * Ap, r)
         z = precond(r)
-        rz_new = torch.where(step, torch.dot(r, z), rz)
+        rz_r, rn2 = dots((r, z), (r, r))
+        rz_new = torch.where(step, rz_r, rz)
         beta = torch.where(ok, rz_new / torch.where(ok, rz, 1.0), 0.0)
         p = torch.where(step, z + beta * p, p)
-        rz, rn2 = rz_new, torch.dot(r, r)
+        rz = rz_new
         done = done + run
     return x, done
 
 
-def _reduce(parts, lam, method):
+def _reduce(parts, lam, method, cam_sum=None):
     """``schur._schur_reduce`` (LM damping, Hll⁻¹, the reduced gradient)
-    and the exact block diagonal D of S: (Hll_inv, g_red, D, damped Hpp)."""
-    Hpp, Hll_inv, W, g_red = _schur_reduce(parts, lam, method)
-    return Hll_inv, g_red, schur_block_diag(parts["plan"], Hpp, Hll_inv, W), Hpp
+    and the exact block diagonal D of S: (Hll_inv, g_red, D, damped Hpp).
+    ``cam_sum`` as in ``schur._schur_reduce``."""
+    Hpp, Hll_inv, W, g_red = _schur_reduce(parts, lam, method, cam_sum)
+    return Hll_inv, g_red, schur_block_diag(parts["plan"], Hpp, Hll_inv, W, cam_sum), Hpp
 
 
-def _solve_pcg(parts, lam, method, rtol, max_iters):
-    """PCG on S dx = g_red under the block inverse of D."""
-    Hll_inv, g_red, D, Hpp = _reduce(parts, lam, method)
-    matvec = schur_matvec(parts["plan"], Hpp, Hll_inv, parts["W"], parts["PP"])
+def _solve_pcg(parts, lam, method, rtol, max_iters, cam_sum=None):
+    """PCG on S dx = g_red under the block inverse of D; ``cam_sum`` as in
+    ``schur._schur_reduce`` (``dist/schur_reduce.py`` sums over the
+    ranks there)."""
+    Hll_inv, g_red, D, Hpp = _reduce(parts, lam, method, cam_sum)
+    matvec = schur_matvec(parts["plan"], Hpp, Hll_inv, parts["W"], parts["PP"], cam_sum)
     x, it = _pcg(matvec, block_jacobi(_binv(_cholesky(D))), g_red.reshape(-1), rtol, max_iters)
     _CG_ITERATIONS.append(it)
     return Hll_inv, x

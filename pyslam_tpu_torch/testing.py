@@ -1,5 +1,8 @@
-"""A small SE(3) pose graph that takes every branch of the SE(3) assembly,
-for the tests and the smoke script of the ``ell_assemble`` kernel.
+"""Helpers for the tests and the smoke script: a small SE(3) pose graph
+that takes every branch of the SE(3) assembly (``se3_stress_graph``, for
+the ``ell_assemble`` kernel), and ``run_ranks``, which runs a function on
+several ranks of a process group, one spawned process each (for
+``dist/``).
 
 ``se3_stress_graph`` starts from ``synth.se3_sphere`` and adds what a plain
 sphere never shows:
@@ -20,9 +23,15 @@ two packages or two devices get the same problem.
 from __future__ import annotations
 
 import math
+import os
+import pickle
+import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from ._device import resolve_device
 from .graph.core import FactorBatch, FactorGraph, VariableBlock
@@ -111,3 +120,66 @@ def se3_stress_graph(n_poses=60, seed=11, loss=None, dtype=torch.float64, device
         for fb in batches
     ]
     return FactorGraph(t_blocks, t_batches)
+
+
+# --------------------------------------------------------------------------
+# Several ranks in one machine, for the tests and the smoke script of dist/
+# --------------------------------------------------------------------------
+
+
+def _rank_main(rank, world_size, store_dir, backend, device, fn, args):
+    from .dist.mesh import init_distributed, make_mesh
+
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the machine's cores
+    try:
+        init_distributed(f"file://{os.path.join(store_dir, 'store')}", world_size, rank, backend=backend,
+                         device=device, timeout_s=300.0)
+        try:
+            out = fn(make_mesh(device=device), *args)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(store_dir, f"result_{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(store_dir, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_ranks(fn, world_size: int, store_dir, args=(), backend: str = "gloo", device="cpu", timeout_s: float = 600.0):
+    """Run ``fn(mesh, *args)`` in ``world_size`` new processes (spawned),
+    one rank each, over a ``file://`` store in the empty directory
+    ``store_dir``; return the ranks' results in rank order.  ``fn`` must be
+    importable by name and its result picklable.  The processes are killed
+    if they have not all ended after ``timeout_s``; a failed rank raises
+    with its traceback."""
+    store_dir = str(store_dir)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, world_size, store_dir, backend, device, fn, args))
+             for r in range(world_size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10.0)
+    errors = []
+    for r in range(world_size):
+        path = os.path.join(store_dir, f"error_{r}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+    if alive or errors or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"run_ranks: {len(alive)} of {world_size} ranks killed after {timeout_s} s, exit codes "
+                           f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    out = []
+    for r in range(world_size):
+        with open(os.path.join(store_dir, f"result_{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out

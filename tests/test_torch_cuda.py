@@ -93,6 +93,24 @@ def test_ell_matvec_kernel_matches_plain(cuda_device, nb, K, d, dtype):
     _assert_close(out, ref, KERNEL_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,n_x,K,d", [(1250, 2500, 9, 6), (300, 1000, 5, 3), (1, 40, 3, 6), (0, 8, 2, 6)])
+def test_ell_matvec_kernel_takes_a_longer_x(cuda_device, nb, n_x, K, d, dtype):
+    """The rows of one rank of a sharded solve against the x of every rank
+    (``dist/pose_sharded.py``): cols in [0, n_x), x of n_x * d entries."""
+    rng = np.random.default_rng(nb + n_x)
+    He = torch.from_numpy(rng.normal(size=(nb, K, d, d))).to(cuda_device, dtype)
+    cols = torch.from_numpy(rng.integers(0, n_x, size=(nb, K)).astype(np.int32)).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=n_x * d)).to(cuda_device, dtype)
+    cuda_ops.reset_launches()
+    out = ell_matvec(He, cols, x)
+    ref = ell_matvec_plain(He, cols, x)
+    torch.cuda.synchronize()
+    assert out.shape == (nb * d,) and cuda_ops.LAUNCHES["ell_matvec"] == 1
+    if nb:
+        _assert_close(out, ref, KERNEL_TOL[dtype])
+
+
 # every templated width, one that takes the generic body (5), the
 # sphere2500 shapes, a plan with long segments and many empty ones, E = 0
 SLOT_SHAPES = [

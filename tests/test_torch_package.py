@@ -44,6 +44,10 @@ def test_import_leaves_jax_out():
         "from pyslam_tpu_torch.solver import build_schur_sparse_plan\n"
         "import pyslam_tpu_torch.solver.host_loop, pyslam_tpu_torch.solver.schur_large\n"
         "from pyslam_tpu_torch.solver import host_lm_loop, solve_schur_large, prepare_large_ba\n"
+        "import pyslam_tpu_torch.dist, pyslam_tpu_torch.dist.mesh, pyslam_tpu_torch.dist.partitioner\n"
+        "import pyslam_tpu_torch.dist.factor_parallel, pyslam_tpu_torch.dist.schur_reduce\n"
+        "import pyslam_tpu_torch.dist.pose_sharded, pyslam_tpu_torch.testing\n"
+        "from pyslam_tpu_torch.dist import make_mesh, init_distributed, solve_schur_sharded, solve_pose_sharded\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -64,6 +68,24 @@ def test_sources_do_not_import_jax(path):
 
 
 _BLOCK = dict(kind="se2", values=np.eye(3)[None], const_mask=np.zeros(1, bool))
+
+
+def _mesh_entry(**kw):
+    """``make_mesh`` in a world of one rank (gloo, over a file store):
+    one psum of a tensor on the mesh's device, which it returns."""
+    import tempfile
+
+    from pyslam_tpu_torch import dist
+
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_distributed(f"file://{store}/store", 1, 0, backend="gloo", device="cpu")
+        try:
+            mesh = dist.make_mesh(**kw)
+            return mesh.psum(torch.zeros(1, device=mesh.device))
+        finally:
+            torch.distributed.destroy_process_group()
+
+
 DEFAULT_DEVICE_ENTRY_POINTS = {
     "default_device": pyslam_tpu_torch.default_device,
     "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
@@ -76,6 +98,7 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
         synth.landmark_slam_2d(n_poses=6, n_landmarks=4, seed=0), **kw),
     "graph_from_numpy": lambda **kw: convert.graph_from_numpy({"poses": _BLOCK}, [], torch.float64, **kw),
     "se3_stress_graph": lambda **kw: se3_stress_graph(n_poses=24, **kw),
+    "make_mesh": _mesh_entry,
     "so2.identity": so2.identity,
     "se2.identity": se2.identity,
     "so3.identity": so3.identity,

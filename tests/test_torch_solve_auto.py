@@ -11,7 +11,14 @@ reference, in f64 on the CPU.
 * ``solve_auto``: each ported route end to end on a small graph gives the
   bits of the solver it names (``schur_large`` forced on a small graph,
   its gate checked on real graphs of 2,000,000 and 2,000,001
-  observations); ``schur_sqrt`` and every mesh raise NotImplementedError.
+  observations); ``schur_sqrt`` and, on a mesh, ``schur_cm`` raise
+  NotImplementedError.
+* the mesh routes: the reference's route on the reference's shape-only
+  mesh cases at 3 and 8 ranks, where the two byte models agree; the pinned
+  difference where they part (the port prices logical bytes, the
+  reference TPU tiles); a 1-rank mesh takes the single-chip route.  The
+  mesh routes run end to end on gloo ranks in ``test_torch_factor_parallel``
+  and ``test_torch_schur_sharded``.
 * ``solve_batched``: each problem's chi2 within 1e-10 relative of the
   reference's ``solve_batched`` and of its own ``solve``, values within
   1e-10, the same iteration count, stop code and accept sequence.
@@ -39,6 +46,8 @@ from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu.losses import L2Loss as JL2
 from pyslam_tpu.sensors import StereoCamera as JStereo
 from pyslam_tpu.solver import lm as jlm
+from pyslam_tpu.dist import make_mesh as j_make_mesh
+from pyslam_tpu_torch import dist
 from pyslam_tpu_torch.graph import FactorGraph
 from pyslam_tpu_torch.graph.core import FACTOR_KERNELS, register_factor
 from pyslam_tpu_torch.io import synth as tsynth
@@ -369,13 +378,101 @@ def test_solve_auto_runs_schur_large(monkeypatch):
 
 
 def test_solve_auto_refuses_what_is_not_ported():
+    """``schur_sqrt`` (ROADMAP item 18) and, on a mesh, ``schur_cm`` (item
+    16b) raise; no other solver stands in.  So do the sharded marginals
+    (item 19)."""
     _, tg, _ = real("mono_clustered_f32")
     with pytest.raises(NotImplementedError, match="item 18"):
         solve_auto(tg)
-    _, tg, _ = real("se2_loop_40")
-    for fn in (route_auto, solve_auto):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(tg, mesh=object())
+    jg, tg, _ = real("ba_small")
+    kw = dict(cm_obs_crossover=10)
+    assert jsolver.route_auto(jg, mesh=j_make_mesh(3), **kw) == route_auto(tg, mesh=port_mesh(3), **kw) == "schur_cm"
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        solve_auto(tg, mesh=port_mesh(3), **kw)
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        dist.solve_schur_cm(tg, port_mesh(3))
+    for fn in (dist.sharded_pose_marginals, dist.sharded_landmark_marginals):
+        with pytest.raises(NotImplementedError, match="item 19"):
+            fn(tg, port_mesh(3))
+
+
+# --------------------------------------------------------------------------
+# The mesh routes
+# --------------------------------------------------------------------------
+
+
+def port_mesh(n):
+    """A mesh of n ranks as ``route_auto`` reads it (its size); no process
+    group is needed to route."""
+    return dist.Mesh(group=None, rank=0, size=n, device=torch.device("cpu"), backend="gloo")
+
+
+def fake_vio_graph(n_kf):
+    """The reference's 3-block VIO shape: poses, velocities, biases."""
+    blocks = {"poses": _FakeBlock("se3", n_kf, 6), "vels": _FakeBlock("euclidean", n_kf, 3),
+              "biases": _FakeBlock("euclidean", n_kf, 6)}
+    return _FakeGraph(blocks, [_FakeBatch(("poses", "poses", "vels", "vels", "biases"), n_kf - 1),
+                               _FakeBatch(("biases", "biases"), n_kf - 1), _FakeBatch(("poses",), n_kf)])
+
+
+MESH_FAKE = {
+    # the reference's mesh route tests (tests/test_solve_auto.py::TestRouteMesh), where both byte models agree
+    "tiny_pose_graph": (lambda: fake_pose_graph(100), {}, "factor_parallel"),
+    "midsize_pose_graph": (lambda: fake_pose_graph(50_000), {}, "ell"),
+    "pose_graph_past_both_budgets": (lambda: fake_pose_graph(30_000_000, n_edges=120_000_000), {}, "pose_sharded"),
+    "ba_block_layout": (lambda: fake_ba_graph(300, 120_000, 600_000), {}, "schur_reduce"),
+    "ba_speed_crossover": (lambda: fake_ba_graph(1_700, 1_000_000, 4_650_000), {}, "schur_cm"),
+    "ba_beyond_slab_budget": (lambda: fake_ba_graph(20_000, 20_000_000, 90_000_000), {}, "schur_cm"),
+    "vio_midsize": (lambda: fake_vio_graph(500), {}, "factor_parallel"),
+    "ba_small_budget_crossover": (lambda: fake_ba_graph(300, 120_000, 600_000), dict(cm_obs_crossover=1000),
+                                  "schur_cm"),
+}
+
+
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("name", sorted(MESH_FAKE))
+def test_mesh_route_is_the_reference_route(name, n):
+    make, kw, expected = MESH_FAKE[name]
+    g = make()
+    assert route_auto(g, mesh=port_mesh(n), **kw) == jsolver.route_auto(g, mesh=j_make_mesh(n), **kw) == expected
+
+
+@pytest.mark.parametrize("name,kw,port,reference", [
+    # 1.5 M SE(3) poses, 6 M edges: an ELL store of 3.7 GB in f32, 104 GB in TPU tiles
+    ("pose_graph", {}, "ell", "pose_sharded"),
+    # 75,000 observations a rank: 21.6 MB of blocks, 922 MB in TPU tiles
+    ("ba", dict(device_hbm_budget_bytes=100 << 20), "schur_reduce", "schur_cm"),
+])
+def test_mesh_route_prices_logical_bytes(name, kw, port, reference):
+    """The one pinned difference of the mesh routes: the port prices the
+    sizes in the logical bytes of its tensors, the reference in (8, 128)
+    f32 TPU tiles, 28 to 43 times as many for these blocks."""
+    g = fake_pose_graph(1_500_000, n_edges=6_000_000) if name == "pose_graph" else fake_ba_graph(300, 120_000, 600_000)
+    assert route_auto(g, mesh=port_mesh(8), **kw) == port
+    assert jsolver.route_auto(g, mesh=j_make_mesh(8), **kw) == reference
+
+
+def test_mesh_route_warns_for_a_multi_block_graph_beyond_the_dense_ceiling():
+    g = fake_vio_graph(2_000)  # 30,000 dof
+    with pytest.warns(UserWarning, match="multi-block"):
+        assert jsolver.route_auto(g, mesh=j_make_mesh(8)) == "_single"
+    with pytest.warns(UserWarning, match="multi-block"):
+        assert route_auto(g, mesh=port_mesh(8)) == "_single"
+
+
+@pytest.mark.parametrize("name", ["large_pose_graph", "small_ba", "venice_class", "small_pose_graph"])
+def test_a_one_rank_mesh_takes_the_single_chip_route(name):
+    g = FAKE[name]()
+    assert route_auto(g, mesh=port_mesh(1)) == route_auto(g) == jsolver.route_auto(g, mesh=j_make_mesh(1))
+
+
+def test_bal9_on_a_mesh_never_routes_schur_cm():
+    """``schur_cm`` is specialized to 6-dof cameras: a 9-dof graph stays on
+    ``schur_reduce`` past every budget."""
+    jg, tg, _ = real("bal9")
+    kw = dict(device_hbm_budget_bytes=1, cm_obs_crossover=1)
+    assert route_auto(tg, mesh=port_mesh(8), **kw) == jsolver.route_auto(jg, mesh=j_make_mesh(8), **kw)
+    assert route_auto(tg, mesh=port_mesh(8), **kw) == "schur_reduce"
 
 
 # --------------------------------------------------------------------------
