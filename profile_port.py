@@ -132,7 +132,10 @@ import time
 from typing import NamedTuple
 
 CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense", "config8", "config2_sparse_chol",
-         "sparse_chol_5000", "schur_sparse_2000", "fleet16", "venice_mini", "config6", "config5")
+         "sparse_chol_5000", "schur_sparse_2000", "fleet16", "venice_mini", "config6", "config5", "init_sphere2500",
+         "gnc_sphere2500", "switch_m3500", "vio400")
+# cells timed over at least 9 solves
+MIN_NINE = ("config5", "init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
@@ -221,6 +224,126 @@ def pcg_guarded_plain(matvec, precond, b, rtol, max_iters):
     return x, it
 
 
+class GncCellInfo(NamedTuple):
+    """What the timing loop reads of a GNC solve."""
+
+    chi2: object  # 0-dim tensor: the robustified chi2
+    iterations: int  # outer iterations
+    status: None
+
+
+def slice9_cell(name, dev):
+    """(graph, options, run) of the cells of chip_smoke's phases 28 to 31
+    (f32 but vio400, f64)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import euroc_round_trip, m3500_data, vio_inputs
+    from pyslam_tpu_torch import imu
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import solve, solve_gnc
+    from pyslam_tpu_torch.solver.bcsr import solve_ell
+    from pyslam_tpu_torch.solver.lm import Options
+
+    if name == "init_sphere2500":
+        data = synth.se3_sphere(n_poses=2500, seed=0)
+        o = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
+
+        def run():
+            g = build.pose_graph(data, init="chordal", device=dev)
+            return solve_ell(g, o, pcg_rtol=3e-6, pcg_max_iters=120)
+
+        return build.pose_graph(data, device=dev), o, run
+    if name == "gnc_sphere2500":
+        data, _ = synth.with_outliers(synth.se3_sphere(n_poses=2500, seed=0), 100, magnitude=2.0, seed=1)
+        g, o = build.pose_graph(data, device=dev), Options(method="lm")
+
+        def run_gnc():
+            solved, info = solve_gnc(g, o)
+            return solved, GncCellInfo(torch.tensor(info.chi2), info.outer_iters, None)
+
+        return g, o, run_gnc
+    if name == "switch_m3500":
+        poisoned, _ = synth.with_outliers(m3500_data(), 100, seed=2)
+        g, o = build.switchable_pose_graph(poisoned, xi=5.0, device=dev), Options(method="lm", max_iters=60)
+        return g, o, lambda: solve(g, o)
+    d, T_prior = vio_inputs()
+    with tempfile.TemporaryDirectory() as td:
+        _, data = euroc_round_trip(d, td)
+    n = d.T_gt.shape[0]
+    g = imu.vio_graph(data, T_prior, np.diag([1 / 2e-3] * 6), T_init=T_prior, v_init=np.zeros((n, 3)),
+                      b_init=np.zeros((n, 6)), device=dev)
+    o = Options(method="lm", max_iters=60)
+    return g, o, lambda: solve(g, o)
+
+
+def slice9_split(name, g, o, dev, reps):
+    """Host ms of the parts of the cells of phases 28 to 31."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import euroc_round_trip, vio_inputs
+    from pyslam_tpu_torch import imu
+    from pyslam_tpu_torch.graph import initialize
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops, gnc, linear, solve_auto
+    from pyslam_tpu_torch.solver.lm import Options
+
+    if name == "init_sphere2500":
+        data = synth.se3_sphere(n_poses=2500, seed=0)
+        args = (data.edges_i, data.edges_j, data.T_meas, 2500)
+        R = np.asarray(data.T_meas)[:, :3, :3]
+        gn = Options(method="gn", max_iters=3, min_cost_decrease=0.999)
+        g_rot = initialize._rotation_graph(data.edges_i, data.edges_j, R, 2500, 0, np.eye(3), torch.float32, dev)
+        g_t = initialize._translation_graph(data.edges_i, data.edges_j, R, np.asarray(data.T_meas)[:, :3, 3], 2500,
+                                            0, np.zeros(3), torch.float32, dev)
+        return dict(
+            spanning_tree_init=host_ms(lambda: initialize.spanning_tree_init(*args), reps),
+            chordal_init=host_ms(lambda: initialize.chordal_init(*args, dtype=torch.float32, device=dev), reps),
+            rotation_stage=host_ms(lambda: initialize._solve_stage(g_rot, gn, 1e-6, 250), reps),
+            translation_stage=host_ms(lambda: initialize._solve_stage(g_t, gn, 1e-6, 250), reps),
+            solve_ell_from_odometry=host_ms(lambda: bcsr.solve_ell(g, o, pcg_rtol=3e-6, pcg_max_iters=120), reps),
+        )
+    if name == "gnc_sphere2500":
+        plan = bcsr.build_ell_direct(g)
+        inner = gnc.dataclasses.replace(o, max_iters=10)
+        r2 = gnc._r2_per_factor(g, [0])
+        cuda_ops.reset_launches()
+        linear.reset_host_reads()
+        solve_auto(g, inner)
+        torch.cuda.synchronize()
+        counts = dict(cuda_ops.LAUNCHES, lm_reads=linear.HOST_READS["lm"])
+        return dict(
+            build_ell_direct=host_ms(lambda: bcsr.build_ell_direct(g), reps),
+            ell_device_plan=host_ms(lambda: bcsr.ell_device_plan(plan, dev), reps),
+            inner_solve_from_the_start=host_ms(lambda: solve_auto(g, inner), reps),
+            weight_update_and_stop_read=host_ms(
+                lambda: float(torch.abs(gnc._tls_weights(r2[0], 0.5, 12.59) - 0.5).sum()), reps),
+            inner_solve_counts=counts,
+        )
+    split = dense_split(g, o, dev, reps)
+    if name == "vio400":
+        d, T_prior = vio_inputs()
+        with tempfile.TemporaryDirectory() as td:
+            split["euroc_round_trip"] = host_ms(lambda: euroc_round_trip(d, td), 1)
+            _, data = euroc_round_trip(d, td)
+        w, a, dts = (torch.from_numpy(x).to(dev) for x in imu._padded_intervals(data.omega, data.accel, data.dts))
+        z = torch.zeros((w.shape[0], 3), dtype=torch.float64, device=dev)
+        pim = imu._preintegrate_batched(w, a, dts, z, z, 1.7e-4, 2e-3)
+        cov = pim.cov.cpu().numpy()
+        n = d.T_gt.shape[0]
+        split.update(
+            preintegration=host_ms(lambda: imu._preintegrate_batched(w, a, dts, z, z, 1.7e-4, 2e-3), reps),
+            covariances_to_host=host_ms(lambda: pim.cov.cpu(), reps),
+            sqrt_info_host=host_ms(lambda: imu._sqrt_info_host(cov, 1e-12), reps),
+            vio_graph=host_ms(lambda: imu.vio_graph(data, T_prior, np.diag([1 / 2e-3] * 6), T_init=T_prior,
+                                                    v_init=np.zeros((n, 3)), b_init=np.zeros((n, 6)), device=dev),
+                              reps),
+        )
+    return split
+
+
 def make_cell(name, dev):
     """(graph, run) of one cell: ``run()`` solves and returns (solved, info)."""
     import torch
@@ -228,6 +351,9 @@ def make_cell(name, dev):
     from pyslam_tpu_torch.graph import build
     from pyslam_tpu_torch.io import synth
     from pyslam_tpu_torch.solver.lm import Options
+
+    if name in ("init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400"):
+        return slice9_cell(name, dev)
 
     if name == "sphere2500":
         from pyslam_tpu_torch.solver.bcsr import build_ell_direct, solve_ell
@@ -278,17 +404,14 @@ def make_cell(name, dev):
 
         return fleet[0], o, run_fleet
 
-    from pyslam_tpu_torch.io import g2o
+    from chip_smoke import m3500_data
     from pyslam_tpu_torch.losses import CauchyLoss
     from pyslam_tpu_torch.solver import solve
 
     if name == "config2_sparse_chol":
         from pyslam_tpu_torch.solver import sparse_chol
 
-        with tempfile.TemporaryDirectory() as td:
-            path = os.path.join(td, "m3500.g2o")
-            g2o.write_g2o(path, synth.se2_manhattan(n_poses=3500, seed=1))
-            g = build.pose_graph(g2o.read_g2o(path), device=dev)
+        g = build.pose_graph(m3500_data(), device=dev)
         o = Options(method="gn", max_iters=30, min_cost_decrease=0.999)
         plan = sparse_chol.build_chol_plan(g)
         return g, o, lambda: sparse_chol.solve_sparse_chol(g, o, plan=plan)
@@ -296,10 +419,7 @@ def make_cell(name, dev):
         g = build.pose_graph(synth.se2_loop(n_poses=100, n_loops=12, seed=0), loss=CauchyLoss(2.0), device=dev)
         o = Options(method="lm", max_iters=50)
     elif name == "config2":
-        with tempfile.TemporaryDirectory() as td:
-            path = os.path.join(td, "m3500.g2o")
-            g2o.write_g2o(path, synth.se2_manhattan(n_poses=3500, seed=1))
-            g = build.pose_graph(g2o.read_g2o(path), device=dev)
+        g = build.pose_graph(m3500_data(), device=dev)
         o = Options(method="gn", max_iters=30, min_cost_decrease=0.999)
     elif name == "config7":
         data = synth.sim3_loop(n_poses=400, n_loops=10, scale_drift=0.005, odo_scale_std=0.005, seed=0)
@@ -919,9 +1039,10 @@ def main() -> int:
             run = functools.partial(run_large, g, o, plan, common)
         elif name == "config5":
             g, o, mesh, run = sharded_cell(dev)
-            reps = max(reps, 9)
         else:
             g, o, run = make_cell(name, dev)
+        if name in MIN_NINE:
+            reps = max(reps, 9)
         run()
         torch.cuda.synchronize()
         walls = []
@@ -960,6 +1081,8 @@ def main() -> int:
             split = sparse_split(name, g, o, dev, args.reps, run)
         elif name == "fleet16":
             continue
+        elif name in ("init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400"):
+            split = slice9_split(name, g, o, dev, args.reps)
         else:
             split = dense_split(g, o, dev, args.reps)
         print(f"   host ms per call (median of {args.reps}, synchronised): {split}", flush=True)

@@ -37,4 +37,4 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from ._device import default_device  # noqa: E402,F401
-from . import graph, io, lie, losses, solver  # noqa: E402,F401
+from . import graph, imu, io, lie, losses, solver  # noqa: E402,F401

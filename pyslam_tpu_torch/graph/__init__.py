@@ -12,6 +12,7 @@ from .core import (
     register_factor,
     retract,
 )
+from .initialize import chordal_init, spanning_tree_init
 
 __all__ = [
     "FactorBatch",
@@ -23,4 +24,6 @@ __all__ = [
     "register_factor",
     "retract",
     "graph_from_numpy",
+    "chordal_init",
+    "spanning_tree_init",
 ]

@@ -1,11 +1,11 @@
 """Builders: dataset containers -> FactorGraph.
 
-Counterpart of ``pyslam_tpu/graph/build.py``.  Ported so far:
-``pose_graph`` (SE(2), SE(3), and Sim(3) data routed to
-``sim3_pose_graph``), ``sim3_pose_graph``, ``landmark_slam_2d``,
-``ba_graph`` and ``bal_graph``.  Every builder puts its tensors in
-``dtype`` on ``device`` (None: the package's default, the CUDA card;
-``device="cpu"`` asks for the CPU).
+Counterpart of ``pyslam_tpu/graph/build.py``: ``pose_graph`` (SE(2),
+SE(3), and Sim(3) data routed to ``sim3_pose_graph``; the 'odometry',
+'gt', 'spanning_tree' and 'chordal' inits), ``switchable_pose_graph``,
+``sim3_pose_graph``, ``landmark_slam_2d``, ``ba_graph`` and ``bal_graph``.
+Every builder puts its tensors in ``dtype`` on ``device`` (None: the
+package's default, the CUDA card; ``device="cpu"`` asks for the CPU).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from .._device import resolve_device
 from ..losses import L2Loss
 from ..sensors import StereoCamera
 from .core import FactorBatch, FactorGraph, VariableBlock
+from .initialize import chordal_init, spanning_tree_init
 
 
 def _tensor(a, dtype, device):
@@ -65,11 +66,13 @@ def pose_graph(
     the CUDA card; ``device="cpu"`` asks for the CPU).
 
     ``anchor_first`` freezes pose 0 (gauge fixing).  ``init`` is
-    'odometry' (integrated measurements, the standard benchmark init) or
-    'gt'.  3D data with 7-dof ``sqrt_info`` is a Sim(3) graph and goes to
-    ``sim3_pose_graph``.  The 'spanning_tree' / 'chordal' inits are not
-    ported yet and raise NotImplementedError (ValueError on Sim(3) data,
-    where the reference has no such init either).
+    'odometry' (integrated measurements, the standard benchmark init),
+    'gt', 'spanning_tree' (BFS measurement integration, for datasets with
+    no vertex estimates) or 'chordal' (the two-stage linear relaxation of
+    ``graph/initialize.py``, solved in ``dtype`` on ``device``; closest to
+    the optimum's basin, at the cost of two linear solves).  3D data with
+    7-dof ``sqrt_info`` is a Sim(3) graph and goes to ``sim3_pose_graph``,
+    where 'spanning_tree' / 'chordal' raise ValueError.
     """
     loss = loss if loss is not None else L2Loss()
     if data.dim == 3 and data.sqrt_info.shape[-1] == 7:
@@ -82,14 +85,93 @@ def pose_graph(
         return sim3_pose_graph(
             data, loss=loss, anchor_first=anchor_first, dtype=dtype, init=init, device=device
         )
-    if init == "gt":
+    device = resolve_device(device)
+    n_poses = data.T_init.shape[0]
+    if init == "chordal":
+        T0 = chordal_init(data.edges_i, data.edges_j, data.T_meas, n_poses, dtype=dtype, device=device)
+    elif init == "spanning_tree":
+        T0 = spanning_tree_init(data.edges_i, data.edges_j, data.T_meas, n_poses)
+    elif init == "gt":
         T0 = data.T_gt
-    elif init == "odometry":
-        T0 = data.T_init
     else:
-        raise NotImplementedError(f"pose_graph: init={init!r} is not ported ('odometry', 'gt')")
+        T0 = data.T_init
     kind = "se2" if data.dim == 2 else "se3"
     return _single_between_graph(kind, T0, data, loss, anchor_first, dtype, device)
+
+
+def switchable_pose_graph(
+    data,
+    loss=None,
+    anchor_first: bool = True,
+    dtype=torch.float32,
+    init: str = "odometry",
+    xi=5.0,
+    loop_mask=None,
+    s_init=None,
+    device=None,
+) -> FactorGraph:
+    """Pose graph with switchable loop closures (Suenderhauf & Protzel ICRA
+    2012): odometry edges stay plain between factors; each loop edge gets a
+    scalar switch variable (block "switches", init 1.0) through the
+    ``between_*_switch`` kernel, whose xi-weighted prior row lets wrong
+    loop closures turn themselves off during optimization.  The
+    weight-based alternative is ``solver.solve_gnc``.
+
+    ``xi`` sets the switch prior stiffness (5 separates inliers from
+    outliers on the reference's tests).  ``xi`` and ``s_init`` may be
+    per-loop-edge arrays, straight from ``io.g2o.read_g2o_switchable``:
+    ``build.switchable_pose_graph(data, **sw)``.
+
+    ``loop_mask``: boolean (E,) marking the loop closures; defaults to
+    non-consecutive edges (|i - j| != 1).  A loop-free graph gets one
+    placeholder switch that no factor touches.  The converged switches are
+    ``solved.blocks["switches"].values[:, 0]``: near 0, the edge was
+    rejected.  Solve with ``solver.solve`` (the dense path: a graph of two
+    blocks coupled only by 3-slot factors is outside the Schur routes).
+    Tensors in ``dtype`` on ``device`` as in ``pose_graph``."""
+    device = resolve_device(device)
+    loss = loss if loss is not None else L2Loss()
+    kind = "se2" if data.dim == 2 else "se3"
+    T0 = data.T_gt if init == "gt" else data.T_init
+    ei = np.asarray(data.edges_i)
+    ej = np.asarray(data.edges_j)
+    if loop_mask is None:
+        loop_mask = np.abs(ei - ej) != 1
+    loop_mask = np.asarray(loop_mask, bool)
+    odo = ~loop_mask
+    n_loops = int(loop_mask.sum())
+    if s_init is None or n_loops == 0:
+        # n_loops == 0: the placeholder switch ignores any (0,)-shaped
+        # s_init from read_g2o_switchable on a loop-free file
+        s0 = np.ones((max(n_loops, 1), 1))
+    else:
+        s0 = np.broadcast_to(np.asarray(s_init, np.float64).reshape(-1, 1), (n_loops, 1))
+    T_meas, sqrt_info = np.asarray(data.T_meas), np.asarray(data.sqrt_info)
+    blocks = {
+        "poses": _pose_block(kind, T0, anchor_first, dtype, device),
+        "switches": VariableBlock.create("euclidean", _tensor(s0, dtype, device)),
+    }
+    batches = [
+        FactorBatch.create(
+            kind=f"between_{kind}",
+            slots=("poses", "poses"),
+            indices=(ei[odo], ej[odo]),
+            data={"T_obs": _tensor(T_meas[odo], dtype, device), "sqrt_info": _tensor(sqrt_info[odo], dtype, device)},
+            loss=loss,
+        ),
+        FactorBatch.create(
+            kind=f"between_{kind}_switch",
+            slots=("poses", "poses", "switches"),
+            indices=(ei[loop_mask], ej[loop_mask], np.arange(n_loops, dtype=np.int32)),
+            data={
+                "T_obs": _tensor(T_meas[loop_mask], dtype, device),
+                "sqrt_info": _tensor(sqrt_info[loop_mask], dtype, device),
+                "xi": _tensor(np.broadcast_to(np.asarray(xi, np.float64), (n_loops,)), dtype, device),
+            },
+            loss=loss,
+        ),
+    ]
+    return FactorGraph(blocks, batches)
 
 
 def sim3_pose_graph(

@@ -5,7 +5,9 @@ pose priors and the relative-pose factors of SE(2), SE(3) and Sim(3), all
 through the group-generic ``_prior`` / ``_between``; the stereo / RGB-D
 reprojection factors; the BAL (Snavely) reprojection factors with fixed
 and with optimized intrinsics and the pose prior of a BAL camera; and the
-pose-to-landmark factors of 2D and 3D landmark SLAM.  ``sqrt_info`` may
+pose-to-landmark factors of 2D and 3D landmark SLAM; the switchable
+loop closures of SE(2) and SE(3); and the two chordal-relaxation kinds of
+``graph/initialize.py``.  ``sqrt_info`` may
 carry the factor axis, (F, m, m), or be one (m, m) matrix for the whole
 batch.  A point at depth z <= 0 gives inf / NaN as in the reference; the
 LM loop rejects such a step.  Conventions are the reference's:
@@ -93,6 +95,43 @@ def between_se3(data, T1, T2, compute_jacobians=True):
 def between_se2(data, T1, T2, compute_jacobians=True):
     """SE(2) relative-pose factor (reference PoseToPoseResidual)."""
     return _between(se2, data, T1, T2, compute_jacobians)
+
+
+# --------------------------------------------------------------------------
+# Switchable loop closures (Suenderhauf & Protzel ICRA 2012, "Vertigo"):
+#   r = [ s * sqrt_info * log(T_est * T_obs^-1) ;  xi * (1 - s) ]
+# Each loop closure carries a scalar switch s (init 1); an outlier edge is
+# cheaper to switch off (paying the xi prior) than to satisfy.  The switch
+# enters linearly and unclamped, so the residual is smooth everywhere.
+# --------------------------------------------------------------------------
+
+
+def _between_switch(ops, data, T1, T2, s, compute_jacobians):
+    r_b, jac = _between(ops, data, T1, T2, compute_jacobians)
+    sv = s[:, 0:1]  # (F, 1)
+    xi = data["xi"]
+    xi = xi[:, None] if xi.ndim == 1 else xi  # (F, 1)
+    r = torch.cat([sv * r_b, xi * (1.0 - sv)], dim=1)
+    if not compute_jacobians:
+        return r, None
+    J1, J2 = jac
+    zrow = J1.new_zeros((J1.shape[0], 1, J1.shape[2]))
+    J1s = torch.cat([sv[:, :, None] * J1, zrow], dim=1)
+    J2s = torch.cat([sv[:, :, None] * J2, zrow], dim=1)
+    Js = torch.cat([r_b[:, :, None], -xi[:, :, None]], dim=1)  # (F, m + 1, 1)
+    return r, (J1s, J2s, Js)
+
+
+@register_factor("between_se2_switch")
+def between_se2_switch(data, T1, T2, s, compute_jacobians=True):
+    """Switchable SE(2) loop-closure factor (slots: pose_i, pose_j, switch)."""
+    return _between_switch(se2, data, T1, T2, s, compute_jacobians)
+
+
+@register_factor("between_se3_switch")
+def between_se3_switch(data, T1, T2, s, compute_jacobians=True):
+    """Switchable SE(3) loop-closure factor (slots: pose_i, pose_j, switch)."""
+    return _between_switch(se3, data, T1, T2, s, compute_jacobians)
 
 
 @register_factor("between_sim3")
@@ -306,3 +345,46 @@ def prior_euclidean(data, x, compute_jacobians=True):
     if not compute_jacobians:
         return r, None
     return r, (data["sqrt_info"].expand(x.shape[:-1] + data["sqrt_info"].shape[-2:]),)
+
+
+# --------------------------------------------------------------------------
+# Chordal relaxation (pose-graph initialization, graph/initialize.py).  Both
+# kinds are linear in their euclidean variables, so one exact GN step solves
+# the relaxation through the standard assembly and solvers.
+# --------------------------------------------------------------------------
+
+
+@register_factor("chordal_rot")
+def chordal_rot(data, x1, x2, compute_jacobians=True):
+    """Rotation-relaxation factor: columns of R_j should equal R_meas @
+    (columns of R_i), each rotation stored column-stacked as a d*d euclidean
+    variable x = vec(R^T) (x.reshape(d, d)[c] = column c of R).
+
+    r[c*d + a] = x2[c*d + a] - (R_meas @ x1[c*d : c*d+d])[a]
+    """
+    R = data["R_meas"]  # (F, d, d)
+    d = R.shape[-1]
+    F = x1.shape[0]
+    X1 = x1.reshape(F, d, d)  # rows = columns of R_i
+    X2 = x2.reshape(F, d, d)
+    r = (X2 - X1 @ R.transpose(-1, -2)).reshape(F, d * d)
+    if not compute_jacobians:
+        return r, None
+    eye = torch.eye(d, dtype=R.dtype, device=R.device)
+    # J1[f, c*d+a, c'*d+b] = -delta_cc' * R[f, a, b]
+    J1 = -torch.einsum("ck,fab->fcakb", eye, R).reshape(F, d * d, d * d)
+    J2 = torch.eye(d * d, dtype=R.dtype, device=R.device).expand(F, d * d, d * d)
+    return r, (J1, J2)
+
+
+@register_factor("chordal_trans")
+def chordal_trans(data, t1, t2, compute_jacobians=True):
+    """Translation-recovery factor with rotations held fixed:
+    r = t_j - R_meas @ t_i - t_meas (linear in the d-dof translations)."""
+    R = data["R_meas"]
+    r = t2 - _bmv(R, t1) - data["t_meas"]
+    if not compute_jacobians:
+        return r, None
+    F, d = r.shape
+    J2 = torch.eye(d, dtype=R.dtype, device=R.device).expand(F, d, d)
+    return r, (-R, J2)

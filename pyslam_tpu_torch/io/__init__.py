@@ -1,4 +1,4 @@
-"""Dataset I/O.  Ported so far: the synthetic generators, the g2o
-reader/writer and the BAL reader/writer (numpy only)."""
+"""Dataset I/O: the synthetic generators, the g2o, BAL and EuRoC readers
+and writers, and the TUM / KITTI trajectory files (numpy only)."""
 
-from . import bal, g2o, synth  # noqa: F401
+from . import bal, euroc, g2o, synth, trajectory  # noqa: F401

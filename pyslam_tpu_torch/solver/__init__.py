@@ -7,7 +7,8 @@ multifrontal sparse Cholesky (``solve_sparse_chol``) and SPARSE_SCHUR
 (``solve_schur_sparse``), Venice-scale bundle adjustment
 (``solve_schur_large`` on the shared host LM loop ``host_lm_loop``), the
 structure dispatch (``route_auto``, ``solve_auto``; their mesh routes
-run ``dist/``), the batched fleet solve (``solve_batched``) and the four
+run ``dist/``), the batched fleet solve (``solve_batched``), the
+outlier-robust ``solve_gnc`` (graduated non-convexity) and the four
 CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
 ``ell_assemble``)."""
 
@@ -52,6 +53,7 @@ from .host_loop import host_lm_loop, host_lm_loop_speculative
 from .linear import HOST_READS, cholesky_solve, damp_marquardt, pcg_solve
 from .lm import STATUS_NAMES, Options, SolveInfo, solve, solve_one_iter
 from .batched import BatchedSolveInfo, solve_batched
+from .gnc import GNCInfo, solve_gnc
 from .schur import ba_assemble, solve_schur
 from .schur_large import prepare_large_ba, solve_schur_large
 from .schur_sparse import (
@@ -121,6 +123,8 @@ __all__ = [
     "host_lm_loop_speculative",
     "solve_schur_large",
     "prepare_large_ba",
+    "solve_gnc",
+    "GNCInfo",
 ]
 
 

@@ -174,10 +174,11 @@ def dense_contributions(graph: FactorGraph, hessian: bool, problems: int | None 
         for a in range(len(jacs)):
             for b in range(a, len(jacs)):
                 C = jacs[a].transpose(1, 2) @ (w[..., None] * jacs[b])  # (F, da, db)
-                h_parts.setdefault(tuple(C.shape[1:]), []).append(C.reshape(C.shape[0], -1))
+                # flatten, not reshape(F, -1): a batch may hold no factor
+                h_parts.setdefault(tuple(C.shape[1:]), []).append(C.flatten(1))
                 if b != a:
                     Ct = C.transpose(1, 2)
-                    h_parts.setdefault(tuple(Ct.shape[1:]), []).append(Ct.reshape(C.shape[0], -1))
+                    h_parts.setdefault(tuple(Ct.shape[1:]), []).append(Ct.flatten(1))
     return h_parts, g_parts, chi2
 
 

@@ -149,7 +149,7 @@ def test_slot_plans_cover_every_contribution(name):
     assert hp.offsets[-1] == h.shape[0] and gp.offsets[-1] == g.shape[0]
 
 
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 9])
 def test_sym_block_inv_matches_reference(d):
     rng = np.random.default_rng(d)
     A = rng.normal(size=(20, d, d))
@@ -210,8 +210,16 @@ def test_linearize_batch_rejects_wrong_jacobian_width(monkeypatch):
 
 @pytest.mark.parametrize("case", ["init_chordal", "init_spanning_tree"])
 def test_unported_parts_raise(case):
-    with pytest.raises(NotImplementedError):
-        tbuild.pose_graph(tsynth.se3_sphere(n_poses=30, seed=0), init=case.split("_", 1)[1], device="cpu")
+    """The 'chordal' and 'spanning_tree' inits, the last parts of
+    ``pose_graph`` to be ported: the reference's poses (1e-8) on SE(3)
+    data, ValueError on Sim(3) data as in the reference."""
+    init = case.split("_", 1)[1]
+    tg = tbuild.pose_graph(tsynth.se3_sphere(n_poses=30, seed=0), init=init, dtype=torch.float64, device="cpu")
+    jg = jbuild.pose_graph(jsynth.se3_sphere(n_poses=30, seed=0), init=init, dtype=jnp.float64)
+    np.testing.assert_allclose(tg.blocks["poses"].values.numpy(), np.asarray(jg.blocks["poses"].values), rtol=0,
+                               atol=1e-8)
+    with pytest.raises(ValueError, match="Sim"):
+        tbuild.pose_graph(tsynth.sim3_loop(n_poses=10, n_loops=1, seed=0), init=init, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["se2", "sim3"])

@@ -335,8 +335,10 @@ def _spd_ell(nb, K, d, seed, device, dtype):
     return He_t, torch.from_numpy(cols).to(device), Minv, b
 
 
-# the last is past what shared memory holds (38.9 MB of He in f32)
-PCG_SHAPES = [(2500, 9, 6), (300, 5, 3), (1, 1, 6), (30000, 9, 6)]
+# the last is past what shared memory holds (38.9 MB of He in f32); d = 9
+# and 4 are the chordal rotation stages of sphere2500 and of an M3500-class
+# SE(2) graph, on the generic template
+PCG_SHAPES = [(2500, 9, 6), (300, 5, 3), (1, 1, 6), (30000, 9, 6), (2500, 9, 9), (3500, 7, 4)]
 
 
 @pytest.mark.parametrize("stop", ["tolerance", "max_iters"])
@@ -366,7 +368,7 @@ def test_ell_pcg_kernel_matches_plain(cuda_device, nb, K, d, dtype, stop):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nb,K,d", [(2500, 9, 6), (30000, 9, 6)])
+@pytest.mark.parametrize("nb,K,d", [(2500, 9, 6), (30000, 9, 6), (2500, 9, 9), (3500, 7, 4)])
 def test_ell_pcg_kernel_is_deterministic(cuda_device, nb, K, d, dtype):
     He, cols, Minv, b = _spd_ell(nb, K, d, 7, cuda_device, dtype)
     first = ell_pcg(He, cols, Minv, b, PCG_RTOL[dtype], 200)
@@ -691,3 +693,78 @@ def test_solve_batched_on_the_card_matches_the_cpu_path(cuda_device):
     assert torch.equal(i_g.accepted.cpu(), i_c.accepted)
     _assert_close(c_g.cpu(), c_c, 1e-9)
     _assert_close(v_g["poses"].cpu(), v_c["poses"], 1e-9)
+
+
+# --------------------------------------------------------------------------
+# Initialization, switchable loop closures, GNC and VIO: the card's path
+# against the CPU path in f64
+# --------------------------------------------------------------------------
+
+
+def _same_solve(res, rel=1e-8, block="poses"):
+    (s_c, i_c), (s_g, i_g) = res["cpu"], res["cuda"]
+    assert (i_g.iterations, i_g.status) == (i_c.iterations, i_c.status)
+    assert torch.equal(i_g.accepted.cpu(), i_c.accepted)
+    assert abs(i_g.chi2.item() - i_c.chi2.item()) <= rel * i_c.chi2.item()
+    _assert_close(s_g.blocks[block].values.cpu(), s_c.blocks[block].values, 1e-9)
+
+
+def test_chordal_init_on_the_card_matches_the_cpu_path(cuda_device):
+    from pyslam_tpu_torch.graph import initialize
+
+    for data in (synth.se2_loop(n_poses=80, seed=5), synth.se3_sphere(n_poses=120, seed=2)):
+        n = data.T_gt.shape[0]
+        T = {str(dev): initialize.chordal_init(data.edges_i, data.edges_j, data.T_meas, n, device=dev)
+             for dev in ("cpu", cuda_device)}
+        np.testing.assert_allclose(T[str(cuda_device)], T["cpu"], rtol=0, atol=1e-8)
+
+
+def test_switchable_solve_on_the_card_matches_the_cpu_path(cuda_device):
+    data, _ = synth.with_outliers(synth.se2_loop(n_poses=60, n_loops=8, seed=0), 3, seed=1)
+    opts = Options(method="lm", max_iters=60)
+    res = {("cpu" if dev == "cpu" else "cuda"): lm.solve(
+        build.switchable_pose_graph(data, xi=5.0, dtype=torch.float64, device=dev), opts) for dev in ("cpu", cuda_device)}
+    _same_solve(res)
+    _same_solve(res, block="switches")
+
+
+def test_solve_gnc_on_the_card_matches_the_cpu_path(cuda_device):
+    data, _ = synth.with_outliers(synth.se3_sphere(n_poses=60, n_loops=8, seed=6), 4, seed=1)
+    opts = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        cuda_ops.reset_launches()
+        out[str(dev)] = solver.solve_gnc(build.pose_graph(data, dtype=torch.float64, device=dev), opts,
+                                         solve_fn=bcsr.solve_ell)
+    assert cuda_ops.LAUNCHES["ell_assemble"] > 0 and cuda_ops.LAUNCHES["ell_pcg"] > 0
+    (s_c, i_c), (s_g, i_g) = out["cpu"], out[str(cuda_device)]
+    assert i_g.outer_iters == i_c.outer_iters
+    np.testing.assert_array_equal(i_g.inlier_masks[0], i_c.inlier_masks[0])
+    assert abs(i_g.chi2 - i_c.chi2) <= 1e-8 * i_c.chi2
+    _assert_close(s_g.blocks["poses"].values.cpu(), s_c.blocks["poses"].values, 1e-9)
+
+
+def test_vio_on_the_card_matches_the_cpu_path(cuda_device):
+    from pyslam_tpu_torch import imu
+    from pyslam_tpu_torch.lie import se3
+
+    d = synth.imu_circle(n_keyframes=12, kf_dt=0.5, imu_rate=200, gyro_noise=1.7e-4 * np.sqrt(200),
+                         accel_noise=2e-3 * np.sqrt(200), b_gyro=[0.002, -0.001, 0.003], b_accel=[0.05, -0.03, 0.02])
+    rng = np.random.default_rng(1)
+    T_prior = np.stack([se3.exp(torch.from_numpy(rng.normal(size=6) * 2e-3)).numpy() @ d.T_gt[i] for i in range(12)])
+    res = {}
+    for dev in ("cpu", cuda_device):
+        g = imu.vio_graph(d, T_prior, np.diag([1 / 2e-3] * 6), T_init=T_prior, v_init=np.zeros((12, 3)),
+                          b_init=np.zeros((12, 6)), device=dev)
+        res["cpu" if dev == "cpu" else "cuda"] = lm.solve(g, Options(method="lm", max_iters=60))
+    _same_solve(res)
+    _same_solve(res, block="vels")
+    # the batched recursion on the card against the per-interval one
+    batched = imu._preintegrate_batched(*(torch.from_numpy(np.asarray(x)).to(cuda_device) for x in
+                                          (d.omega, d.accel, d.dts)),
+                                        *(torch.zeros((11, 3), dtype=torch.float64, device=cuda_device),) * 2,
+                                        1.7e-4, 2e-3)
+    for i in (0, 5, 10):
+        one = imu.preintegrate(d.omega[i], d.accel[i], d.dts[i], np.zeros(3), np.zeros(3), device=cuda_device)
+        for name in one._fields:
+            _assert_close(getattr(batched, name)[i], getattr(one, name), 1e-12)

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import pyslam_tpu_torch
-from pyslam_tpu_torch.graph import build, convert
+from pyslam_tpu_torch import imu
+from pyslam_tpu_torch.graph import build, convert, initialize
 from pyslam_tpu_torch.io import bal, synth
 from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
 from pyslam_tpu_torch.testing import se3_stress_graph
@@ -48,6 +49,13 @@ def test_import_leaves_jax_out():
         "import pyslam_tpu_torch.dist.factor_parallel, pyslam_tpu_torch.dist.schur_reduce\n"
         "import pyslam_tpu_torch.dist.pose_sharded, pyslam_tpu_torch.testing\n"
         "from pyslam_tpu_torch.dist import make_mesh, init_distributed, solve_schur_sharded, solve_pose_sharded\n"
+        "import pyslam_tpu_torch.imu, pyslam_tpu_torch.io.euroc, pyslam_tpu_torch.io.trajectory\n"
+        "import pyslam_tpu_torch.graph.initialize, pyslam_tpu_torch.solver.gnc\n"
+        "from pyslam_tpu_torch.graph import chordal_init, spanning_tree_init\n"
+        "from pyslam_tpu_torch.graph.build import switchable_pose_graph\n"
+        "from pyslam_tpu_torch.solver import solve_gnc, GNCInfo\n"
+        "from pyslam_tpu_torch.imu import preintegrate, sqrt_info_of, vio_graph, ImuParams, PreintegratedImu\n"
+        "from pyslam_tpu_torch.io import euroc, trajectory\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -86,6 +94,30 @@ def _mesh_entry(**kw):
             torch.distributed.destroy_process_group()
 
 
+_IMU = synth.imu_circle(n_keyframes=3, kf_dt=0.1, imu_rate=50, seed=0)
+
+
+def _chordal_entry(**kw):
+    """``chordal_init``'s stages on the given device: it returns host poses,
+    so the device its stage graphs were built on is read by wrapping the
+    stage solver."""
+    seen = []
+    solve_stage = initialize._solve_stage
+
+    def record(g, *args):
+        seen.append(next(iter(g.blocks.values())).values.device)
+        return solve_stage(g, *args)
+
+    data = synth.se3_sphere(n_poses=8, seed=0)
+    initialize._solve_stage = record
+    try:
+        T0 = initialize.chordal_init(data.edges_i, data.edges_j, data.T_meas, 8, **kw)
+    finally:
+        initialize._solve_stage = solve_stage
+    assert T0.shape == (8, 4, 4) and len(seen) == 2 and seen[0] == seen[1]
+    return torch.zeros(0, device=seen[0])
+
+
 DEFAULT_DEVICE_ENTRY_POINTS = {
     "default_device": pyslam_tpu_torch.default_device,
     "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
@@ -99,6 +131,16 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "graph_from_numpy": lambda **kw: convert.graph_from_numpy({"poses": _BLOCK}, [], torch.float64, **kw),
     "se3_stress_graph": lambda **kw: se3_stress_graph(n_poses=24, **kw),
     "make_mesh": _mesh_entry,
+    "pose_graph_chordal": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), init="chordal",
+                                                        **kw),
+    "pose_graph_spanning_tree": lambda **kw: build.pose_graph(synth.se3_sphere(n_poses=8, seed=0),
+                                                              init="spanning_tree", **kw),
+    "chordal_init": lambda **kw: _chordal_entry(**kw),
+    "switchable_pose_graph": lambda **kw: build.switchable_pose_graph(synth.se2_loop(n_poses=8, n_loops=2, seed=0),
+                                                                      **kw),
+    "vio_graph": lambda **kw: imu.vio_graph(_IMU, _IMU.T_gt, np.eye(6), **kw),
+    "preintegrate": lambda **kw: imu.preintegrate(_IMU.omega[0], _IMU.accel[0], _IMU.dts[0], np.zeros(3), np.zeros(3),
+                                                  **kw).dR,
     "so2.identity": so2.identity,
     "se2.identity": se2.identity,
     "so3.identity": so3.identity,

@@ -33,8 +33,10 @@ import numpy as np
 import pytest
 import torch
 from test_torch_assembly import to_port
+from test_torch_initialize import STAGES, _stage_pair
 
 import pyslam_tpu.solver as jsolver
+from pyslam_tpu import imu as jimu
 from pyslam_tpu.graph import build as jbuild
 from pyslam_tpu.graph.core import FACTOR_KERNELS as J_FACTOR_KERNELS
 from pyslam_tpu.graph.core import FactorBatch as JFactorBatch
@@ -231,6 +233,54 @@ def test_route_of_real_graphs_is_the_reference_route(name):
     jg, tg, kw = real(name)
     assert jsolver.route_auto(jg, **kw) == EXPECTED[name]
     assert route_auto(tg, **kw) == EXPECTED[name]
+
+
+# --------------------------------------------------------------------------
+# Switchable and visual-inertial graphs, and the chordal initialization's
+# stage graphs on either side of the 12,000-dof ceiling
+# --------------------------------------------------------------------------
+
+
+def _switchable(make, n_out, dtype):
+    poisoned, _ = jsynth.with_outliers(make(), n_out, seed=2)
+    return jbuild.switchable_pose_graph(poisoned, dtype=dtype, xi=5.0)
+
+
+def _vio(n):
+    d = jsynth.imu_circle(n_keyframes=n, kf_dt=0.5, imu_rate=50, seed=0)
+    return jimu.vio_graph(d, d.T_gt, np.diag([500.0] * 6))
+
+
+SLICE9 = {
+    # one lie block and one euclidean block coupled only by 3-slot factors:
+    # not bundle adjustment, whatever the size
+    "switchable_se2_60": (lambda: _switchable(lambda: jsynth.se2_loop(n_poses=60, n_loops=8, seed=0), 3, F64),
+                          torch.float64),
+    "switchable_se3_40": (lambda: _switchable(lambda: jsynth.se3_sphere(n_poses=40, n_loops=8, seed=6), 3, F64),
+                          torch.float64),
+    "switchable_m3500_f32": (lambda: _switchable(lambda: jsynth.se2_manhattan(n_poses=3500, seed=1), 100,
+                                                 jnp.float32), torch.float32),
+    "switchable_se2_5000_f32": (lambda: _switchable(lambda: jsynth.se2_manhattan(n_poses=5000, seed=1), 100,
+                                                    jnp.float32), torch.float32),
+    # three blocks: poses, velocities, biases
+    "vio_4": (lambda: _vio(4), torch.float64),
+    "vio_900": (lambda: _vio(900), torch.float64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE9))
+def test_route_of_switchable_and_vio_graphs_is_the_reference_route(name):
+    make, dtype = SLICE9[name]
+    jg = make()
+    tg = to_port(jg, dtype=dtype)
+    assert route_auto(tg) == jsolver.route_auto(jg) == "dense"
+
+
+@pytest.mark.parametrize("stage,d,n", STAGES)
+def test_route_of_chordal_stage_graphs_is_the_reference_route(stage, d, n):
+    tg, jg = _stage_pair(stage, d, n)
+    expected = "dense" if tg.total_dof <= 12000 else ("sparse_chol" if (stage, d) == ("trans", 3) else "ell")
+    assert route_auto(tg) == jsolver.route_auto(jg) == expected
 
 
 # --------------------------------------------------------------------------
