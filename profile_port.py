@@ -112,6 +112,19 @@ sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
 under ``torch.profiler``, in f32 and f64, and prints the mean device time
 of every kernel by name (the two stages of ``ell_assemble`` apart).
 
+The cells of phases 32 to 36 (f64 but ``sqrt_ladybug``): ``vio_window``,
+``fixed_lag_sphere2500``, ``fixed_lag_lm_config8`` and
+``incremental_m3500`` are streams, timed frame by frame (a keyframe, a
+frame of the window, an update) on the host clock, each frame ending in its
+read of the poses: the median and quartiles over the frames after the
+first 30 (over the incremental cell's updates but its 14th, the largest,
+which is profiled), and 30 frames under ``torch.profiler`` for the kernels
+and device ms of a frame and the busy share (device ms a frame over the
+unprofiled median; for the incremental cell over the profiled update's
+own wall); ``sqrt_ladybug`` is one ``solve_auto`` through the
+``schur_sqrt`` route (f32), timed and split as a solve (the plan, the
+linearization into buckets, one elimination and reduced solve).
+
 ``--root`` imports ``pyslam_tpu_torch`` from another checkout, such as a
 parent commit unpacked beside this one (the sphere2500 cell runs on every
 version of the port; the dense cells need the dense path).  The graphs
@@ -133,9 +146,10 @@ from typing import NamedTuple
 
 CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense", "config8", "config2_sparse_chol",
          "sparse_chol_5000", "schur_sparse_2000", "fleet16", "venice_mini", "config6", "config5", "init_sphere2500",
-         "gnc_sphere2500", "switch_m3500", "vio400")
+         "gnc_sphere2500", "switch_m3500", "vio400", "vio_window", "fixed_lag_sphere2500", "fixed_lag_lm_config8",
+         "incremental_m3500", "sqrt_ladybug")
 # cells timed over at least 9 solves
-MIN_NINE = ("config5", "init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400")
+MIN_NINE = ("config5", "init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400", "sqrt_ladybug")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
@@ -344,6 +358,141 @@ def slice9_split(name, g, o, dev, reps):
     return split
 
 
+ONLINE_CELLS = ("vio_window", "fixed_lag_sphere2500", "fixed_lag_lm_config8", "incremental_m3500")
+
+
+def online_cell(name, dev, dev_us, profiled=30):
+    """The cells of chip_smoke's phases 32 to 35, f64 as the smoke holds
+    them: one stream, the wall of each of its frames (keyframes, updates)
+    on the host clock, each ending in the frame's read of the poses; the
+    median and quartiles over the frames after the first ``profiled`` (the
+    window fills there); then ``profiled`` more frames (the largest update
+    of the incremental cell) under ``torch.profiler``: kernels and device
+    ms per frame, busy share = device ms per frame over the unprofiled
+    median (the incremental cell: over the profiled update's wall).  The VIO cell profiles a run over the trajectory's first 40
+    keyframes, since its driver runs a trajectory to its end."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import m3500_data, vio_inputs
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import FixedLagLandmarkSmoother, FixedLagSmoother, IncrementalSmoother
+    from pyslam_tpu_torch.solver import cuda_ops, linear
+    from pyslam_tpu_torch.testing import fixed_lag_frames, fixed_lag_landmark_frames, incremental_updates
+    from pyslam_tpu_torch.testing import vio_sliding_window
+
+    f64 = torch.float64
+    walls = []
+
+    def timed(steps, k=None):
+        """Run ``k`` steps of the iterator (all if None), each on the host clock."""
+        n = 0
+        while k is None or n < k:
+            t0 = time.perf_counter()
+            if next(steps, None) is None:
+                break
+            walls.append(1e3 * (time.perf_counter() - t0))
+            n += 1
+        return n
+
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    if name == "vio_window":
+        d, T = vio_inputs()
+        stamps = [time.perf_counter()]
+        vio_sliding_window(d, T, device=dev, on_keyframe=lambda *a: stamps.append(time.perf_counter()))
+        walls.extend(1e3 * float(x) for x in np.diff(stamps))
+        n = 41
+        short = dataclasses.replace(d, T_gt=d.T_gt[:n], v_gt=d.v_gt[:n], omega=d.omega[: n - 1],
+                                    accel=d.accel[: n - 1], dts=d.dts[: n - 1])
+
+        def segment():
+            vio_sliding_window(short, T[:n], device=dev)
+            return n - 1
+    elif name == "incremental_m3500":
+        sm = IncrementalSmoother(kind="se2", device=dev)
+        steps = incremental_updates(sm, m3500_data(), 250)
+        timed(steps, 13)
+
+        def segment():
+            return timed(steps, 1)  # the 14th update: 3,500 poses, D = 14,130
+    else:
+        if name == "fixed_lag_sphere2500":
+            sm = FixedLagSmoother(window=100, kind="se3", gn_iters=3, anchor_sqrt_info=1e4, dtype=f64, device=dev)
+            steps, n_frames = fixed_lag_frames(sm, synth.se3_sphere(n_poses=2500, seed=0), 2500), 2499
+        else:
+            sm = FixedLagLandmarkSmoother(window=20, lm_slots=64, obs_kind="bearing_range_se2", kind="se2",
+                                          gn_iters=3, dtype=f64, device=dev)
+            data = synth.landmark_slam_2d(n_poses=800, n_landmarks=250, max_range=10.0, obs_type="bearing_range",
+                                          odo_rot_std=0.005, seed=0)
+            steps, n_frames = fixed_lag_landmark_frames(sm, data, 800), 799
+        timed(steps, n_frames // 2)
+
+        def segment():
+            return timed(steps, profiled)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_frames = segment()
+        torch.cuda.synchronize()
+        pwall = 1e3 * (time.perf_counter() - t0)
+    if name != "vio_window":
+        del walls[-prof_frames:]
+        if name == "incremental_m3500":
+            timed(steps)
+            t0 = time.perf_counter()
+            sm.marginalize_oldest(keep_last=500)
+            t_marg = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            sm.update()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        else:
+            timed(steps)
+    steady = walls if name == "incremental_m3500" else walls[profiled:]
+    q = statistics.quantiles(steady, n=4)
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kern) / 1e3
+    # the share of a typical frame; the incremental cell profiles its largest
+    # update, which only its own (profiled) wall measures
+    per_frame_wall = pwall / prof_frames if name == "incremental_m3500" else statistics.median(steady)
+    print(f"== {name}: wall per frame median of {len(steady)} {statistics.median(steady)!r} ms, quartiles {q[0]!r} to "
+          f"{q[2]!r}, max {max(steady)!r}; launches of the whole stream {dict(cuda_ops.LAUNCHES)}, LM host reads "
+          f"{linear.HOST_READS['lm']}", flush=True)
+    print(f"   profiled {prof_frames} frames: wall {pwall!r} ms, device time summed {busy!r} ms ({busy / prof_frames!r} "
+          f"ms a frame) -> busy share {busy / prof_frames / per_frame_wall!r}; kernels "
+          f"{sum(e.count for e in kern)} ({sum(e.count for e in kern) / prof_frames!r} a frame)", flush=True)
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        print(f"   {dev_us(e) / 1e3:10.4f} ms  x{e.count:5d}  {e.key[:110]}")
+    if name == "incremental_m3500":
+        print(f"   marginalize_oldest(keep_last=500) {t_marg!r} ms", flush=True)
+
+
+def sqrt_split(g, o, reps):
+    """Host ms of the square-root path's parts at the start point: the plan,
+    the linearization into buckets (``assemble_fn``) and one elimination and
+    reduced solve (``solve_fn``), and the launches of one solve."""
+    import torch
+
+    from pyslam_tpu_torch.solver import cuda_ops, linear, schur_sqrt
+
+    plan = schur_sqrt.build_sqrt_plan(g)
+    assemble_fn, solve_fn = schur_sqrt._closures(plan, g.blocks["poses"].values.device)
+    pieces, g0, _ = assemble_fn(g)
+    lam = torch.tensor(o.lambda_init, dtype=g0.dtype, device=g0.device)
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    schur_sqrt.solve_schur_sqrt(g, o, plan=plan)
+    torch.cuda.synchronize()
+    return dict(build_sqrt_plan=host_ms(lambda: schur_sqrt.build_sqrt_plan(g), reps),
+                assemble_fn=host_ms(lambda: assemble_fn(g), reps),
+                solve_fn=host_ms(lambda: solve_fn(pieces, g0, lam, o), reps),
+                buckets=[tuple(m.shape) for _, _, m in plan.buckets],
+                solve_counts=dict(cuda_ops.LAUNCHES, lm_reads=linear.HOST_READS["lm"]))
+
+
 def make_cell(name, dev):
     """(graph, run) of one cell: ``run()`` solves and returns (solved, info)."""
     import torch
@@ -354,6 +503,13 @@ def make_cell(name, dev):
 
     if name in ("init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400"):
         return slice9_cell(name, dev)
+    if name == "sqrt_ladybug":
+        from pyslam_tpu_torch.io import bal
+        from pyslam_tpu_torch.solver import solve_auto
+
+        g = build.bal_graph(bal.perturbed(bal.synthetic_bal(49, 7000, seed=0, cam_cluster=0.05)), device=dev)
+        o = Options(method="lm", max_iters=50)
+        return g, o, lambda: solve_auto(g, o)
 
     if name == "sphere2500":
         from pyslam_tpu_torch.solver.bcsr import build_ell_direct, solve_ell
@@ -1031,6 +1187,9 @@ def main() -> int:
         if name == "sharded_cg_reads":
             sharded_cg_reads(dev, max(args.reps, 9))
             continue
+        if name in ONLINE_CELLS:
+            online_cell(name, dev, dev_us)
+            continue
         reps = args.reps
         if name in ("venice_mini", "config6"):
             t0 = time.perf_counter()
@@ -1083,6 +1242,8 @@ def main() -> int:
             continue
         elif name in ("init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400"):
             split = slice9_split(name, g, o, dev, args.reps)
+        elif name == "sqrt_ladybug":
+            split = sqrt_split(g, o, args.reps)
         else:
             split = dense_split(g, o, dev, args.reps)
         print(f"   host ms per call (median of {args.reps}, synchronised): {split}", flush=True)

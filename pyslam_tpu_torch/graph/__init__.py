@@ -13,6 +13,7 @@ from .core import (
     retract,
 )
 from .initialize import chordal_init, spanning_tree_init
+from .marginalize import marginalize
 
 __all__ = [
     "FactorBatch",
@@ -26,4 +27,5 @@ __all__ = [
     "graph_from_numpy",
     "chordal_init",
     "spanning_tree_init",
+    "marginalize",
 ]

@@ -25,7 +25,11 @@ def graph_from_numpy(blocks: dict, batches: list, dtype, device=None) -> FactorG
     ``device`` (None: the package's default, the CUDA card).  A ``data``
     array keeps its shape, with or without the factor axis; a camera in
     ``data`` is given the same way as the loss,
-    ``("StereoCamera", {"cu": ..., ...})``."""
+    ``("StereoCamera", {"cu": ..., ...})``.  A ``dense_prior__<kinds>``
+    batch (a graph that ``marginalize`` produced) registers its kernel
+    here when it is not yet registered."""
+    from .marginalize import PRIOR_PREFIX, _ensure_dense_prior_kernel
+
     device = resolve_device(device)
 
     def tensor(a):
@@ -49,6 +53,8 @@ def graph_from_numpy(blocks: dict, batches: list, dtype, device=None) -> FactorG
     }
     t_batches = []
     for fb in batches:
+        if fb["kind"].startswith(PRIOR_PREFIX):
+            _ensure_dense_prior_kernel(tuple(fb["kind"][len(PRIOR_PREFIX):].split("_")))
         loss_name, loss_fields = fb["loss"]
         if loss_name not in losses.__all__:
             raise ValueError(f"unknown loss {loss_name!r}")

@@ -8,7 +8,9 @@ multifrontal sparse Cholesky (``solve_sparse_chol``) and SPARSE_SCHUR
 (``solve_schur_large`` on the shared host LM loop ``host_lm_loop``), the
 structure dispatch (``route_auto``, ``solve_auto``; their mesh routes
 run ``dist/``), the batched fleet solve (``solve_batched``), the
-outlier-robust ``solve_gnc`` (graduated non-convexity) and the four
+outlier-robust ``solve_gnc`` (graduated non-convexity), the online
+smoothers (``FixedLagSmoother``, ``FixedLagLandmarkSmoother``,
+``IncrementalSmoother``) and the four
 CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
 ``ell_assemble``)."""
 
@@ -63,7 +65,10 @@ from .schur_sparse import (
     coobservation_stats,
     solve_schur_sparse,
 )
+from .schur_sqrt import SqrtBAPlan, build_sqrt_plan, solve_schur_sqrt
 from .sparse_chol import CholPlan, build_chol_plan, solve_sparse_chol, sparse_chol_solve
+from .fixed_lag import FixedLagLandmarkSmoother, FixedLagSmoother
+from .incremental import IncrementalSmoother
 
 __all__ = [
     "Options",
@@ -125,6 +130,12 @@ __all__ = [
     "prepare_large_ba",
     "solve_gnc",
     "GNCInfo",
+    "SqrtBAPlan",
+    "build_sqrt_plan",
+    "solve_schur_sqrt",
+    "FixedLagSmoother",
+    "FixedLagLandmarkSmoother",
+    "IncrementalSmoother",
 ]
 
 
@@ -360,8 +371,10 @@ def solve_auto(
 
     * camera + landmark blocks -> Schur complement: ``solve_schur`` in
       'dense' mode (few cameras) or 'pcg' mode, ``solve_schur_sparse``
-      (many poses, sparse co-observation), or ``solve_schur_large`` (more
-      than 2,000,000 observations of 6-dof cameras);
+      (many poses, sparse co-observation), ``solve_schur_sqrt`` (f32
+      monocular low-parallax graphs: square-root elimination), or
+      ``solve_schur_large`` (more than 2,000,000 observations of 6-dof
+      cameras);
     * single variable block, total dof <= dense_dof_limit -> dense Cholesky;
       larger -> ``solve_sparse_chol`` (3-dof SE(2) / euclidean) or
       ``solve_ell`` (block-Jacobi PCG);
@@ -373,9 +386,9 @@ def solve_auto(
     ``route_auto`` decides; ``ell`` solves replicated on every rank, and
     ``_single`` (after its warning) the dense path.
 
-    The routes ``schur_sqrt`` (ROADMAP item 18) and ``schur_cm`` (item 16b)
-    are not ported: they raise NotImplementedError, and no other solver
-    stands in for them.  Returns (solved_graph, SolveInfo); on
+    The mesh route ``schur_cm`` (ROADMAP item 16b) is not ported: it
+    raises NotImplementedError, and no other solver stands in for it.
+    Returns (solved_graph, SolveInfo); on
     ``schur_large`` and the mesh routes, as in the reference,
     (solved_graph, cost_history)."""
     opts = options if options is not None else Options()
@@ -388,8 +401,6 @@ def solve_auto(
         schur_sparse_pair_budget=schur_sparse_pair_budget,
         cm_obs_crossover=cm_obs_crossover,
     )
-    if route == "schur_sqrt":
-        raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item 18)")
     if route == "schur_cm":
         raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item 16b)")
     kinds = {name: b.kind for name, b in graph.blocks.items()}
@@ -412,6 +423,8 @@ def solve_auto(
         return solved, history
     if route == "sparse_chol":
         return solve_sparse_chol(graph, opts)
+    if route == "schur_sqrt":
+        return solve_schur_sqrt(graph, opts, **names)
     if route == "schur_sparse":
         return solve_schur_sparse(graph, opts, **names)
     if route in ("schur_dense", "schur_pcg"):

@@ -183,3 +183,213 @@ def run_ranks(fn, world_size: int, store_dir, args=(), backend: str = "gloo", de
         with open(os.path.join(store_dir, f"result_{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+# --------------------------------------------------------------------------
+# Streams for the online smoothers
+# --------------------------------------------------------------------------
+# The feeds below touch only the smoothers' common API, so one function
+# drives the port's smoother and the reference's alike.
+
+
+def fixed_lag_frames(sm, data, n):
+    """Stream a pose graph (``synth.PoseGraphData``) into a
+    ``FixedLagSmoother``, one frame a step: odometry to pose t, then every
+    loop closure ending at t whose older pose is still in the window (the
+    feed of ``tests/test_fixed_lag.py``), then ``update()``.  Yields (t, the
+    window's poses) for t = 1 .. n-1."""
+    by_j = {}
+    for k, (i, j) in enumerate(zip(map(int, data.edges_i), map(int, data.edges_j))):
+        by_j.setdefault(j, []).append((k, i))
+    chain = {j: k for j, ks in by_j.items() for k, i in ks if i == j - 1}
+    sm.add_pose(data.T_init[0])
+    for t in range(1, n):
+        k = chain[t]
+        sm.add_odometry(data.T_meas[k], data.sqrt_info[k])
+        for k2, i in by_j.get(t, []):
+            if i != t - 1 and i >= sm.first_id:
+                sm.add_factor(i, t, data.T_meas[k2], data.sqrt_info[k2])
+        yield t, sm.update()
+
+
+def _leaving(sm, frames, n):
+    """Run ``frames`` to the end: ({absolute id: pose as it left the
+    window}, the last window).  A full window after frame t loses its
+    oldest pose at frame t + 1."""
+    left, est = {}, None
+    for t, est in frames:
+        if sm.count == sm.window and t + 1 < n:
+            left[sm.first_id] = est[0]
+    return left, est
+
+
+def drive_fixed_lag(sm, data, n):
+    """``fixed_lag_frames`` to the end; returns ({absolute id: pose as it
+    left the window}, the last window)."""
+    return _leaving(sm, fixed_lag_frames(sm, data, n), n)
+
+
+def fixed_lag_landmark_frames(sm, data, n, retired=None):
+    """Stream 2D landmark SLAM (``synth.LandmarkSLAM2DData``) into a
+    ``FixedLagLandmarkSmoother``, one frame a step: the pose's odometry,
+    then its observations in order, a landmark added at its first
+    observation (``lm_init``) and the observations of an evicted landmark
+    dropped, then ``update()``.  Yields (t, the window's poses) for t =
+    1 .. n-1; every retirement (landmark id, value at retirement) is
+    appended to ``retired``."""
+    chain = {int(j): k for k, (i, j) in enumerate(zip(data.edges_i, data.edges_j)) if int(i) == int(j) - 1}
+    obs_by_pose = {}
+    for k, pi in enumerate(data.obs_pose):
+        obs_by_pose.setdefault(int(pi), []).append(k)
+    lm_added = {}
+    retired = [] if retired is None else retired
+    retire = sm.retire_landmark
+
+    def recorded(lm_id):
+        retired.append((lm_id, np.asarray(sm.landmark(lm_id))))
+        retire(lm_id)
+
+    def feed(t):
+        for k in obs_by_pose.get(t, []):
+            lj = int(data.obs_lm[k])
+            if lj not in lm_added:
+                lm_added[lj] = sm.add_landmark(data.lm_init[lj])
+            if lm_added[lj] in sm._lm_id2slot:
+                sm.add_observation(t, lm_added[lj], data.obs[k], data.obs_sqrt_info[k])
+
+    sm.retire_landmark = recorded
+    try:
+        sm.add_pose(data.T_init[0])
+        feed(0)
+        for t in range(1, n):
+            sm.add_odometry(data.T_meas[chain[t]], data.sqrt_info[chain[t]])
+            feed(t)
+            yield t, sm.update()
+    finally:
+        del sm.retire_landmark
+
+
+def drive_fixed_lag_landmarks(sm, data, n):
+    """``fixed_lag_landmark_frames`` to the end; returns (poses as they left
+    the window, the last window, the retirements [(landmark id, value at
+    retirement)] in order)."""
+    retired = []
+    left, last = _leaving(sm, fixed_lag_landmark_frames(sm, data, n, retired), n)
+    return left, last, retired
+
+
+def window_trajectory(left, last, n):
+    """(n, m, m): every pose as it left the window, then the last window."""
+    out = np.stack([left[i] for i in range(n - len(last))] + list(last))
+    assert out.shape[0] == n
+    return out
+
+
+def incremental_updates(sm, data, every):
+    """Stream a pose graph into an ``IncrementalSmoother``: poses at the
+    odometry prediction from the latest estimate, each loop closure (in
+    edge order) once both its poses exist, ``update()`` after every
+    ``every`` new poses.  Yields the (chi2, LM iterations) of each update."""
+    n = data.T_init.shape[0]
+    n_odo = n - 1
+    if not (np.asarray(data.edges_i[:n_odo]) == np.arange(n_odo)).all():
+        raise ValueError("the first n - 1 edges must be the odometry chain")
+    loops = list(range(n_odo, len(data.edges_i)))
+    for upto in range(every, n + 1, every):
+        while sm.n < upto:
+            i = sm.n
+            if i == 0:
+                sm.add_pose(data.T_init[0])
+            else:
+                sm.add_pose(data.T_meas[i - 1] @ sm.poses()[i - 1])
+                sm.add_between(i - 1, i, data.T_meas[i - 1], data.sqrt_info[i - 1])
+        later = []
+        for e in loops:
+            i, j = int(data.edges_i[e]), int(data.edges_j[e])
+            if max(i, j) < upto:
+                sm.add_between(i, j, data.T_meas[e], data.sqrt_info[e])
+            else:
+                later.append(e)
+        loops = later
+        _, info = sm.update()
+        yield float(info.chi2), int(info.iterations)
+
+
+def drive_incremental(sm, data, every):
+    """``incremental_updates`` to the end: [(chi2, LM iterations)]."""
+    return list(incremental_updates(sm, data, every))
+
+
+def vio_sliding_window(data, T_meas, window=5, max_iters=25, dtype=torch.float64, device=None, on_keyframe=None):
+    """``examples/vio_sliding_window.py``'s estimator on the port: each
+    keyframe appends its (pose, velocity, bias) triple, the preintegrated
+    IMU factor of its interval, a bias random walk and a pose prior
+    (``T_meas``, 2 mm / 2 mrad), runs LM (``max_iters``) through
+    ``solver.solve`` and, past ``window`` keyframes, ``marginalize``s the
+    oldest triple into a dense prior.  Every interval is preintegrated once
+    up front in one batched recursion (``imu._preintegrate_batched``) and
+    its covariances come to the host in one read, outside the per-keyframe
+    loop.  ``on_keyframe(k, graph, info)`` is called after each keyframe.
+    Returns (newest-pose error per keyframe, chi2 per keyframe, LM
+    iterations per keyframe, the final window graph)."""
+    from . import imu
+    from .graph import marginalize
+    from .solver import Options, solve
+
+    device = resolve_device(device)
+    n = data.T_gt.shape[0]
+    f64 = torch.float64
+    omega, accel, dts = imu._padded_intervals(data.omega, data.accel, data.dts)
+    z = torch.zeros((n - 1, 3), dtype=f64, device=device)
+    pim = imu._preintegrate_batched(*(torch.tensor(x, dtype=f64, device=device) for x in (omega, accel, dts)), z, z,
+                                    1.7e-4, 2.0e-3)
+    S = torch.tensor(imu._sqrt_info_host(pim.cov.cpu().numpy(), 1e-12), dtype=dtype, device=device)
+    pim_data = {k: getattr(pim, k).to(dtype) for k in imu._PIM_DATA}
+    T_meas_t = torch.tensor(np.asarray(T_meas), dtype=dtype, device=device)
+    T_gt = torch.tensor(np.asarray(data.T_gt), dtype=dtype, device=device)
+    gravity = torch.tensor(np.asarray(data.gravity), dtype=dtype, device=device)[None]
+    Spp = torch.tensor(np.diag([1 / 2e-3] * 6), dtype=dtype, device=device)[None]
+    walk = torch.tensor(np.eye(6) / (1e-3 * np.sqrt(0.5)), dtype=dtype, device=device)[None]
+    zero6 = torch.zeros((1, 6), dtype=dtype, device=device)
+
+    def pose_prior(k_local, k):
+        return FactorBatch.create("prior_se3", slots=("poses",), indices=(np.array([k_local]),),
+                                  data={"T_obs": T_meas_t[k : k + 1], "sqrt_info": Spp}, loss=L2Loss())
+
+    def append(block, value):
+        return VariableBlock(block.kind, torch.cat([block.values, value[None]]),
+                             torch.cat([block.const_mask, torch.zeros(1, dtype=torch.bool, device=device)]))
+
+    blocks = {"poses": VariableBlock.create("se3", T_meas_t[:1].clone()),
+              "vels": VariableBlock.create("euclidean", torch.zeros((1, 3), dtype=dtype, device=device)),
+              "biases": VariableBlock.create("euclidean", torch.zeros((1, 6), dtype=dtype, device=device))}
+    g = FactorGraph(blocks, [pose_prior(0, 0)])
+    errs, chi2s, iters = [], [], []
+    for k in range(1, n):
+        imu_data = {key: v[k - 1 : k] for key, v in pim_data.items()}
+        imu_data["sqrt_info"] = S[k - 1 : k]
+        imu_data["gravity"] = gravity
+        w = g.blocks["poses"].n
+        blocks = dict(g.blocks)
+        blocks["poses"] = append(blocks["poses"], T_meas_t[k])
+        blocks["vels"] = append(blocks["vels"], blocks["vels"].values[-1])
+        blocks["biases"] = append(blocks["biases"], blocks["biases"].values[-1])
+        batches = list(g.batches) + [
+            FactorBatch.create("imu_preintegrated", slots=("poses", "poses", "vels", "vels", "biases"),
+                               indices=tuple(np.array([i]) for i in (w - 1, w, w - 1, w, w - 1)), data=imu_data,
+                               loss=L2Loss()),
+            FactorBatch.create("between_euclidean", slots=("biases", "biases"),
+                               indices=(np.array([w - 1]), np.array([w])), data={"delta": zero6, "sqrt_info": walk},
+                               loss=L2Loss()),
+            pose_prior(w, k)]
+        g, info = solve(FactorGraph(blocks, batches), Options(method="lm", max_iters=max_iters))
+        if g.blocks["poses"].n > window:
+            g = marginalize(g, {"poses": [0], "vels": [0], "biases": [0]})
+        err = torch.linalg.norm(se3.log(T_gt[k] @ se3.inv(g.blocks["poses"].values[-1])))
+        e, c = torch.stack([err, info.chi2.to(err.dtype)]).tolist()  # one read
+        errs.append(e)
+        chi2s.append(c)
+        iters.append(info.iterations)
+        if on_keyframe is not None:
+            on_keyframe(k, g, info)
+    return errs, chi2s, iters, g

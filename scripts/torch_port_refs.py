@@ -1,5 +1,5 @@
 """Reference numbers for the PyTorch port's chip smoke (``chip_smoke.py``
-phases 28 to 31), computed once with the JAX package on the CPU in f64 on
+phases 28 to 36), computed once with the JAX package on the CPU in f64 on
 the very graphs the smoke builds:
 
   28  chi2 of sphere2500 (``se3_sphere(2500, seed=0)``) and of bench config
@@ -18,13 +18,37 @@ the very graphs the smoke builds:
       ``examples/vio.py``'s noise and biases, written as EuRoC files, read
       back and segmented at the keyframe times (intervals padded with
       ``dt = 0`` samples to one length: an exact no-op of the recursion),
-      solved by LM 60: chi2 and LM iterations.
+      solved by LM 60: chi2 and LM iterations;
+  32  ``examples/vio_sliding_window.py``'s estimator (window 5, LM 25 a
+      keyframe, ``marginalize`` of the oldest (pose, velocity, bias)
+      triple) over phase 31's trajectory, fed straight from the generator:
+      the newest pose's error, chi2 and LM iterations at every keyframe
+      (arrays), the final bias estimate;
+  33  ``FixedLagSmoother("se3", window=100, gn_iters=3,
+      anchor_sqrt_info=1e4)`` streamed over sphere2500 with the feed of
+      ``tests/test_fixed_lag.py``: every pose as it leaves the window and
+      the last window, in f64 (and the f32 run's gap to it);
+  34  ``FixedLagLandmarkSmoother("se2", obs_kind="bearing_range_se2",
+      window=20, lm_slots=64, gn_iters=3)`` streamed over bench config 8's
+      graph: as phase 33, plus the landmarks retired, in order, with their
+      values at retirement;
+  35  ``IncrementalSmoother("se2")`` over bench config 2's stream, an
+      ``update()`` after every 250 new poses, then
+      ``marginalize_oldest(keep_last=500)`` and one more ``update()``: the
+      chi2 and LM iterations of every update, ``compiles``, the final poses;
+  36  ``solve_schur_sqrt`` (LM 50) on the monocular low-parallax BAL graph
+      of Ladybug-49's size (``synthetic_bal(49, 7000, seed=0,
+      cam_cluster=0.05)``, perturbed) in f64, and the f32 solves'
+      (``solve_schur_sqrt`` and ``solve_schur(mode="dense")``) gaps to it.
 
-The port never imports this script; its numbers are constants in
+Scalars print as JSON on the last line; the arrays of phases 32 to 35 (per
+keyframe, and the poses) go to ``chip_smoke_refs.npz`` beside
+``chip_smoke.py``, which loads them.  The port never imports this script; its numbers are constants in
 ``chip_smoke.py``.  Run from the repository root (minutes; phase 30 holds a
-dense f64 H of 11,008 x 11,008, about 1 GB):
+dense f64 H of 11,008 x 11,008, about 1 GB; phase 35 one of 14,130 x
+14,130, 1.6 GB):
 
-    python scripts/torch_port_refs.py [--phases 28,29,30,31]
+    python scripts/torch_port_refs.py [--phases 28,29,30,31,32,33,34,35,36]
 """
 
 from __future__ import annotations
@@ -136,12 +160,12 @@ def phase30():
     return out
 
 
-def vio_inputs(exp):
+def vio_inputs(exp, n_keyframes=400):
     """(ImuData, T_prior) of phase 31: ``examples/vio.py``'s trajectory at
     400 keyframes; ``exp`` is an SE(3) exponential on a (6,) numpy vector."""
     b_g = np.array([0.002, -0.001, 0.003])
     b_a = np.array([0.05, -0.03, 0.02])
-    d = synth.imu_circle(n_keyframes=400, kf_dt=0.5, imu_rate=200, gyro_noise=1.7e-4 * np.sqrt(200),
+    d = synth.imu_circle(n_keyframes=n_keyframes, kf_dt=0.5, imu_rate=200, gyro_noise=1.7e-4 * np.sqrt(200),
                          accel_noise=2e-3 * np.sqrt(200), b_gyro=b_g, b_accel=b_a, seed=0)
     rng = np.random.default_rng(1)
     T_prior = np.stack([exp(rng.normal(size=6) * 2e-3) @ d.T_gt[i] for i in range(d.T_gt.shape[0])])
@@ -190,12 +214,286 @@ def phase31():
     return out
 
 
+def phase32():
+    """``examples/vio_sliding_window.py`` over phase 31's trajectory: each
+    keyframe appends its (pose, velocity, bias) triple, the IMU factor of
+    its interval, a bias walk and a pose prior, runs LM 25, and past a
+    window of 5 marginalizes the oldest triple."""
+    from pyslam_tpu.graph import FactorBatch, FactorGraph, VariableBlock, marginalize
+    from pyslam_tpu.losses import L2Loss
+
+    d, T_meas = vio_inputs(lambda v: np.asarray(se3.exp(jnp.asarray(v))))
+    n, f64, z3 = d.T_gt.shape[0], jnp.float64, np.zeros(3)
+    Spp = jnp.asarray(np.diag([1 / 2e-3] * 6))
+    walk = jnp.asarray(np.eye(6) / (1e-3 * np.sqrt(0.5)), f64)[None]
+
+    def pose_prior(k_local, T_obs):
+        return FactorBatch.create("prior_se3", slots=("poses",), indices=(np.array([k_local], np.int32),),
+                                  data={"T_obs": jnp.asarray(T_obs, f64)[None], "sqrt_info": Spp[None]}, loss=L2Loss())
+
+    def append(block, value):
+        return VariableBlock(block.kind, jnp.concatenate([block.values, jnp.asarray(value)[None]], axis=0),
+                             jnp.concatenate([block.const_mask, jnp.zeros(1, bool)]))
+
+    t0 = time.perf_counter()
+    pims = [imu.preintegrate(d.omega[k], d.accel[k], d.dts[k], z3, z3) for k in range(n - 1)]
+    t_pre = time.perf_counter() - t0
+    blocks = {"poses": VariableBlock.create("se3", jnp.asarray(T_meas[:1], f64)),
+              "vels": VariableBlock.create("euclidean", jnp.zeros((1, 3), f64)),
+              "biases": VariableBlock.create("euclidean", jnp.zeros((1, 6), f64))}
+    g = FactorGraph(blocks, [pose_prior(0, T_meas[0])])
+    errs, chi2s, iters = [], [], []
+    t0 = time.perf_counter()
+    for k in range(1, n):
+        pim = pims[k - 1]
+        imu_data = {key: jnp.asarray(np.asarray(getattr(pim, key)), f64)[None]
+                    for key in ["dR", "dv", "dp", "J_Rg", "J_vg", "J_va", "J_pg", "J_pa", "b_lin", "dt"]}
+        imu_data["sqrt_info"] = jnp.asarray(imu.sqrt_info_of(pim), f64)[None]
+        imu_data["gravity"] = jnp.asarray(d.gravity, f64)[None]
+        w = g.blocks["poses"].n
+        blocks = dict(g.blocks)
+        blocks["poses"] = append(blocks["poses"], jnp.asarray(T_meas[k], f64))
+        blocks["vels"] = append(blocks["vels"], blocks["vels"].values[-1])
+        blocks["biases"] = append(blocks["biases"], blocks["biases"].values[-1])
+        batches = list(g.batches) + [
+            FactorBatch.create("imu_preintegrated", slots=("poses", "poses", "vels", "vels", "biases"),
+                               indices=tuple(np.array([i], np.int32) for i in (w - 1, w, w - 1, w, w - 1)),
+                               data=imu_data, loss=L2Loss()),
+            FactorBatch.create("between_euclidean", slots=("biases", "biases"),
+                               indices=(np.array([w - 1], np.int32), np.array([w], np.int32)),
+                               data={"delta": jnp.zeros((1, 6), f64), "sqrt_info": walk}, loss=L2Loss()),
+            pose_prior(w, T_meas[k])]
+        g, info = solve(FactorGraph(blocks, batches), Options(method="lm", max_iters=25))
+        if g.blocks["poses"].n > 5:
+            g = marginalize(g, {"poses": [0], "vels": [0], "biases": [0]})
+        T_new = g.blocks["poses"].values[-1]
+        errs.append(float(jnp.linalg.norm(se3.log(jnp.asarray(d.T_gt[k], f64) @ se3.inv(T_new)))))
+        chi2s.append(float(info.chi2))
+        iters.append(int(info.iterations))
+    b_est = np.asarray(g.blocks["biases"].values).mean(0)
+    out = dict(errs=errs, chi2=chi2s, iterations=iters, b_est=b_est.tolist(),
+               bg_err=float(np.abs(b_est[:3] - d.b_gyro).max()), preintegration_seconds=t_pre,
+               seconds=time.perf_counter() - t0)
+    print(f"32 vio window: {n - 1} keyframes, newest-pose error max {max(errs)!r} (from the 6th {max(errs[5:])!r}), "
+          f"gyro bias error {out['bg_err']!r}, LM iterations {sum(iters)}, {out['seconds']:.1f} s "
+          f"(+ {t_pre:.1f} s preintegration)", flush=True)
+    return out, {"p32_errs": np.asarray(errs), "p32_chi2": np.asarray(chi2s), "p32_iterations": np.asarray(iters)}
+
+
+# The feeds below are the port's (``pyslam_tpu_torch/testing.py``: the same
+# calls in the same order); they are repeated here so that the reference's
+# numbers come from a process that loads nothing of the port.
+
+
+def drive_fixed_lag(sm, data, n):
+    """The feed of ``tests/test_fixed_lag.py``: odometry, then every loop
+    closure ending at the new pose whose older pose is still in the window;
+    ``update()`` after each pose.  Returns the poses as they leave the
+    window (by absolute id) and the last window."""
+    by_j = {}
+    for k, (i, j) in enumerate(zip(map(int, data.edges_i), map(int, data.edges_j))):
+        by_j.setdefault(j, []).append((k, i))
+    chain = {j: k for j, ks in by_j.items() for k, i in ks if i == j - 1}
+    left = {}
+    sm.add_pose(data.T_init[0])
+    est = None
+    for t in range(1, n):
+        if sm.count == sm.window:
+            left[sm.first_id] = est[0]
+        k = chain[t]
+        sm.add_odometry(data.T_meas[k], data.sqrt_info[k])
+        for k2, i in by_j.get(t, []):
+            if i != t - 1 and i >= sm.first_id:
+                sm.add_factor(i, t, data.T_meas[k2], data.sqrt_info[k2])
+        est = sm.update()
+    return left, est
+
+
+def drive_fixed_lag_landmarks(sm, data, n):
+    """The feed of ``tests/test_fixed_lag.py``'s landmark windows: each
+    pose's observations in order, a landmark added at its first
+    observation (``lm_init``), observations of an evicted landmark
+    dropped; ``update()`` after each pose.  Returns (poses leaving the
+    window, the last window, the retirements (id, value) in order)."""
+    chain = {int(j): k for k, (i, j) in enumerate(zip(data.edges_i, data.edges_j)) if int(i) == int(j) - 1}
+    obs_by_pose = {}
+    for k, pi in enumerate(data.obs_pose):
+        obs_by_pose.setdefault(int(pi), []).append(k)
+    lm_added, retired, left = {}, [], {}
+    retire = sm.retire_landmark
+
+    def recorded(lm_id):
+        retired.append((lm_id, np.asarray(sm.landmark(lm_id))))
+        retire(lm_id)
+
+    sm.retire_landmark = recorded
+
+    def feed(t):
+        for k in obs_by_pose.get(t, []):
+            lj = int(data.obs_lm[k])
+            if lj not in lm_added:
+                lm_added[lj] = sm.add_landmark(data.lm_init[lj])
+            if lm_added[lj] in sm._lm_id2slot:
+                sm.add_observation(t, lm_added[lj], data.obs[k], data.obs_sqrt_info[k])
+
+    sm.add_pose(data.T_init[0])
+    feed(0)
+    est = None
+    for t in range(1, n):
+        if sm.count == sm.window:
+            left[sm.first_id] = est[0]
+        sm.add_odometry(data.T_meas[chain[t]], data.sqrt_info[chain[t]])
+        feed(t)
+        est = sm.update()
+    return left, est, retired
+
+
+def _poses_array(left, last, n):
+    out = np.stack([left[i] for i in range(n - len(last))] + list(last))
+    assert out.shape[0] == n
+    return out
+
+
+def phase33():
+    from pyslam_tpu.solver.fixed_lag import FixedLagSmoother
+
+    data = synth.se3_sphere(n_poses=2500, seed=0)
+    out, arrays = {}, {}
+    for dtype in (jnp.float64, jnp.float32):
+        sm = FixedLagSmoother(window=100, kind="se3", gn_iters=3, anchor_sqrt_info=1e4, dtype=dtype)
+        t0 = time.perf_counter()
+        left, last = drive_fixed_lag(sm, data, 2500)
+        arrays[dtype] = _poses_array(left, last, 2500).astype(np.float64)
+        out[f"seconds_{np.dtype(dtype).name}"] = time.perf_counter() - t0
+    out["f32_gap"] = float(np.abs(arrays[jnp.float32] - arrays[jnp.float64]).max())
+    out["edges"] = int(len(data.edges_i))
+    print(f"33 fixed-lag sphere2500: f32 gap {out['f32_gap']!r}, {out['seconds_float64']:.1f} s f64, "
+          f"{out['seconds_float32']:.1f} s f32", flush=True)
+    return out, {"p33_poses": arrays[jnp.float64]}
+
+
+def config8_data():
+    return synth.landmark_slam_2d(n_poses=800, n_landmarks=250, max_range=10.0, obs_type="bearing_range",
+                                  odo_rot_std=0.005, seed=0)
+
+
+def phase34():
+    from pyslam_tpu.solver.fixed_lag import FixedLagLandmarkSmoother
+
+    data = config8_data()
+    out, arrays, retired = {}, {}, {}
+    for dtype in (jnp.float64, jnp.float32):
+        sm = FixedLagLandmarkSmoother(window=20, lm_slots=64, obs_kind="bearing_range_se2", kind="se2", gn_iters=3,
+                                      dtype=dtype)
+        t0 = time.perf_counter()
+        left, last, ret = drive_fixed_lag_landmarks(sm, data, 800)
+        arrays[dtype] = _poses_array(left, last, 800).astype(np.float64)
+        retired[dtype] = ret
+        out[f"seconds_{np.dtype(dtype).name}"] = time.perf_counter() - t0
+        if dtype is jnp.float64:
+            live = sm.landmarks()
+            out["live_landmarks"] = sorted(int(i) for i in live)
+            lm_live = np.stack([live[i] for i in out["live_landmarks"]]).astype(np.float64)
+    out["retired"] = [int(i) for i, _ in retired[jnp.float64]]
+    out["retired_f32_same"] = out["retired"] == [int(i) for i, _ in retired[jnp.float32]]
+    out["f32_gap"] = float(np.abs(arrays[jnp.float32] - arrays[jnp.float64]).max())
+    print(f"34 fixed-lag landmarks config 8: {len(out['retired'])} retired, f32 gap {out['f32_gap']!r} (same "
+          f"retirements {out['retired_f32_same']}), {out['seconds_float64']:.1f} s f64", flush=True)
+    ret_vals = np.stack([np.asarray(v, np.float64) for _, v in retired[jnp.float64]])
+    return out, {"p34_poses": arrays[jnp.float64], "p34_retired_values": ret_vals, "p34_live_landmarks": lm_live}
+
+
+def drive_incremental(sm, data, every=250):
+    """Bench config 2's stream into an ``IncrementalSmoother``: poses at the
+    odometry prediction from the last estimate, each loop closure once both
+    its poses exist; ``update()`` after every ``every`` new poses.  Returns
+    the (chi2, LM iterations) of each update."""
+    n = data.T_init.shape[0]
+    n_odo = n - 1
+    assert (np.asarray(data.edges_i[:n_odo]) == np.arange(n_odo)).all()
+    loops = list(range(n_odo, len(data.edges_i)))
+    out = []
+    for upto in range(every, n + 1, every):
+        while sm.n < upto:
+            i = sm.n
+            if i == 0:
+                sm.add_pose(data.T_init[0])
+            else:
+                sm.add_pose(data.T_meas[i - 1] @ sm.poses()[i - 1])
+                sm.add_between(i - 1, i, data.T_meas[i - 1], data.sqrt_info[i - 1])
+        later = []
+        for e in loops:
+            i, j = int(data.edges_i[e]), int(data.edges_j[e])
+            if max(i, j) < upto:
+                sm.add_between(i, j, data.T_meas[e], data.sqrt_info[e])
+            else:
+                later.append(e)
+        loops = later
+        _, info = sm.update()
+        out.append((float(info.chi2), int(info.iterations)))
+    return out
+
+
+def phase35():
+    from pyslam_tpu.solver.incremental import IncrementalSmoother
+
+    data = m3500()
+    sm = IncrementalSmoother(kind="se2")
+    t0 = time.perf_counter()
+    ups = drive_incremental(sm, data)
+    sm.marginalize_oldest(keep_last=500)
+    _, info = sm.update()
+    ups.append((float(info.chi2), int(info.iterations)))
+    out = dict(chi2=[c for c, _ in ups], iterations=[i for _, i in ups], compiles=sm.compiles, n_final=sm.n,
+               seconds=time.perf_counter() - t0)
+    print(f"35 incremental m3500: {len(ups)} updates, iterations {out['iterations']}, compiles {sm.compiles}, "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out, {"p35_poses": np.asarray(sm.poses(), np.float64)}
+
+
+def phase36():
+    from pyslam_tpu.io import bal
+    from pyslam_tpu.solver import route_auto, solve_schur
+    from pyslam_tpu.solver.schur_sqrt import solve_schur_sqrt
+
+    data = bal.perturbed(bal.synthetic_bal(49, 7000, seed=0, cam_cluster=0.05))
+    opts = Options(method="lm", max_iters=50)
+    g64 = build.bal_graph(data, dtype=jnp.float64)
+    g32 = build.bal_graph(data, dtype=jnp.float32)
+    t0 = time.perf_counter()
+    _, info = solve_schur_sqrt(g64, opts)
+    t64 = time.perf_counter() - t0
+    chi2 = float(info.chi2)
+    _, i_sqrt32 = solve_schur_sqrt(g32, opts)
+    _, i_dense32 = solve_schur(g32, opts, mode="dense")
+    out = dict(route_f32=route_auto(g32), chi2=chi2, iterations=int(info.iterations), status=int(info.status),
+               observations=int(g64.batches[0].n), cost_history=[float(c) for c in np.asarray(info.cost_history)
+                                                                  if np.isfinite(c)],
+               gap_sqrt_f32=abs(float(i_sqrt32.chi2) - chi2) / chi2,
+               gap_dense_f32=abs(float(i_dense32.chi2) - chi2) / chi2, seconds_f64=t64)
+    print(f"36 schur_sqrt ladybug-49 mono: route(f32) {out['route_f32']}, chi2 {chi2!r}, iterations "
+          f"{out['iterations']}, f32 gaps sqrt {out['gap_sqrt_f32']!r} dense {out['gap_dense_f32']!r}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="28,29,30,31")
+    ap.add_argument("--phases", default="28,29,30,31,32,33,34,35,36")
+    ap.add_argument("--out", default=os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                                  "chip_smoke_refs.npz"), help="npz of the arrays (merged into)")
     args = ap.parse_args()
     t0 = time.perf_counter()
-    out = {p: globals()[f"phase{p}"]() for p in args.phases.split(",")}
+    out, arrays = {}, {}
+    for p in args.phases.split(","):
+        res = globals()[f"phase{p}"]()
+        if isinstance(res, tuple):
+            res, more = res
+            arrays.update(more)
+        out[p] = res
+    if arrays:
+        if os.path.exists(args.out):
+            arrays = {**dict(np.load(args.out)), **arrays}
+        np.savez_compressed(args.out, **arrays)
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out))
 

@@ -54,7 +54,8 @@ def _datum(v):
     """A ``data`` value as ``graph_from_numpy`` takes it: an array, or a
     camera as (class name, fields)."""
     if dataclasses.is_dataclass(v):
-        return type(v).__name__, dataclasses.asdict(v)
+        fields = dataclasses.asdict(v)
+        return type(v).__name__, {k: np.asarray(f).item() if np.ndim(f) == 0 else f for k, f in fields.items()}
     return np.asarray(v)
 
 

@@ -768,3 +768,122 @@ def test_vio_on_the_card_matches_the_cpu_path(cuda_device):
         one = imu.preintegrate(d.omega[i], d.accel[i], d.dts[i], np.zeros(3), np.zeros(3), device=cuda_device)
         for name in one._fields:
             _assert_close(getattr(batched, name)[i], getattr(one, name), 1e-12)
+
+
+# --------------------------------------------------------------------------
+# Online and marginalized estimation (slot_reduce at their shapes, the
+# smoothers, marginalize and schur_sqrt against the CPU path in f64)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slot_reduce_at_the_schur_sqrt_shape(cuda_device, dtype):
+    """The reduced camera system of the square-root path at Ladybug-49's
+    size: 112,000 camera-pair contributions of width 36 into the 128
+    co-observing pairs of its 2,401 blocks (clustered cameras: up to 6,758
+    rows a pair, the block-per-destination kernel), and the gradient rows
+    (width 6 into 49), against the plain version and a second run."""
+    from pyslam_tpu_torch.io import bal
+    from pyslam_tpu_torch.solver import schur_sqrt
+
+    g = build.bal_graph(bal.perturbed(bal.synthetic_bal(49, 7000, seed=0, cam_cluster=0.05)), device=cuda_device)
+    plan = schur_sqrt.build_sqrt_plan(g)
+    assert len(plan.pair_plan[0]) == 112_000 and plan.C == 49
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    assert cuda_ops.slot_reduce_is_long(112_000, len(plan.pair_blocks))
+    for (perm, offsets), width, n_slots in ((plan.pair_plan, 36, len(plan.pair_blocks)), (plan.grad_plan, 6, 49)):
+        perm, offsets = (torch.from_numpy(a).to(cuda_device) for a in (perm, offsets))
+        contrib = torch.randn((len(perm), width), generator=gen, device=cuda_device, dtype=dtype)
+        out = slot_reduce(contrib, perm, offsets, n_slots)
+        ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
+        _assert_close(out, ref, KERNEL_TOL[dtype])
+        assert torch.equal(out, slot_reduce(contrib, perm, offsets, n_slots))
+
+
+def _gn_makes_no_sync(sm, state):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sm._gn_steps(*state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_fixed_lag_on_the_card_matches_the_cpu_path(cuda_device):
+    """Phase 33 of the smoke at a small size: the SE(3) window on the card
+    and on the CPU, f64, every pose within 1e-9; a GN step on the card makes
+    no synchronizing call."""
+    from pyslam_tpu_torch.solver import FixedLagSmoother
+    from pyslam_tpu_torch.testing import drive_fixed_lag, window_trajectory
+
+    data = synth.se3_sphere(n_poses=60, n_loops=10, seed=3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sm = FixedLagSmoother(window=12, kind="se3", gn_iters=3, anchor_sqrt_info=1e4, dtype=torch.float64, device=dev)
+        cuda_ops.reset_launches()
+        out[str(dev)] = window_trajectory(*drive_fixed_lag(sm, data, 60), 60)
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    np.testing.assert_allclose(out[str(cuda_device)], out["cpu"], rtol=0, atol=1e-9)
+    _gn_makes_no_sync(sm, sm._device_plan())
+
+
+def test_fixed_lag_landmarks_on_the_card_matches_the_cpu_path(cuda_device):
+    """Phase 34 of the smoke at a small size: bearing-range landmarks with
+    eviction, f64, poses and retired landmarks within 1e-9, the same
+    retirements; a GN step makes no synchronizing call."""
+    from pyslam_tpu_torch.solver import FixedLagLandmarkSmoother
+    from pyslam_tpu_torch.testing import drive_fixed_lag_landmarks, window_trajectory
+
+    data = synth.landmark_slam_2d(n_poses=60, n_landmarks=30, max_range=10.0, obs_type="bearing_range",
+                                  odo_rot_std=0.005, seed=0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sm = FixedLagLandmarkSmoother(window=10, lm_slots=12, obs_kind="bearing_range_se2", kind="se2", gn_iters=3,
+                                      dtype=torch.float64, device=dev)
+        left, last, ret = drive_fixed_lag_landmarks(sm, data, 60)
+        out[str(dev)] = (window_trajectory(left, last, 60), ret)
+    (p_c, r_c), (p_g, r_g) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(p_g, p_c, rtol=0, atol=1e-9)
+    assert [i for i, _ in r_g] == [i for i, _ in r_c] and len(r_c) > 0
+    np.testing.assert_allclose(np.stack([v for _, v in r_g]), np.stack([v for _, v in r_c]), rtol=0, atol=1e-9)
+    _gn_makes_no_sync(sm, sm._device_state())
+
+
+def test_incremental_and_marginalize_on_the_card_match_the_cpu_path(cuda_device):
+    from pyslam_tpu_torch.graph import marginalize
+    from pyslam_tpu_torch.solver import IncrementalSmoother
+    from pyslam_tpu_torch.testing import drive_incremental
+
+    data = synth.se2_loop(n_poses=60, n_loops=8, seed=2)
+    ups, poses = {}, {}
+    for dev in ("cpu", cuda_device):
+        sm = IncrementalSmoother(kind="se2", device=dev)
+        ups[str(dev)] = drive_incremental(sm, data, every=10)
+        sm.marginalize_oldest(keep_last=20)
+        _, info = sm.update()
+        ups[str(dev)].append((info.chi2.item(), info.iterations))
+        poses[str(dev)] = sm.poses()
+    assert [i for _, i in ups["cpu"]] == [i for _, i in ups[str(cuda_device)]]
+    np.testing.assert_allclose([c for c, _ in ups[str(cuda_device)]], [c for c, _ in ups["cpu"]], rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(poses[str(cuda_device)], poses["cpu"], rtol=0, atol=1e-9)
+    g = {str(dev): marginalize(build.pose_graph(data, dtype=torch.float64, device=dev), {"poses": [5, 6, 30]})
+         for dev in ("cpu", cuda_device)}
+    (prior_c,), (prior_g,) = ([fb for fb in g[k].batches if fb.kind.startswith("dense_prior")] for k in g)
+    A_c, A_g = prior_c.data["A"][0], prior_g.data["A"][0].cpu()
+    _assert_close(A_g.T @ A_g, A_c.T @ A_c, 1e-9)
+    assert prior_g.data["A"].device.type == "cuda"
+
+
+def test_solve_schur_sqrt_on_the_card_matches_the_cpu_path(cuda_device):
+    from pyslam_tpu_torch.io import bal
+    from pyslam_tpu_torch.solver import schur_sqrt
+
+    data = bal.perturbed(bal.synthetic_bal(n_cams=6, n_pts=50, seed=0, cam_cluster=0.05))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        cuda_ops.reset_launches()
+        res["cpu" if dev == "cpu" else "cuda"] = schur_sqrt.solve_schur_sqrt(
+            build.bal_graph(data, dtype=torch.float64, device=dev), Options(method="lm", max_iters=25))
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    _same_solve(res)
+    _same_solve(res, block="landmarks")

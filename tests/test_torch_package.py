@@ -15,9 +15,10 @@ import torch
 
 import pyslam_tpu_torch
 from pyslam_tpu_torch import imu
-from pyslam_tpu_torch.graph import build, convert, initialize
+from pyslam_tpu_torch.graph import build, convert, initialize, marginalize
 from pyslam_tpu_torch.io import bal, synth
 from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
+from pyslam_tpu_torch.solver import FixedLagLandmarkSmoother, FixedLagSmoother, IncrementalSmoother
 from pyslam_tpu_torch.testing import se3_stress_graph
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -56,6 +57,11 @@ def test_import_leaves_jax_out():
         "from pyslam_tpu_torch.solver import solve_gnc, GNCInfo\n"
         "from pyslam_tpu_torch.imu import preintegrate, sqrt_info_of, vio_graph, ImuParams, PreintegratedImu\n"
         "from pyslam_tpu_torch.io import euroc, trajectory\n"
+        "import pyslam_tpu_torch.graph.marginalize, pyslam_tpu_torch.solver.fixed_lag\n"
+        "import pyslam_tpu_torch.solver.incremental, pyslam_tpu_torch.solver.schur_sqrt\n"
+        "from pyslam_tpu_torch.graph import marginalize\n"
+        "from pyslam_tpu_torch.solver import FixedLagSmoother, FixedLagLandmarkSmoother, IncrementalSmoother\n"
+        "from pyslam_tpu_torch.solver import solve_schur_sqrt, build_sqrt_plan, SqrtBAPlan\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -141,6 +147,12 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "vio_graph": lambda **kw: imu.vio_graph(_IMU, _IMU.T_gt, np.eye(6), **kw),
     "preintegrate": lambda **kw: imu.preintegrate(_IMU.omega[0], _IMU.accel[0], _IMU.dts[0], np.zeros(3), np.zeros(3),
                                                   **kw).dR,
+    "marginalize": lambda **kw: marginalize(build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
+                                            {"poses": [2, 3]}),
+    "FixedLagSmoother": lambda **kw: FixedLagSmoother(window=4, kind="se2", **kw).T,
+    "FixedLagLandmarkSmoother": lambda **kw: FixedLagLandmarkSmoother(window=4, lm_slots=3,
+                                                                      obs_kind="landmark_xy_se2", kind="se2", **kw).Hp,
+    "IncrementalSmoother": lambda **kw: IncrementalSmoother(kind="se2", **kw)._graph(),
     "so2.identity": so2.identity,
     "se2.identity": se2.identity,
     "so3.identity": so3.identity,
