@@ -107,6 +107,13 @@ path's small block products at config 6's shapes in two forms, batched
 ``@`` and broadcast products, and Hll's inverse by Cholesky and by the
 adjugate.
 
+The extra cell ``pcg_columns`` (not in the default list) times
+``ell_pcg`` alone at sphere2500's shapes: the main path's damped f32
+solve (one column) and, on a package that takes a block of right-hand
+sides, a covariance query's undamped f64 system with one unit column and
+with the plan's most columns; run it with ``--root`` on a parent checkout
+and on this one in turns to compare the kernels.
+
 The extra cell ``kernels`` (not in the default list) is no solve: it runs
 sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
 under ``torch.profiler``, in f32 and f64, and prints the mean device time
@@ -135,6 +142,7 @@ before ``default_device`` is given ``cuda:0`` by name.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import os
 import statistics
@@ -1145,6 +1153,66 @@ def slot_sweep(dev):
                       f"{'block' if cuda_ops.slot_reduce_is_long(E, n_slots) else 'sub-warp'}", flush=True)
 
 
+def pcg_columns(dev, reps):
+    """``ell_pcg`` alone at sphere2500's shapes, median device ms of ``reps``
+    launches between CUDA events: the first LM step's damped f32 system (m
+    = 1, rtol 3e-6, cap 120: the main path's linear solve) and, where the
+    package takes a block of right-hand sides, the undamped f64 system of a
+    covariance query at the ground truth (rtol 1e-10, cap 2000) with one
+    unit column and with the plan's most columns (rounded down to a
+    multiple of 6)."""
+    import torch
+
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import cuda_ops
+    from pyslam_tpu_torch.solver.bcsr import assemble_ell, build_ell_direct, ell_device_plan, sym_block_inv
+    from pyslam_tpu_torch.solver.lm import Options
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    data = synth.se3_sphere(n_poses=2500, seed=0)
+    g = build.pose_graph(data, dtype=torch.float32, device=dev)
+    plan = build_ell_direct(g)
+    dplan = ell_device_plan(plan, dev)
+    He, b, _ = assemble_ell(g, dplan)
+    He[:, 0] += Options().lambda_init * torch.diag_embed(
+        torch.clamp(torch.diagonal(He[:, 0], dim1=-2, dim2=-1), min=1e-12))
+    Minv = sym_block_inv(He[:, 0]).contiguous()
+    its = int(cuda_ops.ell_pcg(He, dplan.cols, Minv, b, 3e-6, 120).iterations)
+    t = device_ms(lambda: cuda_ops.ell_pcg(He, dplan.cols, Minv, b, 3e-6, 120))
+    print(f"   ell_pcg f32 damped, m = 1: {t!r} ms, {its} iterations, {1e3 * t / max(its, 1)!r} us an iteration",
+          flush=True)
+    cap = cuda_ops.ell_pcg_plan(plan.nb, plan.K, 6, torch.float64, dev).get("max_columns")
+    if cap is None:
+        return
+    g64 = build.pose_graph(data, dtype=torch.float64, device=dev)
+    g64 = g64.with_values({"poses": dataclasses.replace(g64.blocks["poses"], values=torch.as_tensor(
+        data.T_gt, dtype=torch.float64, device=dev))})
+    He64, _, _ = assemble_ell(g64, dplan)
+    Minv64 = sym_block_inv(He64[:, 0]).contiguous()
+    n = plan.nb * 6
+    for m in (1, cap - cap % 6):
+        B = torch.zeros((n, m), dtype=torch.float64, device=dev)
+        B[(torch.arange(m, device=dev) * 389 % plan.nb) * 6 + torch.arange(m, device=dev) % 6,
+          torch.arange(m, device=dev)] = 1.0
+        its = cuda_ops.ell_pcg(He64, dplan.cols, Minv64, B, 1e-10, 2000).iterations.tolist()
+        t = device_ms(lambda: cuda_ops.ell_pcg(He64, dplan.cols, Minv64, B, 1e-10, 2000))
+        print(f"   ell_pcg f64 covariance, m = {m}: {t!r} ms, launch iterations {max(its)} (columns {its}), "
+              f"{1e3 * t / max(max(its), 1)!r} us an iteration of the launch", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cells", default=",".join(CELLS))
@@ -1183,6 +1251,9 @@ def main() -> int:
             continue
         if name == "block_idioms":
             block_idioms(dev)
+            continue
+        if name == "pcg_columns":
+            pcg_columns(dev, max(args.reps, 9))
             continue
         if name == "sharded_cg_reads":
             sharded_cg_reads(dev, max(args.reps, 9))

@@ -33,8 +33,8 @@ _D = ctypes.c_double
 # C entry points: name -> argtypes (pointers, then scalars, then the stream)
 _ELL_MATVEC = [_P, _P, _P, _P, _I, _I, _I, _P]
 _SLOT_REDUCE = [_P, _P, _P, _P, _I, _I, _P]
-# He, cols, Minv, b, x, scratch, iters, counter, nb, K, d, rtol, max_iters, stream
-_ELL_PCG = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P]
+# He, cols, Minv, b, x, scratch, iters, counter, nb, K, d, columns, rtol, max_iters, stream
+_ELL_PCG = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P]
 # poses, const_mask, cols, idx, entries, offsets, n_batches, then host tables
 # (T_obs, sqrt_info, weight pointers; first; n_slots; loss; loss_params),
 # scratch, its length, He, g, chi2, nb, K, stream
@@ -50,8 +50,8 @@ _SIGNATURES = {
     "pyslam_ell_assemble_f64": _ELL_ASSEMBLE,
     "pyslam_ell_pcg_f32": _ELL_PCG,
     "pyslam_ell_pcg_f64": _ELL_PCG,
-    # nb, K, d, element size, out (5 ints)
-    "pyslam_ell_pcg_plan": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    # nb, K, d, element size, columns, out (6 ints)
+    "pyslam_ell_pcg_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 _LIB = None

@@ -20,15 +20,17 @@ The mesh is one-dimensional, so the reference's ``axis`` arguments (the
 mesh axis to shard over) are not taken, and a step closes over the
 rank's shard instead of taking the sharded arrays (``make_sharded_lm_step``
 returns the rank's graph where the reference returns the padded one).
-Not ported yet: ``solve_schur_cm`` (ROADMAP item 16b) and the sharded
-marginals (item 19); they raise NotImplementedError.
+Posterior covariance over the landmark-sharded layout:
+``sharded_pose_marginals`` and ``sharded_landmark_marginals`` (in
+``schur_reduce``).  Not ported yet: ``solve_schur_cm`` (ROADMAP item 16b);
+it raises NotImplementedError.
 """
 
 from .factor_parallel import make_sharded_lm_step, pad_batch, shard_graph, solve_factor_parallel
 from .mesh import COLLECTIVES, Mesh, init_distributed, make_mesh, reset_collectives
 from .partitioner import Partition, cut_stats, partition_landmarks, partition_poses_bfs
 from .pose_sharded import shard_pose_graph, solve_pose_sharded
-from .schur_reduce import shard_ba, solve_schur_sharded
+from .schur_reduce import shard_ba, sharded_landmark_marginals, sharded_pose_marginals, solve_schur_sharded
 
 
 def solve_schur_cm(*args, **kwargs):
@@ -36,16 +38,6 @@ def solve_schur_cm(*args, **kwargs):
     raise NotImplementedError(
         "solve_schur_cm is not ported yet (ROADMAP item 16b: the component-major sharded Schur path, on "
         "dist/'s collectives and solve_schur_large's per-rank machinery)")
-
-
-def sharded_pose_marginals(*args, **kwargs):
-    """The reference's distributed pose marginals: not ported."""
-    raise NotImplementedError("sharded_pose_marginals is not ported yet (ROADMAP item 19, covariance)")
-
-
-def sharded_landmark_marginals(*args, **kwargs):
-    """The reference's distributed landmark marginals: not ported."""
-    raise NotImplementedError("sharded_landmark_marginals is not ported yet (ROADMAP item 19, covariance)")
 
 
 __all__ = [

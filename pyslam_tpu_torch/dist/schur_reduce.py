@@ -25,6 +25,12 @@ its own sizes: the reference pads landmark slabs and observations with
 safe points because ``shard_map`` needs equal shapes; here only the gather
 of the landmarks (checkpoint, result) pads, inside ``mesh.all_gather``.
 
+Posterior covariance over the same layout (``sharded_pose_marginals``,
+``sharded_landmark_marginals``): the GN pieces at the graph's estimate,
+then S-solves of ``solver/covariance.py`` whose product sums by camera
+with one ``psum`` an application; a landmark's B_i and (Hll^-1)_ii are
+built on its owner rank and replicated by one ``psum``.
+
 The Schur algebra is ``solver/schur.py``'s, through
 ``schur_large._solve_pcg`` with a ``cam_sum`` that follows every sum by
 camera with a ``psum``: the masks (``mask_constants``), the damping and
@@ -47,9 +53,10 @@ import numpy as np
 import torch
 
 from ..graph.core import FACTOR_KERNELS, FactorBatch, FactorGraph, VariableBlock, retract
+from ..solver import covariance as _cov
 from ..solver import lm as _lm
 from ..solver.host_loop import host_lm_loop
-from ..solver.schur import Segments, _back_substitute, _jtwj, _tmv, mask_constants
+from ..solver.schur import Segments, _back_substitute, _binv, _cholesky, _jtwj, _tmv, mask_constants
 from ..solver.schur_large import _host_index, _segments, _solve_pcg, _unary
 from .mesh import Mesh
 from .partitioner import Partition, partition_landmarks
@@ -294,4 +301,102 @@ def solve_schur_sharded(
     return solved, float(solved.chi2()), history
 
 
-__all__ = ["ShardedBA", "shard_ba", "make_sharded_schur_step", "solve_schur_sharded", "gather_landmarks"]
+def _gn_pieces(sb: ShardedBA):
+    """The GN (undamped) reduced-system pieces at the rank's estimate, with
+    the masks of ``make_sharded_schur_step``: (Hpp, replicated by one psum;
+    Hll^-1 of the rank's landmarks; W of its observations; PP, replicated)."""
+    mesh, C, dp, dl = sb.mesh, sb.C, sb.dp, sb.dl
+    r, (Jc, Jl) = _observations(sb, sb.poses, sb.lms, True)
+    w = sb.loss.weight(r) * sb.weight[:, None]
+    wr = w * r
+    cam = mesh.psum(sb.by_cam.sum(_rows(Jc, w, wr)))
+    _, H_u, g_u, PP = _unary(sb, sb.poses, True, dp)
+    lm = sb.by_lm.sum(_rows(Jl, w, wr))
+    Hpp, _, Hll, _, W, PP = mask_constants(
+        sb, cam[:, dp:].reshape(C, dp, dp) + H_u, -cam[:, :dp] - g_u, lm[:, dl:].reshape(lm.shape[0], dl, dl),
+        -lm[:, :dl], _jtwj(Jc, w, Jl), PP, sb.free_p, sb.free_l)
+    return Hpp, _binv(_cholesky(Hll)), W, PP
+
+
+def _sharded_S_solver(sb: ShardedBA, pcg_rtol, pcg_max_iters, block):
+    """(solve_rhs, Hll^-1, W): ``covariance``'s S-solves on the rank's
+    pieces, every sum by camera followed by a psum; every rank solves the
+    same replicated columns in the same blocks of ``block``."""
+    Hpp, Hll_inv, W, PP = _gn_pieces(sb)
+
+    def cam_sum(rows):
+        return sb.mesh.psum(sb.by_cam.sum(rows))
+
+    return _cov._S_pcg_solver(sb, Hpp, Hll_inv, W, PP, pcg_rtol, pcg_max_iters, cam_sum, block), Hll_inv, W
+
+
+def sharded_pose_marginals(
+    graph: FactorGraph,
+    mesh: Mesh,
+    indices=None,
+    pose_name: str = "poses",
+    lm_name: str = "landmarks",
+    partition: Partition | None = None,
+    pcg_rtol: float = 1e-10,
+    pcg_max_iters: int = 500,
+    chunk: int = 64,
+):
+    """(k, dp, dp) pose marginal covariances of a landmark-sharded camera /
+    landmark graph (all poses where ``indices`` is None), on every rank:
+    Sigma_pp = S^-1, each block of ``chunk`` requested tangent columns (a
+    multiple of dp) one PCG solve whose product is rank-local work plus one
+    psum.  Landmark elimination stays on the ranks; no rank forms the
+    landmark side of H.  Constant poses return unit blocks, as
+    ``pose_marginal_covariances``."""
+    sb = shard_ba(graph, mesh, pose_name, lm_name, partition)
+    C, dp = sb.C, sb.dp
+    block = max(dp, chunk - chunk % dp)
+    solve_rhs, _, W = _sharded_S_solver(sb, pcg_rtol, pcg_max_iters, block)
+    if indices is None:
+        indices = np.arange(C)
+    return _cov._diag_blocks(solve_rhs, indices, C, dp, block, W.dtype, mesh.device)
+
+
+def sharded_landmark_marginals(
+    graph: FactorGraph,
+    mesh: Mesh,
+    indices,
+    pose_name: str = "poses",
+    lm_name: str = "landmarks",
+    partition: Partition | None = None,
+    pcg_rtol: float = 1e-10,
+    pcg_max_iters: int = 500,
+):
+    """(k, dl, dl) landmark marginal covariances of a landmark-sharded graph,
+    on every rank, by Sigma_ll,ii = (Hll^-1)_ii + B_i^T S^-1 B_i: B_i and
+    (Hll^-1)_ii are built on the landmark's owner rank (its observations
+    live there) and replicated by one psum, then the k dl columns are
+    S-solved in blocks of 64 // dl whole landmarks (``sharded_pose_marginals``'
+    default chunk of 64 columns).  An unobserved landmark returns its masked
+    unit block."""
+    sb = shard_ba(graph, mesh, pose_name, lm_name, partition)
+    C, dp, dl = sb.C, sb.dp, sb.dl
+    block = dl * max(1, 64 // dl)
+    solve_rhs, Hll_inv, W = _sharded_S_solver(sb, pcg_rtol, pcg_max_iters, block)
+    indices = np.asarray(indices, np.int64).reshape(-1)
+    k = len(indices)
+    local_row = {int(g): r for r, g in enumerate(sb.lm_local)}
+    mine = [j for j, i in enumerate(indices) if int(i) in local_row]
+    aux = dict(C=C, dp=dp, Hll_inv=Hll_inv, W=W, ci=sb.cam_idx.cpu().numpy(), li=sb.pt_idx.cpu().numpy())
+    B_mine, H_mine, _ = _cov._landmark_B(aux, [local_row[int(indices[j])] for j in mine])
+    # (k, C dp + dl, dl): each requested landmark's B_i over its (Hll^-1)_ii,
+    # filled by its owner, zero elsewhere, summed over the ranks
+    buf = W.new_zeros((k, C * dp + dl, dl))
+    if mine:
+        at = torch.as_tensor(mine, device=W.device)
+        buf[at, :C * dp] = B_mine.reshape(C * dp, len(mine), dl).transpose(0, 1)
+        buf[at, C * dp:] = H_mine
+    buf = mesh.psum(buf)
+    Bk, Hi = buf[:, :C * dp], buf[:, C * dp:]
+    X = solve_rhs(Bk.transpose(0, 1).reshape(C * dp, k * dl))
+    Xk = X.reshape(C * dp, k, dl).transpose(0, 1)
+    return _cov._symmetrize(Hi + Bk.transpose(-1, -2) @ Xk)
+
+
+__all__ = ["ShardedBA", "shard_ba", "make_sharded_schur_step", "solve_schur_sharded", "gather_landmarks",
+           "sharded_pose_marginals", "sharded_landmark_marginals"]

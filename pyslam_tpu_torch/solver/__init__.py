@@ -66,7 +66,27 @@ from .schur_sparse import (
     solve_schur_sparse,
 )
 from .schur_sqrt import SqrtBAPlan, build_sqrt_plan, solve_schur_sqrt
-from .sparse_chol import CholPlan, build_chol_plan, solve_sparse_chol, sparse_chol_solve
+from .sparse_chol import (
+    CholPlan,
+    build_chol_plan,
+    factor_logdet,
+    locate_fill_pairs,
+    selected_inverse_marginals,
+    solve_sparse_chol,
+    sparse_chol_solve,
+)
+from .covariance import (
+    covariance_block,
+    covariance_blocks_direct,
+    full_covariance,
+    landmark_covariance_block,
+    landmark_marginal_covariances,
+    marginal_covariances,
+    marginal_covariances_direct,
+    pose_covariance_block,
+    pose_landmark_covariance_block,
+    pose_marginal_covariances,
+)
 from .fixed_lag import FixedLagLandmarkSmoother, FixedLagSmoother
 from .incremental import IncrementalSmoother
 
@@ -115,6 +135,19 @@ __all__ = [
     "build_chol_plan",
     "sparse_chol_solve",
     "solve_sparse_chol",
+    "selected_inverse_marginals",
+    "locate_fill_pairs",
+    "factor_logdet",
+    "full_covariance",
+    "marginal_covariances",
+    "marginal_covariances_direct",
+    "covariance_block",
+    "covariance_blocks_direct",
+    "pose_marginal_covariances",
+    "pose_covariance_block",
+    "landmark_marginal_covariances",
+    "landmark_covariance_block",
+    "pose_landmark_covariance_block",
     "SchurSparsePlan",
     "assemble_S_ell",
     "build_schur_sparse_plan",

@@ -20,12 +20,19 @@ a vmap cannot trace, so the fleet runs as one batched dense LM:
     until every problem has stopped.
 
 Each problem follows the accept sequence and the stop code of its own
-``lm.solve``.  Methods 'lm' and 'gn'; 'dogleg' raises NotImplementedError.
+``lm.solve``, in every method: 'lm' and 'gn', and 'dogleg' with each
+problem's own trust radius, step blend and gain-ratio test (``lm``'s dogleg
+functions vmapped over the problems).  A ``TDistributionLoss(scale=None)``
+estimates its scale per problem, over each problem's own residuals, as the
+reference's vmap of ``solve`` does: a problem's factors are a contiguous
+block of every union batch, so the loss is vmapped over the rows of a
+(B, n r) view, on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -77,6 +84,29 @@ def _unstack(graph: FactorGraph) -> list:
     ]
 
 
+@dataclasses.dataclass(frozen=True)
+class _ScalePerProblem:
+    """``TDistributionLoss(scale=None)`` on a union batch of B problems of
+    equal size: the loss's own functions, vmapped over the problems' rows
+    (the residuals reshaped (B, n r)), so each problem's scale is estimated
+    from its own residuals."""
+
+    base: TDistributionLoss
+    B: int
+
+    def _per_problem(self, fn, e):
+        return torch.func.vmap(fn)(e.reshape(self.B, -1)).reshape(e.shape)
+
+    def loss(self, e):
+        return self._per_problem(self.base.loss, e)
+
+    def influence(self, e):
+        return self._per_problem(self.base.influence, e)
+
+    def weight(self, e):
+        return self._per_problem(self.base.weight, e)
+
+
 def _union(graphs: list) -> FactorGraph:
     """One graph of the B problems side by side (see the module docstring).
     Raises where the problems differ in structure: block names, kinds and
@@ -96,10 +126,9 @@ def _union(graphs: list) -> FactorGraph:
     }
     batches = []
     for k, fb in enumerate(g0.batches):
-        if isinstance(fb.loss, TDistributionLoss) and fb.loss.scale is None:
-            # its scale is estimated from all residuals of a batch: the
-            # problems' residuals would mix
-            raise NotImplementedError("solve_batched: TDistributionLoss(scale=None) is not elementwise")
+        loss = fb.loss
+        if isinstance(loss, TDistributionLoss) and loss.scale is None:
+            loss = _ScalePerProblem(loss, len(graphs))
         indices = tuple(
             torch.cat([g.batches[k].indices[s] + b * g0.blocks[slot].n for b, g in enumerate(graphs)])
             for s, slot in enumerate(fb.slots)
@@ -114,7 +143,7 @@ def _union(graphs: list) -> FactorGraph:
                     raise ValueError(f"solve_batched: batch {k} data {key!r} is shared by its factors but "
                                      "differs between the graphs")
                 data[key] = v
-        batches.append(FactorBatch(fb.kind, fb.slots, indices, data, fb.loss,
+        batches.append(FactorBatch(fb.kind, fb.slots, indices, data, loss,
                                    torch.cat([g.batches[k].weight for g in graphs])))
     return FactorGraph(blocks, batches)
 
@@ -205,6 +234,17 @@ def _solve_step(H, g, lam, opt: _lm.Options):
     return cholesky_solve(Hd, g)
 
 
+# lm.solve's dogleg step and trust-radius update, one problem a row
+_dogleg_steps = torch.func.vmap(functools.partial(_lm._dogleg_step, matvec_fn=_lm._dense_matvec))
+
+
+def _dogleg_radii(opt, delta, g, dx, H, cost_lin, cost_new, update_norm):
+    def one(delta, g, dx, H, cost_lin, cost_new, update_norm):
+        return _lm._dogleg_radius(opt, delta, g, dx, H, _lm._dense_matvec, cost_lin, cost_new, update_norm)
+
+    return torch.func.vmap(one)(delta, g, dx, H, cost_lin, cost_new, update_norm)
+
+
 def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool = False):
     """Solve a FLEET of same-structure factor graphs in one batched LM loop.
     Use cases: Monte-Carlo uncertainty (resampled measurements), multi-robot
@@ -217,8 +257,9 @@ def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool 
     chi2 (B,)), each problem's best point and cost; with ``return_info``
     also a ``BatchedSolveInfo``."""
     opt = options if options is not None else _lm.Options()
-    if opt.method not in ("lm", "gn"):
-        raise NotImplementedError(f"solve_batched: method {opt.method!r} is not ported (only 'lm' and 'gn')")
+    if opt.method not in ("lm", "gn", "dogleg"):
+        raise ValueError(f"unknown method {opt.method!r}")
+    dogleg = opt.method == "dogleg"
     graphs = list(graphs) if isinstance(graphs, (list, tuple)) else _unstack(graphs)
     B, K = len(graphs), opt.max_iters
     union = _union(graphs)
@@ -249,7 +290,7 @@ def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool 
         init_cost = _costs(union, B)
     blocks = best_blocks = union.blocks
     cost = best_cost = init_cost
-    lam = torch.full((B,), opt.lambda_init, dtype=dtype, device=device)
+    lam = torch.full((B,), opt.trust_radius_init if dogleg else opt.lambda_init, dtype=dtype, device=device)
     nondec = torch.zeros(B, dtype=torch.int64, device=device)
     status = torch.full((B,), _lm.RUNNING, dtype=torch.int64, device=device)
     iterations = torch.zeros(B, dtype=torch.int64, device=device)
@@ -262,6 +303,8 @@ def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool 
         if not opt.speculative:
             H, g, cost_lin = _assemble(cur, plan, free)
         dx = _solve_step(H, g, lam, opt)
+        if dogleg:
+            dx, interior = _dogleg_steps(H, g, dx, lam)
         update_norm = torch.linalg.norm(dx, dim=1)
         trial = cur.retract_all(to_union(dx))
         if opt.speculative:
@@ -276,6 +319,9 @@ def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool 
             accept = cost_new < cost_lin  # False on NaN -> reject
             lam_next = torch.where(accept, torch.clamp(lam * opt.lambda_down, min=opt.lambda_min),
                                    torch.clamp(lam * opt.lambda_up, max=opt.lambda_max))
+        elif dogleg:
+            pred_pos, lam_next = _dogleg_radii(opt, lam, g, dx, H, cost_lin, cost_new, update_norm)
+            accept = (cost_new < cost_lin) & pred_pos
         else:  # 'gn': unconditional step
             accept = torch.ones_like(running)
             lam_next = lam
@@ -294,8 +340,9 @@ def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool 
         if opt.method == "gn":
             s = torch.where((s == _lm.RUNNING) & improved & ~decrease_ok, _lm.CONVERGED_COST_DECREASE, s)
             s = torch.where((s == _lm.RUNNING) & (nondec >= max_nondec), _lm.STOPPED_NONDECREASING, s)
-        else:
-            s = torch.where((s == _lm.RUNNING) & accept & ~decrease_ok, _lm.CONVERGED_COST_DECREASE, s)
+        else:  # lm, dogleg: an accepted step of small decrease (dogleg: one inside the region)
+            small = (s == _lm.RUNNING) & accept & ~decrease_ok
+            s = torch.where(small & interior if dogleg else small, _lm.CONVERGED_COST_DECREASE, s)
         if it + 1 == K:
             s = torch.where(s == _lm.RUNNING, _lm.MAX_ITERS, s)
         status = torch.where(running, s, status)

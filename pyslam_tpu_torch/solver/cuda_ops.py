@@ -9,7 +9,10 @@ Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
 * ``ell_pcg`` (``csrc/ell_pcg.cu``) is that product at the grain this card
   wants it: the whole block-Jacobi PCG solve of ``solve_ell`` (the
   reference's ``_pcg`` ``while_loop`` around ``ell_matvec_lane_major``) as
-  one persistent launch, with He resident in shared memory.
+  one persistent launch, with He resident in shared memory; and, for the
+  columns of a covariance query (the reference's vmap of that loop), a
+  block of right-hand sides in one launch, each column with its own stop
+  test.
 * ``slot_reduce`` (``csrc/slot_reduce.cu``) replaces ``scatter_matmul``: the
   reduction of per-factor contributions into their destination blocks (and
   of the gradient rows into their rows) during assembly, as a deterministic
@@ -25,7 +28,8 @@ Dispatch: a tensor on the CPU goes to the plain version (the CPU tests use
 it); a tensor on a CUDA device launches the kernel or raises.  There is no
 fallback from the kernel to the plain version.  ``LAUNCHES`` counts, for
 each function, the calls that ran it; ``pcg_iterations`` reads the CG
-iterations that ``ell_pcg`` launches summed on the device.  The source note
+iterations (over all columns) that ``ell_pcg`` launches summed on the
+device.  The source note
 of each kernel says what bounds it on an H100 and what its design does
 about that.
 """
@@ -148,11 +152,12 @@ def ell_matvec(He, cols, x):
 
 
 class PcgResult(NamedTuple):
-    x: torch.Tensor  # (nb*d,)
-    iterations: torch.Tensor  # 0-dim int32, on x's device
+    x: torch.Tensor  # (nb*d,), or (nb*d, m) for a block of right-hand sides
+    iterations: torch.Tensor  # int32 on x's device: 0-dim, or (m,) one count a column
     # Block rows (of nb) whose He, cols and Minv the kernel kept in shared
-    # memory for the whole solve; the others were read from device memory
-    # every iteration.  None from the plain version.
+    # memory for the whole solve (the fewest over the launches of a block);
+    # the others were read from device memory every iteration.  None from
+    # the plain version.
     resident_rows: int | None
 
 
@@ -160,26 +165,31 @@ _PCG_ERRORS = {
     -1: "the device does not support cooperative launch",
     -2: "the solve's vectors do not fit in shared memory (nb * d too large for this kernel)",
     -3: "the grid cannot be co-resident with this much shared memory",
+    -4: "more columns than one launch carries (ell_pcg_plan's max_columns)",
 }
 _PCG_PLANS: dict = {}
 
 
-def ell_pcg_plan(nb, K, d, dtype, device) -> dict:
-    """The launch geometry of ``ell_pcg`` for these shapes on ``device``, as
-    the library computes it: ``grid`` (blocks, one per SM at most),
-    ``rows_per_block``, ``resident_rows`` (of nb), ``smem_bytes`` (dynamic
-    shared memory a block) and ``lanes`` (sub-warp width of a row
-    product)."""
+def ell_pcg_plan(nb, K, d, dtype, device, columns=1) -> dict:
+    """The launch geometry of ``ell_pcg`` for these shapes and ``columns``
+    right-hand sides a launch on ``device``, as the library computes it:
+    ``grid`` (blocks, one per SM at most), ``rows_per_block``,
+    ``resident_rows`` (of nb), ``smem_bytes`` (dynamic shared memory a
+    block), ``lanes`` (sub-warp width of a row product) and
+    ``max_columns``, the most right-hand sides one launch carries (as many
+    as fit in shared memory beside a fully resident He; 1 where He does not
+    fit with even one)."""
     from .._ext import library
 
     device = torch.device(device)
-    key = (nb, K, d, dtype, device)
+    key = (nb, K, d, dtype, device, columns)
     if key not in _PCG_PLANS:
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * 6)()
         with torch.cuda.device(device):
-            err = library().pyslam_ell_pcg_plan(nb, K, d, torch.finfo(dtype).bits // 8, out)
+            err = library().pyslam_ell_pcg_plan(nb, K, d, torch.finfo(dtype).bits // 8, columns, out)
         _raise_on_pcg_error("pyslam_ell_pcg_plan", err)
-        _PCG_PLANS[key] = dict(zip(("grid", "rows_per_block", "resident_rows", "smem_bytes", "lanes"), out))
+        _PCG_PLANS[key] = dict(zip(("grid", "rows_per_block", "resident_rows", "smem_bytes", "lanes", "max_columns"),
+                                   out))
     return _PCG_PLANS[key]
 
 
@@ -189,20 +199,40 @@ def _raise_on_pcg_error(fn_name, err):
     _raise_on_error(fn_name, err)
 
 
+def _ell_matvec_columns(He, cols, X):
+    """The plain ELL product of every column of X (nb*d, m)."""
+    nb, _, d, _ = He.shape
+    xg = X.reshape(nb, d, -1)[cols.long()]  # (nb, K, d, m)
+    return torch.einsum("rkij,rkjm->rim", He, xg).reshape(nb * d, -1)
+
+
 def ell_pcg_plain(He, cols, Minv, b, rtol, max_iters):
-    """Plain version: ``linear.pcg_solve`` (the host loop, one stop test
-    read back per iteration) over ``ell_matvec_plain`` and the batched
-    ``Minv @ r``."""
+    """Plain version.  One right-hand side: ``linear.pcg_solve`` (the host
+    loop, one stop test read back per iteration) over ``ell_matvec_plain``
+    and the batched ``Minv @ r``.  A block (nb*d, m): ``schur_large._pcg``
+    on the columns (the same recurrences for every column at once, each
+    with its own stop test, a column frozen from the iteration its test
+    fails: the reference's vmap of ``pcg_solve``), the host reading the m
+    tests before every iteration and stopping when none runs."""
     LAUNCHES["ell_pcg_plain"] += 1
     nb, _, d, _ = He.shape
 
-    def precond(r):
-        return (Minv @ r.reshape(nb, d, 1)).reshape(-1)
+    if b.dim() == 1:
+        def precond(r):
+            return (Minv @ r.reshape(nb, d, 1)).reshape(-1)
 
-    x, it = linear.pcg_solve(
-        lambda v: ell_matvec_plain(He, cols, v), b, precond=precond, rtol=rtol, max_iters=max_iters
-    )
-    return PcgResult(x, torch.tensor(it, dtype=torch.int32, device=b.device), None)
+        x, it = linear.pcg_solve(
+            lambda v: ell_matvec_plain(He, cols, v), b, precond=precond, rtol=rtol, max_iters=max_iters
+        )
+        return PcgResult(x, torch.tensor(it, dtype=torch.int32, device=b.device), None)
+
+    from .schur_large import _pcg  # schur_large imports this module
+
+    def precond_cols(R):
+        return (Minv @ R.reshape(nb, d, -1)).reshape(nb * d, -1)
+
+    X, its = _pcg(lambda P: _ell_matvec_columns(He, cols, P), precond_cols, b, rtol, max_iters, read_every=1)
+    return PcgResult(X, its.to(torch.int32), None)
 
 
 def ell_pcg(He, cols, Minv, b, rtol, max_iters):
@@ -213,12 +243,16 @@ def ell_pcg(He, cols, Minv, b, rtol, max_iters):
     tested before every iteration; a NaN ends the loop).
 
     He (nb, K, d, d), cols (nb, K) int32 with entries in [0, nb), Minv
-    (nb, d, d), b (nb*d,), all contiguous on one device.  Returns a
-    ``PcgResult``.  On a CUDA device the whole solve is one launch and makes
-    no host read.  The kernel takes r0 = b without forming A @ x0; the two
-    differ only where He holds a non-finite value (``pcg_solve`` then stops
-    at once with x = 0, the kernel returns NaN after one iteration: LM
-    rejects either step)."""
+    (nb, d, d), b (nb*d,) or a block of m right-hand sides (nb*d, m), all
+    contiguous on one device.  Each column of a block runs its own
+    recurrences and stop test and is frozen once that fails, as the
+    reference's vmap of ``pcg_solve`` over the columns.  Returns a
+    ``PcgResult``: x of b's shape, ``iterations`` 0-dim or (m,).  On a CUDA
+    device a block is one launch per ``ell_pcg_plan(...)["max_columns"]``
+    columns, and no host read.  The kernel takes r0 = b without forming A @
+    x0; the two differ only where He holds a non-finite value
+    (``pcg_solve`` then stops at once with x = 0, the kernel returns NaN
+    after one iteration: LM rejects either step)."""
     if He.dim() != 4 or He.shape[2] != He.shape[3]:
         raise ValueError(f"He: shape {tuple(He.shape)}, expected (nb, K, d, d)")
     nb, K, d, _ = He.shape
@@ -227,7 +261,9 @@ def ell_pcg(He, cols, Minv, b, rtol, max_iters):
     _check("He", He, He.dtype, (nb, K, d, d))
     _check("cols", cols, torch.int32, (nb, K))
     _check("Minv", Minv, He.dtype, (nb, d, d))
-    _check("b", b, He.dtype, (nb * d,))
+    if b.dim() not in (1, 2):
+        raise ValueError(f"b: shape {tuple(b.shape)}, expected ({nb * d},) or ({nb * d}, m)")
+    _check("b", b, He.dtype, (nb * d,) + tuple(b.shape[1:]))
     rtol, max_iters = float(rtol), int(max_iters)
     if max_iters < 0:
         raise ValueError(f"max_iters: {max_iters}, expected >= 0")
@@ -237,23 +273,33 @@ def ell_pcg(He, cols, Minv, b, rtol, max_iters):
 
     lib = library()
     dev = b.device
-    plan = ell_pcg_plan(nb, K, d, He.dtype, dev)
+    m = 1 if b.dim() == 1 else b.shape[1]
+    cap = ell_pcg_plan(nb, K, d, He.dtype, dev)["max_columns"]
+    fn_name = f"pyslam_ell_pcg_{_SUFFIX[He.dtype]}"
     with torch.cuda.device(dev):
         if dev not in _PCG_ITERATIONS:
             _PCG_ITERATIONS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
-        x = torch.empty_like(b)
-        iterations = torch.empty((), dtype=torch.int32, device=dev)
-        # p of two iterations in turn, z, and the blocks' partial dot products
-        scratch = torch.empty(3 * nb * d + 3 * plan["grid"], dtype=He.dtype, device=dev)
-        fn_name = f"pyslam_ell_pcg_{_SUFFIX[He.dtype]}"
-        err = getattr(lib, fn_name)(
-            He.data_ptr(), cols.data_ptr(), Minv.data_ptr(), b.data_ptr(), x.data_ptr(),
-            scratch.data_ptr(), iterations.data_ptr(), _PCG_ITERATIONS[dev].data_ptr(),
-            nb, K, d, rtol, max_iters, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_pcg_error(fn_name, err)
-    LAUNCHES["ell_pcg"] += 1
-    return PcgResult(x, iterations, plan["resident_rows"])
+        # the kernel keeps each column contiguous: (m, nb*d)
+        bt = b.reshape(-1, m).t().contiguous()
+        xt = torch.empty_like(bt)
+        iterations = torch.empty(m, dtype=torch.int32, device=dev)
+        resident = nb
+        for s in range(0, m, cap):
+            mc = min(cap, m - s)
+            plan = ell_pcg_plan(nb, K, d, He.dtype, dev, mc)
+            resident = min(resident, plan["resident_rows"])
+            # p of two iterations in turn, z, and the blocks' partial dot products
+            scratch = torch.empty(3 * mc * nb * d + 3 * plan["grid"] * mc, dtype=He.dtype, device=dev)
+            err = getattr(lib, fn_name)(
+                He.data_ptr(), cols.data_ptr(), Minv.data_ptr(), bt[s].data_ptr(), xt[s].data_ptr(),
+                scratch.data_ptr(), iterations[s:].data_ptr(), _PCG_ITERATIONS[dev].data_ptr(),
+                nb, K, d, mc, rtol, max_iters, torch.cuda.current_stream(dev).cuda_stream,
+            )
+            _raise_on_pcg_error(fn_name, err)
+            LAUNCHES["ell_pcg"] += 1
+    if b.dim() == 1:
+        return PcgResult(xt[0], iterations[0], resident)
+    return PcgResult(xt.t().contiguous(), iterations, resident)
 
 
 # --------------------------------------------------------------------------

@@ -18,8 +18,8 @@ guards against its zero-copy transfer on the CPU, which the copy here
 rules out.
 
 Old state can be retired with ``marginalize_oldest`` (``graph.marginalize``
-dense FEJ priors).  ``pose_marginals`` needs ``solver/covariance.py``,
-which is not ported (ROADMAP item 19), and raises.
+dense FEJ priors).  ``pose_marginals`` reads the live poses' covariances
+(``solver/covariance.py``) by the reference's three branches.
 """
 
 from __future__ import annotations
@@ -280,11 +280,32 @@ class IncrementalSmoother:
         return self._L[: self.nl].copy()
 
     def pose_marginals(self):
-        """The live poses' marginal covariances need
-        ``solver/covariance.py``, not ported yet: raises
-        NotImplementedError."""
-        raise NotImplementedError("IncrementalSmoother.pose_marginals needs solver/covariance.py, "
-                                  "not ported yet (ROADMAP item 19)")
+        """(n, dof, dof) marginal covariances of the live poses at the
+        current estimate, as a host array.  Pose-only graphs whose priors
+        are single-slot: the exact multifrontal selected inverse
+        (``marginal_covariances_direct``); landmark graphs: S-solves on the
+        reduced camera system (``pose_marginal_covariances``); graphs that
+        carry a multi-slot marginalization prior: the dense inverse
+        (``full_covariance``, window-scale after marginalization)."""
+        from .covariance import full_covariance, marginal_covariances_direct, pose_marginal_covariances
+
+        g = self._graph(
+            n=self.n, m=self.m,
+            nl=self.nl if self.obs_kind is not None else None,
+            mo=self.mo if self.obs_kind is not None else None,
+        )
+        dof = self._dof
+        if self.obs_kind is None and all(len(set(fb.slots)) == 1 for fb in self._prior_batches):
+            out = marginal_covariances_direct(g)
+        elif self.obs_kind is not None and all(
+            fb.slots in (("poses",), ("poses", "poses"), ("poses", "landmarks")) for fb in self._prior_batches
+        ):
+            out = pose_marginal_covariances(g)
+        else:
+            off = g.offsets()["poses"]
+            Sig = full_covariance(g)[off:off + self.n * dof, off:off + self.n * dof]
+            out = Sig.reshape(self.n, dof, self.n, dof).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+        return out.detach().to("cpu", torch.float64).numpy()
 
     # -------------------------------------------------------- marginalizing
     def marginalize_oldest(self, keep_last: int):

@@ -324,13 +324,21 @@ def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None):
     vectors split over ranks, each rank holding its rows
     (``dist/pose_sharded.py``), the sum over the ranks of a vector of dot
     products, so that every rank tests and scales by the same numbers.
-    Returns (x, iterations), the count a 0-dim int64 tensor on b's
-    device."""
+
+    ``b`` is one right-hand side (n,) or a block (n, m): every column then
+    runs these recurrences with its own dot products, stop test and count,
+    frozen from the iteration its test fails (the reference's vmap of
+    ``pcg_solve`` over the columns), and the host read ends the loop when
+    no column runs.  Returns (x, iterations), the count a 0-dim or (m,)
+    int64 tensor on b's device."""
+
+    def dot(u, v):
+        return torch.dot(u, v) if u.dim() == 1 else (u * v).sum(0)
 
     def dots(*pairs):
         if psum is None:
-            return [torch.dot(u, v) for u, v in pairs]
-        return psum(torch.stack([torch.dot(u, v) for u, v in pairs])).unbind()
+            return [dot(u, v) for u, v in pairs]
+        return psum(torch.stack([dot(u, v) for u, v in pairs])).unbind()
 
     if read_every is None:
         read_every = CG_READ_EVERY
@@ -338,13 +346,13 @@ def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None):
     r, z = b, precond(b)
     rz, rn2 = dots((b, z), (b, b))
     p, tol2 = z, rtol**2 * rn2
-    run = torch.ones((), dtype=torch.bool, device=b.device)
-    done = torch.zeros((), dtype=torch.int64, device=b.device)
+    run = torch.ones(b.shape[1:], dtype=torch.bool, device=b.device)
+    done = torch.zeros(b.shape[1:], dtype=torch.int64, device=b.device)
     for k in range(max_iters):
         run = run & (rn2 > tol2)
         if read_every and k % read_every == 0:
             HOST_READS["pcg"] += 1
-            if not bool(run):
+            if not bool(run.any()):
                 break
         Ap = matvec(p)
         (pAp,) = dots((p, Ap))

@@ -31,11 +31,22 @@ The sparsity lives on the host, the arithmetic on the device:
     runs give the same bits.  The backward solve writes each eliminated
     variable once.
 
+  * The solves take one right-hand side (nb*d,) or a block (nb*d, m): the
+    forward solve's rows are then d*m wide, with the same plans.
+
+Uncertainty over the same factors: ``selected_inverse_marginals`` (the
+Takahashi sweep, every diagonal block of H^-1 and the requested in-fill
+cross blocks in one pass over the waves in reverse), ``locate_fill_pairs``
+(host) and ``factor_logdet``.  The sweep hands each node's boundary
+covariance to its children through the tables the factorization gathered
+their updates with; apart from the zero block 0, no pool position is named
+twice by the tables of a wave (each child-update entry is gathered by one
+position of one parent front), so the hand-down is a plain indexed copy
+over positions filtered on the host, checked unique when the first sweep
+over a plan takes its tables to the device (``_sigma_scatters``).
+
 Exactness: block Gaussian elimination in a fill-reducing order; in exact
 arithmetic dx equals the dense Cholesky solution.
-
-Not ported yet: ``locate_fill_pairs``, ``selected_inverse_marginals`` and
-``factor_logdet`` (the uncertainty sweep over these factors).
 """
 
 from __future__ import annotations
@@ -447,6 +458,25 @@ class DeviceWave:
         return self.fwd_offsets.shape[0] - 1
 
 
+def _sigma_scatter(tbl_l, tbl_r):
+    """(src, pos) of a wave's hand-down in the selected-inverse sweep: the
+    entries of the (N, f, f) tables ``tbl_l`` / ``tbl_r`` that name a pool
+    position (not the zero block 0), flat front positions ``src`` and pool
+    positions ``pos``.  Raises ValueError where a position is named twice:
+    the copy ``pool[pos] = front[src]`` would then depend on the order of
+    the writes."""
+    srcs, poss = [], []
+    for tbl in (tbl_l, tbl_r):
+        flat = np.asarray(tbl).reshape(-1)
+        src = np.flatnonzero(flat)
+        srcs.append(src)
+        poss.append(flat[src].astype(np.int64))
+    src, pos = np.concatenate(srcs), np.concatenate(poss)
+    if len(np.unique(pos)) != len(pos):
+        raise ValueError("selected-inverse hand-down: a pool position is named twice by one wave's tables")
+    return src, pos
+
+
 def _device_wave(nb, d, wave, device):
     kpad, bpad, N, cols_idx, bnd_idx, col_pad, tbl_orig, tbl_l, tbl_r = wave
 
@@ -472,6 +502,20 @@ def _device_waves(plan: CholPlan, device) -> tuple:
     cache = plan.__dict__.setdefault("_dev_waves", {})
     if device not in cache:
         cache[device] = tuple(_device_wave(plan.nb, plan.d, w, device) for w in plan.waves)
+    return cache[device]
+
+
+def _sigma_scatters(plan: CholPlan, device) -> tuple:
+    """Every wave's hand-down (``_sigma_scatter``) as (src, pos) int64
+    tensors on ``device``: pool[pos] = the Sigma front's (N * f * f) blocks
+    at src, every position once.  Built by the first selected-inverse sweep
+    over the plan on that device and kept on the plan object; the
+    factorization and the solves never need them."""
+    device = torch.device(device)
+    cache = plan.__dict__.setdefault("_sig_scatters", {})
+    if device not in cache:
+        cache[device] = tuple(tuple(torch.as_tensor(a, device=device) for a in _sigma_scatter(w[7], w[8]))
+                              for w in plan.waves)
     return cache[device]
 
 
@@ -513,26 +557,170 @@ def _factorize(plan: CholPlan, He, lam=None):
 
 
 def _solve_factored(plan: CholPlan, factors, g):
-    """Level-scheduled forward/backward substitution; g is (nb*d,)."""
+    """Level-scheduled forward/backward substitution; g is (nb*d,) or a
+    block of m right-hand sides (nb*d, m), and so is the result."""
     nb, d = plan.nb, plan.d
-    bvec = torch.cat([g.reshape(nb, d), g.new_zeros((1, d))])
+    m = g.shape[1] if g.dim() == 2 else 1
+    bvec = torch.cat([g.reshape(nb, d, m), g.new_zeros((1, d, m))])
     ys = []
     waves = _device_waves(plan, g.device)
     for w, (L11, L21) in zip(waves, factors):
-        bc = bvec[w.ci].reshape(w.N, w.kpad * d, 1)
+        bc = bvec[w.ci].reshape(w.N, w.kpad * d, m)
         y = torch.linalg.solve_triangular(L11, bc, upper=False)
         ys.append(y)
         n_real = w.fwd_dest.shape[0]
         if n_real:
-            upd = (L21 @ y).reshape(w.N * w.bpad, d)
-            bvec[w.fwd_dest] -= slot_reduce(upd, w.fwd_perm, w.fwd_offsets, w.fwd_slots)[:n_real]
-    xvec = g.new_zeros((nb + 1, d))
+            upd = (L21 @ y).reshape(w.N * w.bpad, d * m)
+            bvec[w.fwd_dest] -= slot_reduce(upd, w.fwd_perm, w.fwd_offsets, w.fwd_slots)[:n_real].reshape(-1, d, m)
+    xvec = g.new_zeros((nb + 1, d, m))
     for w, (L11, L21), y in zip(reversed(waves), reversed(factors), reversed(ys)):
-        xb = xvec[w.bi].reshape(w.N, w.bpad * d, 1)
+        xb = xvec[w.bi].reshape(w.N, w.bpad * d, m)
         rhs = y - L21.transpose(-1, -2) @ xb
         xc = torch.linalg.solve_triangular(L11.transpose(-1, -2), rhs, upper=True)
-        xvec[w.bwd_var] = xc.reshape(w.N * w.kpad, d)[w.bwd_pos]
-    return xvec[:nb].reshape(-1)
+        xvec[w.bwd_var] = xc.reshape(w.N * w.kpad, d, m)[w.bwd_pos]
+    return xvec[:nb].reshape(g.shape)
+
+
+def locate_fill_pairs(plan: CholPlan, pairs):
+    """Host: map (u, v) variable pairs to (wave, slot, p, q, swapped)
+    positions in the Sigma-fronts of the selected-inverse sweep.  A pair is
+    coverable iff it lies in the FILL pattern: u and v share a front at the
+    node where the earlier-eliminated one is a column (original edges, e.g.
+    odometry pairs, always qualify).  Raises ValueError on out-of-fill or
+    out-of-range pairs.
+
+    Cost is proportional to the query, not the fill: an O(nb) owner map
+    from the cols tables, then front dicts only for the (at most two)
+    candidate owner nodes of a pair."""
+    nb = plan.nb
+    owner = np.full(nb, -1, np.int64)  # var -> flat node id (wave-major)
+    node_of = []  # flat node id -> (wave, slot)
+    for wi, (kpad, bpad, N, cols_idx, bnd_idx, *_rest) in enumerate(plan.waves):
+        for s in range(N):
+            c = cols_idx[s]
+            owner[c[c < nb]] = len(node_of)
+            node_of.append((wi, s))
+
+    fronts: dict[int, dict] = {}  # flat node id -> {var: front position}
+
+    def front_of(nid):
+        f = fronts.get(nid)
+        if f is None:
+            wi, s = node_of[nid]
+            kpad, bpad, N, cols_idx, bnd_idx, *_rest = plan.waves[wi]
+            f = {int(v): p for p, v in enumerate(cols_idx[s]) if v < nb}
+            f.update({int(v): kpad + p for p, v in enumerate(bnd_idx[s]) if v < nb})
+            fronts[nid] = f
+        return f
+
+    out = []
+    for u, v in pairs:
+        u, v = int(u), int(v)
+        if not (0 <= u < nb and 0 <= v < nb):
+            raise ValueError(f"pair ({u}, {v}) out of range for {nb} variables")
+        hit = None
+        for first, second, swapped in ((u, v, False), (v, u, True)):
+            front = front_of(int(owner[first]))
+            if second in front:
+                # a swapped extraction reads Sigma_vu = Sigma_uv^T; the sweep
+                # transposes it back before returning
+                wi, s = node_of[int(owner[first])]
+                hit = (wi, s, front[first], front[second], swapped)
+                break
+        if hit is None:
+            raise ValueError(
+                f"pair ({u}, {v}) is outside the factorization fill; use a column solve (covariance_block) for "
+                "arbitrary pairs"
+            )
+        out.append(hit)
+    return out
+
+
+def selected_inverse_marginals(plan: CholPlan, factors, pairs=None):
+    """Every (d, d) diagonal block of H^-1 in one sweep over the
+    multifrontal factors in reverse wave order (the Takahashi / selected
+    inversion recursion): (nb, d, d).  With ``pairs``, (u, v) variable pairs
+    within the factorization fill (``locate_fill_pairs``), also their (d, d)
+    cross blocks Sigma_uv, read out of the same sweep: returns (diag,
+    blocks).
+
+    Per node, with U = F11^-1 F12 = L11^-T L21^T:
+
+        Sigma_CB = -U Sigma_BB
+        Sigma_CC = F11^-1 + U Sigma_BB U^T
+
+    where the factorization gathered each node's child updates into its
+    front through ``tbl_l`` / ``tbl_r``, the sweep hands the parent's
+    Sigma-front entries back through the same positions
+    (``_sigma_scatters``), and each node reads its Sigma_BB from its
+    own contiguous pool slice.  Padding stays inert: padded eliminated
+    columns carry a unit diagonal, padded boundary rows of L21 are zero, and
+    unwritten pool entries are zero; root nodes have an empty boundary.
+    The triangular solves and products are batched over the nodes of a
+    wave."""
+    nb, d = plan.nb, plan.d
+    L0 = factors[0][0]
+    dtype, device = L0.dtype, L0.device
+    waves = _device_waves(plan, device)
+    scatters = _sigma_scatters(plan, device)
+    pair_req = None
+    if pairs is not None:
+        located = locate_fill_pairs(plan, pairs)
+        pair_req = {}  # wave -> [(slot, p, q, out id)]
+        swapped = np.zeros(len(located), bool)
+        for out_id, (wi, s, p, q, sw) in enumerate(located):
+            pair_req.setdefault(wi, []).append((s, p, q, out_id))
+            swapped[out_id] = sw
+        pair_out = torch.zeros((len(located), d, d), dtype=dtype, device=device)
+    # the pool layout of the factorization: wave w's updates from bases[w]
+    bases = [1]
+    for w in waves:
+        bases.append(bases[-1] + w.N * w.bpad * w.bpad)
+    pool = torch.zeros((1 + plan.pool_total, d, d), dtype=dtype, device=device)
+    out = torch.zeros((nb, d, d), dtype=dtype, device=device)
+    for wi in reversed(range(len(waves))):
+        w = waves[wi]
+        L11, L21 = factors[wi]
+        f, k, b = w.kpad + w.bpad, w.kpad * d, w.bpad * d
+        n = w.N * w.bpad * w.bpad
+        # this node's Sigma_BB, handed down by its parent (zero at roots)
+        Sbb = pool[bases[wi]:bases[wi] + n].reshape(w.N, w.bpad, w.bpad, d, d).permute(0, 1, 3, 2, 4)
+        Sbb = Sbb.reshape(w.N, b, b)
+        # U = L11^-T L21^T (k, b);  F11^-1 = L11^-T L11^-1
+        U = torch.linalg.solve_triangular(L11.transpose(-1, -2), L21.transpose(-1, -2), upper=True)
+        eye = torch.eye(k, dtype=dtype, device=device).expand(w.N, k, k)
+        Linv = torch.linalg.solve_triangular(L11, eye, upper=False)
+        F11inv = Linv.transpose(-1, -2) @ Linv
+        USbb = U @ Sbb
+        Scc = F11inv + USbb @ U.transpose(-1, -2)
+        Scb = -USbb
+        Sf = torch.cat([torch.cat([Scc, Scb], 2), torch.cat([Scb.transpose(-1, -2), Sbb], 2)], 1)
+        Sf = Sf.reshape(w.N, f, d, f, d).permute(0, 1, 3, 2, 4)  # (N, f, f, d, d)
+        # the eliminated variables' marginals, each written once
+        diag = Sf[:, torch.arange(w.kpad), torch.arange(w.kpad)]  # (N, kpad, d, d)
+        out[w.bwd_var] = diag.reshape(w.N * w.kpad, d, d)[w.bwd_pos]
+        if pair_req is not None and wi in pair_req:
+            ss, ps, qs, oi = (torch.as_tensor(c, device=device) for c in zip(*pair_req[wi]))
+            pair_out[oi] = Sf[ss, ps, qs]
+        # hand the children their Sigma_BB through the positions their
+        # updates were gathered from
+        sig_src, sig_pos = scatters[wi]
+        if sig_pos.numel():
+            pool[sig_pos] = Sf.reshape(-1, d, d)[sig_src]
+    if pairs is not None:
+        sw = torch.as_tensor(swapped, device=device)[:, None, None]
+        return out, torch.where(sw, pair_out.transpose(-1, -2), pair_out)
+    return out
+
+
+def factor_logdet(plan: CholPlan, factors):
+    """log det(H) from the multifrontal Cholesky factors: twice the sum of
+    the log-diagonals of every wave's L11 (padding columns carry a unit
+    diagonal, log 1 = 0)."""
+    total = torch.zeros((), dtype=factors[0][0].dtype, device=factors[0][0].device)
+    for L11, _ in factors:
+        total = total + 2.0 * torch.sum(torch.log(torch.diagonal(L11, dim1=-2, dim2=-1)))
+    return total
 
 
 def sparse_chol_solve(plan: CholPlan, He, g, lam, opt: _lm.Options):
@@ -574,4 +762,12 @@ def solve_sparse_chol(
     return _lm.solve(graph, options, assemble_fn=assemble_fn, solve_fn=solve_fn)
 
 
-__all__ = ["CholPlan", "build_chol_plan", "solve_sparse_chol", "sparse_chol_solve"]
+__all__ = [
+    "CholPlan",
+    "build_chol_plan",
+    "factor_logdet",
+    "locate_fill_pairs",
+    "selected_inverse_marginals",
+    "solve_sparse_chol",
+    "sparse_chol_solve",
+]

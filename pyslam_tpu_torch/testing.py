@@ -320,6 +320,43 @@ def drive_incremental(sm, data, every):
     return list(incremental_updates(sm, data, every))
 
 
+def drive_incremental_landmarks(sm, data, update_every, keep_window=None):
+    """Stream 2-D bearing-range landmark SLAM (``synth.landmark_slam_2d``)
+    into an ``IncrementalSmoother`` built with ``obs_kind``: poses at the
+    odometry prediction, each landmark added at its first observation from
+    the latest estimate, ``update()`` every ``update_every`` poses and at
+    the last; with ``keep_window``, ``marginalize_oldest(keep_window)``
+    after an update once more than ``keep_window + 4`` poses live.  Returns
+    the (chi2, LM iterations) of each update."""
+    lm_id, obs_by_pose, ups = {}, {}, []
+    for m in range(len(data.obs_pose)):
+        obs_by_pose.setdefault(int(data.obs_pose[m]), []).append(m)
+    n = len(data.T_init)
+    prev = None
+    for k in range(n):
+        if k == 0:
+            prev = sm.add_pose(data.T_init[0])
+        else:
+            cur = sm.add_pose(data.T_meas[k - 1] @ sm.poses()[prev])
+            sm.add_between(prev, cur, data.T_meas[k - 1], data.sqrt_info[k - 1])
+            prev = cur
+        for m in obs_by_pose.get(k, []):
+            lj = int(data.obs_lm[m])
+            if lj not in lm_id:
+                b, r = data.obs[m]
+                p_local = np.array([r * np.cos(b), r * np.sin(b)])
+                Tk = sm.poses()[prev]
+                lm_id[lj] = sm.add_landmark(Tk[:2, :2].T @ (p_local - Tk[:2, 2]))
+            sm.add_observation(prev, lm_id[lj], data.obs[m], data.obs_sqrt_info[m])
+        if k % update_every == 0 or k == n - 1:
+            _, info = sm.update()
+            ups.append((float(info.chi2), int(info.iterations)))
+            if keep_window and sm.n > keep_window + 4:
+                sm.marginalize_oldest(keep_window)
+                prev = sm.n - 1
+    return ups
+
+
 def vio_sliding_window(data, T_meas, window=5, max_iters=25, dtype=torch.float64, device=None, on_keyframe=None):
     """``examples/vio_sliding_window.py``'s estimator on the port: each
     keyframe appends its (pose, velocity, bias) triple, the preintegrated

@@ -22,8 +22,8 @@ the very graphs the smoke builds:
   32  ``examples/vio_sliding_window.py``'s estimator (window 5, LM 25 a
       keyframe, ``marginalize`` of the oldest (pose, velocity, bias)
       triple) over phase 31's trajectory, fed straight from the generator:
-      the newest pose's error, chi2 and LM iterations at every keyframe
-      (arrays), the final bias estimate;
+      the newest pose's error, chi2, LM iterations and gyro-bias error at
+      every keyframe (arrays), the final bias estimate;
   33  ``FixedLagSmoother("se3", window=100, gn_iters=3,
       anchor_sqrt_info=1e4)`` streamed over sphere2500 with the feed of
       ``tests/test_fixed_lag.py``: every pose as it leaves the window and
@@ -41,14 +41,38 @@ the very graphs the smoke builds:
       cam_cluster=0.05)``, perturbed) in f64, and the f32 solves'
       (``solve_schur_sqrt`` and ``solve_schur(mode="dense")``) gaps to it.
 
-Scalars print as JSON on the last line; the arrays of phases 32 to 35 (per
-keyframe, and the poses) go to ``chip_smoke_refs.npz`` beside
-``chip_smoke.py``, which loads them.  The port never imports this script; its numbers are constants in
+  37  sphere2500 (``se3_sphere(2500, seed=0)``) at its ground-truth poses:
+      the selected-inverse marginals (``sparse_chol``, leaf 32) of 64
+      evenly spaced poses, the cross blocks of 16 odometry pairs, log det H;
+  38  ``bench/covariance_bench.py``'s graph, ``se2_manhattan(3500,
+      seed=1)``, at its ground-truth poses: the marginals of 16 evenly
+      spaced poses by the selected inverse, log det H;
+  39  Venice-mini (``ba_synthetic(300, 60000, obs_per_pt=6, seed=0)``) at
+      its ground-truth values: the marginals of 16 evenly spaced cameras and
+      of 16 evenly spaced points (``method="sparse"``);
+  41  ``IncrementalSmoother.pose_marginals`` in its three branches: phase
+      35's stream before and after ``marginalize_oldest(keep_last=500)``
+      (16 evenly spaced poses each), and the landmark stream of
+      ``tests/test_torch_incremental.py`` (``landmark_slam_2d(22, 12)``,
+      bearing-range, LM 15, an update every 6 poses) without and with
+      ``keep_window=10``;
+  42  ``solve_batched`` (LM 50) of chip phase 17's fleet of 16
+      ``se2_loop(100, 12, seed=s)`` graphs under ``TDistributionLoss()``,
+      and of the L2 fleet by dogleg: each problem's chi2.
+
+Phases 37 to 39 take the ground truth because it is an estimate both
+packages hold bit for bit; the chip smoke also checks the port's methods
+against each other at its own converged estimates.
+
+Scalars print as JSON on the last line; the arrays of phases 32 to 35 and
+37 to 42 (per keyframe, the poses, the covariance blocks) go to
+``chip_smoke_refs.npz`` beside ``chip_smoke.py``, which loads them.  The port never imports this script; its numbers are constants in
 ``chip_smoke.py``.  Run from the repository root (minutes; phase 30 holds a
 dense f64 H of 11,008 x 11,008, about 1 GB; phase 35 one of 14,130 x
 14,130, 1.6 GB):
 
     python scripts/torch_port_refs.py [--phases 28,29,30,31,32,33,34,35,36]
+    python scripts/torch_port_refs.py --phases 37,38,39,41,42
 """
 
 from __future__ import annotations
@@ -242,7 +266,7 @@ def phase32():
               "vels": VariableBlock.create("euclidean", jnp.zeros((1, 3), f64)),
               "biases": VariableBlock.create("euclidean", jnp.zeros((1, 6), f64))}
     g = FactorGraph(blocks, [pose_prior(0, T_meas[0])])
-    errs, chi2s, iters = [], [], []
+    errs, chi2s, iters, bg_errs = [], [], [], []
     t0 = time.perf_counter()
     for k in range(1, n):
         pim = pims[k - 1]
@@ -270,6 +294,7 @@ def phase32():
         errs.append(float(jnp.linalg.norm(se3.log(jnp.asarray(d.T_gt[k], f64) @ se3.inv(T_new)))))
         chi2s.append(float(info.chi2))
         iters.append(int(info.iterations))
+        bg_errs.append(float(np.abs(np.asarray(g.blocks["biases"].values).mean(0)[:3] - d.b_gyro).max()))
     b_est = np.asarray(g.blocks["biases"].values).mean(0)
     out = dict(errs=errs, chi2=chi2s, iterations=iters, b_est=b_est.tolist(),
                bg_err=float(np.abs(b_est[:3] - d.b_gyro).max()), preintegration_seconds=t_pre,
@@ -277,7 +302,8 @@ def phase32():
     print(f"32 vio window: {n - 1} keyframes, newest-pose error max {max(errs)!r} (from the 6th {max(errs[5:])!r}), "
           f"gyro bias error {out['bg_err']!r}, LM iterations {sum(iters)}, {out['seconds']:.1f} s "
           f"(+ {t_pre:.1f} s preintegration)", flush=True)
-    return out, {"p32_errs": np.asarray(errs), "p32_chi2": np.asarray(chi2s), "p32_iterations": np.asarray(iters)}
+    return out, {"p32_errs": np.asarray(errs), "p32_chi2": np.asarray(chi2s), "p32_iterations": np.asarray(iters),
+                 "p32_bg_errs": np.asarray(bg_errs)}
 
 
 # The feeds below are the port's (``pyslam_tpu_torch/testing.py``: the same
@@ -474,6 +500,118 @@ def phase36():
     print(f"36 schur_sqrt ladybug-49 mono: route(f32) {out['route_f32']}, chi2 {chi2!r}, iterations "
           f"{out['iterations']}, f32 gaps sqrt {out['gap_sqrt_f32']!r} dense {out['gap_dense_f32']!r}", flush=True)
     return out
+
+
+def _spaced(n, k):
+    return np.linspace(0, n - 1, k).astype(np.int64)
+
+
+def _at_truth(g, **values):
+    """The graph with its blocks set to the given (ground-truth) values."""
+    from pyslam_tpu.graph.core import VariableBlock
+
+    blocks = dict(g.blocks)
+    for name, v in values.items():
+        b = blocks[name]
+        blocks[name] = VariableBlock.create(b.kind, jnp.asarray(v, b.values.dtype), b.const_mask)
+    return g.with_values(blocks)
+
+
+def _selinv(g, pairs=None):
+    """(symmetrized marginals of every variable, pair blocks, log det H) of a
+    single-block graph through the reference's sparse_chol, jitted."""
+    from pyslam_tpu.solver import bcsr
+    from pyslam_tpu.solver import sparse_chol as sc
+
+    plan = sc.build_chol_plan(g)
+    sc._device_waves(plan)  # the tables as executable parameters, not constants
+    He, _, _ = jax.jit(lambda gg: bcsr.assemble_ell(gg, plan.ell))(g)
+    factors = jax.jit(lambda H: sc._factorize(plan, H))(He)
+    if pairs is None:
+        diag, blocks = jax.jit(lambda f: sc.selected_inverse_marginals(plan, f))(factors), None
+    else:
+        diag, blocks = jax.jit(lambda f: sc.selected_inverse_marginals(plan, f, pairs=pairs))(factors)
+    diag = np.asarray(diag)
+    logdet = float(jax.jit(lambda f: sc.factor_logdet(plan, f))(factors))
+    return 0.5 * (diag + diag.transpose(0, 2, 1)), (None if blocks is None else np.asarray(blocks)), logdet
+
+
+def phase37():
+    data = synth.se3_sphere(n_poses=2500, seed=0)
+    g = _at_truth(build.pose_graph(data, dtype=jnp.float64), poses=data.T_gt)
+    n = len(data.T_gt)
+    idx = _spaced(n, 64)
+    pairs = np.stack([_spaced(n - 1, 16), _spaced(n - 1, 16) + 1], 1)
+    t0 = time.perf_counter()
+    marg, blocks, logdet = _selinv(g, pairs=[tuple(p) for p in pairs])
+    out = dict(logdet=logdet, seconds=time.perf_counter() - t0)
+    print(f"37 sphere2500 selected inverse at the truth: log det {logdet!r}, {out['seconds']:.1f} s", flush=True)
+    return out, {"p37_idx": idx, "p37_marg": marg[idx], "p37_pairs": pairs, "p37_pair_blocks": blocks,
+                 "p37_logdet": np.float64(logdet)}
+
+
+def phase38():
+    data = synth.se2_manhattan(n_poses=3500, seed=1)
+    g = _at_truth(build.pose_graph(data, dtype=jnp.float64), poses=data.T_gt)
+    idx = _spaced(len(data.T_gt), 16)
+    t0 = time.perf_counter()
+    marg, _, logdet = _selinv(g)
+    out = dict(logdet=logdet, seconds=time.perf_counter() - t0)
+    print(f"38 M3500 selected inverse at the truth: log det {logdet!r}, {out['seconds']:.1f} s", flush=True)
+    return out, {"p38_idx": idx, "p38_marg": marg[idx], "p38_logdet": np.float64(logdet)}
+
+
+def phase39():
+    from pyslam_tpu.solver import landmark_marginal_covariances, pose_marginal_covariances
+
+    data = synth.ba_synthetic(n_cams=300, n_pts=60000, obs_per_pt=6, seed=0)
+    g = _at_truth(build.ba_graph(data, dtype=jnp.float64), poses=data.T_gt, landmarks=data.pts_gt)
+    cams, pts = _spaced(len(data.T_gt), 16), _spaced(len(data.pts_gt), 16)
+    t0 = time.perf_counter()
+    pose = np.asarray(pose_marginal_covariances(g, indices=cams, method="sparse"))
+    lms = np.asarray(landmark_marginal_covariances(g, pts, method="sparse"))
+    out = dict(seconds=time.perf_counter() - t0)
+    print(f"39 Venice-mini marginals at the truth: {out['seconds']:.1f} s", flush=True)
+    return out, {"p39_cams": cams, "p39_pose_marg": pose, "p39_pts": pts, "p39_lm_marg": lms}
+
+
+def phase41():
+    from pyslam_tpu.solver.incremental import IncrementalSmoother
+    from pyslam_tpu_torch.testing import drive_incremental, drive_incremental_landmarks
+
+    t0 = time.perf_counter()
+    sm = IncrementalSmoother(kind="se2")
+    drive_incremental(sm, m3500(), every=250)
+    idx = _spaced(sm.n, 16)
+    before = np.asarray(sm.pose_marginals())[idx]
+    sm.marginalize_oldest(keep_last=500)
+    sm.update()
+    idx_after = _spaced(sm.n, 16)
+    after = np.asarray(sm.pose_marginals())[idx_after]
+    arrays = {"p41_idx": idx, "p41_before": before, "p41_idx_after": idx_after, "p41_after": after}
+    data = synth.landmark_slam_2d(n_poses=22, n_landmarks=12, max_range=9.0, obs_type="bearing_range", seed=8)
+    for key, keep in (("p41_schur", None), ("p41_dense", 10)):
+        lsm = IncrementalSmoother(kind="se2", obs_kind="bearing_range_se2", options=Options(method="lm", max_iters=15))
+        drive_incremental_landmarks(lsm, data, 6, keep)
+        arrays[key] = np.asarray(lsm.pose_marginals())
+    out = dict(n_after=int(sm.n), seconds=time.perf_counter() - t0)
+    print(f"41 pose_marginals: three branches, {out['seconds']:.1f} s", flush=True)
+    return out, arrays
+
+
+def phase42():
+    from pyslam_tpu.losses import TDistributionLoss
+    from pyslam_tpu.solver import solve_batched
+
+    loops = [synth.se2_loop(n_poses=100, n_loops=12, seed=s) for s in range(16)]
+    t0 = time.perf_counter()
+    fleet_t = [build.pose_graph(d, loss=TDistributionLoss(), dtype=jnp.float64) for d in loops]
+    _, chi2_t = solve_batched(fleet_t, Options(method="lm", max_iters=50))
+    fleet = [build.pose_graph(d, dtype=jnp.float64) for d in loops]
+    _, chi2_d = solve_batched(fleet, Options(method="dogleg", max_iters=50))
+    out = dict(seconds=time.perf_counter() - t0)
+    print(f"42 solve_batched: t-distribution and dogleg fleets, {out['seconds']:.1f} s", flush=True)
+    return out, {"p42_chi2_t": np.asarray(chi2_t), "p42_chi2_dogleg": np.asarray(chi2_d)}
 
 
 def main():

@@ -403,6 +403,75 @@ def test_ell_pcg_zero_rhs_and_zero_budget(cuda_device):
         assert int(out.iterations) == 0 and not out.x.any()
 
 
+def _pcg_columns(b, m, seed=5):
+    """m right-hand sides that stop at different iterations: b, unit vectors
+    (covariance columns), a zero column, random ones."""
+    n = b.shape[0]
+    gen = torch.Generator(device=b.device).manual_seed(seed)
+    B = torch.randn((n, m), generator=gen, device=b.device, dtype=b.dtype)
+    B[:, 0] = b
+    for j in range(1, min(m, 4)):
+        B[:, j] = 0.0
+        B[(j * 997) % n, j] = 1.0
+    if m > 4:
+        B[:, 4] = 0.0
+    return B
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,K,d", [(2500, 9, 6), (300, 5, 3), (30000, 9, 6), (3500, 7, 4)])
+@pytest.mark.parametrize("m", ["one", "mid", "max", "over"])
+def test_ell_pcg_kernel_block_matches_plain(cuda_device, nb, K, d, dtype, m):
+    """A block of right-hand sides: one launch per ``max_columns`` columns,
+    no host read, each column against the plain version's (its iterations
+    as ``PCG_TOL`` allows, x within its tolerance), the zero column stopped
+    at once, two runs the same bits."""
+    He, cols, Minv, b = _spd_ell(nb, K, d, 6, cuda_device, dtype)
+    cap = cuda_ops.ell_pcg_plan(nb, K, d, dtype, cuda_device)["max_columns"]
+    assert cap >= 1
+    n_cols = {"one": 1, "mid": min(cap, 16), "max": cap, "over": 2 * cap + 3}[m]
+    B = _pcg_columns(b, n_cols)
+    rtol = PCG_RTOL[dtype]
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    out = ell_pcg(He, cols, Minv, B, rtol, 200)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["ell_pcg"] == -(-n_cols // cap) and cuda_ops.LAUNCHES["ell_pcg_plain"] == 0
+    assert linear.HOST_READS["pcg"] == 0
+    assert out.x.shape == B.shape and out.iterations.shape == (n_cols,)
+    ref = ell_pcg_plain(He, cols, Minv, B, rtol, 200)
+    x_tol, it_tol = PCG_TOL[dtype]
+    its, its_ref = out.iterations.tolist(), ref.iterations.tolist()
+    assert cuda_ops.pcg_iterations() == sum(its)
+    assert all(abs(a - r) <= it_tol for a, r in zip(its, its_ref)), (its, its_ref)
+    if n_cols > 4:
+        assert its[4] == 0 and not out.x[:, 4].any()
+    for j in range(n_cols):
+        if ref.x[:, j].any():
+            _assert_close(out.x[:, j], ref.x[:, j], x_tol)
+    again = ell_pcg(He, cols, Minv, B, rtol, 200)
+    assert torch.equal(out.x, again.x) and torch.equal(out.iterations, again.iterations)
+    # a column of the block is the single-column solve of that column
+    one = ell_pcg(He, cols, Minv, B[:, 0].contiguous(), rtol, 200)
+    assert abs(int(one.iterations) - its[0]) <= it_tol
+    _assert_close(out.x[:, 0], one.x, x_tol)
+
+
+def test_ell_pcg_plan_columns(cuda_device):
+    """sphere2500's shapes keep He resident beside tens of columns, more in
+    f32 than in f64; more columns than the plan's maximum are refused by the
+    plan (the wrapper splits them)."""
+    f32 = cuda_ops.ell_pcg_plan(2500, 9, 6, torch.float32, cuda_device)
+    f64 = cuda_ops.ell_pcg_plan(2500, 9, 6, torch.float64, cuda_device)
+    assert f32["max_columns"] > f64["max_columns"] >= 16
+    full = cuda_ops.ell_pcg_plan(2500, 9, 6, torch.float64, cuda_device, f64["max_columns"])
+    assert full["resident_rows"] == 2500
+    with pytest.raises(RuntimeError, match="more columns"):
+        cuda_ops.ell_pcg_plan(2500, 9, 6, torch.float64, cuda_device, f64["max_columns"] + 1)
+    big = cuda_ops.ell_pcg_plan(30000, 9, 6, torch.float32, cuda_device)
+    assert big["max_columns"] == 1 and 0 < big["resident_rows"] < 30000
+
+
 def test_wrappers_refuse_mixed_devices(cuda_device):
     He, cols, x = _random_ell(8, 3, 6, 1, cuda_device, torch.float32)
     with pytest.raises(ValueError, match="different devices"):

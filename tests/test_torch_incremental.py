@@ -20,7 +20,7 @@ from pyslam_tpu.solver import incremental as jinc
 from pyslam_tpu_torch.sensors import StereoCamera as TStereo
 from pyslam_tpu_torch.solver import Options
 from pyslam_tpu_torch.solver import incremental as tinc
-from pyslam_tpu_torch.testing import drive_incremental
+from pyslam_tpu_torch.testing import drive_incremental, drive_incremental_landmarks
 
 
 def _pair(opts, **kw):
@@ -83,37 +83,6 @@ def test_marginalize_oldest_keeps_the_estimate():
     assert tsm.n == 11
 
 
-def _stream_landmarks(sm, data, update_every, keep_window=None):
-    """``tests/test_incremental.py``'s online landmark SLAM stream."""
-    lm_id, obs_by_pose, ups = {}, {}, []
-    for m in range(len(data.obs_pose)):
-        obs_by_pose.setdefault(int(data.obs_pose[m]), []).append(m)
-    n = len(data.T_init)
-    prev = None
-    for k in range(n):
-        if k == 0:
-            prev = sm.add_pose(data.T_init[0])
-        else:
-            cur = sm.add_pose(data.T_meas[k - 1] @ sm.poses()[prev])
-            sm.add_between(prev, cur, data.T_meas[k - 1], data.sqrt_info[k - 1])
-            prev = cur
-        for m in obs_by_pose.get(k, []):
-            lj = int(data.obs_lm[m])
-            if lj not in lm_id:
-                b, r = data.obs[m]
-                p_local = np.array([r * np.cos(b), r * np.sin(b)])
-                Tk = sm.poses()[prev]
-                lm_id[lj] = sm.add_landmark(Tk[:2, :2].T @ (p_local - Tk[:2, 2]))
-            sm.add_observation(prev, lm_id[lj], data.obs[m], data.obs_sqrt_info[m])
-        if k % update_every == 0 or k == n - 1:
-            _, info = sm.update()
-            ups.append((float(info.chi2), int(info.iterations)))
-            if keep_window and sm.n > keep_window + 4:
-                sm.marginalize_oldest(keep_window)
-                prev = sm.n - 1
-    return ups
-
-
 @pytest.mark.parametrize("keep_window", [None, 10])
 def test_landmark_stream_matches_reference(keep_window):
     """Bearing-range landmark SLAM through ``solve_auto`` (the Schur routes,
@@ -121,8 +90,8 @@ def test_landmark_stream_matches_reference(keep_window):
     priors span poses and landmarks and the graph takes the dense path."""
     data = jsynth.landmark_slam_2d(n_poses=22, n_landmarks=12, max_range=9.0, obs_type="bearing_range", seed=8)
     jsm, tsm = _pair(dict(method="lm", max_iters=15), kind="se2", obs_kind="bearing_range_se2")
-    t_ups = _stream_landmarks(tsm, data, 6, keep_window)
-    j_ups = _stream_landmarks(jsm, data, 6, keep_window)
+    t_ups = drive_incremental_landmarks(tsm, data, 6, keep_window)
+    j_ups = drive_incremental_landmarks(jsm, data, 6, keep_window)
     _same_updates(t_ups, j_ups)
     _same_state(tsm, jsm)
     if keep_window:
@@ -160,10 +129,71 @@ def test_visual_ba_with_camera_extras():
     assert np.abs(sms[1].poses() - data.T_gt).max() < 0.05
 
 
+def _branch_spy(monkeypatch):
+    """The names of the covariance functions ``pose_marginals`` calls."""
+    from pyslam_tpu_torch.solver import covariance as tcov
+
+    called = []
+    for name in ("marginal_covariances_direct", "pose_marginal_covariances", "full_covariance"):
+        fn = getattr(tcov, name)
+        monkeypatch.setattr(tcov, name, lambda *a, _fn=fn, _name=name, **kw: called.append(_name) or _fn(*a, **kw))
+    return called
+
+
+def _same_marginals(tsm, jsm, rel=1e-7):
+    """The two smoothers' states agree within 1e-9; their marginals, which
+    depend smoothly on the state, within ``rel`` of the largest entry."""
+    ours, ref = tsm.pose_marginals(), np.asarray(jsm.pose_marginals())
+    assert ours.shape == ref.shape == (tsm.n, tsm._dof, tsm._dof)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=rel * np.abs(ref).max())
+    np.testing.assert_allclose(ours[0], np.eye(tsm._dof), atol=1e-9)  # the gauge anchor
+    return ours
+
+
+def test_pose_marginals_direct_branch_matches_reference(monkeypatch):
+    """A pose graph: the selected inverse of the multifrontal factors, before
+    and after ``marginalize_oldest`` (the dense prior's slots all name
+    'poses', so it stays on this branch)."""
+    data = jsynth.se2_loop(n_poses=40, n_loops=6, seed=2)
+    jsm, tsm = _pair(dict(method="lm", max_iters=15), kind="se2")
+    for sm in (jsm, tsm):
+        drive_incremental(sm, data, every=10)
+    called = _branch_spy(monkeypatch)
+    _same_marginals(tsm, jsm)
+    for sm in (jsm, tsm):
+        sm.marginalize_oldest(keep_last=10)
+        sm.update()
+    assert [fb.slots for fb in tsm._prior_batches] == [("poses", "poses")]
+    _same_marginals(tsm, jsm)
+    assert called == ["marginal_covariances_direct"] * 2
+
+
+def test_pose_marginals_schur_branch_matches_reference(monkeypatch):
+    """A landmark graph: S-solves on the reduced camera system."""
+    data = jsynth.landmark_slam_2d(n_poses=22, n_landmarks=12, max_range=9.0, obs_type="bearing_range", seed=8)
+    jsm, tsm = _pair(dict(method="lm", max_iters=15), kind="se2", obs_kind="bearing_range_se2")
+    drive_incremental_landmarks(tsm, data, 6)
+    drive_incremental_landmarks(jsm, data, 6)
+    called = _branch_spy(monkeypatch)
+    _same_marginals(tsm, jsm)
+    assert called == ["pose_marginal_covariances"]
+
+
+def test_pose_marginals_dense_branch_matches_reference(monkeypatch):
+    """A landmark graph carrying a marginalization prior over poses and
+    landmarks: the dense inverse."""
+    data = jsynth.landmark_slam_2d(n_poses=22, n_landmarks=12, max_range=9.0, obs_type="bearing_range", seed=8)
+    jsm, tsm = _pair(dict(method="lm", max_iters=15), kind="se2", obs_kind="bearing_range_se2")
+    drive_incremental_landmarks(tsm, data, 6, keep_window=10)
+    drive_incremental_landmarks(jsm, data, 6, keep_window=10)
+    assert any({"poses", "landmarks"} <= set(fb.slots) for fb in tsm._prior_batches)
+    called = _branch_spy(monkeypatch)
+    _same_marginals(tsm, jsm)
+    assert called == ["full_covariance"]
+
+
 def test_unported_and_invalid():
     sm = tinc.IncrementalSmoother(kind="se2", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        sm.pose_marginals()
     with pytest.raises(ValueError, match="obs_kind"):
         sm.add_landmark(np.zeros(2))
     with pytest.raises(ValueError, match="landmark block"):

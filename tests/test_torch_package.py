@@ -18,7 +18,7 @@ from pyslam_tpu_torch import imu
 from pyslam_tpu_torch.graph import build, convert, initialize, marginalize
 from pyslam_tpu_torch.io import bal, synth
 from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
-from pyslam_tpu_torch.solver import FixedLagLandmarkSmoother, FixedLagSmoother, IncrementalSmoother
+from pyslam_tpu_torch.solver import FixedLagLandmarkSmoother, FixedLagSmoother, IncrementalSmoother, covariance
 from pyslam_tpu_torch.testing import se3_stress_graph
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -62,6 +62,13 @@ def test_import_leaves_jax_out():
         "from pyslam_tpu_torch.graph import marginalize\n"
         "from pyslam_tpu_torch.solver import FixedLagSmoother, FixedLagLandmarkSmoother, IncrementalSmoother\n"
         "from pyslam_tpu_torch.solver import solve_schur_sqrt, build_sqrt_plan, SqrtBAPlan\n"
+        "import pyslam_tpu_torch.solver.covariance\n"
+        "from pyslam_tpu_torch.solver import full_covariance, marginal_covariances, marginal_covariances_direct\n"
+        "from pyslam_tpu_torch.solver import covariance_block, covariance_blocks_direct, pose_marginal_covariances\n"
+        "from pyslam_tpu_torch.solver import pose_covariance_block, landmark_marginal_covariances\n"
+        "from pyslam_tpu_torch.solver import landmark_covariance_block, pose_landmark_covariance_block\n"
+        "from pyslam_tpu_torch.solver import selected_inverse_marginals, locate_fill_pairs, factor_logdet\n"
+        "from pyslam_tpu_torch.dist import sharded_pose_marginals, sharded_landmark_marginals\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -124,6 +131,14 @@ def _chordal_entry(**kw):
     return torch.zeros(0, device=seen[0])
 
 
+def _LOOP(**kw):
+    return build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), dtype=torch.float64, **kw)
+
+
+def _BA(**kw):
+    return build.ba_graph(synth.ba_synthetic(n_cams=3, n_pts=8, seed=0), dtype=torch.float64, **kw)
+
+
 DEFAULT_DEVICE_ENTRY_POINTS = {
     "default_device": pyslam_tpu_torch.default_device,
     "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
@@ -153,6 +168,12 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "FixedLagLandmarkSmoother": lambda **kw: FixedLagLandmarkSmoother(window=4, lm_slots=3,
                                                                       obs_kind="landmark_xy_se2", kind="se2", **kw).Hp,
     "IncrementalSmoother": lambda **kw: IncrementalSmoother(kind="se2", **kw)._graph(),
+    # the covariance queries answer on the device of the graph they are given
+    "full_covariance": lambda **kw: covariance.full_covariance(_LOOP(**kw)),
+    "marginal_covariances": lambda **kw: covariance.marginal_covariances(_LOOP(**kw), indices=[1, 2]),
+    "marginal_covariances_direct": lambda **kw: covariance.marginal_covariances_direct(_LOOP(**kw)),
+    "pose_marginal_covariances": lambda **kw: covariance.pose_marginal_covariances(_BA(**kw), indices=[1]),
+    "landmark_marginal_covariances": lambda **kw: covariance.landmark_marginal_covariances(_BA(**kw), [0, 3]),
     "so2.identity": so2.identity,
     "se2.identity": se2.identity,
     "so3.identity": so3.identity,

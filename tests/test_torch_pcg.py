@@ -8,6 +8,11 @@ port's wrapper runs its plain version (the host loop over the plain
 product); the kernel itself is held against that plain version on the card
 by ``tests/test_torch_cuda.py``.
 
+A block of right-hand sides (nb*d, m) runs every column's recurrences at
+once, each column with its own stop test, as the reference's vmap of
+``pcg_solve`` over the columns of a covariance query: held to m single
+solves and to that vmap.
+
 Tolerances: x within 1e-10 of the largest reference entry (both sides run
 the same recurrences in f64; only the order of the sums differs), the same
 iteration count.
@@ -15,6 +20,7 @@ iteration count.
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,3 +173,83 @@ def test_ell_pcg_refuses_what_the_kernel_does_not_take(bad, match):
         args[k] = f(args[k])
     with pytest.raises((TypeError, ValueError), match=match):
         ell_pcg(**args)
+
+
+# --------------------------------------------------------------------------
+# A block of right-hand sides
+# --------------------------------------------------------------------------
+
+
+def _columns(b, m=6, seed=4):
+    """m right-hand sides that stop at different iterations: b itself, unit
+    vectors (covariance columns), b scaled by 1e3 (the same iterations as b:
+    the stop test is relative), a zero column (stops before the first
+    iteration) and random ones."""
+    n = b.shape[0]
+    rng = np.random.default_rng(seed)
+    B = rng.normal(size=(n, m))
+    B[:, 0] = b
+    B[:, 1] = np.eye(n)[0]
+    B[:, 2] = np.eye(n)[n // 2]
+    B[:, 3] = 1e3 * b
+    B[:, 4] = 0.0
+    return B
+
+
+@pytest.mark.parametrize("system", sorted(SYSTEMS))
+def test_ell_pcg_block_matches_single_solves_and_reference(system):
+    """Each column of a block runs its own recurrences and stop test: the
+    iterations of m single solves, x within 1e-10 of each (the block sums
+    its dot products in another order), and of the reference's vmap of
+    ``pcg_solve``.  The zero column stops at once, x = 0."""
+    He, cols, b = SYSTEMS[system]()
+    B = _columns(b)
+    rtol, max_iters = 1e-10, 500
+    cuda_ops.reset_launches()
+    reset_host_reads()
+    res = _port(He, cols, B, rtol, max_iters)
+    assert res.x.shape == B.shape and res.iterations.shape == (B.shape[1],)
+    assert res.iterations.dtype == torch.int32
+    assert cuda_ops.LAUNCHES["ell_pcg_plain"] == 1
+    its = res.iterations.tolist()
+    assert HOST_READS["pcg"] == max(its) + 1  # one read of the m stop tests an iteration
+    singles = [_port(He, cols, B[:, j].copy(), rtol, max_iters) for j in range(B.shape[1])]
+    assert its == [int(s.iterations) for s in singles]
+    assert its[4] == 0 and not res.x[:, 4].any() and its[0] == its[3]
+    assert len(set(its)) > 1  # the columns stop at different iterations
+    for j, s in enumerate(singles):
+        np.testing.assert_allclose(res.x[:, j].numpy(), s.x.numpy(), rtol=0,
+                                   atol=1e-10 * max(np.abs(s.x.numpy()).max(), 1e-300))
+    nb, _, d, _ = He.shape
+    He_j = jnp.asarray(He)
+    ell = types.SimpleNamespace(nb=nb, d=d, cols=jnp.asarray(cols))
+    Minv = jb.sym_block_inv(He_j[:, 0])
+    ref_x, ref_it = jax.vmap(
+        lambda v: j_pcg_solve(lambda u: jb.ell_matvec(He_j, ell, u), v,
+                              precond=lambda r: jnp.einsum("rij,rj->ri", Minv, r.reshape(nb, d)).reshape(-1),
+                              rtol=rtol, max_iters=max_iters), in_axes=1, out_axes=(1, 0))(jnp.asarray(B))
+    assert its == np.asarray(ref_it).tolist()
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(ref_x), rtol=0, atol=1e-10 * np.abs(np.asarray(ref_x)).max())
+
+
+def test_ell_pcg_block_budget_and_nan_column():
+    """The budget caps every column; a NaN column stops before its first
+    iteration without touching the others."""
+    He, cols, b = _random_system()
+    B = _columns(b)
+    res = _port(He, cols, B, 1e-14, 3)
+    assert res.iterations.tolist() == [3, 3, 3, 3, 0, 3]
+    B[7, 5] = np.nan
+    res = _port(He, cols, B, 1e-8, 50)
+    clean = _port(He, cols, B[:, :5].copy(), 1e-8, 50)
+    assert int(res.iterations[5]) == 0 and res.iterations[:5].tolist() == clean.iterations.tolist()
+    np.testing.assert_allclose(res.x[:, :5].numpy(), clean.x.numpy(), rtol=0, atol=1e-12 * np.abs(clean.x.numpy()).max())
+
+
+def test_ell_pcg_block_shapes_refused():
+    He, cols, b = _random_system()
+    He_t = torch.from_numpy(He)
+    Minv = sym_block_inv(He_t[:, 0]).contiguous()
+    for bad in (torch.zeros(b.shape[0] + 1, 2, dtype=torch.float64), torch.zeros(b.shape[0], 2, 1, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="b: shape"):
+            ell_pcg(He_t, torch.from_numpy(cols), Minv, bad, 1e-8, 10)

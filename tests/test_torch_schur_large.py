@@ -394,6 +394,39 @@ def test_masked_pcg_of_the_profile_gives_the_same_iterate(read_every):
     assert tsl.CG_READ_EVERY == 0  # what the solver runs
 
 
+@pytest.mark.parametrize("read_every", [1, 4, 0])
+def test_pcg_on_a_block_runs_each_column_as_alone(read_every):
+    """``_pcg`` on a block (n, m): each column's iterate and count are those
+    of the column solved alone (its own stop test, frozen once it fails),
+    a zero column runs no iteration, and the host reads whether any column
+    runs every ``read_every`` iterations, ending the loop when none does."""
+    rng = np.random.default_rng(1)
+    A = rng.normal(size=(40, 40))
+    A = torch.from_numpy(A @ A.T + 40 * np.eye(40))
+    d = torch.diagonal(A)
+    B = torch.from_numpy(rng.normal(size=(40, 5)))
+    B[:, 1] = 0.0
+    B[:, 3] = B[:, 3] * 1e-6  # a small column: each stop test is relative to its own norm
+    B[:, 4] = A[:, 7] * 2.0  # A x = b with x = 2 e_7: a fast column
+
+    def matvec(P):
+        return A @ P
+
+    def precond(R):
+        return R / (d[:, None] if R.dim() == 2 else d)
+
+    reset_host_reads()
+    X, its = tsl._pcg(matvec, precond, B, 1e-9, 60, read_every=read_every)
+    reads = HOST_READS["pcg"]
+    assert X.shape == B.shape and its.shape == (5,)
+    assert its[1] == 0 and not X[:, 1].any()
+    for j in (0, 2, 3, 4):
+        x, n = tsl._pcg(matvec, precond, B[:, j].contiguous(), 1e-9, 60, read_every=0)
+        assert int(its[j]) == int(n) < 60
+        np.testing.assert_allclose(X[:, j].numpy(), x.numpy(), rtol=0, atol=1e-12 * float(x.abs().max()))
+    assert reads == (0 if read_every == 0 else -(-int(its.max()) // read_every) + 1)
+
+
 # --------------------------------------------------------------------------
 # Errors
 # --------------------------------------------------------------------------

@@ -13,6 +13,11 @@ lambda of every LM iteration), the accepted costs and the final chi2
 within 1e-9 relative, the values within 1e-8.  The same against the
 port's single-device ``solve_schur`` (PCG 1e-10); 1e-9 between mesh sizes
 and partitions; the same bits on every rank and for two solves.
+
+The sharded marginals (``sharded_pose_marginals``,
+``sharded_landmark_marginals``) run on a group of two ranks of their own:
+the same bits on both, within 1e-7 of the reference's on two CPU devices
+and of the port's single-device marginals (PCG 1e-10 on every side).
 """
 
 import dataclasses
@@ -41,6 +46,17 @@ from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver import schur
 
 F64 = jnp.float64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops in this module are many and small: under the
+    parallel test run, with every worker's thread pool on the same cores,
+    they run ten times slower on torch's default threads than on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _stereo(seed=3, loss=None, n_cams=8, n_pts=64, obs_per_pt=4):
@@ -105,6 +121,19 @@ ARRAYS = {name: _graph(name) for name in GRAPHS}
 L_STEREO = ARRAYS["stereo"][0].blocks["landmarks"].n
 RANDOM_PART = np.random.default_rng(0).integers(0, 3, L_STEREO)
 EMPTY_RANK_PART = 1 + np.arange(L_STEREO) % 2  # rank 0 owns no landmark
+
+
+# the sharded marginals: graphs (with the pose-pose coupling of 'between'),
+# the queries, and a PCG tolerance far below the 1e-7 they are held to
+MARGINAL_GRAPHS = ["between", "se2"]
+MARGINAL_POSES = [0, 2, 5]
+MARGINAL_LANDMARKS = [0, 7, 19]
+MARGINAL_PCG = dict(pcg_rtol=1e-10, pcg_max_iters=200)
+
+
+def marginals_job(name):
+    return dict(key=f"marginals_{name}", solver="marginals", graph=ARRAYS[name][1],
+                kw=dict(poses=MARGINAL_POSES, landmarks=MARGINAL_LANDMARKS, **MARGINAL_PCG))
 
 
 def job(key, name, options=OPTIONS, **kw):
@@ -324,3 +353,41 @@ def test_shard_ba_takes_either_observation_order():
     ra, ja = _observations(a, a.poses, a.lms, True)
     rb, jb = _observations(b, b.poses, b.lms, True)
     assert torch.equal(ra, rb) and all(torch.equal(x, y) for x, y in zip(ja, jb))
+
+
+@pytest.fixture(scope="module")
+def marginal_ranks(tmp_path_factory):
+    """Each of two ranks' results of the marginals jobs."""
+    return run_group(2, [marginals_job(name) for name in MARGINAL_GRAPHS], tmp_path_factory.mktemp("marginals"))
+
+
+@pytest.mark.parametrize("name", MARGINAL_GRAPHS)
+def test_sharded_marginals_match_reference_and_single_device(marginal_ranks, name):
+    """``sharded_pose_marginals`` and ``sharded_landmark_marginals`` on two
+    ranks at the graph's estimate: the same on both ranks, within 1e-7 of
+    the reference's on a mesh of two CPU devices and of the port's
+    single-device ``pose_marginal_covariances`` /
+    ``landmark_marginal_covariances`` (all PCG at 1e-10).  Every S product
+    is one psum, and the landmarks' B columns one more."""
+    from pyslam_tpu.dist.schur_reduce import sharded_landmark_marginals as j_lm
+    from pyslam_tpu.dist.schur_reduce import sharded_pose_marginals as j_pose
+    from pyslam_tpu_torch.solver import covariance as tcov
+
+    outs = [r[f"marginals_{name}"] for r in marginal_ranks]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o["pose"], outs[0]["pose"])
+        np.testing.assert_array_equal(o["landmarks"], outs[0]["landmarks"])
+    ours = outs[0]
+    jg = ARRAYS[name][0]
+    mesh = j_make_mesh(2, axis_name="l")
+    ref_pose = np.asarray(j_pose(jg, mesh, np.asarray(MARGINAL_POSES), **MARGINAL_PCG))
+    ref_lm = np.asarray(j_lm(jg, mesh, np.asarray(MARGINAL_LANDMARKS), **MARGINAL_PCG))
+    tg = graph_from_numpy(*ARRAYS[name][1], dtype=torch.float64, device="cpu")
+    single_pose = tcov.pose_marginal_covariances(tg, indices=MARGINAL_POSES, **MARGINAL_PCG).numpy()
+    single_lm = tcov.landmark_marginal_covariances(tg, MARGINAL_LANDMARKS, **MARGINAL_PCG).numpy()
+    for got, refs in ((ours["pose"], (ref_pose, single_pose)), (ours["landmarks"], (ref_lm, single_lm))):
+        for ref in refs:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-7 * np.abs(ref).max())
+    dp = tg.blocks["poses"].dof
+    np.testing.assert_allclose(ours["pose"][0], np.eye(dp), atol=1e-10)  # the anchor's unit block
+    assert ours["pose_collectives"]["psum"] > 1 and ours["lm_collectives"]["psum"] > 2

@@ -21,7 +21,9 @@ reference, in f64 on the CPU.
   and ``test_torch_schur_sharded``.
 * ``solve_batched``: each problem's chi2 within 1e-10 relative of the
   reference's ``solve_batched`` and of its own ``solve``, values within
-  1e-10, the same iteration count, stop code and accept sequence.
+  1e-10, the same iteration count, stop code and accept sequence, in
+  'lm', 'gn' and 'dogleg', and with ``TDistributionLoss()`` estimating its
+  scale per problem.
 """
 
 import dataclasses
@@ -46,6 +48,7 @@ from pyslam_tpu.graph.core import register_factor as j_register_factor
 from pyslam_tpu.io import bal as jbal
 from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu.losses import L2Loss as JL2
+from pyslam_tpu.losses import TDistributionLoss as JT
 from pyslam_tpu.sensors import StereoCamera as JStereo
 from pyslam_tpu.solver import lm as jlm
 from pyslam_tpu.dist import make_mesh as j_make_mesh
@@ -447,7 +450,7 @@ def test_solve_auto_runs_the_schur_sqrt_route():
 
 def test_solve_auto_refuses_what_is_not_ported():
     """On a mesh, ``schur_cm`` (ROADMAP item 16b) raises; no other solver
-    stands in.  So do the sharded marginals (item 19)."""
+    stands in."""
     jg, tg, _ = real("ba_small")
     kw = dict(cm_obs_crossover=10)
     assert jsolver.route_auto(jg, mesh=j_make_mesh(3), **kw) == route_auto(tg, mesh=port_mesh(3), **kw) == "schur_cm"
@@ -455,9 +458,6 @@ def test_solve_auto_refuses_what_is_not_ported():
         solve_auto(tg, mesh=port_mesh(3), **kw)
     with pytest.raises(NotImplementedError, match="item 16b"):
         dist.solve_schur_cm(tg, port_mesh(3))
-    for fn in (dist.sharded_pose_marginals, dist.sharded_landmark_marginals):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            fn(tg, port_mesh(3))
 
 
 # --------------------------------------------------------------------------
@@ -620,5 +620,28 @@ def test_solve_batched_takes_a_stacked_graph_and_refuses_mixed_structure():
     other = tbuild.pose_graph(tsynth.se2_loop(n_poses=21, n_loops=3, seed=0), dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="differ"):
         solve_batched([tgs[0], other], opts)
-    with pytest.raises(NotImplementedError, match="dogleg"):
-        solve_batched(tgs, tlm.Options(method="dogleg"))
+    jgs, _ = fleet()
+    dogleg = dict(method="dogleg", max_iters=25)
+    jvalues, jchi2 = jsolver.solve_batched(jgs, jlm.Options(**dogleg))
+    values, chi2, info = solve_batched(tgs, tlm.Options(**dogleg), return_info=True)
+    np.testing.assert_allclose(chi2.numpy(), np.asarray(jchi2), rtol=1e-10)
+    np.testing.assert_allclose(values["poses"].numpy(), np.asarray(jvalues["poses"]), rtol=0, atol=1e-10)
+    _check_against_single_solves(tgs, values, chi2, info, tlm.Options(**dogleg))
+
+
+@pytest.mark.parametrize("method", ["lm", "dogleg"])
+def test_solve_batched_estimates_the_t_scale_per_problem(method):
+    """``TDistributionLoss()`` (scale None) re-estimates its scale from the
+    residuals: each problem from its own, as the reference's vmap of
+    ``solve`` does, never one scale over the fleet.  Problems with noise of
+    different sizes, against the reference's ``solve_batched`` and each
+    problem's own ``solve``."""
+    jgs = [jbuild.pose_graph(jsynth.se2_loop(n_poses=20, n_loops=3, odo_rot_std=0.01 * (1 + 2 * s), seed=s),
+                             loss=JT(), dtype=F64) for s in range(4)]
+    tgs = [to_port(g) for g in jgs]
+    opts = dict(method=method, max_iters=25)
+    jvalues, jchi2 = jsolver.solve_batched(jgs, jlm.Options(**opts))
+    values, chi2, info = solve_batched(tgs, tlm.Options(**opts), return_info=True)
+    np.testing.assert_allclose(chi2.numpy(), np.asarray(jchi2), rtol=1e-10)
+    np.testing.assert_allclose(values["poses"].numpy(), np.asarray(jvalues["poses"]), rtol=0, atol=1e-10)
+    _check_against_single_solves(tgs, values, chi2, info, tlm.Options(**opts))

@@ -166,7 +166,12 @@ def test_solve_sparse_chol_matches_reference(name, method, max_iters):
     exact optimum, step for step."""
     jg, tg = graphs(name)
     kw = dict(method=method, max_iters=max_iters)
-    js, ji = jsc.solve_sparse_chol(jg, jlm.Options(**kw))
+    jp = jsc.build_chol_plan(jg)
+    # the reference caches its tables outside the trace: its solve keeps the
+    # plan in a closure cache by structure, which a later reference solve of
+    # this graph in the same process reuses
+    jsc._device_waves(jp)
+    js, ji = jsc.solve_sparse_chol(jg, jlm.Options(**kw), plan=jp)
     reset_host_reads()
     reset_launches()
     ts, ti = tsc.solve_sparse_chol(tg, tlm.Options(**kw))
@@ -191,3 +196,124 @@ def test_solve_sparse_chol_reuses_the_device_plan_and_repeats():
     assert len(tsc._DEVICE_PLANS) == n
     assert torch.equal(i1.chi2, i2.chi2)
     np.testing.assert_array_equal(i1.cost_history.numpy(), i2.cost_history.numpy())
+
+
+# --------------------------------------------------------------------------
+# Uncertainty over the factors: selected inverse, fill pairs, log det
+# --------------------------------------------------------------------------
+
+SWEEP_CASES = [("se2_loop_60", 8), ("se3_sphere_150", 16), ("se2_loop_40", 1000)]
+
+
+def _factors(name, leaf_size):
+    """Both packages' factors of the undamped ELL store of a graph."""
+    jg, tg = graphs(name)
+    jp, tp = plans(name, leaf_size)
+    He, _, _ = tbcsr.assemble_ell(tg, tbcsr.ell_device_plan(tp.ell, "cpu"))
+    jsc._device_waves(jp)  # the reference caches its tables outside the trace
+    He_j, _, _ = jax.jit(lambda gg: jbcsr.assemble_ell(gg, jp.ell))(jg)
+    return jp, tp, jax.jit(lambda H: jsc._factorize(jp, H))(He_j), tsc._factorize(tp, He), He
+
+
+def _dense_inverse(tg):
+    H, _, _ = tas.assemble_dense(tg)
+    return np.linalg.inv(tas.unit_diag_where_dead(H).numpy())
+
+
+@pytest.mark.parametrize("name,leaf_size", SWEEP_CASES)
+def test_selected_inverse_matches_reference_and_dense(name, leaf_size):
+    """Every diagonal block of H^-1 from the sweep: within 1e-10 of the
+    reference's sweep and of a dense inverse (relative to the largest
+    entry; the same eliminations, sums in another order)."""
+    jp, tp, jf, tf, _ = _factors(name, leaf_size)
+    ours = tsc.selected_inverse_marginals(tp, tf)
+    ref = jax.jit(lambda f: jsc.selected_inverse_marginals(jp, f))(jf)
+    assert_rel(ours, ref, 1e-10)
+    d = tp.d
+    Sig = _dense_inverse(graphs(name)[1])
+    dense = np.stack([Sig[i * d:(i + 1) * d, i * d:(i + 1) * d] for i in range(tp.nb)])
+    assert_rel(ours, dense, 1e-10)
+
+
+def test_selected_inverse_pairs_with_swapped_extractions():
+    """In-fill cross blocks from the same sweep, in either orientation (a
+    swapped extraction is transposed back), against the reference and the
+    dense inverse."""
+    name, leaf_size = "se2_loop_60", 8
+    jp, tp, jf, tf, _ = _factors(name, leaf_size)
+    tg = graphs(name)[1]
+    pairs = [(5, 6), (6, 5), (20, 21), (40, 41), (10, 10), (0, 1)]
+    located = tsc.locate_fill_pairs(tp, pairs)
+    assert located == jsc.locate_fill_pairs(jp, pairs)
+    assert {sw for *_, sw in located} == {False, True}
+    diag, blocks = tsc.selected_inverse_marginals(tp, tf, pairs=pairs)
+    jdiag, jblocks = jax.jit(lambda f: jsc.selected_inverse_marginals(jp, f, pairs=pairs))(jf)
+    assert_rel(diag, jdiag, 1e-10)
+    assert_rel(blocks, jblocks, 1e-10)
+    assert torch.equal(diag, tsc.selected_inverse_marginals(tp, tf))  # the pairs change nothing else
+    Sig = _dense_inverse(tg)
+    for (u, v), B in zip(pairs, blocks):
+        assert_rel(B, Sig[3 * u:3 * u + 3, 3 * v:3 * v + 3], 1e-10)
+
+
+def test_locate_fill_pairs_raises_out_of_range_and_out_of_fill():
+    _, tp = plans("se2_loop_40", 4)
+    for bad in [(0, 40), (-1, 5)]:
+        with pytest.raises(ValueError, match="out of range"):
+            tsc.locate_fill_pairs(tp, [bad])
+    # a distant pair on a pure chain is outside the fill
+    chain = to_port(jbuild.pose_graph(jsynth.se2_loop(n_poses=80, n_loops=0, seed=0), dtype=F64))
+    plan = tsc.build_chol_plan(chain)
+    with pytest.raises(ValueError, match="outside the factorization fill"):
+        tsc.locate_fill_pairs(plan, [(1, 75)])
+    assert tsc.locate_fill_pairs(plan, [(1, 2)])  # an odometry pair is always in it
+
+
+@pytest.mark.parametrize("name,leaf_size", SWEEP_CASES)
+def test_factor_logdet_matches_reference_and_slogdet(name, leaf_size):
+    jp, tp, jf, tf, _ = _factors(name, leaf_size)
+    ours = tsc.factor_logdet(tp, tf).item()
+    np.testing.assert_allclose(ours, float(jsc.factor_logdet(jp, jf)), rtol=1e-12)
+    H, _, _ = tas.assemble_dense(graphs(name)[1])
+    sign, ref = np.linalg.slogdet(tas.unit_diag_where_dead(H).numpy())
+    assert sign > 0
+    np.testing.assert_allclose(ours, ref, rtol=1e-10)
+
+
+def test_hand_down_refuses_a_position_named_twice():
+    """The sweep's hand-down is a plain indexed copy: a wave whose tables
+    named one pool position twice would make the copy depend on the order
+    of the writes, so the plan is refused when the first sweep takes its
+    tables to the device."""
+    tbl_l = np.zeros((1, 3, 3), np.int32)
+    tbl_r = np.zeros((1, 3, 3), np.int32)
+    tbl_l[0, 1, 1], tbl_l[0, 1, 2] = 7, 8
+    src, pos = tsc._sigma_scatter(tbl_l, tbl_r)
+    assert src.tolist() == [4, 5] and pos.tolist() == [7, 8]
+    tbl_r[0, 2, 2] = 8  # the left child's position 8 again
+    with pytest.raises(ValueError, match="named twice"):
+        tsc._sigma_scatter(tbl_l, tbl_r)
+    # and on real plans every hand-down position is named once (dump slot 0 left out)
+    for name, leaf_size in CASES + [("se2_manhattan_600", 32)]:
+        tp = plans(name, leaf_size)[1] if (name, leaf_size) in CASES else tsc.build_chol_plan(graphs(name)[1])
+        for (_, sig_pos), wave in zip(tsc._sigma_scatters(tp, "cpu"), tp.waves):
+            n_named = int((wave[7] > 0).sum() + (wave[8] > 0).sum())
+            assert sig_pos.numel() == n_named == len(torch.unique(sig_pos))
+
+
+@pytest.mark.parametrize("name,leaf_size", [("se2_loop_60", 8), ("se3_sphere_150", 16)])
+def test_multi_column_solve_matches_single_columns_and_reference(name, leaf_size):
+    """A block of m right-hand sides in one level-scheduled solve: each
+    column as its own solve (1e-12 relative), the forward sums through the
+    same plans, d*m wide; against the reference's vmap of its solve."""
+    jp, tp, jf, tf, _ = _factors(name, leaf_size)
+    D = tp.nb * tp.d
+    B = np.random.default_rng(0).normal(size=(D, 5))
+    reset_launches()
+    X = tsc._solve_factored(tp, tf, torch.from_numpy(B))
+    waves = tsc._device_waves(tp, "cpu")
+    assert X.shape == (D, 5) and LAUNCHES["slot_reduce_plain"] == sum(1 for w in waves if w.fwd_dest.numel())
+    for j in range(5):
+        assert_rel(X[:, j], tsc._solve_factored(tp, tf, torch.from_numpy(B[:, j].copy())), 1e-12)
+    ref = jax.jit(jax.vmap(lambda b: jsc._solve_factored(jp, jf, b), in_axes=1, out_axes=1))(jnp.asarray(B))
+    assert_rel(X, ref, 1e-10)

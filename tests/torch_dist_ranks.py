@@ -2,8 +2,9 @@
 of a spawned group runs.  It imports neither JAX nor the test modules, so
 the spawned processes load only torch and the port.
 
-A job is a dict: ``key``; ``solver`` ("schur", "pose", "factor", "auto"
-or "mesh"); ``graph``, the arrays ``convert.graph_from_numpy`` takes;
+A job is a dict: ``key``; ``solver`` ("schur", "pose", "factor", "auto",
+"mesh" or "marginals": the sharded pose and landmark marginals at the
+graph's estimate, ``kw`` their indices and PCG settings); ``graph``, the arrays ``convert.graph_from_numpy`` takes;
 ``options``, the ``lm.Options`` fields; ``kw``, the solver's keyword
 arguments (a ``partition`` as its ``part`` array).  ``run_jobs`` runs
 the jobs in order and returns, for each key, the chi2, the cost history,
@@ -114,10 +115,29 @@ def _mesh_checks(mesh, job):
                 same_mesh=dist.make_mesh(n_devices=mesh.size, device="cpu") == dist.make_mesh(device="cpu"))
 
 
+def _marginals(mesh, job):
+    """``sharded_pose_marginals`` and ``sharded_landmark_marginals``, with
+    the collectives each made."""
+    blocks, batches = job["graph"]
+    graph = convert.graph_from_numpy(blocks, batches, torch.float64, device="cpu")
+    kw = dict(job["kw"])
+    poses, lms = kw.pop("poses"), kw.pop("landmarks")
+    if kw.get("partition") is not None:
+        kw["partition"] = dist.Partition(np.asarray(kw["partition"]), mesh.size)
+    dist.reset_collectives()
+    pose = dist.sharded_pose_marginals(graph, mesh, poses, **kw)
+    pose_collectives = dict(dist.COLLECTIVES)
+    dist.reset_collectives()
+    lm = dist.sharded_landmark_marginals(graph, mesh, lms, **kw)
+    return dict(pose=pose.numpy(), landmarks=lm.numpy(), pose_collectives=pose_collectives,
+                lm_collectives=dict(dist.COLLECTIVES))
+
+
 def run_jobs(mesh, jobs):
     out = {}
     for job in jobs:
-        out[job["key"]] = _mesh_checks(mesh, job) if job["solver"] == "mesh" else _solve(mesh, job)
+        run = {"mesh": _mesh_checks, "marginals": _marginals}.get(job["solver"], _solve)
+        out[job["key"]] = run(mesh, job)
     return out
 
 
