@@ -121,13 +121,27 @@ that it reaches its converged cost and went through the kernels:
     marginals on the one-rank NCCL mesh (phase 40); the incremental
     smoother's ``pose_marginals`` in its three branches; ``solve_batched``
     with ``TDistributionLoss()`` and by dogleg, each problem against its
-    single solve and the reference's chi2.
+    single solve and the reference's chi2;
+  * the object API and differentiable solving (phases 43 to 45): sphere2500
+    through ``Problem`` (2,500 ``SE3`` parameters, 4,948
+    ``PoseToPoseResidual`` blocks, f32): the built graph
+    ``build.pose_graph``'s tensor for tensor, route ``ell``, the chi2 and
+    the ``ell_assemble`` / ``ell_pcg`` launches of ``solve_auto`` on it,
+    under the sphere2500 gate; ``get_covariance_block`` of two poses (the
+    lazy path) held in f64 to the selected inverse; ``solve_implicit`` at
+    bench config 2's size (f64, 10,500 dof), its gradient held to central
+    differences and to the JAX reference's (``chip_smoke_refs.npz``), the
+    backward's sums the ``slot_reduce`` kernel through its autograd
+    Function; a ``register_autodiff_factor`` clone of ``between_se3``
+    (Jacobians within 1e-10 of the analytic kernel in f64; sphere2500
+    solved through it on the general ELL assembly under the gate) and
+    ``check_autodiff_factor`` refusing a row-coupled residual.
 
 Run from the repository root on a machine with a CUDA device and
 ``nvcc``; with no arguments it runs every phase:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 37-42      # a selection, e.g. "32-36"
+    python3 chip_smoke.py --phases 37-42      # a selection, e.g. "32-36" or "43-45"
 
 A selection runs phases 1 and 2, the selected phases and the phases they
 read from (4 to 22 for any of 23 to 27, 35 for 41, 39 for 40), and prints
@@ -1413,6 +1427,7 @@ def main(argv=None) -> int:
         robust_init_vio_phases(ctx)
     online_phases(ctx)
     later_covariance_phases(ctx)
+    api_phases(ctx)
     log(f"total: {time.perf_counter() - t_start!r} s")
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
@@ -1436,7 +1451,9 @@ def main(argv=None) -> int:
                   *(f"{g}_from_{i}" for g in ("sphere2500", "m3500") for i in ("odometry", "spanning_tree", "chordal")),
                   "gnc_sphere2500", "switchable_m3500_float32", "switchable_m3500_float64", "vio400",
                   "vio_window", *(f"fixed_lag_{c}_{t}" for c in ("sphere2500", "lm_config8") for t in ("float64", "float32")),
-                  "incremental_m3500", "sqrt_ladybug_float64", "sqrt_ladybug_solve_auto", *COVARIANCE_PATHS)
+                  "incremental_m3500", "sqrt_ladybug_float64", "sqrt_ladybug_solve_auto", *COVARIANCE_PATHS,
+                  "problem_sphere2500", "problem_covariance_f32", "problem_covariance_f64", "implicit_m3500",
+                  "implicit_m3500_backward", "autodiff_sphere2500")
     # a phase selection reports the kernels and paths it ran; the default run
     # must have every kernel, launched on a main path, with every column
     kernels = [
@@ -3005,6 +3022,287 @@ def later_covariance_phases(ctx):
         incremental_marginals_phase(ctx)
     if ctx["want"](42):
         batched_repairs_phase(ctx)
+
+
+def problem_phase(ctx):
+    """Phase 43: sphere2500 through the object API, as a user builds it:
+    2,500 ``SE3`` parameters, 4,948 ``PoseToPoseResidual`` blocks, pose 0
+    constant, ``Problem(Options(method="lm", max_iters=30,
+    min_cost_decrease=0.999))`` in f32 on the card's default device, then
+    ``problem.solve()``.  The built graph must be ``build.pose_graph``'s
+    tensor for tensor, the route ``ell``, chi2 and the ``ell_assemble`` /
+    ``ell_pcg`` launches those of ``solve_auto`` on that graph, under the
+    sphere2500 gate.  Then ``get_covariance_block`` of two poses (15,000
+    dof: the lazy path, PCG columns by ``ell_pcg``), in f32 and on a f64
+    Problem at the solved estimate, the f64 blocks held to the selected
+    inverse of phase 37 (``covariance_blocks_direct``)."""
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch import Options, PoseToPoseResidual, Problem, SE3
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.solver import covariance, route_auto, solve_auto
+
+    drive, gate = ctx["drive"], ctx["gate"]
+    t_phase = time.perf_counter()
+    data = ctx["sphere_data"]
+    opts = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
+    g = build.pose_graph(data, dtype=torch.float32)
+    route = route_auto(g)
+    (ref_solved, ref_info), ref_launches, _ = drive("problem_reference_solve_auto", lambda: solve_auto(g, opts),
+                                                    ("ell_assemble", "ell_pcg"))
+
+    t0 = time.perf_counter()
+    names = [f"x{i}" for i in range(len(data.T_init))]
+    problem = Problem(opts)
+    problem.initialize_params({n: SE3(T) for n, T in zip(names, data.T_init)})
+    for i, j, T_meas, S in zip(data.edges_i, data.edges_j, data.T_meas, data.sqrt_info):
+        problem.add_residual_block(PoseToPoseResidual(SE3(T_meas), S), [names[i], names[j]])
+    problem.set_parameters_constant(names[0])
+    t_blocks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = problem._build()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    (pb,), (gb,) = built.blocks.values(), g.blocks.values()
+    (pf,), (gf,) = built.batches, g.batches
+    same = (torch.equal(pb.values, gb.values) and torch.equal(pb.const_mask, gb.const_mask) and pf.kind == gf.kind
+            and all(torch.equal(a, b) for a, b in zip(pf.indices, gf.indices)) and torch.equal(pf.weight, gf.weight)
+            and sorted(pf.data) == sorted(gf.data) and all(torch.equal(pf.data[k], gf.data[k]) for k in gf.data))
+    check(problem.device.type == "cuda" and pb.values.device.type == "cuda", "Problem did not build on the card")
+    check(same, "problem: the built graph is not build.pose_graph's")
+    check(route == "ell" and route_auto(built) == "ell", f"problem: route {route!r}, expected 'ell'")
+    t0 = time.perf_counter()
+    _, launches, reads = drive("problem_sphere2500", problem.solve, ("ell_assemble", "ell_pcg"))
+    t_solve = time.perf_counter() - t0
+    info = problem.summary
+    chi2 = info.chi2.item()
+    log(f"problem sphere2500 f32: residual blocks {t_blocks!r} s, _build {1e3 * t_build!r} ms, solve {1e3 * t_solve!r} "
+        f"ms; LM iterations {info.iterations}, chi2 {chi2!r} (solve_auto on the built graph {ref_info.chi2.item()!r}), "
+        f"launches {launches} (solve_auto {ref_launches}), host reads {reads}")
+    check(chi2 == ref_info.chi2.item() and info.iterations == ref_info.iterations,
+          f"problem: chi2 {chi2} in {info.iterations} iterations, solve_auto {ref_info.chi2.item()}")
+    check(all(launches[k] == ref_launches[k] for k in ("ell_assemble", "ell_pcg", "slot_reduce")),
+          f"problem: launches {launches} against solve_auto's {ref_launches}")
+    check(torch.equal(problem.param_dict[names[-1]].mat, ref_solved.blocks["poses"].values[-1]),
+          "problem: the written-back pose is not the solved one")
+    gate("problem sphere2500", chi2, 1.001, ctx["chi2_ref"])
+
+    # the lazy covariance: in f32 as solved, and on a f64 Problem at the estimate
+    i, j = 1000, 1001
+    t0 = time.perf_counter()
+    (b32_ii, b32_ij), l32, _ = drive("problem_covariance_f32", lambda: (
+        problem.get_covariance_block(names[i], names[i]), problem.get_covariance_block(names[i], names[j])),
+        ("ell_assemble", "ell_pcg"))
+    t_cov32 = time.perf_counter() - t0
+    check(problem._covariance is None, "problem: 15,000 dof did not take the lazy covariance")
+    p64 = Problem(opts, dtype=torch.float64)
+    p64.initialize_params(problem.param_dict)
+    p64.residual_blocks = list(problem.residual_blocks)
+    p64.set_parameters_constant(names[0])
+    t0 = time.perf_counter()
+    (b64_ii, b64_ij), l64, _ = drive("problem_covariance_f64", lambda: (
+        p64.get_covariance_block(names[i], names[i]), p64.get_covariance_block(names[i], names[j])),
+        ("ell_assemble", "ell_pcg"))
+    t_cov64 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    marg, pair = covariance.covariance_blocks_direct(p64._build(), [(i, j)])
+    t_sel = time.perf_counter() - t0
+    gaps64 = (rel_gap(b64_ii, marg[i]), rel_gap(b64_ij, pair[0]))
+    gaps32 = (rel_gap(b32_ii.double(), marg[i]), rel_gap(b32_ij.double(), pair[0]))
+    log(f"problem sphere2500 covariance of poses {i} and {j}: f32 {1e3 * t_cov32!r} ms (launches {l32}), gaps to the "
+        f"selected inverse {gaps32!r}; f64 {1e3 * t_cov64!r} ms (launches {l64}), gaps {gaps64!r}; selected inverse "
+        f"{1e3 * t_sel!r} ms")
+    check(max(gaps64) <= 1e-6, f"problem: the f64 lazy blocks are {gaps64} from the selected inverse")
+    check(all(np.isfinite(gaps32)), "problem: non-finite f32 covariance blocks")
+    ctx["report"].setdefault("problem", {}).update(
+        sphere2500=dict(build_ms=1e3 * t_build, solve_ms=1e3 * t_solve, blocks_s=t_blocks, cov_f32_ms=1e3 * t_cov32,
+                        cov_f64_ms=1e3 * t_cov64, gaps_f64=gaps64, gaps_f32=gaps32))
+    log(f"phase 43 (sphere2500 through Problem): {time.perf_counter() - t_phase!r} s")
+
+
+def implicit_phase(ctx):
+    """Phase 44: ``solve_implicit`` at bench config 2's size,
+    ``se2_manhattan(3500, seed=1)`` in f64 (10,500 dof, the dense path) with
+    ``tests/test_diff.py``'s options: the gradient of the last pose's
+    translation summed plus 0.1 chi2 with respect to every ``T_obs``, held
+    to central differences (eps 1e-5, warm-started at the optimum) at its
+    three largest entries and to the JAX reference's gradient
+    (``chip_smoke_refs.npz``: its norm and 64 largest entries).  The
+    backward's sums must be the ``slot_reduce`` kernel, never the plain
+    assembly."""
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.graph.core import FactorBatch, FactorGraph
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.solver import solve, solve_implicit
+    from pyslam_tpu_torch.solver.lm import Options
+
+    drive = ctx["drive"]
+    refs = np.load(os.path.join(ROOT, "chip_smoke_refs.npz"))
+    t_phase = time.perf_counter()
+    g = build.pose_graph(synth.se2_manhattan(n_poses=3500, seed=1), dtype=torch.float64)
+    fb = g.batches[0]
+    opts = Options(method="lm", max_iters=60, min_cost_decrease=1 - 1e-13, min_update_norm=1e-14)
+
+    def with_T(T_obs, blocks=g.blocks):
+        return FactorGraph(blocks, [FactorBatch(fb.kind, fb.slots, fb.indices, {**fb.data, "T_obs": T_obs}, fb.loss,
+                                                fb.weight)])
+
+    def gradient():
+        T = fb.data["T_obs"].clone().requires_grad_()
+        values, chi2 = solve_implicit(with_T(T), opts)
+        return torch.autograd.grad(values["poses"][-1, :2, 2].sum() + 0.1 * chi2, T)[0]
+
+    # the first call pays the autograd engine's and torch.func's start on
+    # the card; its time is logged apart from the measured call's
+    t0 = time.perf_counter()
+    first = gradient()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    T = fb.data["T_obs"].clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (values, chi2), l_fwd, r_fwd = drive("implicit_m3500", lambda: solve_implicit(with_T(T), opts), ("slot_reduce",))
+    objective = values["poses"][-1, :2, 2].sum() + 0.1 * chi2
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (grad,), l_bwd, _ = drive("implicit_m3500_backward", lambda: torch.autograd.grad(objective, T), ("slot_reduce",))
+    t_bwd = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.isfinite(grad).all().item() and torch.equal(grad, first),
+          "implicit: a non-finite gradient, or two calls that differ in their bits")
+    flat = grad.flatten()
+    top = torch.as_tensor(refs["p44_top_idx"], device=flat.device)
+    gap_top = rel_gap(flat[top], refs["p44_top_vals"])
+    gap_norm = abs(grad.norm().item() - float(refs["p44_grad_norm"])) / float(refs["p44_grad_norm"])
+    gap_chi2 = abs(chi2.item() - float(refs["p44_chi2"])) / float(refs["p44_chi2"])
+
+    # central differences at the three largest entries, each solve started
+    # at the optimum
+    solved = {"poses": type(g.blocks["poses"])(g.blocks["poses"].kind, values["poses"].detach(),
+                                                g.blocks["poses"].const_mask)}
+
+    def f(T_obs):
+        out, info = solve(with_T(T_obs, solved), opts)
+        return (out.blocks["poses"].values[-1, :2, 2].sum() + 0.1 * info.chi2).item()
+
+    eps = 1e-5
+    fd = []
+    t0 = time.perf_counter()
+    for k in refs["p44_top_idx"][:3]:
+        e, a, b = np.unravel_index(int(k), tuple(grad.shape))
+        Tp, Tm = fb.data["T_obs"].clone(), fb.data["T_obs"].clone()
+        Tp[e, a, b] += eps
+        Tm[e, a, b] -= eps
+        fd.append(((f(Tp) - f(Tm)) / (2 * eps), grad[e, a, b].item()))
+    t_fd = time.perf_counter() - t0
+    log(f"implicit m3500 f64 (D = {g.total_dof}): first call (forward and backward) {1e3 * t_first!r} ms; "
+        f"forward {1e3 * t_fwd!r} ms ({r_fwd['lm']} LM iterations, launches "
+        f"{l_fwd}), backward {1e3 * t_bwd!r} ms (launches {l_bwd}), peak memory {peak} B; objective "
+        f"{objective.item()!r} (reference {float(refs['p44_value'])!r}), chi2 gap {gap_chi2!r}; gradient against the "
+        f"JAX reference: 64 largest entries {gap_top!r}, norm {gap_norm!r}; central differences (fd, grad) {fd} in "
+        f"{t_fd!r} s")
+    check(l_bwd["slot_reduce"] > 0, "implicit: the backward launched no slot_reduce")
+    check(gap_chi2 <= 1e-8, f"implicit: chi2 {gap_chi2} from the reference")
+    check(gap_top <= 1e-6 and gap_norm <= 1e-6, f"implicit: gradient {gap_top} / {gap_norm} from the reference")
+    for fd_k, g_k in fd:
+        check(abs(g_k - fd_k) <= 2e-3 + 1e-2 * abs(fd_k), f"implicit: gradient {g_k} against central difference {fd_k}")
+    ctx["report"].setdefault("problem", {}).update(
+        implicit_m3500=dict(first_call_ms=1e3 * t_first, forward_ms=1e3 * t_fwd, backward_ms=1e3 * t_bwd, backward_slot_reduce=l_bwd["slot_reduce"],
+                            peak_bytes=peak, gap_top=gap_top, gap_norm=gap_norm))
+    log(f"phase 44 (solve_implicit at config 2's size): {time.perf_counter() - t_phase!r} s")
+
+
+def autodiff_phase(ctx):
+    """Phase 45: an autodiff clone of ``between_se3``
+    (``register_autodiff_factor``, ``torch.func.jacfwd``) on the card: its
+    Jacobians on sphere2500 in f64 within 1e-10 of the analytic kernel's;
+    sphere2500 solved through it in f32 (``solve_auto``: route ``ell``, the
+    general assembly, ``slot_reduce`` at widths 36 and 6 and no
+    ``ell_assemble``) under the sphere2500 gate; ``check_autodiff_factor``
+    refusing a row-coupled residual."""
+    import torch
+
+    from pyslam_tpu_torch.graph import FACTOR_KERNELS, build, check_autodiff_factor, register_autodiff_factor
+    from pyslam_tpu_torch.graph.core import FactorBatch, FactorGraph
+    from pyslam_tpu_torch.lie import se3
+    from pyslam_tpu_torch.solver import route_auto, solve_auto
+    from pyslam_tpu_torch.solver.lm import Options
+
+    drive, gate = ctx["drive"], ctx["gate"]
+    t_phase = time.perf_counter()
+
+    def between(data, T1, T2):
+        r = se3.log(T2 @ se3.inv(T1) @ se3.inv(data["T_obs"]))
+        return (data["sqrt_info"] @ r[..., None])[..., 0]
+
+    register_autodiff_factor("between_se3_autodiff", between, ("se3", "se3"))
+    g64 = build.pose_graph(ctx["sphere_data"], dtype=torch.float64)
+    fb = g64.batches[0]
+    vals = [g64.blocks["poses"].values[idx] for idx in fb.indices]
+    t_ad = []
+    for _ in range(2):  # the first call pays torch.func's start on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_d, jac_d = FACTOR_KERNELS["between_se3_autodiff"](fb.data, *vals)
+        torch.cuda.synchronize()
+        t_ad.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    r_a, jac_a = FACTOR_KERNELS["between_se3"](fb.data, *vals)
+    torch.cuda.synchronize()
+    t_an = time.perf_counter() - t0
+    gaps = [rel_gap(r_d, r_a)] + [rel_gap(d, a) for d, a in zip(jac_d, jac_a)]
+
+    g = ctx["sphere"]
+    gb = g.batches[0]
+    clone = FactorGraph(g.blocks, [FactorBatch("between_se3_autodiff", gb.slots, gb.indices, gb.data, gb.loss,
+                                               gb.weight)])
+    opts = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
+    t0 = time.perf_counter()
+    (solved, info), launches, reads = drive("autodiff_sphere2500", lambda: solve_auto(clone, opts),
+                                            ("slot_reduce", "ell_pcg"))
+    t_solve = time.perf_counter() - t0
+    coupled_refused = False
+
+    def coupled(data, x):
+        r = x - data["obs"]
+        return r / r.std()
+
+    register_autodiff_factor("coupled_demo", coupled, ("euclidean",))
+    gen = torch.Generator(device=ctx["dev"]).manual_seed(SEED)
+    try:
+        check_autodiff_factor("coupled_demo", {"obs": torch.randn((6, 3), generator=gen, device=ctx["dev"])},
+                              torch.randn((6, 3), generator=gen, device=ctx["dev"]))
+    except ValueError:
+        coupled_refused = True
+    log(f"autodiff between_se3 on sphere2500 f64 ({fb.n} factors): residual and Jacobian gaps to the analytic kernel "
+        f"{gaps!r}, jacfwd {t_ad[0]!r} ms (first call), {t_ad[1]!r} ms, against the analytic {1e3 * t_an!r} ms; "
+        f"solve through the clone f32: route "
+        f"{route_auto(clone)!r}, {1e3 * t_solve!r} ms, LM iterations {info.iterations}, chi2 {info.chi2.item()!r}, "
+        f"launches {launches}, host reads {reads}; coupled residual refused {coupled_refused}")
+    check(max(gaps) <= 1e-10, f"autodiff: {gaps} from the analytic kernel")
+    check(route_auto(clone) == "ell" and launches["ell_assemble"] == 0,
+          f"autodiff: route {route_auto(clone)!r}, launches {launches}: the general assembly expected")
+    check(launches["ell_pcg"] == info.iterations, f"autodiff: {launches['ell_pcg']} ell_pcg launches")
+    check(coupled_refused, "autodiff: check_autodiff_factor took a row-coupled residual")
+    gate("autodiff sphere2500", info.chi2.item(), 1.001, ctx["chi2_ref"])
+    ctx["report"].setdefault("problem", {}).update(
+        autodiff_sphere2500=dict(jacfwd_first_ms=t_ad[0], jacfwd_ms=t_ad[1], analytic_ms=1e3 * t_an, solve_ms=1e3 * t_solve, gaps=gaps))
+    log(f"phase 45 (autodiff factors): {time.perf_counter() - t_phase!r} s")
+
+
+def api_phases(ctx):
+    """Phases 43 to 45."""
+    if ctx["want"](43):
+        problem_phase(ctx)
+    if ctx["want"](44):
+        implicit_phase(ctx)
+    if ctx["want"](45):
+        autodiff_phase(ctx)
 
 
 def cross_check(label, res, rel=1e-8):

@@ -8,7 +8,10 @@ from .core import (
     FactorBatch,
     FactorGraph,
     VariableBlock,
+    check_autodiff_factor,
     manifold_dof,
+    register_autodiff_factor,
+    register_closed_kernel,
     register_factor,
     retract,
 )
@@ -23,6 +26,9 @@ __all__ = [
     "FACTOR_KERNELS",
     "manifold_dof",
     "register_factor",
+    "register_autodiff_factor",
+    "check_autodiff_factor",
+    "register_closed_kernel",
     "retract",
     "graph_from_numpy",
     "chordal_init",

@@ -11,6 +11,12 @@ Counterpart of ``pyslam_tpu/graph/core.py`` on torch tensors:
 * ``FactorGraph``   — blocks in sorted name order + batches; knows the
   global tangent layout and provides chi2 / retract.
 
+``register_factor`` adds a kernel with analytic Jacobians;
+``register_autodiff_factor`` one whose Jacobians come from
+``torch.func.jacfwd`` (``check_autodiff_factor`` tests its contract), and
+``register_closed_kernel`` one that closes over data without the factor
+axis, named by the content of that data.
+
 All three are frozen dataclasses; an update builds a new graph.  Every
 tensor of a graph lives on one device, the one its builder was given.
 """
@@ -117,6 +123,95 @@ def register_factor(kind: str):
         return fn
 
     return deco
+
+
+def register_autodiff_factor(kind: str, residual_fn: Callable, manifolds: tuple):
+    """Register a factor kind whose Jacobians come from automatic
+    differentiation (Ceres' AutoDiffCostFunction): a new factor type is
+    written as its batched residual alone.
+
+    ``residual_fn(data, *vals) -> (F, m)`` evaluates the residual batch;
+    ``manifolds`` names each slot's kind ('se3', 'sim3', 'euclidean', ...).
+    The Jacobians are taken with ``torch.func.jacfwd`` with respect to the
+    same retraction the solver applies (``retract``), so autodiff and
+    analytic factors are interchangeable on every solver path.  One shared
+    eps perturbs every row of a slot at once: each factor's residual
+    depends only on its own row, so the forward Jacobian of the (F, m)
+    residual in the (dof,) eps is exactly the (F, m, dof) per-factor
+    blocks, with no vmap over the factors.
+
+    RESTRICTION: row f of the residual must depend only on row f of each
+    slot.  A residual that couples rows (normalizing by a batch statistic
+    such as ``r / r.std()``) folds every other row's derivative into each
+    block; ``check_autodiff_factor`` tests the contract on concrete data.
+    ``residual_fn`` must be a function of tensors that ``torch.func``
+    can transform: no ``.item()``, no in-place write into an input."""
+
+    def kernel(data, *vals, compute_jacobians=True):
+        r = residual_fn(data, *vals)
+        if not compute_jacobians:
+            return r, None
+        jacs = []
+        for i, kind_i in enumerate(manifolds):
+            dof = manifold_dof(kind_i, vals[i].shape[1:])
+
+            def f(eps, i=i, kind_i=kind_i, dof=dof):
+                vs = list(vals)
+                vs[i] = retract(kind_i, vs[i], eps.expand(vs[i].shape[0], dof))
+                return residual_fn(data, *vs)
+
+            jacs.append(torch.func.jacfwd(f)(vals[i].new_zeros(dof)))
+        return r, tuple(jacs)
+
+    FACTOR_KERNELS[kind] = kernel
+    return kernel
+
+
+def check_autodiff_factor(kind: str, data: dict, *vals, atol: float = 1e-6):
+    """Test the row-independence contract of a registered factor on
+    concrete data: perturbing only row 0 of a slot must change only row 0
+    of the residual.  Raises ValueError on cross-row coupling, which makes
+    ``register_autodiff_factor``'s shared-eps Jacobians wrong."""
+    kernel = FACTOR_KERNELS[kind]
+    r0, _ = kernel(data, *vals, compute_jacobians=False)
+    for i, v in enumerate(vals):
+        eps = 1e-4 * (1.0 + torch.arange(v[0].numel(), dtype=r0.dtype, device=v.device)).reshape(v.shape[1:])
+        v_pert = v.clone()
+        v_pert[0] = v[0] + eps.to(v.dtype)
+        vs = list(vals)
+        vs[i] = v_pert
+        r1, _ = kernel(data, *vs, compute_jacobians=False)
+        other = (r1[1:] - r0[1:]).abs().max().item() if r0.shape[0] > 1 else 0.0
+        if other > atol:
+            raise ValueError(
+                f"factor {kind!r} slot {i}: residual rows are coupled "
+                f"(perturbing row 0 moved other rows by {other:.2e}) — "
+                "register_autodiff_factor's Jacobians are invalid for it"
+            )
+
+
+def register_closed_kernel(kind: str, static_data: dict) -> str:
+    """Register (or reuse) a kernel of ``kind`` that closes over data
+    without the factor axis (an unbatched camera, say) and return its
+    registry name.
+
+    The name is a content hash of ``static_data``
+    (``solver.plan_cache.content_key``: the structure, and each array's or
+    tensor's dtype, shape and bytes), never ``id()``: a recycled id with
+    other data would reuse stale constants, and id-keyed entries would grow
+    the registry with every call.  Equal content shares one entry; distinct
+    content gets its own."""
+    from ..solver.plan_cache import content_key
+
+    kname = f"__closed_{kind}_{content_key((kind, static_data))}"
+    if kname not in FACTOR_KERNELS:
+        base = dict(static_data)
+
+        def kernel(data, *vals, compute_jacobians=True):
+            return FACTOR_KERNELS[kind]({**data, **base}, *vals, compute_jacobians=compute_jacobians)
+
+        FACTOR_KERNELS[kname] = kernel
+    return kname
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,7 +7,8 @@ reprojection factors; the BAL (Snavely) reprojection factors with fixed
 and with optimized intrinsics and the pose prior of a BAL camera; and the
 pose-to-landmark factors of 2D and 3D landmark SLAM; the switchable
 loop closures of SE(2) and SE(3); and the two chordal-relaxation kinds of
-``graph/initialize.py``.  ``sqrt_info`` may
+``graph/initialize.py``; and the ``quadratic`` curve fit of the
+reference's README (``residuals.QuadraticResidual``).  ``sqrt_info`` may
 carry the factor axis, (F, m, m), or be one (m, m) matrix for the whole
 batch.  A point at depth z <= 0 gives inf / NaN as in the reference; the
 LM loop rejects such a step.  Conventions are the reference's:
@@ -330,6 +331,23 @@ def bearing_range_se2(data, T, l, compute_jacobians=True):
     )
     S = data["sqrt_info"] @ J_p
     return r, (S @ se2.odot(p), S @ T[..., :2, :2])
+
+
+# --------------------------------------------------------------------------
+# Quadratic curve fit: r = stiffness * (p0 x^2 + p1 x + p2 - y)
+# --------------------------------------------------------------------------
+
+
+@register_factor("quadratic")
+def quadratic(data, p, compute_jacobians=True):
+    """The reference's README example residual (``QuadraticResidual``)."""
+    x, y, s = data["x"], data["y"], data["stiffness"]
+    pred = p[..., 0] * x * x + p[..., 1] * x + p[..., 2]
+    r = (s * (pred - y))[..., None]
+    if not compute_jacobians:
+        return r, None
+    J = (s[..., None] * torch.stack([x * x, x, torch.ones_like(x)], dim=-1))[..., None, :]
+    return r, (J,)
 
 
 # --------------------------------------------------------------------------

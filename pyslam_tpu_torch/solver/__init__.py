@@ -10,9 +10,9 @@ structure dispatch (``route_auto``, ``solve_auto``; their mesh routes
 run ``dist/``), the batched fleet solve (``solve_batched``), the
 outlier-robust ``solve_gnc`` (graduated non-convexity), the online
 smoothers (``FixedLagSmoother``, ``FixedLagLandmarkSmoother``,
-``IncrementalSmoother``) and the four
-CUDA kernels (``ell_matvec``, ``ell_pcg``, ``slot_reduce``,
-``ell_assemble``)."""
+``IncrementalSmoother``), posterior covariance (``covariance.py``),
+differentiable solving (``solve_implicit``) and the four CUDA kernels
+(``ell_matvec``, ``ell_pcg``, ``slot_reduce``, ``ell_assemble``)."""
 
 import numpy as np
 
@@ -87,6 +87,7 @@ from .covariance import (
     pose_landmark_covariance_block,
     pose_marginal_covariances,
 )
+from .diff import solve_implicit
 from .fixed_lag import FixedLagLandmarkSmoother, FixedLagSmoother
 from .incremental import IncrementalSmoother
 
@@ -169,6 +170,7 @@ __all__ = [
     "FixedLagSmoother",
     "FixedLagLandmarkSmoother",
     "IncrementalSmoother",
+    "solve_implicit",
 ]
 
 

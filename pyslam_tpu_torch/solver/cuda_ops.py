@@ -343,10 +343,11 @@ def slot_plan(dest: np.ndarray, n_slots: int) -> SlotPlan:
     return SlotPlan(perm, offsets, n_slots)
 
 
-def _segment_ids(offsets, n_slots):
-    """The destination of every position of a plan: s for [offsets[s], offsets[s+1])."""
+def _segment_ids(offsets, n_slots, E=None):
+    """The destination of every position of a plan: s for [offsets[s],
+    offsets[s+1]).  With ``E``, the number of positions, no host read."""
     counts = (offsets[1:] - offsets[:-1]).long()
-    return torch.repeat_interleave(torch.arange(n_slots, device=offsets.device), counts)
+    return torch.repeat_interleave(torch.arange(n_slots, device=offsets.device), counts, output_size=E)
 
 
 def slot_reduce_plain(contrib, perm, offsets, n_slots):
@@ -382,11 +383,49 @@ def slot_reduce_is_long(E: int, n_slots: int) -> bool:
     return E * LONG_SLOTS >= LONG_MIN_ROWS * n_slots * max(n_slots, LONG_SLOTS)
 
 
+def slot_reduce_backward(grad_out, perm, offsets):
+    """The transpose of the segmented sum: grad_contrib[perm[e]] =
+    grad_out[s] for e in [offsets[s], offsets[s+1]).  A gather over the plan
+    and a permutation write: every row of grad_contrib is written once, so
+    no atomics and the same bits on every run."""
+    n_slots = offsets.shape[0] - 1
+    seg = _segment_ids(offsets, n_slots, perm.shape[0])
+    grad_contrib = grad_out.new_empty((perm.shape[0], grad_out.shape[1]))
+    return grad_contrib.index_copy_(0, perm.long(), grad_out.index_select(0, seg))
+
+
+class _SlotReduce(torch.autograd.Function):
+    """``slot_reduce`` for autograd: the forward is the kernel (on the card)
+    or the plain version (on the CPU), the backward
+    ``slot_reduce_backward``."""
+
+    @staticmethod
+    def forward(ctx, contrib, perm, offsets, n_slots):
+        ctx.save_for_backward(perm, offsets)
+        return _slot_reduce(contrib, perm, offsets, n_slots)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        perm, offsets = ctx.saved_tensors
+        return slot_reduce_backward(grad_out.contiguous(), perm, offsets), None, None, None
+
+
 def slot_reduce(contrib, perm, offsets, n_slots):
     """out (n_slots, C), out[s] = sum_{e in [offsets[s], offsets[s+1])}
     contrib[perm[e]], for contrib (E, C) contiguous, perm (E,) int32 and
     offsets (n_slots + 1,) int32 ascending from 0 to E.  A slot without
-    contributions (E = 0: all of them) is 0."""
+    contributions (E = 0: all of them) is 0.
+
+    Differentiable: where ``contrib`` requires grad and grad mode is on,
+    the call goes through ``_SlotReduce``, whose backward is the gather of
+    ``slot_reduce_backward``; elsewhere it is the kernel (or, on the CPU,
+    the plain version) alone."""
+    if contrib.requires_grad and torch.is_grad_enabled():
+        return _SlotReduce.apply(contrib, perm, offsets, n_slots)
+    return _slot_reduce(contrib, perm, offsets, n_slots)
+
+
+def _slot_reduce(contrib, perm, offsets, n_slots):
     if contrib.dim() != 2:
         raise ValueError(f"contrib: shape {tuple(contrib.shape)}, expected (E, C)")
     E, C = contrib.shape

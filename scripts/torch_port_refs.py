@@ -1,5 +1,5 @@
 """Reference numbers for the PyTorch port's chip smoke (``chip_smoke.py``
-phases 28 to 36), computed once with the JAX package on the CPU in f64 on
+phases 28 to 44), computed once with the JAX package on the CPU in f64 on
 the very graphs the smoke builds:
 
   28  chi2 of sphere2500 (``se3_sphere(2500, seed=0)``) and of bench config
@@ -58,14 +58,20 @@ the very graphs the smoke builds:
       ``keep_window=10``;
   42  ``solve_batched`` (LM 50) of chip phase 17's fleet of 16
       ``se2_loop(100, 12, seed=s)`` graphs under ``TDistributionLoss()``,
-      and of the L2 fleet by dogleg: each problem's chi2.
+      and of the L2 fleet by dogleg: each problem's chi2;
+  44  ``solve_implicit`` with ``tests/test_diff.py``'s options on
+      ``se2_manhattan(3500, seed=1)`` (bench config 2's size, 10,500 dof):
+      the objective (the last pose's translation summed plus 0.1 chi2),
+      chi2, the norm of its gradient with respect to every ``T_obs`` and
+      the gradient's 64 largest entries (flat index, value).
 
 Phases 37 to 39 take the ground truth because it is an estimate both
 packages hold bit for bit; the chip smoke also checks the port's methods
 against each other at its own converged estimates.
 
-Scalars print as JSON on the last line; the arrays of phases 32 to 35 and
-37 to 42 (per keyframe, the poses, the covariance blocks) go to
+Scalars print as JSON on the last line; the arrays of phases 32 to 35,
+37 to 42 and 44 (per keyframe, the poses, the covariance blocks, the
+gradient) go to
 ``chip_smoke_refs.npz`` beside ``chip_smoke.py``, which loads them.  The port never imports this script; its numbers are constants in
 ``chip_smoke.py``.  Run from the repository root (minutes; phase 30 holds a
 dense f64 H of 11,008 x 11,008, about 1 GB; phase 35 one of 14,130 x
@@ -73,6 +79,7 @@ dense f64 H of 11,008 x 11,008, about 1 GB; phase 35 one of 14,130 x
 
     python scripts/torch_port_refs.py [--phases 28,29,30,31,32,33,34,35,36]
     python scripts/torch_port_refs.py --phases 37,38,39,41,42
+    python scripts/torch_port_refs.py --phases 44
 """
 
 from __future__ import annotations
@@ -612,6 +619,34 @@ def phase42():
     out = dict(seconds=time.perf_counter() - t0)
     print(f"42 solve_batched: t-distribution and dogleg fleets, {out['seconds']:.1f} s", flush=True)
     return out, {"p42_chi2_t": np.asarray(chi2_t), "p42_chi2_dogleg": np.asarray(chi2_d)}
+
+
+def phase44():
+    """``solve_implicit`` (``tests/test_diff.py``'s options) on bench config
+    2's size, se2_manhattan(3500, seed=1) in f64: the gradient of the last
+    pose's translation summed plus 0.1 chi2 with respect to every T_obs."""
+    from pyslam_tpu.graph.core import FactorBatch, FactorGraph
+    from pyslam_tpu.solver.diff import solve_implicit
+
+    opts = Options(method="lm", max_iters=60, min_cost_decrease=1 - 1e-13, min_update_norm=1e-14)
+    g = build.pose_graph(synth.se2_manhattan(n_poses=3500, seed=1), dtype=jnp.float64)
+    fb = g.batches[0]
+
+    def objective(T_obs):
+        fb2 = FactorBatch(fb.kind, fb.slots, fb.indices, {**fb.data, "T_obs": T_obs}, fb.loss, fb.weight)
+        values, chi2 = solve_implicit(FactorGraph(g.blocks, [fb2]), opts)
+        return jnp.sum(values["poses"][-1, :2, 2]) + 0.1 * chi2, chi2
+
+    t0 = time.perf_counter()
+    (value, chi2), grad = jax.value_and_grad(objective, has_aux=True)(fb.data["T_obs"])
+    grad = np.asarray(grad)
+    top = np.argsort(-np.abs(grad).ravel(), kind="stable")[:64]
+    out = dict(value=float(value), chi2=float(chi2), grad_norm=float(np.linalg.norm(grad)),
+               seconds=time.perf_counter() - t0)
+    print(f"44 solve_implicit M3500: objective {out['value']!r}, chi2 {out['chi2']!r}, |grad| {out['grad_norm']!r}, "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out, {"p44_value": np.float64(value), "p44_chi2": np.float64(chi2),
+                 "p44_grad_norm": np.float64(out["grad_norm"]), "p44_top_idx": top, "p44_top_vals": grad.ravel()[top]}
 
 
 def main():

@@ -956,3 +956,112 @@ def test_solve_schur_sqrt_on_the_card_matches_the_cpu_path(cuda_device):
     assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
     _same_solve(res)
     _same_solve(res, block="landmarks")
+
+
+# --------------------------------------------------------------------------
+# Differentiable slot_reduce, solve_implicit and the object API on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_slots,E,C", [(2500, 9896, 6), (3500, 7814, 9), (49, 25769, 36), (300, 1000, 5),
+                                         (10, 0, 36)])
+def test_slot_reduce_backward_matches_plain_autograd(cuda_device, n_slots, E, C, dtype):
+    """The kernel's autograd Function against autograd through the plain
+    version: its backward is the gather of ``slot_reduce_backward``, the
+    same bits twice; the forward launches the kernel, never the plain one."""
+    rng = np.random.default_rng(E + C)
+    sp = cuda_ops.slot_plan(rng.integers(0, n_slots, E), n_slots)
+    perm, offsets = (torch.from_numpy(a).to(cuda_device) for a in (sp.perm, sp.offsets))
+    contrib = torch.from_numpy(rng.normal(size=(E, C))).to(cuda_device, dtype)
+    weights = torch.from_numpy(rng.normal(size=(n_slots, C))).to(cuda_device, dtype)
+    grads = []
+    for _ in range(2):
+        x = contrib.clone().requires_grad_()
+        cuda_ops.reset_launches()
+        out = slot_reduce(x, perm, offsets, n_slots)
+        (g,) = torch.autograd.grad((out * weights).sum(), x)
+        torch.cuda.synchronize()
+        assert cuda_ops.LAUNCHES["slot_reduce"] == 1 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1])
+    x = contrib.clone().requires_grad_()
+    (ref,) = torch.autograd.grad((slot_reduce_plain(x, perm, offsets, n_slots) * weights).sum(), x)
+    if E:
+        _assert_close(grads[0], ref, KERNEL_TOL[dtype])
+        _assert_close(out.detach(), slot_reduce_plain(contrib, perm, offsets, n_slots), KERNEL_TOL[dtype])
+
+
+def test_slot_reduce_gradcheck_on_the_card(cuda_device):
+    rng = np.random.default_rng(0)
+    sp = cuda_ops.slot_plan(rng.integers(0, 7, 40), 7)
+    perm, offsets = (torch.from_numpy(a).to(cuda_device) for a in (sp.perm, sp.offsets))
+    x = torch.from_numpy(rng.normal(size=(40, 6))).to(cuda_device).requires_grad_()
+    assert torch.autograd.gradcheck(lambda c: slot_reduce(c, perm, offsets, 7), (x,))
+
+
+def _implicit_gradient(device):
+    from pyslam_tpu_torch.graph.core import FactorBatch, FactorGraph
+    from pyslam_tpu_torch.solver import solve_implicit
+
+    g = build.pose_graph(synth.se2_loop(n_poses=10, n_loops=2, seed=0), dtype=torch.float64, device=device)
+    fb = g.batches[0]
+    T = fb.data["T_obs"].clone().requires_grad_()
+    fb2 = FactorBatch(fb.kind, fb.slots, fb.indices, {**fb.data, "T_obs": T}, fb.loss, fb.weight)
+    opts = Options(method="lm", max_iters=60, min_cost_decrease=1 - 1e-13, min_update_norm=1e-14)
+    values, chi2 = solve_implicit(FactorGraph(g.blocks, [fb2]), opts)
+    cuda_ops.reset_launches()
+    (grad,) = torch.autograd.grad(values["poses"][-1, :2, 2].sum() + 0.1 * chi2, T)
+    return grad, dict(cuda_ops.LAUNCHES)
+
+
+def test_solve_implicit_on_the_card_matches_the_cpu_path(cuda_device):
+    """The backward through the kernel (never the plain assembly) against
+    the CPU path's gradient."""
+    ref, _ = _implicit_gradient("cpu")
+    grad, launches = _implicit_gradient(cuda_device)
+    assert launches["slot_reduce"] == 3 and launches["slot_reduce_plain"] == 0
+    _assert_close(grad.cpu(), ref, 1e-8)
+
+
+def test_problem_on_the_card_matches_the_cpu_path(cuda_device):
+    import pyslam_tpu_torch as T
+
+    data = synth.se2_loop(n_poses=12, n_loops=3, seed=4)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        problem = T.Problem(T.Options(max_iters=30), dtype=torch.float64, device=dev)
+        names = [f"T_{i}" for i in range(12)]
+        for i, j, Tm, S in zip(data.edges_i, data.edges_j, data.T_meas, data.sqrt_info):
+            problem.add_residual_block(T.PoseToPoseResidual(T.SE2(Tm), S), [names[i], names[j]])
+        problem.initialize_params({n: T.SE2(Tk) for n, Tk in zip(names, data.T_init)})
+        problem.set_parameters_constant(names[0])
+        problem.solve()
+        problem.compute_covariance(dense_dof_limit=4)
+        out[str(dev)] = (problem.param_dict["T_7"].mat.cpu(), problem.get_covariance_block("T_3", "T_7").cpu(),
+                         problem.eval_cost())
+    (p_c, c_c, e_c), (p_g, c_g, e_g) = out["cpu"], out[str(cuda_device)]
+    _assert_close(p_g, p_c, 1e-9)
+    _assert_close(c_g, c_c, 1e-8)
+    np.testing.assert_allclose(e_g, e_c, rtol=1e-8)
+
+
+def test_assemble_dense_is_differentiable_on_the_card(cuda_device):
+    """H, g and chi2 of the dense assembly, with its in-place masking, by
+    the kernel's autograd Function, against finite differences."""
+    from pyslam_tpu_torch.graph.core import FactorBatch, FactorGraph
+
+    g = build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), dtype=torch.float64, device=cuda_device)
+    fb = g.batches[0]
+    rng = np.random.default_rng(2)
+    R = torch.from_numpy(rng.normal(size=(g.total_dof,) * 2)).to(cuda_device)
+    v = torch.from_numpy(rng.normal(size=g.total_dof)).to(cuda_device)
+
+    def f(T_obs):
+        fb2 = FactorBatch(fb.kind, fb.slots, fb.indices, {**fb.data, "T_obs": T_obs}, fb.loss, fb.weight)
+        H, gvec, chi2 = assemble.assemble_dense(FactorGraph(g.blocks, [fb2]))
+        return (H * R).sum() + (gvec * v).sum() + chi2
+
+    cuda_ops.reset_launches()
+    assert torch.autograd.gradcheck(f, (fb.data["T_obs"].clone().requires_grad_(),))
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0

@@ -69,6 +69,12 @@ def test_import_leaves_jax_out():
         "from pyslam_tpu_torch.solver import landmark_covariance_block, pose_landmark_covariance_block\n"
         "from pyslam_tpu_torch.solver import selected_inverse_marginals, locate_fill_pairs, factor_logdet\n"
         "from pyslam_tpu_torch.dist import sharded_pose_marginals, sharded_landmark_marginals\n"
+        "import pyslam_tpu_torch.problem, pyslam_tpu_torch.residuals, pyslam_tpu_torch.lie.groups\n"
+        "import pyslam_tpu_torch.utils, pyslam_tpu_torch.debug, pyslam_tpu_torch.observability\n"
+        "import pyslam_tpu_torch.solver.diff\n"
+        "from pyslam_tpu_torch import Problem, Options, SE3, Sim3, QuadraticResidual, DensePriorResidual\n"
+        "from pyslam_tpu_torch.solver import solve_implicit\n"
+        "from pyslam_tpu_torch.graph import register_autodiff_factor, check_autodiff_factor, register_closed_kernel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -139,6 +145,14 @@ def _BA(**kw):
     return build.ba_graph(synth.ba_synthetic(n_cams=3, n_pts=8, seed=0), dtype=torch.float64, **kw)
 
 
+def _problem_graph(**kw):
+    """The graph a Problem of one SE(2) prior builds."""
+    problem = pyslam_tpu_torch.Problem(**kw)
+    problem.add_residual_block(pyslam_tpu_torch.PoseResidual(np.eye(3), 1.0), ["T"])
+    problem.initialize_params({"T": pyslam_tpu_torch.SE2(np.eye(3))})
+    return problem._build()
+
+
 DEFAULT_DEVICE_ENTRY_POINTS = {
     "default_device": pyslam_tpu_torch.default_device,
     "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
@@ -174,6 +188,8 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "marginal_covariances_direct": lambda **kw: covariance.marginal_covariances_direct(_LOOP(**kw)),
     "pose_marginal_covariances": lambda **kw: covariance.pose_marginal_covariances(_BA(**kw), indices=[1]),
     "landmark_marginal_covariances": lambda **kw: covariance.landmark_marginal_covariances(_BA(**kw), [0, 3]),
+    "Problem": lambda **kw: _problem_graph(**kw).blocks["se2_3x3"].values,
+    "SE3.identity": lambda **kw: pyslam_tpu_torch.SE3.identity(**kw).mat,
     "so2.identity": so2.identity,
     "se2.identity": se2.identity,
     "so3.identity": so3.identity,
