@@ -135,13 +135,28 @@ that it reaches its converged cost and went through the kernels:
     Function; a ``register_autodiff_factor`` clone of ``between_se3``
     (Jacobians within 1e-10 of the analytic kernel in f64; sphere2500
     solved through it on the general ELL assembly under the gate) and
-    ``check_autodiff_factor`` refusing a row-coupled residual.
+    ``check_autodiff_factor`` refusing a row-coupled residual;
+  * the VO frontends (phases 46 to 48, f32): dense RGB-D VO at VGA on
+    ``bench/vo_overlap.py``'s 40 frames (4 levels, 24,576 pixels a level)
+    frame by frame, prefetched and by ``track_batch`` at K = 16, each
+    frame held to the JAX reference's trajectory (``chip_smoke_refs.npz``),
+    the ATE by ``TrajectoryMetrics``; dense stereo VO at VGA with the
+    on-device block matcher (the keyframe's disparity held to the
+    reference's: NaN masks equal, values within 1e-4) and with the affine
+    kernel through an exposure ramp (8 frames each; 16 when selected);
+    ``examples/stereo_slam.py``'s pipeline (40 frames, 4,000 points) on
+    the reference's RANSAC samples, the ATE of each stage within 1e-2 of
+    the reference's. Each logs ms a frame (median, p90), fps, kernels and
+    device ms a frame, synchronizing calls a frame, ``slot_reduce``
+    launches, peak memory and the card's name and power limit;
+    ``slot_reduce`` is checked at the single-pose and the batched sums, and
+    at every plan and width that stereo SLAM launched it on.
 
 Run from the repository root on a machine with a CUDA device and
 ``nvcc``; with no arguments it runs every phase:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 37-42      # a selection, e.g. "32-36" or "43-45"
+    python3 chip_smoke.py --phases 37-42      # a selection, e.g. "32-36", "43-45" or "46-48"
 
 A selection runs phases 1 and 2, the selected phases and the phases they
 read from (4 to 22 for any of 23 to 27, 35 for 41, 39 for 40), and prints
@@ -157,6 +172,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -361,28 +377,13 @@ def add_times(report, name, key, times, n_bytes, flop):
 
 
 def check_kernel(name, fn, plain, args, report, key, flop, library=None):
-    """``fn`` against ``plain`` on the same inputs in f32 and f64, then the
-    device time of each in f32, and of ``library`` (one PyTorch call on the
-    same inputs, prepared outside the timing) where there is one."""
+    """``fn`` against ``plain`` on the same inputs in f32 and f64
+    (``hold_kernel``), then the device time of each in f32, and of
+    ``library`` (one PyTorch call on the same inputs, prepared outside the
+    timing) where there is one."""
     import torch
 
-    for dtype in (torch.float32, torch.float64):
-        a = [t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t for t in args]
-        out = fn(*a)
-        ref = plain(*a)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        tname = str(dtype).split(".")[-1]
-        log(f"{name} {tname} out{tuple(out.shape)}: max_abs_err {err!r} max|ref| {scale!r} rel {err / scale!r}")
-        check(torch.isfinite(out).all().item(), f"{name} {tname}: non-finite output")
-        check(err <= REL_TOL[tname] * scale, f"{name} {tname}: error {err} > {REL_TOL[tname]} * {scale}")
-        r = report.setdefault(name, dict(max_abs_err=0.0))
-        if dtype is torch.float32:
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if library is not None:
-                lib_err = (library() - ref).abs().max().item()
-                check(lib_err <= REL_TOL[tname] * scale, f"{name}: the library call disagrees by {lib_err}")
+    hold_kernel(name, fn, plain, args, report, library)
     times = dict(
         ms=median_ms(fn, args, inner=BACK_TO_BACK),
         single_ms=median_ms(fn, args),
@@ -391,6 +392,37 @@ def check_kernel(name, fn, plain, args, report, key, flop, library=None):
     )
     tensors = [t for t in args if torch.is_tensor(t)]
     add_times(report, name, key, times, tensor_bytes(*tensors, fn(*args)), flop)
+
+
+def hold_kernel(name, fn, plain, args, report, library=None, quiet=False):
+    """``fn`` against ``plain`` on the same inputs in f32 and f64, within
+    ``REL_TOL`` of the plain output's largest entry, and ``library`` where
+    given; the f32 error goes to the kernels line's ``max_abs_err``.
+    Returns the largest relative error; logs each dtype's unless
+    ``quiet``."""
+    import torch
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        a = [t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t for t in args]
+        out = fn(*a)
+        ref = plain(*a)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        tname = str(dtype).split(".")[-1]
+        worst = max(worst, err / scale if scale else err)
+        if not quiet:
+            log(f"{name} {tname} out{tuple(out.shape)}: max_abs_err {err!r} max|ref| {scale!r} rel {err / scale!r}")
+        check(torch.isfinite(out).all().item(), f"{name} {tname}: non-finite output")
+        check(err <= REL_TOL[tname] * scale, f"{name} {tname}: error {err} > {REL_TOL[tname]} * {scale}")
+        r = report.setdefault(name, dict(max_abs_err=0.0))
+        if dtype is torch.float32:
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if library is not None:
+                lib_err = (library() - ref).abs().max().item()
+                check(lib_err <= REL_TOL[tname] * scale, f"{name}: the library call disagrees by {lib_err}")
+    return worst
 
 
 def check_pcg(He, cols, g, rtol, max_iters, report, label="sphere2500", key="ms", library=None):
@@ -1417,7 +1449,7 @@ def main(argv=None) -> int:
               "solve_schur_large: the CPU and CUDA paths differ")
     ctx = dict(dev=dev, drive=drive, gate=gate, check_poses=check_poses, report=report, standin=standin,
                chi2_ref=chi2_ref, sphere=graph, x_sphere=x, sphere_data=data, m3500=m3500, want=want,
-               selected=phases is not None)
+               selected=phases is not None, smi=smi_line)
     if run_main:
         ctx.update(g_vm=g_vm, chi2_vm_pcg=chi2_vm_pcg, g_7=g_7, chi2_7=chi2_7, sphere_solved=sphere_solved)
     covariance_phases(ctx)
@@ -1428,6 +1460,7 @@ def main(argv=None) -> int:
     online_phases(ctx)
     later_covariance_phases(ctx)
     api_phases(ctx)
+    vo_phases(ctx)
     log(f"total: {time.perf_counter() - t_start!r} s")
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
@@ -1453,7 +1486,8 @@ def main(argv=None) -> int:
                   "vio_window", *(f"fixed_lag_{c}_{t}" for c in ("sphere2500", "lm_config8") for t in ("float64", "float32")),
                   "incremental_m3500", "sqrt_ladybug_float64", "sqrt_ladybug_solve_auto", *COVARIANCE_PATHS,
                   "problem_sphere2500", "problem_covariance_f32", "problem_covariance_f64", "implicit_m3500",
-                  "implicit_m3500_backward", "autodiff_sphere2500")
+                  "implicit_m3500_backward", "autodiff_sphere2500", "vo_rgbd_vga", "vo_rgbd_vga_batch16",
+                  "vo_stereo_vga", "stereo_slam_40")
     # a phase selection reports the kernels and paths it ran; the default run
     # must have every kernel, launched on a main path, with every column
     kernels = [
@@ -3303,6 +3337,440 @@ def api_phases(ctx):
         implicit_phase(ctx)
     if ctx["want"](45):
         autodiff_phase(ctx)
+
+
+# the VO phases' holds on a trajectory, per frame, in translation (m) and
+# rotation (rad), float32 in both packages.  VO_TOL holds the sequential,
+# prefetched, stereo and affine runs to the reference's and the batch to
+# the port's sequential run: the CPU rehearsal of the port came within
+# 7.1e-5 (RGB-D), 6.3e-5 (stereo) and 1.1e-5 (affine) of the reference,
+# the batch within 1.2e-5 of the sequential run; on an H100 5.5e-5 and
+# 1.8e-5.  VO_BATCH_REF_TOL holds the batch to the reference's batch only:
+# a level's LM stops on a relative cost decrease of 1e-4, a test that
+# float32 rounding can flip, and the reference's own track_batch at VGA
+# departs from its sequential run by 5.6e-4 at frame 24 (the port's batch
+# 5.4e-4 from the reference's there, 2.4e-5 at the other frames).
+VO_TOL = 2e-4
+VO_BATCH_REF_TOL = 1e-3
+# stereo SLAM's ATE at each stage against the reference's, relative: on the
+# reference's samples the port's CPU run came within 1.2e-5, 4.5e-4 and
+# 2.7e-3 (float32 rounding moves a few inliers at the 2 px threshold)
+SLAM_ATE_TOL = 1e-2
+
+
+def pose_gap(a, b):
+    """(translation gap (m), rotation gap (rad)) of two stacks of poses, the
+    largest over the frames; the angle from the skew part of Ra^T Rb."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    dR = np.einsum("nji,njk->nik", a[:, :3, :3], b[:, :3, :3])
+    skew = 0.5 * (dR - dR.transpose(0, 2, 1))
+    ang = np.arcsin(np.clip(np.linalg.norm(skew[:, [2, 0, 1], [1, 2, 0]], axis=-1), 0.0, 1.0))
+    return float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max()), float(ang.max())
+
+
+def syncs_and_reads(fn):
+    """(synchronizing calls, LM host reads) of one call of ``fn``."""
+    from pyslam_tpu_torch.solver import linear
+
+    linear.reset_host_reads()
+    _, syncs = sync_count(fn)
+    return syncs, linear.HOST_READS["lm"]
+
+
+def frame_profile(run, n):
+    """(kernels a frame, device ms a frame) of ``run()``, which tracks n
+    frames, under ``torch.profiler`` (CUDA activity): the device events
+    (kernels, copies, fills) read from the tracer's own records, which
+    skips building ``key_averages``' Python event tree (seconds for the
+    15,000 launches of three VGA frames)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return len(dev) / n, sum(e.duration_ns() for e in dev) / 1e6 / n
+
+
+def vo_rgbd_phase(ctx):
+    """Phase 46: dense RGB-D VO at VGA (``bench/vo_overlap.py``'s 40 uint8
+    frames, 4 levels, ``pixel_budget=24576``, ``keyframe_trans_thresh=1e9``)
+    through ``DenseRGBDPipeline.track`` frame by frame, then ``prefetch`` +
+    ``track``, then ``track_batch`` at K = 16 on ``bench/vo_batch.py``'s
+    protocol (the first frame, then 32 frames in two batches, after a
+    warm-up batch on another pipeline). Every frame's pose is held to the
+    reference's trajectory (``chip_smoke_refs.npz``), the batch also to the
+    sequential run; ``slot_reduce`` at the single-pose graph's and the
+    batch's sums; the ATE against the ground truth by ``TrajectoryMetrics``;
+    ms a frame, fps, kernels and device ms a frame, synchronizing calls a
+    frame, peak memory."""
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch.eval import TrajectoryMetrics
+    from pyslam_tpu_torch.pipelines import DenseRGBDPipeline
+    from pyslam_tpu_torch.pipelines.dense import _track_input
+    from pyslam_tpu_torch.sensors import RGBDCamera
+    from pyslam_tpu_torch.solver.assemble import dense_plan
+    from pyslam_tpu_torch.solver.batched import _union
+    from pyslam_tpu_torch.testing import VO_CAM, vo_frames, vo_truth
+
+    dev, drive, report = ctx["dev"], ctx["drive"], ctx["report"]
+    refs = np.load(os.path.join(ROOT, "chip_smoke_refs.npz"))
+    t_phase = time.perf_counter()
+    frames = vo_frames(40)
+    truth = vo_truth(40)
+    marks = [("frames made", time.perf_counter())]
+
+    def pipeline():
+        return DenseRGBDPipeline(RGBDCamera(**VO_CAM), pyrlevels=4, keyframe_trans_thresh=1e9, device=dev)
+
+    # frame by frame: the per-frame host clock from the call to the pose
+    # read back (each frame's last act)
+    seq, walls = pipeline(), []
+
+    def run_seq():
+        for im, depth in frames:
+            t0 = time.perf_counter()
+            seq.track(im, depth)
+            walls.append(time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, launches, reads = drive("vo_rgbd_vga", run_seq, ("slot_reduce",))
+    peak = torch.cuda.max_memory_allocated()
+    T_seq = np.stack(seq.T_c_w)
+    steady = walls[2:]  # the keyframe, and the first solve's start on the card, apart
+    gap = pose_gap(T_seq, refs["p46_seq"])
+    ate = TrajectoryMetrics(np.linalg.inv(truth), np.linalg.inv(T_seq), device=dev).armse("trans").item()
+
+    marks.append(("frame by frame", time.perf_counter()))
+
+    # the same frames prefetched: the next frame's pinned copy queued before
+    # this frame's solve
+    pre, pwalls = pipeline(), []
+    n_pre = len(frames)
+
+    def run_pre():
+        pre.track(*frames[0])
+        h = pre.prefetch(frames[1][0])
+        for k in range(1, n_pre):
+            t0 = time.perf_counter()
+            h_next = pre.prefetch(frames[k + 1][0]) if k + 1 < n_pre else None
+            pre.track(h, frames[k][1])
+            pwalls.append(time.perf_counter() - t0)
+            h = h_next
+
+    _, pre_launches, _ = drive("vo_rgbd_vga_prefetch", run_pre, ("slot_reduce",))
+    T_pre = np.stack(pre.T_c_w)
+    gap_pre = pose_gap(T_pre, refs["p46_seq"][:n_pre])
+
+    marks.append(("prefetched", time.perf_counter()))
+
+    # track_batch at K = 16
+    ims = [im for im, _ in frames[1:]]
+    warm = pipeline()
+    warm.track(*frames[0])
+    warm.track_batch(ims[:16])
+    bat = pipeline()
+    bat.track(*frames[0])
+    bwalls = []
+
+    def run_batch():
+        for s in range(0, 32, 16):
+            t0 = time.perf_counter()
+            bat.track_batch(ims[s: s + 16])
+            bwalls.append(time.perf_counter() - t0)
+
+    _, b_launches, b_reads = drive("vo_rgbd_vga_batch16", run_batch, ("slot_reduce",))
+    T_bat = np.stack(bat.T_c_w)
+    gap_b = pose_gap(T_bat, refs["p46_batch"])
+    gap_bs = pose_gap(T_bat, T_seq[:33])
+    fps_seq, fps_pre, fps_bat = 1.0 / float(np.median(steady)), 1.0 / float(np.median(pwalls[1:])), 32 / sum(bwalls)
+
+    marks.append(("track_batch", time.perf_counter()))
+
+    # per frame: kernels, device ms, synchronizing calls; the dense plan's cost
+    more = pipeline()
+    more.track(*frames[0])
+    more.track(*frames[1])
+    n_kernels, dev_ms = frame_profile(lambda: [more.track(im, d) for im, d in frames[2:5]], 3)
+    marks.append(("profiled frames", time.perf_counter()))
+    syncs, syncs_reads = syncs_and_reads(lambda: more.track(*frames[7]))
+    h = more.prefetch(frames[9][0])
+    more.track(*frames[8])
+    syncs_pre, syncs_pre_reads = syncs_and_reads(lambda: more.track(h, frames[9][1]))
+    marks.append(("synchronizing calls", time.perf_counter()))
+    b_kernels, b_dev_ms = frame_profile(lambda: bat.track_batch(ims[:16]), 16)
+    marks.append(("profiled batch", time.perf_counter()))
+    kf = more.keyframes[0]
+    pyr = more._track_pyramid(torch.from_numpy(_track_input(frames[10][0])).to(dev))
+    T0 = torch.eye(4, device=dev)
+    graph = more._graph(T0, more._level_data(kf.levels[0], pyr[0]), more.loss)
+    t_plan = host_ms(lambda: dense_plan(graph))
+    dense_slot_reduce("vo_rgbd_vga level 0", graph, report, "vo_rgbd_vga_ms")
+    K16 = [more._graph(T0, {k: (v[b: b + 1] if torch.is_tensor(v) else v) for k, v in
+                            more._level_data(kf.levels[0], torch.stack([pyr[0]] * 16), 16).items()}, more.loss)
+           for b in range(16)]
+    dense_slot_reduce("vo_rgbd_vga track_batch K = 16, level 0", _union(K16), report, "vo_rgbd_vga_batch16_ms")
+    marks.append(("slot_reduce holds", time.perf_counter()))
+
+    log(f"vo_rgbd_vga (40 frames 640 x 480, 4 levels, 24,576 pixels a level): per frame {spread(steady)}, "
+        f"{fps_seq!r} fps; launches {launches}, LM host reads {reads['lm']} "
+        f"({reads['lm'] / (len(frames) - 1)!r} a frame); peak memory {peak} B; gap to the reference (translation m, "
+        f"rotation rad) {gap!r}; ATE against the ground truth {ate!r} m (TrajectoryMetrics.armse)")
+    log(f"vo_rgbd_vga prefetched ({n_pre} frames): per frame {spread(pwalls[1:])}, {fps_pre!r} fps; launches "
+        f"{pre_launches}; gap to the reference {gap_pre!r}; the same bits as frame by frame "
+        f"{np.array_equal(T_pre, T_seq[:n_pre])}")
+    log(f"vo_rgbd_vga track_batch K = 16: two batches {[1e3 * w for w in bwalls]!r} ms, {fps_bat!r} fps "
+        f"({fps_bat / fps_seq!r} x frame by frame); launches {b_launches}, LM host reads {b_reads['lm']}; gap to the "
+        f"reference's track_batch {gap_b!r}, to the sequential run {gap_bs!r}")
+    log(f"vo_rgbd_vga per frame: {n_kernels!r} kernels, {dev_ms!r} device ms (3 frames under torch.profiler); "
+        f"track_batch {b_kernels!r} kernels and {b_dev_ms!r} device ms a frame; synchronizing calls a frame "
+        f"{syncs} (track; {syncs_reads} of them LM reads), {syncs_pre} (prefetched track; {syncs_pre_reads} LM reads); "
+        f"dense_plan of the single-pose graph {t_plan!r} host ms "
+        f"(built once, then found by content in the plan cache at every level and frame)")
+    check(np.isfinite(T_seq).all() and np.isfinite(T_bat).all(), "vo_rgbd_vga: non-finite poses")
+    check(max(gap) <= VO_TOL and max(gap_pre) <= VO_TOL, f"vo_rgbd_vga: {gap} / {gap_pre} from the reference")
+    check(max(gap_b) <= VO_BATCH_REF_TOL and max(gap_bs) <= VO_TOL,
+          f"vo_rgbd_vga track_batch: {gap_b} from the reference's, {gap_bs} from the sequential run")
+    report.setdefault("vo", {}).update(vo_rgbd_vga=dict(
+        ms_median=1e3 * float(np.median(steady)), ms_p90=1e3 * float(np.percentile(steady, 90)), fps=fps_seq,
+        prefetch_fps=fps_pre, batch16_fps=fps_bat, kernels_per_frame=n_kernels, device_ms_per_frame=dev_ms,
+        syncs_per_frame=(syncs, syncs_reads), syncs_per_prefetched_frame=(syncs_pre, syncs_pre_reads),
+        slot_reduce=launches["slot_reduce"],
+        slot_reduce_batch16=b_launches["slot_reduce"], peak_bytes=peak, gap=gap, gap_batch=gap_b, ate=ate))
+    log(f"phase 46 (VGA RGB-D VO): {time.perf_counter() - t_phase!r} s (by part: "
+        f"{ {name: round(t - t0, 3) for (_, t0), (name, t) in zip([('', t_phase)] + marks, marks)} } s); {ctx['smi']}")
+
+
+def vo_stereo_phase(ctx):
+    """Phase 47: dense stereo VO at VGA with the on-device block matcher
+    (``matcher="tpu"``, 128 disparities) on 16 uint8 stereo frames along
+    the benchmark's path of a plane textured with the reference matcher
+    test's noise (``testing.vo_stereo_frames``): the keyframe's disparity
+    map held to the reference's (NaN masks equal, values within 1e-4), the
+    trajectory to the reference's; then ``affine_illumination=True``
+    through an exposure ramp (``testing.exposure_ramp``), its keyframe on
+    the matcher's map too, held to the reference's. The default run tracks
+    the first 8 frames of each, a selection of the phase all 16."""
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch.eval import TrajectoryMetrics
+    from pyslam_tpu_torch.pipelines import DenseStereoPipeline
+    from pyslam_tpu_torch.pipelines.keyframes import compute_disparity
+    from pyslam_tpu_torch.sensors import StereoCamera
+    from pyslam_tpu_torch.testing import VO_CAM, exposure_ramp, vo_stereo_frames, vo_truth
+
+    dev, drive, report = ctx["dev"], ctx["drive"], ctx["report"]
+    refs = np.load(os.path.join(ROOT, "chip_smoke_refs.npz"))
+    t_phase = time.perf_counter()
+    n = 16 if ctx["selected"] else 8
+    frames = vo_stereo_frames(n)
+    truth = vo_truth(n)
+    cam = StereoCamera(b=0.3, **VO_CAM)
+
+    left, right = frames[0][0], frames[0][1]
+    disp = compute_disparity(left, right, "tpu", device=dev)
+    t_match = host_ms(lambda: compute_disparity(left, right, "tpu", device=dev), reps=3)
+    n_match_kernels, match_dev_ms = frame_profile(lambda: compute_disparity(left, right, "tpu", device=dev), 1)
+    ref_disp = refs["p47_disp"]
+    valid = np.isfinite(ref_disp)
+    masks_equal = bool(np.array_equal(np.isfinite(disp), valid))
+    disp_err = float(np.abs(disp[valid] - ref_disp[valid]).max()) if valid.any() else 0.0
+    same_bits = masks_equal and bool(np.array_equal(disp[valid], ref_disp[valid]))
+
+    runs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, affine in (("vo_stereo_vga", False), ("vo_stereo_vga_affine", True)):
+        pipe, walls = DenseStereoPipeline(cam, pyrlevels=4, keyframe_trans_thresh=1e9, matcher="tpu",
+                                          affine_illumination=affine, device=dev), []
+
+        def run(pipe=pipe, walls=walls, affine=affine):
+            for k, (im_l, im_r, _) in enumerate(frames):
+                t0 = time.perf_counter()
+                pipe.track(exposure_ramp(im_l, k) if affine else im_l, im_r)
+                walls.append(time.perf_counter() - t0)
+
+        _, launches, reads = drive(name, run, ("slot_reduce",))
+        T = np.stack(pipe.T_c_w)
+        ref = refs["p47_affine" if affine else "p47_seq"][:n]
+        syncs = syncs_and_reads(lambda: pipe.track(exposure_ramp(frames[-1][0], n) if affine else frames[-1][0],
+                                                   frames[-1][1]))
+        # one more frame under torch.profiler (the plain run's; the affine
+        # kernel adds its sums to the same shapes)
+        profiled = None if affine else frame_profile(lambda: pipe.track(frames[1][0], frames[1][1]), 1)
+        runs[name] = dict(walls=walls[2:], launches=launches, reads=reads, gap=pose_gap(T, ref), syncs=syncs,
+                          profiled=profiled,
+                          ate=TrajectoryMetrics(np.linalg.inv(truth), np.linalg.inv(T), device=dev).armse("trans")
+                          .item(), first_ms=1e3 * walls[0])
+    log(f"vo_stereo_vga keyframe disparity (block_match, 480 x 640, 128 disparities): {t_match!r} host ms (median of "
+        f"3), {n_match_kernels!r} kernels, {match_dev_ms!r} device ms; valid {float(valid.mean())!r}; against the "
+        f"reference: NaN masks equal {masks_equal}, max error {disp_err!r}, the same bits {same_bits}")
+    for name, r in runs.items():
+        log(f"{name}: keyframe frame {r['first_ms']!r} ms; per frame {spread(r['walls'])}, "
+            f"{1.0 / float(np.median(r['walls']))!r} fps; launches {r['launches']}, LM host reads {r['reads']['lm']}; "
+            f"synchronizing calls of one more frame {r['syncs'][0]} ({r['syncs'][1]} LM reads); "
+            + (f"{r['profiled'][0]!r} kernels and {r['profiled'][1]!r} device ms a frame (one under torch.profiler); "
+               if r["profiled"] else "") + f"gap to the reference {r['gap']!r}; ATE {r['ate']!r} m")
+    peak = torch.cuda.max_memory_allocated()
+    check(masks_equal and disp_err <= 1e-4, f"vo_stereo_vga: disparity masks equal {masks_equal}, error {disp_err}")
+    for name, r in runs.items():
+        check(max(r["gap"]) <= VO_TOL, f"{name}: {r['gap']} from the reference")
+    report.setdefault("vo", {}).update(vo_stereo_vga=dict(
+        match_ms=t_match, match_kernels=n_match_kernels, match_device_ms=match_dev_ms, disp_error=disp_err,
+        peak_bytes=peak,
+        **{f"{n}_{k}": v for n, r in runs.items() for k, v in
+           (("ms_median", 1e3 * float(np.median(r["walls"]))), ("ms_p90", 1e3 * float(np.percentile(r["walls"], 90))),
+            ("syncs_per_frame", r["syncs"]), ("slot_reduce", r["launches"]["slot_reduce"]), ("gap", r["gap"]))}))
+    log(f"phase 47 (VGA stereo VO): {time.perf_counter() - t_phase!r} s; peak memory {peak} B; {ctx['smi']}")
+
+
+def stereo_slam_phase(ctx):
+    """Phase 48: ``examples/stereo_slam.py``'s pipeline at its size (40
+    frames, 4,000 points, a 640 x 480 stereo camera) on the port in float32
+    (``testing.stereo_slam``): the RANSAC odometry chain and loop closures
+    (each with its LM polish), the pose graph (``solver.solve``) and joint
+    SLAM through ``solve_auto``; each RANSAC call given the reference's
+    samples (``chip_smoke_refs.npz``), the ATE of each stage held to the
+    reference's; then the port's own draw (a ``torch.Generator``), its
+    joint-SLAM ATE within 10% of the reference's. ``slot_reduce``'s
+    launches are counted by stage, and the arguments of its first launch at
+    each plan and width of the run are recorded (``record_slot_reduce``)
+    and held to the plain version afterwards: every polish shape, the pose
+    graph's dense sums and the Schur route's segment sums; the largest of
+    each stage is also timed."""
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch.pipelines import FrameToFrameRANSAC
+    from pyslam_tpu_torch.sensors import StereoCamera
+    from pyslam_tpu_torch.solver import cuda_ops
+    from pyslam_tpu_torch.testing import SLAM_CAM, stereo_slam, stereo_slam_world
+
+    dev, drive, report = ctx["dev"], ctx["drive"], ctx["report"]
+    refs = np.load(os.path.join(ROOT, "chip_smoke_refs.npz"))
+    t_phase = time.perf_counter()
+    world, gt, frames = stereo_slam_world(n_frames=40, seed=0)
+    samples = dict(zip(refs["p48_sample_counts"].tolist(), refs["p48_samples"]))
+    stage_ms, stage_launches, calls = {}, {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        n0, t0 = cuda_ops.LAUNCHES["slot_reduce"], time.perf_counter()
+        with record_slot_reduce(calls.setdefault(name, {})):
+            out = fn()
+            torch.cuda.synchronize()
+        stage_ms[name] = 1e3 * (time.perf_counter() - t0)
+        stage_launches[name] = cuda_ops.LAUNCHES["slot_reduce"] - n0
+        return out
+
+    stages = dict(odometry=timed, pose_graph=timed, joint=timed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches, reads = drive("stereo_slam_40", lambda: stereo_slam(world, gt, frames, device=dev, samples=samples,
+                                                                        stages=stages), ("slot_reduce",))
+    wall = time.perf_counter() - t0
+    ate = np.array([out["ate_odometry"], out["ate_pose_graph"], out["ate_joint"]])
+    rel = np.abs(ate - refs["p48_ate"]) / refs["p48_ate"]
+    peak = torch.cuda.max_memory_allocated()
+    own = stereo_slam(world, gt, frames, device=dev)
+    own_ate = np.array([own["ate_odometry"], own["ate_pose_graph"], own["ate_joint"]])
+
+    # a frame of the odometry: one RANSAC call on a consecutive pair
+    ransac = FrameToFrameRANSAC(StereoCamera(**SLAM_CAM), num_iters=256, inlier_thresh=2.0, device=dev)
+    pairs = []
+    for k in range(1, 12):
+        _, ia, ib = np.intersect1d(frames[k - 1][0], frames[k][0], return_indices=True)
+        pairs.append((frames[k - 1][1][ia].astype(np.float32), frames[k][1][ib].astype(np.float32)))
+    steps = []
+    for a, b in pairs:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ransac.compute_transform(a, b)
+        steps.append(time.perf_counter() - t1)
+    step_kernels, step_dev_ms = frame_profile(lambda: [ransac.compute_transform(a, b) for a, b in pairs[:3]], 3)
+    step_syncs, step_reads = syncs_and_reads(lambda: ransac.compute_transform(*pairs[0]))
+
+    # slot_reduce against its plain version at every recorded launch; the
+    # largest of each stage also timed
+    for stage, recorded in calls.items():
+        items = list(recorded.values())
+        largest = max(range(len(items)), key=lambda i: items[i][0].numel())
+        worst, shapes = 0.0, []
+        for i, args in enumerate(items):
+            contrib, perm, offsets, n_slots = args
+            long = cuda_ops.slot_reduce_is_long(contrib.shape[0], n_slots)
+            shapes.append(f"{tuple(contrib.shape)} into {n_slots}{' (long kernel)' if long else ''}")
+            if i == largest:
+                check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain, list(args), report,
+                             f"stereo_slam_40_{stage}_ms", flop=contrib.numel(),
+                             library=index_add_library(contrib, perm, offsets, n_slots))
+            else:
+                worst = max(worst, hold_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain, args,
+                                               report, quiet=True))
+        log(f"stereo_slam_40 {stage}: slot_reduce held at {len(recorded)} plans and widths "
+            f"({', '.join(shapes[:8])}{', ...' if len(shapes) > 8 else ''}), {shapes[largest]} timed; the others' "
+            f"largest relative error {worst!r}")
+    log(f"stereo_slam_40 on the reference's samples: {wall!r} s ({ {k: round(v, 3) for k, v in stage_ms.items()} } ms "
+        f"by stage), {out['edges']} edges ({out['loops']} loop closures), pose graph {out['pose_graph_iterations']} "
+        f"LM iterations, joint {out['joint_iterations']} ({out['landmarks']} landmarks, {out['observations']} "
+        f"observations); launches {launches} (slot_reduce by stage {stage_launches}, at "
+        f"{ {k: len(v) for k, v in calls.items()} } plans and widths), LM host reads {reads['lm']}; "
+        f"ATE {ate.tolist()!r} m against the reference's {refs['p48_ate'].tolist()!r} (relative gaps {rel.tolist()!r})")
+    log(f"stereo_slam_40 on the port's own draw: ATE {own_ate.tolist()!r} m; peak memory {peak} B")
+    log(f"stereo_slam_40 odometry step (one compute_transform, 256 hypotheses, LM 10 polish): {spread(steps[1:])}, "
+        f"{1.0 / float(np.median(steps[1:]))!r} a second; {step_kernels!r} kernels and {step_dev_ms!r} device ms a "
+        f"step; synchronizing calls {step_syncs} ({step_reads} LM reads)")
+    check(sum(stage_launches.values()) == launches["slot_reduce"], f"stereo_slam_40: launches by stage {stage_launches}")
+    check(all(stage_launches.values()), f"stereo_slam_40: a stage launched no slot_reduce: {stage_launches}")
+    check(np.isfinite(ate).all() and rel.max() <= SLAM_ATE_TOL, f"stereo_slam_40: ATE {ate} against {refs['p48_ate']}")
+    check(abs(own_ate[2] - refs["p48_ate"][2]) <= 0.1 * refs["p48_ate"][2],
+          f"stereo_slam_40 own draw: joint ATE {own_ate[2]} against the reference's {refs['p48_ate'][2]}")
+    report.setdefault("vo", {}).update(stereo_slam_40=dict(
+        wall_s=wall, stage_ms=stage_ms, ate=ate.tolist(), own_ate=own_ate.tolist(), slot_reduce=launches["slot_reduce"],
+        slot_reduce_by_stage=stage_launches, peak_bytes=peak, step_ms_median=1e3 * float(np.median(steps[1:])),
+        step_kernels=step_kernels, step_device_ms=step_dev_ms, step_syncs=step_syncs))
+    log(f"phase 48 (stereo SLAM): {time.perf_counter() - t_phase!r} s; {ctx['smi']}")
+
+
+@contextlib.contextmanager
+def record_slot_reduce(calls):
+    """Within the block, every ``slot_reduce`` launch (``cuda_ops``'s
+    ``_slot_reduce``, behind the autograd wrapper too) also records its
+    arguments into ``calls`` the first time it meets a plan and width:
+    (perm's address, n_slots, contrib's shape) -> (contrib, perm, offsets,
+    n_slots). The launch itself, and its count, are unchanged."""
+    from pyslam_tpu_torch.solver import cuda_ops
+
+    inner = cuda_ops._slot_reduce
+
+    def recorded(contrib, perm, offsets, n_slots):
+        calls.setdefault((perm.data_ptr(), n_slots, tuple(contrib.shape)), (contrib, perm, offsets, n_slots))
+        return inner(contrib, perm, offsets, n_slots)
+
+    cuda_ops._slot_reduce = recorded
+    try:
+        yield calls
+    finally:
+        cuda_ops._slot_reduce = inner
+
+
+def vo_phases(ctx):
+    """Phases 46 to 48."""
+    if ctx["want"](46):
+        vo_rgbd_phase(ctx)
+    if ctx["want"](47):
+        vo_stereo_phase(ctx)
+    if ctx["want"](48):
+        stereo_slam_phase(ctx)
 
 
 def cross_check(label, res, rel=1e-8):

@@ -132,6 +132,19 @@ own wall); ``sqrt_ladybug`` is one ``solve_auto`` through the
 ``schur_sqrt`` route (f32), timed and split as a solve (the plan, the
 linearization into buckets, one elimination and reduced solve).
 
+The VO cells of phase 46 (f32, ``bench/vo_overlap.py``'s VGA frames, 4
+levels): ``vo_rgbd_vga`` tracks the 40 frames one by one, ``--reps`` runs
+on fresh pipelines, each frame timed on the host clock up to its pose read
+back (the keyframe and the first tracked frame of a run left out), then 10
+frames under ``torch.profiler``; ``vo_batch16`` runs ``bench/vo_batch.py``'s
+protocol (the keyframe, then two ``track_batch`` calls of 16 frames) on
+``--reps`` fresh pipelines after a warm-up, each batch's wall over 16 a
+frame, then one batch under ``torch.profiler``. Each prints the median and
+quartiles of the ms a frame, the fps, the kernels and device ms a frame,
+the busy share and the synchronizing runtime calls a frame; ``vo_rgbd_vga``
+also the host ms of an LM iteration's parts at level 0 (the dense cells'
+split, the photometric kernel with its Jacobian, the Student-t scale).
+
 ``--root`` imports ``pyslam_tpu_torch`` from another checkout, such as a
 parent commit unpacked beside this one (the sphere2500 cell runs on every
 version of the port; the dense cells need the dense path).  The graphs
@@ -155,7 +168,7 @@ from typing import NamedTuple
 CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dense", "config8", "config2_sparse_chol",
          "sparse_chol_5000", "schur_sparse_2000", "fleet16", "venice_mini", "config6", "config5", "init_sphere2500",
          "gnc_sphere2500", "switch_m3500", "vio400", "vio_window", "fixed_lag_sphere2500", "fixed_lag_lm_config8",
-         "incremental_m3500", "sqrt_ladybug")
+         "incremental_m3500", "sqrt_ladybug", "vo_rgbd_vga", "vo_batch16")
 # cells timed over at least 9 solves
 MIN_NINE = ("config5", "init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400", "sqrt_ladybug")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
@@ -367,6 +380,83 @@ def slice9_split(name, g, o, dev, reps):
 
 
 ONLINE_CELLS = ("vio_window", "fixed_lag_sphere2500", "fixed_lag_lm_config8", "incremental_m3500")
+VO_CELLS = ("vo_rgbd_vga", "vo_batch16")
+
+
+def vo_cell(name, dev, dev_us, reps):
+    """The VO cells of phase 46 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyslam_tpu_torch.pipelines import DenseRGBDPipeline
+    from pyslam_tpu_torch.sensors import RGBDCamera
+    from pyslam_tpu_torch.testing import VO_CAM, vo_frames
+
+    frames = vo_frames(40)
+    ims = [im for im, _ in frames[1:]]
+
+    def pipeline():
+        pipe = DenseRGBDPipeline(RGBDCamera(**VO_CAM), pyrlevels=4, keyframe_trans_thresh=1e9, device=dev)
+        pipe.track(*frames[0])
+        return pipe
+
+    walls = []  # ms a frame
+    if name == "vo_rgbd_vga":
+        for _ in range(reps):
+            pipe = pipeline()
+            pipe.track(*frames[1])
+            for im, depth in frames[2:]:
+                t0 = time.perf_counter()
+                pipe.track(im, depth)
+                walls.append(1e3 * (time.perf_counter() - t0))
+        pipe, n_prof = pipeline(), 10
+        pipe.track(*frames[1])
+
+        def segment():
+            for im, depth in frames[2: 2 + n_prof]:
+                pipe.track(im, depth)
+    else:
+        pipeline().track_batch(ims[:16])  # warm-up
+        for _ in range(reps):
+            pipe = pipeline()
+            for s in (0, 16):
+                t0 = time.perf_counter()
+                pipe.track_batch(ims[s: s + 16])
+                walls.append(1e3 * (time.perf_counter() - t0) / 16)
+        pipe, n_prof = pipeline(), 16
+
+        def segment():
+            pipe.track_batch(ims[:16])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        segment()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    kern = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kern) / 1e3 / n_prof
+    q = statistics.quantiles(walls, n=4)
+    med = statistics.median(walls)
+    print(f"== {name}: ms a frame median of {len(walls)} {med!r}, quartiles {q[0]!r} to {q[2]!r}, p90 "
+          f"{float(np.percentile(walls, 90))!r}; {1e3 / med!r} fps", flush=True)
+    print(f"   profiled {n_prof} frames: {sum(e.count for e in kern) / n_prof!r} kernels and {busy!r} device ms a "
+          f"frame -> busy share {busy / med!r}; runtime calls a frame "
+          f"{ {e.key: e.count / n_prof for e in ka if e.key in RUNTIME_CALLS} }", flush=True)
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        print(f"   {dev_us(e) / 1e3 / n_prof:10.4f} ms a frame  x{e.count:5d}  {e.key[:100]}")
+    if name == "vo_rgbd_vga":
+        from pyslam_tpu_torch.graph.core import FACTOR_KERNELS
+        from pyslam_tpu_torch.pipelines.dense import _estimate_tdist_scale
+
+        # one LM iteration's parts at level 0, at the pose of the last frame
+        kf = pipe.keyframes[0]
+        T = torch.as_tensor(pipe.T_c_w[-1] @ np.linalg.inv(kf.T_w), dtype=torch.float32).to(dev)
+        data = pipe._level_data(kf.levels[0], pipe._track_pyramid(frames[n_prof + 2][0])[0])
+        g = pipe._graph(T, data, pipe._level_loss(data, T))
+        split = dense_split(g, pipe.options, dev, reps)
+        split["photometric_kernel"] = host_ms(lambda: FACTOR_KERNELS[pipe._kind](data, T[None]), reps)
+        split["tdist_scale"] = host_ms(lambda: _estimate_tdist_scale(data, T[None], 5.0, pipe._kind), reps)
+        print(f"   host ms per call at level 0 (median of {reps}, synchronised): {split}", flush=True)
 
 
 def online_cell(name, dev, dev_us, profiled=30):
@@ -1260,6 +1350,9 @@ def main() -> int:
             continue
         if name in ONLINE_CELLS:
             online_cell(name, dev, dev_us)
+            continue
+        if name in VO_CELLS:
+            vo_cell(name, dev, dev_us, args.reps)
             continue
         reps = args.reps
         if name in ("venice_mini", "config6"):

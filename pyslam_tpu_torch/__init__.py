@@ -6,9 +6,9 @@ module paths and function names, imports neither JAX nor ``pyslam_tpu``,
 and replaces each of its Pallas TPU kernels with a CUDA kernel written by
 hand (``csrc/``, built by ``_ext`` at first use).
 
-Not ported yet: the VO frontends (``pipelines``), ``eval``, the
-component-major sharded Schur path (``dist/schur_cm.py``) and a few solver
-options (ROADMAP.md lists them).  Ported:
+Not ported yet: the component-major sharded Schur path
+(``dist/schur_cm.py``) and a few solver options (ROADMAP.md lists them).
+Ported:
 
   * ``lie``       — SO(2) / SE(2) / SO(3) / SE(3) / Sim(3) functional cores
                     and the object wrappers ``SO2`` ... ``Sim3``
@@ -30,10 +30,16 @@ options (ROADMAP.md lists them).  Ported:
                     data
   * ``debug``, ``observability`` — graph lint, NaN checks, solve logs,
                     profiling, checkpoints
+  * ``pipelines`` — dense RGB-D and stereo direct VO (``track``,
+                    ``prefetch``, ``track_batch``), the on-device block
+                    matcher, the photometric factors, frame-to-frame RANSAC
+  * ``eval``      — ``TrajectoryMetrics``, ``associate``,
+                    ``interpolate_poses``, ``TrajectoryVisualizer``
 
 Entry points that build tensors (the builders of ``graph.build``,
 ``convert.graph_from_numpy``, ``Problem``, the Lie ``identity``
-functions and methods) put them on ``default_device()``, the CUDA card,
+functions and methods, the keyframes and pipelines, ``FrameToFrameRANSAC``,
+``TrajectoryMetrics``) put them on ``default_device()``, the CUDA card,
 unless the caller names a device; ``device="cpu"`` asks for the CPU.
 """
 
@@ -72,4 +78,5 @@ from .losses import (  # noqa: E402,F401
     TukeyLoss,
 )
 from .sensors import RGBDCamera, StereoCamera  # noqa: E402,F401
-from . import debug, observability  # noqa: E402,F401
+from . import debug, eval, observability, pipelines  # noqa: E402,F401
+from .eval import TrajectoryMetrics, TrajectoryVisualizer  # noqa: E402,F401

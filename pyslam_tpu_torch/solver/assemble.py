@@ -24,6 +24,7 @@ import torch
 
 from ..graph.core import FactorGraph
 from .cuda_ops import slot_plan, slot_reduce
+from .plan_cache import ClosureCache, content_key
 
 
 def linearize_batch(fb, blocks):
@@ -143,6 +144,32 @@ def dense_plan(graph: FactorGraph, hessian: bool = True) -> DensePlan:
         tuple(_group(s, np.concatenate(k), D, device) for s, k in h_keys.items()),
         tuple(_group(s, np.concatenate(k), D, device) for s, k in g_keys.items()),
     )
+
+
+def structure_key(graph: FactorGraph) -> tuple:
+    """What a dense plan depends on, by content: the device, every block's
+    name, kind, size and tangent dimension, every batch's kind, slots and
+    index tensors
+    (``plan_cache.content_key``: a tensor is read and hashed once in its
+    life, so a graph rebuilt around the same index tensors costs no read)."""
+    return (
+        str(next(iter(graph.blocks.values())).values.device),
+        tuple((n, b.kind, b.n, b.dof) for n, b in graph.blocks.items()),
+        tuple((fb.kind, tuple(fb.slots), tuple(content_key(i) for i in fb.indices)) for fb in graph.batches),
+    )
+
+
+_PLANS = ClosureCache()
+
+
+def cached_dense_plan(graph: FactorGraph) -> DensePlan:
+    """``dense_plan(graph)``, reused across calls on graphs of one structure
+    (``structure_key``): a solve of a graph rebuilt every call, as a VO
+    frame's levels are, builds its plan once."""
+    key = structure_key(graph)
+    if key not in _PLANS:
+        _PLANS[key] = dense_plan(graph)
+    return _PLANS[key]
 
 
 # --------------------------------------------------------------------------

@@ -41,8 +41,9 @@ import torch
 from ..graph.core import FactorBatch, FactorGraph, VariableBlock
 from ..losses import TDistributionLoss
 from . import lm as _lm
-from .assemble import _group, _reduce_into, dense_contributions, free_mask
+from .assemble import _group, _reduce_into, dense_contributions, free_mask, structure_key
 from .linear import HOST_READS, cholesky_solve
+from .plan_cache import ClosureCache
 
 
 class BatchedSolveInfo(NamedTuple):
@@ -84,27 +85,35 @@ def _unstack(graph: FactorGraph) -> list:
     ]
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class _ScalePerProblem:
-    """``TDistributionLoss(scale=None)`` on a union batch of B problems of
-    equal size: the loss's own functions, vmapped over the problems' rows
-    (the residuals reshaped (B, n r)), so each problem's scale is estimated
-    from its own residuals."""
+    """A ``TDistributionLoss`` on a union batch of B problems of equal size,
+    the residuals reshaped (B, n r): with ``scale`` None, the loss's own
+    functions vmapped over the problems' rows, so each problem's scale is
+    estimated from its own residuals (``TDistributionLoss(scale=None)``);
+    with ``scale`` (B,), problem b's rows under the frozen scale b.  Equal
+    only to itself: the B graphs of a batch share one."""
 
     base: TDistributionLoss
     B: int
+    scale: torch.Tensor | None = None
 
-    def _per_problem(self, fn, e):
-        return torch.func.vmap(fn)(e.reshape(self.B, -1)).reshape(e.shape)
+    def _per_problem(self, name, e):
+        rows = e.reshape(self.B, -1)
+        if self.scale is None:
+            out = torch.func.vmap(getattr(self.base, name))(rows)
+        else:
+            out = getattr(dataclasses.replace(self.base, scale=self.scale[:, None]), name)(rows)
+        return out.reshape(e.shape)
 
     def loss(self, e):
-        return self._per_problem(self.base.loss, e)
+        return self._per_problem("loss", e)
 
     def influence(self, e):
-        return self._per_problem(self.base.influence, e)
+        return self._per_problem("influence", e)
 
     def weight(self, e):
-        return self._per_problem(self.base.weight, e)
+        return self._per_problem("weight", e)
 
 
 def _union(graphs: list) -> FactorGraph:
@@ -195,6 +204,18 @@ def _batched_plan(graphs: list, device) -> BatchedPlan:
     return BatchedPlan(B, D, groups(h_keys), groups(g_keys))
 
 
+_PLANS = ClosureCache()
+
+
+def _cached_batched_plan(graphs: list, device) -> BatchedPlan:
+    """``_batched_plan``, reused across calls on fleets of one structure
+    (``assemble.structure_key`` of each graph)."""
+    key = (str(device),) + tuple(structure_key(g) for g in graphs)
+    if key not in _PLANS:
+        _PLANS[key] = _batched_plan(graphs, device)
+    return _PLANS[key]
+
+
 def _costs(union: FactorGraph, B: int):
     """Each problem's cost (B,), residuals only (``graph.chi2`` of each)."""
     blocks0 = next(iter(union.blocks.values())).values
@@ -265,7 +286,7 @@ def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool 
     union = _union(graphs)
     blocks0 = next(iter(union.blocks.values())).values
     dtype, device = blocks0.dtype, blocks0.device
-    plan = _batched_plan(graphs, device)
+    plan = _cached_batched_plan(graphs, device)
     free = torch.stack([free_mask(g) for g in graphs]).to(dtype)
     sizes = {n: graphs[0].blocks[n].n for n in union.blocks}
     offsets = graphs[0].offsets()

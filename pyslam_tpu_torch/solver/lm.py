@@ -9,10 +9,11 @@ back every comparison the accept and stop logic needs (computed on the
 device in the graph's dtype, as in the reference).  The trust radius of
 'dogleg' is updated on the device and needs no read of its own.
 
-The default linear path is dense: ``assemble_dense`` (over a plan built
-once per solve) and ``_dense_solve`` (Marquardt damping and Cholesky).  A
-failed Cholesky gives a NaN step, whose cost compares False with
-everything, so the step is rejected without a branch.  The sparse paths
+The default linear path is dense: ``assemble_dense`` (over the plan of
+the graph's structure, built once and kept by ``cached_dense_plan``) and
+``_dense_solve`` (Marquardt damping and Cholesky).  A failed Cholesky
+gives a NaN step, whose cost compares False with everything, so the step
+is rejected without a branch.  The sparse paths
 pass their own ``assemble_fn`` / ``solve_fn`` / ``matvec_fn``.
 """
 
@@ -24,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..graph.core import FactorGraph
-from .assemble import assemble_dense, dense_plan, unit_diag_where_dead_
+from .assemble import assemble_dense, cached_dense_plan, unit_diag_where_dead_
 from .linear import HOST_READS, cholesky_solve, damp_marquardt_
 
 # Stop codes (SolveInfo.status)
@@ -159,7 +160,7 @@ def solve(
             raise ValueError("method='dogleg' with a custom linear path needs matvec_fn(H, v)")
         matvec_fn = _dense_matvec
     if assemble_fn is None or assemble_fn is assemble_dense:
-        plan = dense_plan(graph)
+        plan = cached_dense_plan(graph)
 
         def assemble_fn(g):
             return assemble_dense(g, plan)

@@ -430,3 +430,279 @@ def vio_sliding_window(data, T_meas, window=5, max_iters=25, dtype=torch.float64
         if on_keyframe is not None:
             on_keyframe(k, g, info)
     return errs, chi2s, iters, g
+
+
+# --------------------------------------------------------------------------
+# Synthetic VO frames (numpy, copied from the reference's benchmark and
+# tests: ``bench/vo_overlap.py`` and ``tests/test_pipelines.py``)
+# --------------------------------------------------------------------------
+
+VO_W, VO_H, VO_Z0 = 640, 480, 4.0
+VO_CAM = dict(cu=319.5, cv=239.5, fu=525.0, fv=525.0, w=VO_W, h=VO_H)
+
+
+def vo_tex(x, y):
+    """``bench/vo_overlap.py``'s world texture."""
+    return (
+        0.5
+        + 0.2 * np.sin(2.5 * x) * np.cos(1.8 * y)
+        + 0.15 * np.sin(0.9 * x + 1.3 * y)
+        + 0.1 * np.cos(5.1 * x - 2.2 * y)
+    )
+
+
+def vo_render(t):
+    """uint8 VGA frame and float32 depth of a camera at world position t
+    (identity rotation) looking at the textured plane z = 4."""
+    u, v = np.meshgrid(np.arange(VO_W), np.arange(VO_H), indexing="xy")
+    zc = VO_Z0 - t[2]
+    xw = (u - VO_CAM["cu"]) / VO_CAM["fu"] * zc + t[0]
+    yw = (v - VO_CAM["cv"]) / VO_CAM["fv"] * zc + t[1]
+    im = np.clip(vo_tex(xw, yw), 0.0, 1.0)
+    return (im * 255).astype(np.uint8), np.full((VO_H, VO_W), zc, np.float32)
+
+
+def vo_frames(n):
+    """``bench/vo_overlap.py::make_frames``: n (uint8 frame, depth) pairs
+    along t_k = [0.02 k, 0.01 sin(k / 2), 0]."""
+    return [vo_render(np.array([0.02 * k, 0.01 * np.sin(k / 2), 0.0])) for k in range(n)]
+
+
+def vo_truth(n):
+    """Camera-from-world poses of ``vo_frames(n)``: [I | -t_k]."""
+    T = np.tile(np.eye(4), (n, 1, 1))
+    for k in range(n):
+        T[k, :3, 3] = -np.array([0.02 * k, 0.01 * np.sin(k / 2), 0.0])
+    return T
+
+
+PLANE_Z0 = 4.0
+PLANE_CAM = dict(cu=31.5, cv=23.5, fu=100.0, fv=100.0, w=64, h=48)
+
+
+def plane_tex(x, y):
+    """``tests/test_pipelines.py``'s smooth world texture."""
+    return 0.5 + 0.25 * np.sin(2.5 * x) * np.cos(1.8 * y) + 0.15 * np.sin(0.9 * x + 1.3 * y)
+
+
+def render_rgbd(t, cam=PLANE_CAM):
+    """Image and depth seen by a camera at world position t (identity
+    rotation) of the plane z = 4 (``tests/test_pipelines.py``; ``cam``
+    ``VO_CAM`` gives the same scene at VGA)."""
+    u, v = np.meshgrid(np.arange(cam["w"]), np.arange(cam["h"]), indexing="xy")
+    zc = PLANE_Z0 - t[2]
+    xw = (u - cam["cu"]) / cam["fu"] * zc + t[0]
+    yw = (v - cam["cv"]) / cam["fv"] * zc + t[1]
+    return plane_tex(xw, yw), np.full((cam["h"], cam["w"]), zc)
+
+
+def render_stereo(t, b=0.3, cam=PLANE_CAM):
+    """Left / right pair and the true disparity of a camera at world
+    position t, the right camera offset +b along x."""
+    im_left, depth = render_rgbd(t, cam)
+    im_right, _ = render_rgbd(t + np.array([b, 0.0, 0.0]), cam)
+    return im_left, im_right, cam["fu"] * b / depth
+
+
+def matcher_texture(shape, seed=1):
+    """The texture of the reference's on-device matcher test
+    (``tests/test_pipelines.py``, ``test_stereo_pipeline_with_tpu_matcher``):
+    uniform noise in [0.2, 0.8] of ``shape``, smoothed by a 3-tap box along
+    the rows."""
+    rng = np.random.default_rng(seed)
+    tex = rng.uniform(0.2, 0.8, shape)
+    k = np.ones(3) / 3
+    return np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 1, tex)
+
+
+VO_STEREO_PAD = 96  # texels around the view of a camera at t = 0
+
+
+def noise_render(tex, t):
+    """uint8 VGA frame of a camera at world position t (identity rotation)
+    looking at the plane z = 4 that carries ``tex``: one texel a pixel of
+    the camera at t = 0, bilinear between texels, quantized as
+    ``vo_render`` quantizes."""
+    u, v = np.meshgrid(np.arange(VO_W), np.arange(VO_H), indexing="xy")
+    zc = VO_Z0 - t[2]
+    xw = (u - VO_CAM["cu"]) / VO_CAM["fu"] * zc + t[0]
+    yw = (v - VO_CAM["cv"]) / VO_CAM["fv"] * zc + t[1]
+    x = xw * VO_CAM["fu"] / VO_Z0 + VO_CAM["cu"] + VO_STEREO_PAD
+    y = yw * VO_CAM["fv"] / VO_Z0 + VO_CAM["cv"] + VO_STEREO_PAD
+    x0, y0 = np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
+    fx, fy = x - x0, y - y0
+    im = ((1 - fy) * ((1 - fx) * tex[y0, x0] + fx * tex[y0, x0 + 1])
+          + fy * ((1 - fx) * tex[y0 + 1, x0] + fx * tex[y0 + 1, x0 + 1]))
+    return (np.clip(im, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def vo_stereo_frames(n, b=0.3):
+    """n stereo triples (uint8 left, uint8 right, true disparity) along
+    ``vo_frames``' path: the benchmark's VGA camera and plane, textured
+    with ``matcher_texture`` (the benchmark's smooth texture leaves the
+    block matcher too little texture at VGA), the right camera offset +b
+    along x. Ground truth: ``vo_truth(n)``."""
+    tex = matcher_texture((VO_H + 2 * VO_STEREO_PAD, VO_W + 2 * VO_STEREO_PAD))
+    out = []
+    for k in range(n):
+        t = np.array([0.02 * k, 0.01 * np.sin(k / 2), 0.0])
+        disp = np.full((VO_H, VO_W), VO_CAM["fu"] * b / (VO_Z0 - t[2]))
+        out.append((noise_render(tex, t), noise_render(tex, t + np.array([b, 0.0, 0.0])), disp))
+    return out
+
+
+def exposure_ramp(im, k):
+    """Frame k of an exposure ramp: gain 1 + 0.05 k, bias 0.02 k, clipped to
+    [0, 2]; a uint8 frame is normalized to [0, 1] first (``/ 255.0``)."""
+    if im.dtype == np.uint8:
+        im = im / 255.0
+    return np.clip((1.0 + 0.05 * k) * im + 0.02 * k, 0.0, 2.0)
+
+
+# --------------------------------------------------------------------------
+# examples/stereo_slam.py on the port
+# --------------------------------------------------------------------------
+
+SLAM_CAM = dict(cu=320.0, cv=240.0, fu=500.0, fv=500.0, b=0.3, w=640, h=480)
+
+
+def stereo_slam_world(n_frames=40, seed=0, n_pts=4000, radius=8.0, pix_noise=0.3, max_pts=300):
+    """``examples/stereo_slam.py``'s data: points on a cylinder around a
+    circular trajectory of stereo frames (camera-from-world ``gt`` (n, 4,
+    4)), and each frame's visible observations (ids, [uL, vL, d] + noise),
+    projected in float64 on the host. Returns (world, gt, frames)."""
+    from .sensors import StereoCamera
+
+    cam = StereoCamera(**SLAM_CAM)
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n_pts)
+    r = radius + rng.uniform(1.0, 4.0, n_pts)
+    z = rng.uniform(-2.0, 2.0, n_pts)
+    world = np.stack([r * np.cos(ang), r * np.sin(ang), z], axis=-1)
+    gt = []
+    for k in range(n_frames):
+        a = 2 * np.pi * k / n_frames
+        center = np.array([radius * np.cos(a), radius * np.sin(a), 0.0])
+        zc = np.array([-np.sin(a), np.cos(a), 0.0])  # direction of travel
+        yc = np.array([0.0, 0.0, -1.0])
+        R_wc = np.stack([np.cross(yc, zc), yc, zc], axis=-1)
+        T = np.eye(4)
+        T[:3, :3] = R_wc.T
+        T[:3, 3] = -R_wc.T @ center
+        gt.append(T)
+    frames = []
+    for T in gt:
+        pc = world @ T[:3, :3].T + T[:3, 3]
+        obs = cam.project(torch.from_numpy(pc)).numpy()
+        vis = cam.is_valid_measurement(torch.from_numpy(obs)).numpy() & (pc[:, 2] > 0.5)
+        ids = np.nonzero(vis)[0]
+        if len(ids) > max_pts:
+            ids = rng.choice(ids, max_pts, replace=False)
+        frames.append((ids, obs[ids] + rng.normal(0, pix_noise, (len(ids), 3))))
+    return world, np.stack(gt), frames
+
+
+def stereo_slam(world, gt, frames, dtype=torch.float32, device=None, ransac_iters=256, samples=None, stages=None):
+    """``examples/stereo_slam.py``'s pipeline on the port, in ``dtype`` on
+    ``device``: the RANSAC odometry chain (``FrameToFrameRANSAC``), loop
+    closures between revisited poses measured the same way, the pose graph
+    (between_se3, Cauchy(2), LM 50, ``solver.solve``), then joint SLAM of
+    every observation and the pose graph's factors through ``solve_auto``
+    (LM 30). ``samples``, when given, maps a match count N to the (M, 3)
+    samples that a RANSAC call over N matches scores in place of its own
+    draw (the reference's draw depends on N alone). ``stages``, when
+    given, maps a stage name ("odometry",
+    "pose_graph", "joint") to a wrapper ``fn(name, run) -> run()`` around
+    it. Returns a dict of the three ATEs (m), the edges and loop closures,
+    the LM iterations, the landmark and observation counts."""
+    from .eval import TrajectoryMetrics
+    from .losses import CauchyLoss
+    from .pipelines.ransac import FrameToFrameRANSAC
+    from .sensors import StereoCamera
+    from .solver import Options, solve, solve_auto
+
+    device = resolve_device(device)
+    cam = StereoCamera(**SLAM_CAM)
+    npdt = torch.empty((), dtype=dtype).numpy().dtype
+    n = len(gt)
+    ransac = FrameToFrameRANSAC(cam, num_iters=ransac_iters, inlier_thresh=2.0, device=device)
+    stage = stages or {}
+
+    def run(name, fn):
+        return stage[name](name, fn) if name in stage else fn()
+
+    def relative(a, b):
+        (ids_a, obs_a), (ids_b, obs_b) = frames[a], frames[b]
+        common, ia, ib = np.intersect1d(ids_a, ids_b, return_indices=True)
+        if len(common) < 12:
+            return None
+        T, mask = ransac.compute_transform(obs_a[ia].astype(npdt), obs_b[ib].astype(npdt),
+                                           samples=None if samples is None else samples[len(common)])
+        if mask.sum() < 10:
+            return None
+        return T.mat.cpu().numpy()
+
+    def front():
+        edges, est = [], [gt[0]]
+        for k in range(1, n):
+            T_rel = relative(k - 1, k)
+            if T_rel is None:
+                raise RuntimeError(f"stereo_slam: odometry break at frame {k}")
+            edges.append((k - 1, k, T_rel))
+            est.append(T_rel @ est[-1])
+        loops = 0
+        for k in range(n):
+            for j in range(k + 5, n):
+                if np.linalg.norm(np.linalg.inv(gt[k])[:3, 3] - np.linalg.inv(gt[j])[:3, 3]) < 2.5:
+                    T_rel = relative(k, j)
+                    if T_rel is not None:
+                        edges.append((k, j, T_rel))
+                        loops += 1
+        return edges, np.stack(est), loops
+
+    def ate(T_c_w):
+        return TrajectoryMetrics(np.linalg.inv(gt), np.linalg.inv(T_c_w), device=device).armse("trans").item()
+
+    edges, est, loops = run("odometry", front)
+    const = np.zeros(n, bool)
+    const[0] = True
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt).to(device)
+
+    between = FactorBatch.create(
+        kind="between_se3", slots=("poses", "poses"),
+        indices=(np.array([e[0] for e in edges]), np.array([e[1] for e in edges])),
+        data={"T_obs": t(np.stack([e[2] for e in edges])),
+              "sqrt_info": t(np.eye(6) * 10.0).expand(len(edges), 6, 6).contiguous()},
+        loss=CauchyLoss(2.0))
+    graph = FactorGraph({"poses": VariableBlock.create("se3", t(est), t(const, torch.bool))}, [between])
+    solved, info = run("pose_graph", lambda: solve(graph, Options(method="lm", max_iters=50)))
+    opt = solved.blocks["poses"].values.cpu().numpy()
+
+    obs_cam = np.concatenate([np.full(len(ids), k, np.int64) for k, (ids, _) in enumerate(frames)])
+    obs_world = np.concatenate([ids for ids, _ in frames])
+    obs_uvd = np.concatenate([obs for _, obs in frames])
+    first_obs = {}
+    for k, (ids, obs) in enumerate(frames):
+        for row, wid in enumerate(ids):
+            first_obs.setdefault(int(wid), (k, obs[row]))
+    used = np.unique(obs_world)
+    remap = np.full(world.shape[0], -1, np.int64)
+    remap[used] = np.arange(len(used))
+    firsts = [first_obs[int(w)] for w in used]
+    p_cam = cam.triangulate(torch.from_numpy(np.stack([o for _, o in firsts]).astype(npdt))).numpy()
+    T_w_c = np.linalg.inv(opt[[k for k, _ in firsts]])
+    lm_init = (np.einsum("nij,nj->ni", T_w_c[:, :3, :3], p_cam) + T_w_c[:, :3, 3]).astype(npdt)
+    slam = FactorGraph(
+        {"poses": VariableBlock.create("se3", t(opt), t(const, torch.bool)),
+         "landmarks": VariableBlock.create("euclidean", t(lm_init))},
+        [FactorBatch.create(kind="reprojection", slots=("poses", "landmarks"), indices=(obs_cam, remap[obs_world]),
+                            data={"obs": t(obs_uvd), "sqrt_info": t(np.eye(3)), "camera": cam},
+                            loss=CauchyLoss(3.0)),
+         between])
+    refined, info2 = run("joint", lambda: solve_auto(slam, Options(method="lm", max_iters=30)))
+    opt2 = refined.blocks["poses"].values.cpu().numpy()
+    return dict(ate_odometry=ate(est), ate_pose_graph=ate(opt), ate_joint=ate(opt2), edges=len(edges), loops=loops,
+                pose_graph_iterations=info.iterations, joint_iterations=info2.iterations, landmarks=len(used),
+                observations=len(obs_cam))

@@ -29,12 +29,15 @@ def stackmul(A, B):
 
 def _corners(u, v, H, W):
     """Top-left integer corner (clamped so the 2x2 stencil stays inside)
-    and the fractional offsets, clamped to [0, 1]."""
+    and the fractional offsets, clamped to [0, 1].  A NaN coordinate
+    gathers at corner 0 and gets NaN offsets, so its sample is NaN (the
+    reference's clamped gather); converting NaN to an integer would give an
+    index outside the image."""
     u0 = torch.clamp(torch.floor(u), 0, W - 2)
     v0 = torch.clamp(torch.floor(v), 0, H - 2)
     au = torch.clamp(u - u0, 0.0, 1.0)
     av = torch.clamp(v - v0, 0.0, 1.0)
-    return u0.long(), v0.long(), au, av
+    return torch.nan_to_num(u0, nan=0.0).long(), torch.nan_to_num(v0, nan=0.0).long(), au, av
 
 
 def _blend(f00, f01, f10, f11, au, av, compute_gradients):

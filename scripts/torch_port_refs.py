@@ -64,14 +64,33 @@ the very graphs the smoke builds:
       the objective (the last pose's translation summed plus 0.1 chi2),
       chi2, the norm of its gradient with respect to every ``T_obs`` and
       the gradient's 64 largest entries (flat index, value).
+  46  dense RGB-D VO at VGA (``bench/vo_overlap.py``'s 40 frames, 4
+      levels, ``keyframe_trans_thresh=1e9``): the trajectory of ``track``
+      frame by frame, and of ``track_batch`` at K = 16 on
+      ``bench/vo_batch.py``'s protocol (the first frame tracked, then 32
+      frames in two batches);
+  47  dense stereo VO at VGA with the on-device block matcher
+      (``matcher="tpu"``, 128 disparities) on
+      ``pyslam_tpu_torch.testing.vo_stereo_frames`` (16 uint8 stereo
+      frames along ``vo_frames``' path of a plane textured with the
+      reference matcher test's noise): the keyframe's disparity map, the
+      trajectory, and the trajectory of ``affine_illumination=True``
+      through an exposure ramp (frame k at gain 1 + 0.05 k, bias 0.02 k),
+      its keyframe on the matcher's map too;
+  48  ``examples/stereo_slam.py``'s pipeline (40 frames, 4,000 points) on
+      ``pyslam_tpu_torch.testing.stereo_slam_world``'s data in float32,
+      run as the example runs (x64 off): the ATE after the RANSAC odometry,
+      the pose graph and joint SLAM, and every RANSAC call's samples (they
+      depend on the match count alone: ``PRNGKey(0)`` every call), which
+      the port is given to reproduce the reference's hypotheses.
 
 Phases 37 to 39 take the ground truth because it is an estimate both
 packages hold bit for bit; the chip smoke also checks the port's methods
 against each other at its own converged estimates.
 
 Scalars print as JSON on the last line; the arrays of phases 32 to 35,
-37 to 42 and 44 (per keyframe, the poses, the covariance blocks, the
-gradient) go to
+37 to 42, 44 and 46 to 48 (per keyframe, the poses, the covariance blocks,
+the gradient, the trajectories, the disparity map) go to
 ``chip_smoke_refs.npz`` beside ``chip_smoke.py``, which loads them.  The port never imports this script; its numbers are constants in
 ``chip_smoke.py``.  Run from the repository root (minutes; phase 30 holds a
 dense f64 H of 11,008 x 11,008, about 1 GB; phase 35 one of 14,130 x
@@ -80,6 +99,7 @@ dense f64 H of 11,008 x 11,008, about 1 GB; phase 35 one of 14,130 x
     python scripts/torch_port_refs.py [--phases 28,29,30,31,32,33,34,35,36]
     python scripts/torch_port_refs.py --phases 37,38,39,41,42
     python scripts/torch_port_refs.py --phases 44
+    python scripts/torch_port_refs.py --phases 46,47,48
 """
 
 from __future__ import annotations
@@ -647,6 +667,156 @@ def phase44():
           f"{out['seconds']:.1f} s", flush=True)
     return out, {"p44_value": np.float64(value), "p44_chi2": np.float64(chi2),
                  "p44_grad_norm": np.float64(out["grad_norm"]), "p44_top_idx": top, "p44_top_vals": grad.ravel()[top]}
+
+
+def phase46():
+    """VGA RGB-D VO: ``track`` frame by frame and ``track_batch`` at K = 16."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "bench"))
+    from vo_overlap import CAM, make_frames
+
+    from pyslam_tpu.pipelines import DenseRGBDPipeline
+    from pyslam_tpu.sensors import RGBDCamera
+
+    frames = make_frames(40)
+    t0 = time.perf_counter()
+    seq = DenseRGBDPipeline(RGBDCamera(**CAM), pyrlevels=4, keyframe_trans_thresh=1e9)
+    for im, depth in frames:
+        seq.track(im, depth)
+    bat = DenseRGBDPipeline(RGBDCamera(**CAM), pyrlevels=4, keyframe_trans_thresh=1e9)
+    bat.track(*frames[0])
+    ims = [im for im, _ in frames[1:]]
+    for s in range(0, (len(ims) // 16) * 16, 16):
+        bat.track_batch(ims[s: s + 16])
+    out = dict(seconds=time.perf_counter() - t0, keyframes=len(seq.keyframes))
+    print(f"46 VGA RGB-D VO: {len(seq.T_c_w)} frames, batch {len(bat.T_c_w)}, {out['seconds']:.1f} s", flush=True)
+    return out, {"p46_seq": np.stack(seq.T_c_w), "p46_batch": np.stack(bat.T_c_w)}
+
+
+def phase47():
+    """VGA stereo VO with the on-device block matcher, then the affine
+    kernel through an exposure ramp."""
+    from pyslam_tpu.pipelines import DenseStereoPipeline
+    from pyslam_tpu.pipelines.keyframes import compute_disparity
+    from pyslam_tpu.sensors import StereoCamera
+    from pyslam_tpu_torch.testing import VO_CAM, exposure_ramp, vo_stereo_frames
+
+    frames = vo_stereo_frames(16)
+    cam = StereoCamera(b=0.3, **VO_CAM)
+    t0 = time.perf_counter()
+    disp = compute_disparity(frames[0][0], frames[0][1], "tpu").astype(np.float32)
+    runs = {}
+    for name, affine in (("seq", False), ("affine", True)):
+        pipe = DenseStereoPipeline(cam, pyrlevels=4, keyframe_trans_thresh=1e9, matcher="tpu",
+                                   affine_illumination=affine)
+        for k, (left, right, _) in enumerate(frames):
+            pipe.track(exposure_ramp(left, k) if affine else left, right)
+        runs[name] = np.stack(pipe.T_c_w)
+    out = dict(seconds=time.perf_counter() - t0, valid=float(np.isfinite(disp).mean()))
+    print(f"47 VGA stereo VO: disparity valid {out['valid']:.3f}, {out['seconds']:.1f} s", flush=True)
+    return out, {"p47_disp": disp, "p47_seq": runs["seq"], "p47_affine": runs["affine"]}
+
+
+def stereo_slam_reference(world, gt, frames):
+    """``examples/stereo_slam.py``'s ``main`` on the given data, in float32:
+    the ATE (m) after the odometry, the pose graph and joint SLAM."""
+    from pyslam_tpu.eval import TrajectoryMetrics
+    from pyslam_tpu.graph.core import FactorBatch, FactorGraph, VariableBlock
+    from pyslam_tpu.losses import CauchyLoss
+    from pyslam_tpu.pipelines.ransac import FrameToFrameRANSAC
+    from pyslam_tpu.sensors import StereoCamera
+    from pyslam_tpu.solver import solve_auto
+    from pyslam_tpu_torch.testing import SLAM_CAM
+
+    cam = StereoCamera(**SLAM_CAM)
+    n = len(gt)
+    ransac = FrameToFrameRANSAC(cam, num_iters=256, inlier_thresh=2.0)
+    samples = {}
+
+    def relative(a, b):
+        (ids_a, obs_a), (ids_b, obs_b) = frames[a], frames[b]
+        common, ia, ib = np.intersect1d(ids_a, ids_b, return_indices=True)
+        if len(common) < 12:
+            return None
+        # the draw of _ransac_batched (pyslam_tpu/pipelines/ransac.py:102)
+        samples[len(common)] = np.asarray(jax.random.randint(jax.random.PRNGKey(ransac.seed), (256, 3), 0,
+                                                             len(common)))
+        T, mask = ransac.compute_transform(obs_a[ia].astype(np.float32), obs_b[ib].astype(np.float32))
+        return None if mask.sum() < 10 else np.asarray(T.mat)
+
+    edges, est = [], [gt[0]]
+    for k in range(1, n):
+        T_rel = relative(k - 1, k)
+        edges.append((k - 1, k, T_rel))
+        est.append(T_rel @ est[-1])
+    for k in range(n):
+        for j in range(k + 5, n):
+            if np.linalg.norm(np.linalg.inv(gt[k])[:3, 3] - np.linalg.inv(gt[j])[:3, 3]) < 2.5:
+                T_rel = relative(k, j)
+                if T_rel is not None:
+                    edges.append((k, j, T_rel))
+
+    def ate(T_c_w):
+        return float(TrajectoryMetrics(np.linalg.inv(gt), np.linalg.inv(T_c_w)).armse("trans"))
+
+    const = np.zeros(n, bool)
+    const[0] = True
+    between = FactorBatch.create(
+        kind="between_se3", slots=("poses", "poses"),
+        indices=(np.array([e[0] for e in edges], np.int32), np.array([e[1] for e in edges], np.int32)),
+        data={"T_obs": jnp.asarray(np.stack([e[2] for e in edges]), jnp.float32),
+              "sqrt_info": jnp.broadcast_to(jnp.eye(6, dtype=jnp.float32) * 10.0, (len(edges), 6, 6))},
+        loss=CauchyLoss(2.0))
+    graph = FactorGraph({"poses": VariableBlock.create("se3", jnp.asarray(np.stack(est), jnp.float32), const)},
+                        [between])
+    solved, info = solve(graph, Options(method="lm", max_iters=50))
+    opt = np.asarray(solved.blocks["poses"].values)
+
+    obs_cam = np.concatenate([np.full(len(ids), k, np.int32) for k, (ids, _) in enumerate(frames)])
+    obs_world = np.concatenate([ids for ids, _ in frames]).astype(np.int32)
+    obs_uvd = np.concatenate([obs for _, obs in frames])
+    first_obs = {}
+    for k, (ids, obs) in enumerate(frames):
+        for row, wid in enumerate(ids):
+            first_obs.setdefault(int(wid), (k, obs[row]))
+    used = np.unique(obs_world)
+    remap = np.full(world.shape[0], -1, np.int32)
+    remap[used] = np.arange(len(used), dtype=np.int32)
+    lm_init = np.zeros((len(used), 3), np.float32)
+    for wid in used:
+        k, o = first_obs[int(wid)]
+        p_cam = np.asarray(cam.triangulate(jnp.asarray(o[None].astype(np.float32))))[0]
+        T_w_c = np.linalg.inv(opt[k])
+        lm_init[remap[wid]] = T_w_c[:3, :3] @ p_cam + T_w_c[:3, 3]
+    slam = FactorGraph(
+        {"poses": VariableBlock.create("se3", jnp.asarray(opt, jnp.float32), const),
+         "landmarks": VariableBlock.create("euclidean", jnp.asarray(lm_init))},
+        [FactorBatch.create(kind="reprojection", slots=("poses", "landmarks"), indices=(obs_cam, remap[obs_world]),
+                            data={"obs": jnp.asarray(obs_uvd, jnp.float32), "sqrt_info": jnp.eye(3, dtype=jnp.float32),
+                                  "camera": cam},
+                            loss=CauchyLoss(3.0)),
+         between])
+    refined, info2 = solve_auto(slam, Options(method="lm", max_iters=30))
+    opt2 = np.asarray(refined.blocks["poses"].values)
+    return dict(ate_odometry=ate(np.stack(est)), ate_pose_graph=ate(opt), ate_joint=ate(opt2), edges=len(edges),
+                pose_graph_iterations=int(info.iterations), landmarks=len(used), observations=len(obs_cam)), samples
+
+
+def phase48():
+    """``examples/stereo_slam.py`` at its size: the three ATEs."""
+    from pyslam_tpu_torch.testing import stereo_slam_world
+
+    t0 = time.perf_counter()
+    jax.config.update("jax_enable_x64", False)
+    try:
+        out, samples = stereo_slam_reference(*stereo_slam_world(n_frames=40, seed=0))
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    out["seconds"] = time.perf_counter() - t0
+    counts = np.array(sorted(samples))
+    print(f"48 stereo SLAM: ATE {out['ate_odometry']!r} -> {out['ate_pose_graph']!r} -> {out['ate_joint']!r} m, "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out, {"p48_ate": np.array([out["ate_odometry"], out["ate_pose_graph"], out["ate_joint"]]),
+                 "p48_sample_counts": counts, "p48_samples": np.stack([samples[c] for c in counts])}
 
 
 def main():

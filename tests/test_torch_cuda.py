@@ -1065,3 +1065,84 @@ def test_assemble_dense_is_differentiable_on_the_card(cuda_device):
     cuda_ops.reset_launches()
     assert torch.autograd.gradcheck(f, (fb.data["T_obs"].clone().requires_grad_(),))
     assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+
+
+# ---- the VO frontend (pipelines/): the card against the CPU in float64 ----
+
+
+@pytest.mark.parametrize("kind", ["photometric_se3", "photometric_affine_se3"])
+def test_photometric_kernel_on_the_card_matches_cpu(cuda_device, kind):
+    """r and J of three factors (the corner-packed sampling, one frame a
+    factor, one pose taking half the plane out of view), 1e-12."""
+    from pyslam_tpu_torch.graph.core import FACTOR_KERNELS
+    from pyslam_tpu_torch.lie import se3
+    from pyslam_tpu_torch.pipelines import PhotometricResidualSE3
+    from pyslam_tpu_torch.sensors import RGBDCamera
+    from pyslam_tpu_torch.testing import PLANE_CAM, render_rgbd
+    from pyslam_tpu_torch.utils import pack_corners
+
+    rng = np.random.default_rng(0)
+    im, depth = render_rgbd(np.zeros(3))
+    depth[:5] = np.nan
+    res = PhotometricResidualSE3(RGBDCamera(**PLANE_CAM), im, depth, im, stiffness=1.0)
+    tracks = np.stack([render_rgbd(rng.normal(0, 0.03, 3))[0] for _ in range(3)])
+    xi = rng.normal(0, 0.01, (3, 6))
+    xi[-1, 0] = 1.5
+    out = {}
+    for dev in ("cpu", cuda_device):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        data = dict(camera=res.camera, pt_ref=t(np.repeat(res.pt_ref[None], 3, 0)),
+                    I_ref=t(np.repeat(res.I_ref[None], 3, 0)), mask=t(np.repeat(res.mask[None], 3, 0).astype(float)),
+                    im_track=t(tracks), stiffness=t(np.full(3, 2.0)))
+        data["im_track4"] = torch.func.vmap(pack_corners)(data["im_track"])
+        r, (J,) = FACTOR_KERNELS[kind](data, se3.exp(t(xi)))
+        out[str(dev)] = (r.cpu(), J.cpu())
+    (r_c, J_c), (r_g, J_g) = out["cpu"], out[str(cuda_device)]
+    _assert_close(r_g, r_c, 1e-12)
+    _assert_close(J_g, J_c, 1e-12)
+
+
+def test_block_match_on_the_card_matches_cpu(cuda_device):
+    """The same NaN mask and disparities, in float32 (the reference's type)
+    and float64."""
+    from pyslam_tpu_torch.pipelines.stereo_match import block_match
+
+    rng = np.random.default_rng(3)
+    H, W, pad, d_true = 96, 192, 64, 17
+    tex = rng.uniform(0, 1, (H, W + 2 * pad))
+    tex = np.apply_along_axis(lambda r: np.convolve(r, np.ones(3) / 3, mode="same"), 1, tex)
+    left = tex[:, pad: pad + W]
+    right = tex[:, pad + d_true: pad + d_true + W] + 0.01 * rng.standard_normal((H, W))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        d_c = block_match(left, right, num_disparities=48, dtype=dtype, device="cpu").numpy()
+        d_g = block_match(left, right, num_disparities=48, dtype=dtype, device=cuda_device).cpu().numpy()
+        m = np.isfinite(d_c)
+        np.testing.assert_array_equal(np.isfinite(d_g), m)
+        assert m.mean() > 0.3
+        np.testing.assert_allclose(d_g[m], d_c[m], rtol=0, atol=tol)
+
+
+def test_three_frame_track_on_the_card_matches_cpu(cuda_device):
+    """A float64 RGB-D pipeline, three frames (the keyframe and two
+    tracked, the second prefetched) and a ``track_batch`` of two: the card's
+    poses within 1e-8 of the CPU's, and its LM launching ``slot_reduce``."""
+    from pyslam_tpu_torch.pipelines import DenseRGBDPipeline
+    from pyslam_tpu_torch.sensors import RGBDCamera
+    from pyslam_tpu_torch.testing import PLANE_CAM, render_rgbd
+
+    frames = [render_rgbd(np.array([0.02 * k, 0.01 * k, 0.005 * k])) for k in range(5)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pipe = DenseRGBDPipeline(RGBDCamera(**PLANE_CAM), pyrlevels=3, keyframe_trans_thresh=10.0,
+                                 dtype=torch.float64, device=dev)
+        cuda_ops.reset_launches()
+        pipe.track(*frames[0])
+        pipe.track(*frames[1])
+        pipe.track(pipe.prefetch(frames[2][0]), frames[2][1])
+        pipe.track_batch([f[0] for f in frames[3:]])
+        out[str(dev)] = np.stack(pipe.T_c_w)
+        if str(dev) != "cpu":
+            assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    np.testing.assert_allclose(out[str(cuda_device)], out["cpu"], rtol=0, atol=1e-8)

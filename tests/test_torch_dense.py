@@ -227,6 +227,35 @@ def test_dense_plan_rejects_out_of_range_index():
         tas.dense_plan(FactorGraph(tg.blocks, [bad]))
 
 
+def test_cached_dense_plan_is_kept_by_structure():
+    """``lm.solve``'s plan cache: a graph rebuilt around the same index
+    tensors, or around equal ones, gets the first graph's plan; another
+    index, block size or device does not; a bad index still raises."""
+    tg = to_port(_se2())
+    fb = tg.batches[0]
+    plan = tas.cached_dense_plan(tg)
+    moved = {n: dataclasses.replace(b, values=b.values + 0.1) for n, b in tg.blocks.items()}
+    assert tas.cached_dense_plan(FactorGraph(moved, list(tg.batches))) is plan
+    same = dataclasses.replace(fb, indices=tuple(i.clone() for i in fb.indices))
+    assert tas.cached_dense_plan(FactorGraph(tg.blocks, [same] + list(tg.batches[1:]))) is plan
+    other = dataclasses.replace(fb, indices=(fb.indices[1].clone(), fb.indices[0].clone()))
+    assert tas.cached_dense_plan(FactorGraph(tg.blocks, [other] + list(tg.batches[1:]))) is not plan
+    again = tas.assemble_dense(tg, tas.cached_dense_plan(tg))
+    ref = tas.assemble_dense(tg, tas.dense_plan(tg))
+    assert torch.equal(again[0], ref[0]) and torch.equal(again[1], ref[1])
+    bad = dataclasses.replace(fb, indices=(fb.indices[0], fb.indices[1].clone().fill_(30)))
+    with pytest.raises(ValueError, match="out of range"):
+        tas.cached_dense_plan(FactorGraph(tg.blocks, [bad]))
+    # a block of the same kind and count with another tangent dimension
+    ext = to_port(_extended())
+    name = next(n for n, b in ext.blocks.items() if b.kind == "euclidean")
+    blk = ext.blocks[name]
+    wider = dataclasses.replace(blk, values=torch.zeros(blk.n, blk.dof + 1, dtype=blk.values.dtype))
+    wide = FactorGraph({**ext.blocks, name: wider}, list(ext.batches))
+    assert tas.cached_dense_plan(wide) is not tas.cached_dense_plan(ext)
+    assert tas.cached_dense_plan(wide).D == ext.total_dof + blk.n
+
+
 # --------------------------------------------------------------------------
 # Solves
 # --------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from pyslam_tpu_torch import imu
 from pyslam_tpu_torch.graph import build, convert, initialize, marginalize
 from pyslam_tpu_torch.io import bal, synth
 from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
+from pyslam_tpu_torch.pipelines import stereo_match
 from pyslam_tpu_torch.solver import FixedLagLandmarkSmoother, FixedLagSmoother, IncrementalSmoother, covariance
 from pyslam_tpu_torch.testing import se3_stress_graph
 
@@ -75,6 +76,15 @@ def test_import_leaves_jax_out():
         "from pyslam_tpu_torch import Problem, Options, SE3, Sim3, QuadraticResidual, DensePriorResidual\n"
         "from pyslam_tpu_torch.solver import solve_implicit\n"
         "from pyslam_tpu_torch.graph import register_autodiff_factor, check_autodiff_factor, register_closed_kernel\n"
+        "import pyslam_tpu_torch.pipelines, pyslam_tpu_torch.pipelines.dense, pyslam_tpu_torch.pipelines.keyframes\n"
+        "import pyslam_tpu_torch.pipelines.photometric, pyslam_tpu_torch.pipelines.ransac\n"
+        "import pyslam_tpu_torch.pipelines.stereo_match\n"
+        "import pyslam_tpu_torch.eval, pyslam_tpu_torch.eval.metrics, pyslam_tpu_torch.eval.sync\n"
+        "import pyslam_tpu_torch.eval.viz\n"
+        "from pyslam_tpu_torch import eval, pipelines, TrajectoryMetrics, TrajectoryVisualizer\n"
+        "from pyslam_tpu_torch.pipelines import DenseRGBDPipeline, DenseStereoPipeline, FrameToFrameRANSAC\n"
+        "from pyslam_tpu_torch.pipelines import PhotometricResidualSE3, compute_disparity, DenseKeyframe\n"
+        "from pyslam_tpu_torch.eval import associate, interpolate_poses\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -153,6 +163,31 @@ def _problem_graph(**kw):
     return problem._build()
 
 
+_PLANE = dict(cu=15.5, cv=11.5, fu=50.0, fv=50.0, w=32, h=24)
+_IM = np.random.default_rng(0).uniform(0.2, 0.8, (24, 32))
+
+
+def _pipeline(stereo, **kw):
+    """A pipeline's keyframe level, after its first frame."""
+    from pyslam_tpu_torch import pipelines, sensors
+
+    if stereo:
+        pipe = pipelines.DenseStereoPipeline(sensors.StereoCamera(b=0.3, **_PLANE), pyrlevels=2, **kw)
+        pipe.track(_IM, _IM, disp=np.full((24, 32), 4.0))
+    else:
+        pipe = pipelines.DenseRGBDPipeline(sensors.RGBDCamera(**_PLANE), pyrlevels=2, **kw)
+        pipe.track(_IM, np.full((24, 32), 3.0))
+    return pipe.keyframes[0].levels[1].pt_ref
+
+
+def _ransac(**kw):
+    from pyslam_tpu_torch import pipelines, sensors
+
+    cam = sensors.StereoCamera(b=0.3, **_PLANE)
+    obs = np.stack([np.linspace(2, 28, 20), np.linspace(2, 20, 20), np.linspace(3, 8, 20)], axis=-1)
+    return pipelines.FrameToFrameRANSAC(cam, num_iters=8, polish=False, **kw).compute_transform(obs, obs)[0].mat
+
+
 DEFAULT_DEVICE_ENTRY_POINTS = {
     "default_device": pyslam_tpu_torch.default_device,
     "pose_graph": lambda **kw: build.pose_graph(synth.se2_loop(n_poses=6, n_loops=1, seed=0), **kw),
@@ -190,6 +225,17 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "landmark_marginal_covariances": lambda **kw: covariance.landmark_marginal_covariances(_BA(**kw), [0, 3]),
     "Problem": lambda **kw: _problem_graph(**kw).blocks["se2_3x3"].values,
     "SE3.identity": lambda **kw: pyslam_tpu_torch.SE3.identity(**kw).mat,
+    "DenseRGBDKeyframe": lambda **kw: pyslam_tpu_torch.pipelines.DenseRGBDKeyframe(
+        _IM, np.full((24, 32), 3.0), pyslam_tpu_torch.RGBDCamera(**_PLANE), pyrlevels=2, **kw).levels[0].pt_ref,
+    "DenseStereoKeyframe": lambda **kw: pyslam_tpu_torch.pipelines.DenseStereoKeyframe(
+        _IM, _IM, pyslam_tpu_torch.StereoCamera(b=0.3, **_PLANE), pyrlevels=2, disp=np.full((24, 32), 4.0),
+        **kw).levels[1].mask,
+    "DenseRGBDPipeline": lambda **kw: _pipeline(False, **kw),
+    "DenseStereoPipeline": lambda **kw: _pipeline(True, **kw),
+    "block_match": lambda **kw: stereo_match.block_match(_IM, _IM, num_disparities=16, **kw),
+    "FrameToFrameRANSAC": _ransac,
+    "TrajectoryMetrics": lambda **kw: pyslam_tpu_torch.TrajectoryMetrics(np.eye(4)[None], np.eye(4)[None],
+                                                                         **kw).Twv_est,
     "so2.identity": so2.identity,
     "se2.identity": se2.identity,
     "so3.identity": so3.identity,
