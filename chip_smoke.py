@@ -150,16 +150,32 @@ that it reaches its converged cost and went through the kernels:
     device ms a frame, synchronizing calls a frame, ``slot_reduce``
     launches, peak memory and the card's name and power limit;
     ``slot_reduce`` is checked at the single-pose and the batched sums, and
-    at every plan and width that stereo SLAM launched it on.
+    at every plan and width that stereo SLAM launched it on;
+  * the last modules (phases 49 to 51, f32): bench config 5 (Venice-mini)
+    and config 6 at full size (phase 20's graph) through
+    ``dist.solve_schur_cm`` on phase 23's one-rank NCCL mesh, under their
+    gates and within 1e-4 of ``solve_schur_large`` and
+    ``solve_schur_sharded``, 4 + CG budget ``psum`` an LM iteration
+    (phase 27's two gloo ranks also run it on config 4's graph and through
+    ``solve_auto``'s ``schur_cm`` route); config 6 through
+    ``solve_schur_large(precond="cluster", cluster_size=64)`` and
+    ``precond="stale"`` (``stale_refresh=3``) under its gate;
+    sphere2500 through ``solve_ell(precond="two_level")`` and
+    ``solve_bcsr`` at (``spmv``, ``precond_group``) = ("ell", 1),
+    ("bcsr", 1), ("ell", 8) under its gate, no host read in a linear
+    solve; ``slot_reduce`` at the rank's camera-sorted plans, the pair
+    plans of S, the BCSR and coarse plans, ``ell_matvec`` at the
+    ``EllPattern`` shape.
 
 Run from the repository root on a machine with a CUDA device and
 ``nvcc``; with no arguments it runs every phase:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 37-42      # a selection, e.g. "32-36", "43-45" or "46-48"
+    python3 chip_smoke.py --phases 37-42      # a selection, e.g. "32-36", "43-45", "46-48" or "49-51"
 
 A selection runs phases 1 and 2, the selected phases and the phases they
-read from (4 to 22 for any of 23 to 27, 35 for 41, 39 for 40), and prints
+read from (4 to 22 for any of 23 to 27, 49 and 50; 24 for 49; 35 for 41;
+39 for 40), and prints
 the kernels line of what ran; the checks on that line (every kernel
 launched on a main path, every column present) are made on the default
 run.
@@ -200,6 +216,9 @@ H100_F32_FLOP_PER_S = 67e12
 # solvers, by the keys of bench/standin_cache.json.
 STANDIN_GATE = 1.01
 KERNELS = ("ell_matvec", "ell_pcg", "slot_reduce", "ell_assemble")
+# the paths of phase 51 through solve_bcsr, by (spmv, precond_group)
+BCSR_PATHS = {("ell", 1): "bcsr_sphere2500", ("bcsr", 1): "bcsr_bcsr_g1_sphere2500",
+              ("ell", 8): "bcsr_ell_g8_sphere2500"}
 # the paths of phases 37 to 42 (posterior covariance, the repaired
 # solve_batched) that count as main paths in the kernels line
 # keyframes of phase 32's stream in the default run (all 399 when the
@@ -376,19 +395,20 @@ def add_times(report, name, key, times, n_bytes, flop):
         f"({n_bytes} B, {flop} flop); kernel / bound {times['ms'] / b_ms if b_ms else math.inf!r}")
 
 
-def check_kernel(name, fn, plain, args, report, key, flop, library=None):
+def check_kernel(name, fn, plain, args, report, key, flop, library=None, calls=TIMING_CALLS):
     """``fn`` against ``plain`` on the same inputs in f32 and f64
     (``hold_kernel``), then the device time of each in f32, and of
     ``library`` (one PyTorch call on the same inputs, prepared outside the
-    timing) where there is one."""
+    timing) where there is one; ``calls`` measurements of each (fewer for
+    the shapes of millions of rows)."""
     import torch
 
     hold_kernel(name, fn, plain, args, report, library)
     times = dict(
-        ms=median_ms(fn, args, inner=BACK_TO_BACK),
-        single_ms=median_ms(fn, args),
-        plain_ms=median_ms(plain, args),
-        library_ms=median_ms(library, (), inner=BACK_TO_BACK) if library is not None else None,
+        ms=median_ms(fn, args, calls=calls, inner=BACK_TO_BACK),
+        single_ms=median_ms(fn, args, calls=calls),
+        plain_ms=median_ms(plain, args, calls=calls),
+        library_ms=median_ms(library, (), calls=calls, inner=BACK_TO_BACK) if library is not None else None,
     )
     tensors = [t for t in args if torch.is_tensor(t)]
     add_times(report, name, key, times, tensor_bytes(*tensors, fn(*args)), flop)
@@ -674,8 +694,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port's smoke test on one CUDA device")
     ap.add_argument("--phases", default=None,
                     help='phases to run, e.g. "37-42" or "28-31,37": the phases a selected one reads from run too '
-                         "(4 to 22 for any of 23 to 27, 35 for 41); phases 1 and 2 always run; default every phase")
+                         "(4 to 22 for any of 23 to 27 and 49 to 50, 24 for 49, 35 for 41); phases 1 and 2 always "
+                         "run; default every phase")
     phases = parse_phases(ap.parse_args(argv).phases)
+    if phases is not None and 49 in phases:
+        phases.add(24)  # phase 49 is held to phase 24's chi2
 
     def want(*numbers):
         return phases is None or any(n in phases for n in numbers)
@@ -860,7 +883,7 @@ def main(argv=None) -> int:
         check(tuple(poses.shape) == shape, f"{name}: poses shape {tuple(poses.shape)}")
         check(torch.isfinite(poses).all().item(), f"{name}: non-finite poses")
 
-    run_main = want(*range(4, 28))  # phases 23 to 27 read what 4 to 22 made
+    run_main = want(*range(4, 28), 49, 50)  # phases 23 to 27, 49 and 50 read what 4 to 22 made
     if run_main:
         # ---- phase 4: sphere2500 through solve_ell -----------------------------
         opts = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
@@ -1007,6 +1030,7 @@ def main(argv=None) -> int:
         # ---- phase 10: bench config 4, bundle adjustment through solve_schur ---
         opts4 = Options(method="lm", max_iters=25)
         n_obs = g_4.batches[0].n
+        s_plan = schur.schur_plan(g_4)  # phase 3c's, also when a selection skips phase 3
         chi2_modes = {}
         for mode, kw in (("pcg", dict(pcg_rtol=1e-4, pcg_max_iters=30)), ("dense", {})):
             path = f"config4_ba_schur_{mode}"
@@ -1419,6 +1443,8 @@ def main(argv=None) -> int:
               f"config6 solve_auto: history {hist_auto}")
         del auto_6, solved_6
         log(f"phase 20 (config 6): {time.perf_counter() - t_phase!r} s")
+        config6 = dict(g_6=g_6, plan_6=plan_6, common6=common6, chi2_6=chi2_6, cg6=cg6, wall6=wall6, peak6=peak6,
+                       iters6=iters6)
 
         # ---- phase 21: slot_reduce at the Venice shapes, both kernels -----------
         # The sums of config 6 by camera (4,650,850 rows into 1,700: the 27 terms
@@ -1433,7 +1459,9 @@ def main(argv=None) -> int:
             contrib = torch.randn((n_obs6, width), generator=gen, device=dev)
             check_slot_venice(f"config6 by {label} C={width}", contrib, seg, report)
             del contrib
-        del plan_6, g_6, v6
+        del plan_6, g_6, v6  # phases 49 and 50 keep them in ``config6``
+        if not want(49, 50):
+            config6 = None
         torch.cuda.empty_cache()
         log(f"phase 21 (slot_reduce at the Venice shapes): {time.perf_counter() - t_phase!r} s")
 
@@ -1451,10 +1479,15 @@ def main(argv=None) -> int:
                chi2_ref=chi2_ref, sphere=graph, x_sphere=x, sphere_data=data, m3500=m3500, want=want,
                selected=phases is not None, smi=smi_line)
     if run_main:
-        ctx.update(g_vm=g_vm, chi2_vm_pcg=chi2_vm_pcg, g_7=g_7, chi2_7=chi2_7, sphere_solved=sphere_solved)
+        ctx.update(g_vm=g_vm, chi2_vm_pcg=chi2_vm_pcg, g_7=g_7, chi2_7=chi2_7, sphere_solved=sphere_solved,
+                   config6=config6)
     covariance_phases(ctx)
-    if want(*range(23, 28), 40):
+    if want(50, 51):
+        precond_phases(ctx)
+    if want(*range(23, 28), 40, 49):
         sharded_phases(ctx)
+    ctx.pop("config6", None)
+    torch.cuda.empty_cache()
     if want(*range(28, 32)):
         robust_init_vio_phases(ctx)
     online_phases(ctx)
@@ -1487,7 +1520,8 @@ def main(argv=None) -> int:
                   "incremental_m3500", "sqrt_ladybug_float64", "sqrt_ladybug_solve_auto", *COVARIANCE_PATHS,
                   "problem_sphere2500", "problem_covariance_f32", "problem_covariance_f64", "implicit_m3500",
                   "implicit_m3500_backward", "autodiff_sphere2500", "vo_rgbd_vga", "vo_rgbd_vga_batch16",
-                  "vo_stereo_vga", "stereo_slam_40")
+                  "vo_stereo_vga", "stereo_slam_40", "schur_cm_config5", "schur_cm_config6", "cluster64_config6",
+                  "stale_config6", "two_level_sphere2500", *BCSR_PATHS.values())
     # a phase selection reports the kernels and paths it ran; the default run
     # must have every kernel, launched on a main path, with every column
     kernels = [
@@ -1532,11 +1566,12 @@ def sharded_bsr(He, cols, start, n_x):
 
 def _two_ranks_on_one_card(mesh):
     """Phase 27's rank: the two collectives on CUDA tensors over gloo, then
-    config 4's graph through ``solve_schur_sharded`` and a 500-pose sphere
-    through ``solve_pose_sharded``."""
+    config 4's graph through ``solve_schur_sharded``, ``solve_schur_cm`` and
+    ``solve_auto`` (route ``schur_cm``), and a 500-pose sphere through
+    ``solve_pose_sharded``."""
     import torch
 
-    from pyslam_tpu_torch import dist
+    from pyslam_tpu_torch import dist, solver
     from pyslam_tpu_torch.graph import build
     from pyslam_tpu_torch.io import synth
     from pyslam_tpu_torch.solver import cuda_ops
@@ -1547,9 +1582,14 @@ def _two_ranks_on_one_card(mesh):
     gathered = mesh.all_gather(torch.full((mesh.rank + 1, 2), float(mesh.rank), device=dev), [1, 2])
     out = dict(backend=mesh.backend, device=str(t.device), psum=t.tolist(), gathered=gathered.tolist())
     cuda_ops.reset_launches()
-    _, out["chi2_ba"], out["hist_ba"] = dist.solve_schur_sharded(
-        build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0)), mesh, Options(method="lm", max_iters=25),
-        pcg_rtol=1e-4, pcg_max_iters=30)
+    g_4 = build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0))
+    _, out["chi2_ba"], out["hist_ba"] = dist.solve_schur_sharded(g_4, mesh, Options(method="lm", max_iters=25),
+                                                                 pcg_rtol=1e-4, pcg_max_iters=30)
+    # the component-major path at its defaults (8 chunks, PCG 1e-4 / 30), then
+    # solve_auto with the crossover lowered, which must route it there
+    _, out["chi2_cm"], out["hist_cm"] = dist.solve_schur_cm(g_4, mesh, Options(method="lm", max_iters=25))
+    out["route"] = solver.route_auto(g_4, mesh=mesh, cm_obs_crossover=10)
+    _, out["hist_auto"] = solver.solve_auto(g_4, Options(method="lm", max_iters=25), mesh=mesh, cm_obs_crossover=10)
     _, out["chi2_pose"], out["hist_pose"] = dist.solve_pose_sharded(
         build.pose_graph(synth.se3_sphere(n_poses=500, seed=0)), mesh,
         Options(method="lm", max_iters=30, min_cost_decrease=0.999), pcg_rtol=3e-6, pcg_max_iters=120)
@@ -1626,6 +1666,7 @@ def sharded_phases(ctx):
                 check_poses("config5", solved5, (300, 4, 4))
                 check(torch.isfinite(solved5.blocks["landmarks"].values).all().item(), "config5: non-finite landmarks")
                 del solved5
+                ctx.update(chi2_5=chi2_5, peak_5=peak, wall_5=wall)  # phase 49 is held to them
 
                 # slot_reduce at config 5's sums, on the rank's plans: the rows of
                 # the linearization at the start point by camera (6 + 36) and by
@@ -1741,9 +1782,10 @@ def sharded_phases(ctx):
                 # NCCL refuses two ranks on one GPU; gloo takes CUDA tensors.  The
                 # same two solves at world size 1 (this process, NCCL) first.
                 t_phase = time.perf_counter()
-                _, ref_ba, _ = dist.solve_schur_sharded(build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0)),
-                                                        mesh, Options(method="lm", max_iters=25), pcg_rtol=1e-4,
+                g_4 = build.ba_graph(synth.ba_synthetic(n_cams=49, n_pts=7000, seed=0))
+                _, ref_ba, _ = dist.solve_schur_sharded(g_4, mesh, Options(method="lm", max_iters=25), pcg_rtol=1e-4,
                                                         pcg_max_iters=30)
+                _, ref_cm, _ = dist.solve_schur_cm(g_4, mesh, Options(method="lm", max_iters=25))
                 _, ref_pose, _ = dist.solve_pose_sharded(build.pose_graph(synth.se3_sphere(n_poses=500, seed=0)), mesh,
                                                          Options(method="lm", max_iters=30, min_cost_decrease=0.999),
                                                          pcg_rtol=3e-6, pcg_max_iters=120)
@@ -1759,20 +1801,291 @@ def sharded_phases(ctx):
                     check(out["backend"] == "gloo" and out["device"].startswith("cuda") and out["psum"] == [3.0] * 3
                           and out["gathered"] == [[0.0, 0.0], [1.0, 1.0], [1.0, 1.0]], f"rank {rank}: gloo on the card")
                     check(gap_ba <= 1e-4 and gap_pose <= 1e-4, f"rank {rank}: two ranks part from one")
+                    gap_cm = abs(out["chi2_cm"] - ref_cm) / ref_cm
+                    log(f"two ranks on one card, rank {rank}: config4 through solve_schur_cm chi2 {out['chi2_cm']!r} "
+                        f"(1 rank {ref_cm!r}, gap {gap_cm!r}, {len(out['hist_cm']) - 1} accepted); solve_auto's route "
+                        f"{out['route']!r}, its history {out['hist_auto']!r}")
+                    check(gap_cm <= 1e-4, f"rank {rank}: solve_schur_cm on two ranks parts from one")
+                    check(out["route"] == "schur_cm" and out["hist_auto"] == out["hist_cm"],
+                          f"rank {rank}: solve_auto did not solve through schur_cm")
                     check(out["launches"]["slot_reduce"] > 0 and out["launches"]["ell_matvec"] > 0
                           and out["launches"]["slot_reduce_plain"] == out["launches"]["ell_matvec_plain"] == 0,
                           f"rank {rank}: launches {out['launches']}")
-                check(ranks[0]["chi2_ba"] == ranks[1]["chi2_ba"] and ranks[0]["chi2_pose"] == ranks[1]["chi2_pose"],
-                      "the two ranks returned different solves")
+                check(ranks[0]["chi2_ba"] == ranks[1]["chi2_ba"] and ranks[0]["chi2_pose"] == ranks[1]["chi2_pose"]
+                      and ranks[0]["chi2_cm"] == ranks[1]["chi2_cm"], "the two ranks returned different solves")
                 log(f"phase 27 (two ranks, one card): {time.perf_counter() - t_phase!r} s")
 
             # ---- phase 40: the sharded marginals, config 5's Venice-mini -----
             if want(40):
                 sharded_marginals_phase(ctx, mesh)
 
+            # ---- phase 49: configs 5 and 6 through solve_schur_cm ------------
+            if want(49):
+                schur_cm_phase(ctx, mesh)
+
         finally:
             if tdist.is_initialized():
                 tdist.destroy_process_group()
+
+
+def schur_cm_phase(ctx, mesh):
+    """Phase 49, on the one-rank NCCL mesh: bench config 5 (Venice-mini,
+    above the reference's 250,000-observation crossover) and config 6 at full
+    size through ``dist.solve_schur_cm``, each under its gate, within 1e-4
+    of ``solve_schur_large``'s chi2 (phases 19, 20) and config 5 also of
+    ``solve_schur_sharded``'s (phase 24); 4 + CG budget ``psum`` and one
+    host read an LM iteration; peak memory beside ``schur_reduce``'s and
+    ``schur_large``'s; ``slot_reduce`` held at the rank's camera-sorted
+    plans."""
+    import torch
+
+    from pyslam_tpu_torch import dist
+    from pyslam_tpu_torch.solver import cuda_ops, schur_large
+    from pyslam_tpu_torch.solver.lm import Options
+
+    drive, gate, report, standin = (ctx[k] for k in ("drive", "gate", "report", "standin"))
+    t_phase = time.perf_counter()
+    g_vm = ctx["g_vm"]
+    opts5 = Options(method="lm", max_iters=15)
+
+    def run5():
+        return dist.solve_schur_cm(g_vm, mesh, opts5, n_chunks=8, pcg_rtol=1e-4, pcg_max_iters=30)
+
+    t0 = time.perf_counter()
+    run5()  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    schur_large.reset_cg_iterations()
+    dist.reset_collectives()
+    t0 = time.perf_counter()
+    (solved, chi2, hist), launches, reads = drive("schur_cm_config5", run5, ("slot_reduce",))
+    wall = time.perf_counter() - t0
+    coll, cg, peak = dict(dist.COLLECTIVES), schur_large.cg_iterations(), torch.cuda.max_memory_allocated()
+    iters = len(cg)
+    gap_large = abs(chi2 - ctx["chi2_vm_pcg"]) / ctx["chi2_vm_pcg"]
+    gap_reduce = abs(chi2 - ctx["chi2_5"]) / ctx["chi2_5"]
+    log(f"solve schur_cm_config5 f32 (300 cameras, 60,000 points, {g_vm.batches[0].n} observations, 1 rank, 8 "
+        f"chunks): wall {1e3 * wall!r} ms (warm-up {1e3 * warm!r} ms; solve_schur_sharded's {1e3 * ctx['wall_5']!r}), "
+        f"LM iterations {iters}, accepted {len(hist) - 1}, chi2 {hist[0]!r} -> {chi2!r}; gaps to solve_schur_large "
+        f"{gap_large!r}, to solve_schur_sharded {gap_reduce!r}; CG iterations per linear solve {cg}, host reads "
+        f"{reads}, launches {launches}, collectives {coll} ({coll['psum'] / max(iters, 1)!r} psum an LM iteration, "
+        f"the docstring's 4 + 30), peak memory {peak} B (schur_reduce's {ctx['peak_5']} B)")
+    gate("config5 venice_mini through solve_schur_cm", chi2, 1.001, standin["venice_mini_ref"]["chi2"])
+    check(gap_large <= 1e-4 and gap_reduce <= 1e-4, f"schur_cm_config5: gaps {gap_large}, {gap_reduce}")
+    check(reads == {"pcg": 0, "lm": iters}, f"schur_cm_config5: host reads {reads}")
+    check(coll == {"psum": iters * (4 + 30), "all_gather": 1}, f"schur_cm_config5: collectives {coll}")
+    ctx["check_poses"]("schur_cm_config5", solved, (300, 4, 4))
+    del solved
+
+    # slot_reduce at the rank's camera-sorted plans: the linearization's rows
+    # at the start point by camera (27) and by landmark (9)
+    sb = dist.shard_ba_cm(g_vm, mesh, 8)
+    _, rows = schur_large._obs_rows(sb.plan, sb.poses, sb.lms)
+    for label, contrib, seg in (("by camera", rows[:, :27].contiguous(), sb.plan.by_cam),
+                                ("by landmark", rows[:, 27:36].contiguous(), sb.plan.by_lm)):
+        log(f"schur_cm config5 {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
+        check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                     [contrib, seg.perm, seg.offsets, seg.n_slots], report, "schur_cm_ms", flop=contrib.numel(),
+                     library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots), calls=20)
+    del sb, rows, contrib
+
+    # config 6 at full size: phase 20's graph, its settings
+    c6 = ctx["config6"]
+    g_6, common6 = c6["g_6"], c6["common6"]
+    opts6 = Options(method="lm", max_iters=10)
+
+    def run6():
+        solved, chi2, hist = dist.solve_schur_cm(g_6, mesh, opts6, **common6)
+        torch.cuda.synchronize()
+        return solved, chi2, hist
+
+    t0 = time.perf_counter()
+    dist.shard_ba_cm(g_6, mesh, common6["n_chunks"])
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist.solve_schur_cm(g_6, mesh, Options(method="lm", max_iters=1), **common6)  # warm-up: plan and one iteration
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    schur_large.reset_cg_iterations()
+    dist.reset_collectives()
+    t0 = time.perf_counter()
+    (solved, chi2, hist), launches, reads = drive("schur_cm_config6", run6, ("slot_reduce",))
+    wall = time.perf_counter() - t0
+    coll, cg, peak = dict(dist.COLLECTIVES), schur_large.cg_iterations(), torch.cuda.max_memory_allocated()
+    iters = len(cg)
+    gap = abs(chi2 - c6["chi2_6"]) / c6["chi2_6"]
+    log(f"solve schur_cm_config6 f32 (1,700 cameras, 1,000,000 points, 4,650,850 observations, 1 rank; n_chunks 128, "
+        f"PCG 1e-4 / 12, LM 10): wall {wall!r} s with the plan (shard_ba_cm alone {t_plan!r} s; warm-up {warm!r} s); "
+        f"solve_schur_large's {c6['wall6']!r} s with its plan prebuilt; LM iterations {iters} "
+        f"(solve_schur_large {c6['iters6']}), accepted {len(hist) - 1}, chi2 {hist!r}, gap to solve_schur_large "
+        f"{gap!r}; CG iterations per linear solve {cg}; host reads {reads}, launches {launches}, collectives {coll}; "
+        f"peak memory {peak} B with phase 20's graph and plan resident (solve_schur_large's peak {c6['peak6']} B)")
+    gate("config6 venice_full_conv through solve_schur_cm", chi2, 1.001, standin["venice_full_conv"]["chi2"])
+    check(gap <= 1e-4, f"schur_cm_config6: chi2 {chi2} is {gap} from solve_schur_large's")
+    check(reads == {"pcg": 0, "lm": iters} and coll == {"psum": iters * (4 + 12), "all_gather": 1},
+          f"schur_cm_config6: host reads {reads}, collectives {coll}")
+    ctx["check_poses"]("schur_cm_config6", solved, (1700, 4, 4))
+    check(torch.isfinite(solved.blocks["landmarks"].values).all().item(), "schur_cm_config6: non-finite landmarks")
+    del solved
+    torch.cuda.empty_cache()
+    log(f"phase 49 (solve_schur_cm, configs 5 and 6): {time.perf_counter() - t_phase!r} s")
+
+
+def precond_phases(ctx):
+    """Phases 50 and 51: the preconditioners of slice 14.  Phase 50: config
+    6 at full size (phase 20's graph and plan) through ``solve_schur_large``
+    with ``precond="cluster"`` (64 cameras a cluster) and ``"stale"``
+    (refreshed every 3 linear solves), each under 1.001 x
+    ``venice_full_conv``, CG iterations beside ``jacobi``'s, the pair
+    tables' host seconds, the factor's time, ``slot_reduce`` held at the
+    pair plans.  Phase 51: sphere2500 (config 3's graph and options)
+    through ``solve_ell(precond="two_level")`` and ``solve_bcsr`` in three
+    (spmv, precond_group) settings, each under the sphere2500 gate, LM and
+    CG iterations beside the ``bj`` route's, ``ell_matvec`` held at the
+    ``EllPattern``'s shape and ``slot_reduce`` at the BCSR and coarse
+    plans."""
+    import torch
+
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops, schur_large
+    from pyslam_tpu_torch.solver.lm import Options
+
+    drive, gate, report, standin, dev = (ctx[k] for k in ("drive", "gate", "report", "standin", "dev"))
+    if ctx["want"](50):
+        # ---- phase 50: cluster and stale-S preconditioners on config 6 -------
+        t_phase = time.perf_counter()
+        c6 = ctx["config6"]
+        g_6, plan_6, common6 = c6["g_6"], c6["plan_6"], c6["common6"]
+        opts6 = Options(method="lm", max_iters=10)
+        _, parts = schur_large._linearize(plan_6, plan_6.poses, plan_6.lms)
+        Hll_inv, _, D, _ = schur_large._reduce(parts, 1e-4, "lm")  # the first linear solve's, at lambda_init
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for precond, kw in (("cluster", dict(cluster_size=64)), ("stale", dict(stale_refresh=3))):
+            path = f"{precond}64_config6" if precond == "cluster" else "stale_config6"
+            t0 = time.perf_counter()
+            if precond == "cluster":
+                pairs = plan_6.cpairs = schur_large.build_cluster_pairs(plan_6, 64, 4)
+                plan_6.cpairs_G = 64
+                build_factor = lambda: schur_large._cluster_precond(pairs, 64, parts, Hll_inv, D)  # noqa: E731
+            else:
+                pairs = plan_6.pairs = schur_large.build_dense_pairs(plan_6, 4)
+                build_factor = lambda: schur_large._stale_factor(pairs, parts, Hll_inv, D)  # noqa: E731
+            torch.cuda.synchronize()
+            t_pairs = time.perf_counter() - t0
+            factor_ms = host_ms(build_factor, reps=3)
+            schur_large.solve_schur_large(g_6, Options(method="lm", max_iters=1), plan=plan_6, precond=precond,
+                                          **kw, **common6)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            schur_large.reset_cg_iterations()
+
+            def run(precond=precond, kw=kw):
+                solved, chi2, hist = schur_large.solve_schur_large(g_6, opts6, plan=plan_6, precond=precond, **kw,
+                                                                   **common6)
+                torch.cuda.synchronize()
+                return solved, chi2, hist
+
+            t0 = time.perf_counter()
+            (solved, chi2, hist), launches, reads = drive(path, run, ("slot_reduce",))
+            wall = time.perf_counter() - t0
+            cg, peak = schur_large.cg_iterations(), torch.cuda.max_memory_allocated()
+            log(f"solve {path} f32 (config 6, n_chunks 128, PCG 1e-4 / 12, LM 10): wall {wall!r} s (jacobi "
+                f"{c6['wall6']!r} s), LM iterations {len(cg)} (jacobi {c6['iters6']}), accepted {len(hist) - 1}, chi2 "
+                f"{hist!r} (jacobi {c6['chi2_6']!r}); CG iterations per linear solve {cg} (jacobi {c6['cg6']}); pair "
+                f"table: {pairs.P} pairs into {len(pairs.block_i)} blocks, built in {t_pairs!r} host s; the factor "
+                f"{factor_ms!r} host ms a build; host reads {reads}, launches {launches}, peak memory {peak} B")
+            gate(f"config6 venice_full_conv, precond={precond}", chi2, 1.001, standin["venice_full_conv"]["chi2"])
+            check(reads["pcg"] == 0, f"{path}: host reads {reads}")
+            ctx["check_poses"](path, solved, (1700, 4, 4))
+            del solved
+            # slot_reduce at the pair plan: every pair product, half of D (and
+            # the padded cameras' unit blocks), the couplings, into the blocks
+            seg = pairs.by_block
+            E = len(seg.perm)
+            contrib = torch.randn((E, 36), generator=gen, device=dev)
+            log(f"{path} pair blocks: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
+            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                         [contrib, seg.perm, seg.offsets, seg.n_slots], report, f"{precond}_pairs_ms",
+                         flop=contrib.numel(), library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots),
+                         calls=5)
+            del contrib
+        plan_6.pairs = plan_6.cpairs = None
+        del parts, Hll_inv, D
+        torch.cuda.empty_cache()
+        log(f"phase 50 (cluster and stale on config 6): {time.perf_counter() - t_phase!r} s")
+
+    if ctx["want"](51):
+        # ---- phase 51: two-level and BCSR on sphere2500 -----------------------
+        t_phase = time.perf_counter()
+        graph = ctx["sphere"]
+        opts = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
+        pcg = dict(pcg_rtol=3e-6, pcg_max_iters=120)
+        bcsr.solve_ell(graph, opts, **pcg)
+        cuda_ops.reset_launches()
+        _, info_bj = bcsr.solve_ell(graph, opts, **pcg)
+        bj_cg = cuda_ops.pcg_iterations()
+        log(f"sphere2500 bj route (the reference beside): LM iterations {info_bj.iterations}, chi2 "
+            f"{info_bj.chi2.item()!r}, CG iterations {bj_cg} ({bj_cg / max(info_bj.iterations, 1)!r} a linear solve)")
+        runs = [("two_level_sphere2500", lambda: bcsr.solve_ell(graph, opts, precond="two_level", **pcg),
+                 ("ell_matvec", "slot_reduce", "ell_assemble"))]
+        t0 = time.perf_counter()
+        pattern = bcsr.build_pattern(graph)
+        t_pattern = time.perf_counter() - t0
+        for (spmv, group), path in BCSR_PATHS.items():
+            runs.append((path, lambda spmv=spmv, group=group: bcsr.solve_bcsr(graph, opts, pattern=pattern, spmv=spmv,
+                                                                               precond_group=group, **pcg),
+                         ("ell_matvec", "slot_reduce") if spmv == "ell" else ("slot_reduce",)))
+        for path, run, kernels in runs:
+            run()  # warm-up
+            torch.cuda.synchronize()
+            schur_large.reset_cg_iterations()
+            t0 = time.perf_counter()
+            (solved, info), launches, reads = drive(path, run, kernels)
+            chi2 = info.chi2.item()
+            wall = time.perf_counter() - t0
+            cg = schur_large.cg_iterations()
+            log(f"solve {path} f32: wall {1e3 * wall!r} ms, LM iterations {info.iterations} (bj {info_bj.iterations}), "
+                f"status {info.status}, CG iterations per linear solve {cg} (bj {bj_cg} in all), host reads {reads}, "
+                f"launches {launches}")
+            gate(path, chi2, 1.001, ctx["chi2_ref"])
+            check(reads == {"pcg": 0, "lm": info.iterations} and launches["ell_pcg"] == 0,
+                  f"{path}: host reads {reads}, launches {launches}")
+            if "ell_matvec" in kernels:
+                check(launches["ell_matvec"] == 120 * len(cg), f"{path}: {launches['ell_matvec']} ell_matvec launches "
+                      f"for {len(cg)} linear solves")
+            ctx["check_poses"](path, solved, (N_POSES, 4, 4))
+        log(f"build_pattern at sphere2500: {t_pattern!r} host s")
+
+        # the kernels at this slice's sphere2500 shapes: ell_matvec over the
+        # EllPattern expansion of the damped BCSR store; slot_reduce at the
+        # BCSR plans (the assembly's blocks and gradient rows, the product's
+        # two passes) and the coarse plans (A_c, r_c), on seeded rows
+        H, _, _ = bcsr.assemble_bcsr(graph, pattern)
+        ell = bcsr.build_ell(pattern)
+        He_e = bcsr.ell_blocks(bcsr.damp_blocks(H, pattern, 1e-4), ell)
+        cols_e = bcsr._ell_tables(ell, dev).cols
+        x = ctx["x_sphere"]
+        bsr = bsr_matrix(He_e, ell)
+        log(f"ell_matvec EllPattern shape: nb {ell.nb}, K {ell.K}, d {ell.d}")
+        check_kernel("ell_matvec", cuda_ops.ell_matvec, cuda_ops.ell_matvec_plain, [He_e, cols_e, x], report,
+                     "bcsr_ms", flop=2 * ell.nb * ell.K * 36, library=lambda: (bsr @ x[:, None])[:, 0])
+        dp = bcsr.bcsr_device_plan(pattern, dev)
+        coarse = bcsr._coarse_plan(graph, bcsr.build_ell_direct(graph), 128, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for label, seg, width, key in (("BCSR assembly blocks", dp.to_slot, 36, "bcsr_ms"),
+                                       ("BCSR gradient rows", dp.to_pose, 6, "bcsr_ms"),
+                                       ("BCSR product by row", dp.by_row, 6, "bcsr_ms"),
+                                       ("BCSR product by column", dp.by_col, 6, "bcsr_ms"),
+                                       ("coarse A_c", coarse.to_coarse, 36, "coarse_ms"),
+                                       ("coarse r_c", coarse.by_group, 6, "coarse_ms")):
+            contrib = torch.randn((len(seg.perm), width), generator=gen, device=dev)
+            log(f"sphere2500 {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
+            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                         [contrib, seg.perm, seg.offsets, seg.n_slots], report, key, flop=contrib.numel(),
+                         library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots))
+        log(f"phase 51 (two-level and BCSR on sphere2500): {time.perf_counter() - t_phase!r} s")
 
 
 def m3500_data():

@@ -145,6 +145,16 @@ the busy share and the synchronizing runtime calls a frame; ``vo_rgbd_vga``
 also the host ms of an LM iteration's parts at level 0 (the dense cells'
 split, the photometric kernel with its Jacobian, the Student-t scale).
 
+The cells of slice 14 (not in the default list): ``schur_cm_config5``,
+bench config 5 through ``dist.solve_schur_cm`` on a 1-rank NCCL mesh
+(split as ``config5``: the plan, a step with and without its CG loop);
+``precond_config6``, bench config 6 through ``solve_schur_large`` with
+``precond`` "jacobi", "cluster" (64 cameras) and "stale" (refresh 3) in
+turns, the plan and pair tables built once, a median with quartiles of
+each; ``bcsr_sphere2500`` and ``two_level_sphere2500``, sphere2500
+through ``solve_bcsr`` (spmv "ell") and ``solve_ell(precond="two_level")``
+at config 3's options.
+
 ``--root`` imports ``pyslam_tpu_torch`` from another checkout, such as a
 parent commit unpacked beside this one (the sphere2500 cell runs on every
 version of the port; the dense cells need the dense path).  The graphs
@@ -170,7 +180,7 @@ CELLS = ("sphere2500", "config1", "config2", "config7", "config4", "config4_dens
          "gnc_sphere2500", "switch_m3500", "vio400", "vio_window", "fixed_lag_sphere2500", "fixed_lag_lm_config8",
          "incremental_m3500", "sqrt_ladybug", "vo_rgbd_vga", "vo_batch16")
 # cells timed over at least 9 solves
-MIN_NINE = ("config5", "init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400", "sqrt_ladybug")
+MIN_NINE = ("config5", "schur_cm_config5", "init_sphere2500", "gnc_sphere2500", "switch_m3500", "vio400", "sqrt_ladybug")
 RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
@@ -617,6 +627,16 @@ def make_cell(name, dev):
         o = Options(method="lm", max_iters=30, min_cost_decrease=0.999)
         return g, o, lambda: solve_ell(g, o, plan=plan, pcg_rtol=3e-6, pcg_max_iters=120)
 
+    if name in ("bcsr_sphere2500", "two_level_sphere2500"):
+        from pyslam_tpu_torch.solver import bcsr
+
+        g = build.pose_graph(synth.se3_sphere(n_poses=2500, seed=0), dtype=torch.float32, device=dev)
+        o, pcg = Options(method="lm", max_iters=30, min_cost_decrease=0.999), dict(pcg_rtol=3e-6, pcg_max_iters=120)
+        if name == "two_level_sphere2500":
+            return g, o, lambda: bcsr.solve_ell(g, o, precond="two_level", **pcg)
+        pattern = bcsr.build_pattern(g)
+        return g, o, lambda: bcsr.solve_bcsr(g, o, pattern=pattern, spmv="ell", **pcg)
+
     if name in ("config4", "config4_dense"):
         from pyslam_tpu_torch.solver.schur import solve_schur
 
@@ -813,10 +833,10 @@ def one_rank_mesh(dev, axis_name):
     return dist.make_mesh(axis_name=axis_name, device=dev)
 
 
-def sharded_cell(dev):
+def sharded_cell(dev, cm=False):
     """(graph, options, run) of bench config 5 on its own path: Venice-mini
-    through ``dist.solve_schur_sharded`` on a 1-rank NCCL mesh (PCG 1e-4 /
-    30, LM 15)."""
+    through ``dist.solve_schur_sharded`` (``dist.solve_schur_cm`` with
+    ``cm``, 8 chunks) on a 1-rank NCCL mesh (PCG 1e-4 / 30, LM 15)."""
     from pyslam_tpu_torch import dist
     from pyslam_tpu_torch.graph import build
     from pyslam_tpu_torch.io import synth
@@ -829,13 +849,49 @@ def sharded_cell(dev):
     def run():
         import torch
 
-        _, chi2, hist = dist.solve_schur_sharded(g, mesh, o, pcg_rtol=1e-4, pcg_max_iters=30)
+        solve = dist.solve_schur_cm if cm else dist.solve_schur_sharded
+        _, chi2, hist = solve(g, mesh, o, pcg_rtol=1e-4, pcg_max_iters=30)
         return None, LargeInfo(torch.tensor(chi2), len(hist) - 1, None)
 
     return g, o, mesh, run
 
 
-def sharded_split(g, o, mesh, reps, run):
+def precond_cells(dev, reps):
+    """Bench config 6 through ``solve_schur_large`` with each
+    preconditioner in turns, ``reps`` rounds after one warm-up round: the
+    median and quartiles of each, its LM and CG iterations and chi2."""
+    import torch
+
+    from pyslam_tpu_torch.solver import schur_large
+
+    g, o, plan, common = large_cell("config6", dev)
+    t0 = time.perf_counter()
+    plan.cpairs, plan.cpairs_G = schur_large.build_cluster_pairs(plan, 64, 4), 64
+    t1 = time.perf_counter()
+    plan.pairs = schur_large.build_dense_pairs(plan, 4)
+    print(f"   precond_config6: cluster pairs {t1 - t0!r} s, dense pairs {time.perf_counter() - t1!r} s", flush=True)
+    variants = {"jacobi": {}, "cluster64": dict(precond="cluster", cluster_size=64),
+                "stale3": dict(precond="stale", stale_refresh=3)}
+    walls = {k: [] for k in variants}
+    for rnd in range(reps + 1):  # round 0 warms up and is not kept
+        for k, kw in variants.items():
+            schur_large.reset_cg_iterations()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, chi2, hist = schur_large.solve_schur_large(g, o, plan=plan, **kw, **common)
+            torch.cuda.synchronize()
+            if rnd:
+                walls[k].append(1e3 * (time.perf_counter() - t0))
+            else:
+                print(f"   {k}: chi2 {chi2!r}, LM iterations {len(schur_large.cg_iterations())}, accepted "
+                      f"{len(hist) - 1}, CG iterations {schur_large.cg_iterations()}", flush=True)
+    for k, w in walls.items():
+        q = statistics.quantiles(w, n=4) if len(w) > 1 else [w[0]] * 3
+        print(f"== precond_config6 [{k}]: wall median of {len(w)} {statistics.median(w)!r} ms, quartiles {q[0]!r} "
+              f"to {q[2]!r} (all {[round(x, 3) for x in w]})", flush=True)
+
+
+def sharded_split(g, o, mesh, reps, run, cm=False):
     """Host ms of ``shard_ba`` (the plan), of one LM step at the start
     point with its CG budget of 30 and with none (their difference is the
     CG loop), and of one ``psum`` of the camera blocks and gradient; then
@@ -847,11 +903,15 @@ def sharded_split(g, o, mesh, reps, run):
     from pyslam_tpu_torch.dist.schur_reduce import make_sharded_schur_step
     from pyslam_tpu_torch.solver import cuda_ops, linear, schur_large
 
-    sb = dist.shard_ba(g, mesh)
+    if cm:
+        shard, make_step = (lambda: dist.shard_ba_cm(g, mesh, 8)), dist.make_cm_step
+    else:
+        shard, make_step = (lambda: dist.shard_ba(g, mesh)), make_sharded_schur_step
+    sb = shard()
     state, lam = (sb.poses, sb.lms), o.lambda_init
-    steps = {n: make_sharded_schur_step(sb, o, 1e-4, n) for n in (30, 0)}
-    cam = torch.zeros(sb.C * (sb.dp + sb.dp * sb.dp), dtype=sb.poses.dtype, device=sb.poses.device)
-    split = dict(shard_ba=host_ms(lambda: dist.shard_ba(g, mesh), reps),
+    steps = {n: make_step(sb, o, 1e-4, n) for n in (30, 0)}
+    cam = torch.zeros(sb.C * 42, dtype=sb.poses.dtype, device=sb.poses.device)
+    split = dict(shard_ba=host_ms(shard, reps),
                  lm_step=host_ms(lambda: steps[30](state, lam), reps),
                  lm_step_without_cg=host_ms(lambda: steps[0](state, lam), reps),
                  psum_of_camera_blocks=host_ms(lambda: mesh.psum(cam), reps))
@@ -1360,8 +1420,11 @@ def main() -> int:
             g, o, plan, common = large_cell(name, dev)
             print(f"   {name}: graph and plan {time.perf_counter() - t0!r} s", flush=True)
             run = functools.partial(run_large, g, o, plan, common)
-        elif name == "config5":
-            g, o, mesh, run = sharded_cell(dev)
+        elif name in ("config5", "schur_cm_config5"):
+            g, o, mesh, run = sharded_cell(dev, cm=name == "schur_cm_config5")
+        elif name == "precond_config6":
+            precond_cells(dev, args.reps)
+            continue
         else:
             g, o, run = make_cell(name, dev)
         if name in MIN_NINE:
@@ -1392,12 +1455,18 @@ def main() -> int:
         print(f"   runtime calls per solve {({e.key: e.count for e in ka if e.key in RUNTIME_CALLS})}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"   {dev_us(e) / 1e3:10.4f} ms  x{e.count:5d}  {e.key[:110]}")
-        if name == "config5":
-            split = sharded_split(g, o, mesh, reps, run)
+        if name in ("config5", "schur_cm_config5"):
+            split = sharded_split(g, o, mesh, reps, run, cm=name == "schur_cm_config5")
         elif name in ("venice_mini", "config6"):
             split = large_split(name, g, o, plan, common, min(args.reps, 3) if name == "config6" else args.reps, run)
         elif name == "sphere2500":
             split = ell_split(g, o, dev, args.reps)
+        elif name in ("bcsr_sphere2500", "two_level_sphere2500"):
+            from pyslam_tpu_torch.solver import schur_large
+
+            schur_large.reset_cg_iterations()
+            run()
+            split = dict(cg_iterations=schur_large.cg_iterations())
         elif name.startswith("config4") or name == "config8":
             split = schur_split(g, o, dev, args.reps, run)
         elif name in ("config2_sparse_chol", "sparse_chol_5000", "schur_sparse_2000"):

@@ -15,6 +15,11 @@ devices, gloo on the CPU.
                           analogue)
   * ``schur_reduce``    — landmark-sharded Schur bundle adjustment (bench
                           config 5's path)
+  * ``schur_cm``        — the same sharding over ``solve_schur_large``'s
+                          per-rank machinery (camera-sorted observations,
+                          chunked linearization): the reference's
+                          component-major path, past ``route_auto``'s
+                          observation crossover
 
 The mesh is one-dimensional, so the reference's ``axis`` arguments (the
 mesh axis to shard over) are not taken, and a step closes over the
@@ -22,22 +27,15 @@ rank's shard instead of taking the sharded arrays (``make_sharded_lm_step``
 returns the rank's graph where the reference returns the padded one).
 Posterior covariance over the landmark-sharded layout:
 ``sharded_pose_marginals`` and ``sharded_landmark_marginals`` (in
-``schur_reduce``).  Not ported yet: ``solve_schur_cm`` (ROADMAP item 16b);
-it raises NotImplementedError.
+``schur_reduce``).
 """
 
 from .factor_parallel import make_sharded_lm_step, pad_batch, shard_graph, solve_factor_parallel
 from .mesh import COLLECTIVES, Mesh, init_distributed, make_mesh, reset_collectives
 from .partitioner import Partition, cut_stats, partition_landmarks, partition_poses_bfs
 from .pose_sharded import shard_pose_graph, solve_pose_sharded
+from .schur_cm import ShardedCM, make_cm_step, shard_ba_cm, solve_schur_cm
 from .schur_reduce import shard_ba, sharded_landmark_marginals, sharded_pose_marginals, solve_schur_sharded
-
-
-def solve_schur_cm(*args, **kwargs):
-    """The reference's component-major sharded Schur solve: not ported."""
-    raise NotImplementedError(
-        "solve_schur_cm is not ported yet (ROADMAP item 16b: the component-major sharded Schur path, on "
-        "dist/'s collectives and solve_schur_large's per-rank machinery)")
 
 
 __all__ = [
@@ -58,6 +56,9 @@ __all__ = [
     "solve_schur_sharded",
     "sharded_pose_marginals",
     "sharded_landmark_marginals",
+    "ShardedCM",
+    "shard_ba_cm",
+    "make_cm_step",
     "solve_schur_cm",
     "shard_pose_graph",
     "solve_pose_sharded",

@@ -104,6 +104,70 @@ def _batch_to(fb: FactorBatch, device) -> FactorBatch:
                        fb.loss, fb.weight.to(device))
 
 
+def rank_batch(fb: FactorBatch, mine: np.ndarray, indices, device) -> FactorBatch:
+    """The observations ``mine`` (graph order) of ``fb`` with ``indices``,
+    on ``device``; the whole batch's tensors where ``mine`` is all of it."""
+    M = fb.n
+    everything = len(mine) == M  # mine is ascending, so then it is arange(M)
+    at = None if everything else torch.as_tensor(mine, device=fb.weight.device)
+
+    def take(v):
+        if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == M:
+            return (v if everything else v[at]).to(device)
+        return v.to(device) if torch.is_tensor(v) else v
+
+    return FactorBatch(fb.kind, fb.slots, tuple(torch.as_tensor(i, device=device) for i in indices),
+                       {k: take(v) for k, v in fb.data.items()}, fb.loss, take(fb.weight))
+
+
+def landmark_shares(partition: Partition | None, L: int, mesh: Mesh, who: str):
+    """(part, lm_order, counts, local_row, lm_local) of a landmark partition
+    (the balanced contiguous one where None) over ``mesh``: each landmark's
+    rank, the landmarks rank after rank, each rank's count, each landmark's
+    row in its owner's share, and this rank's landmarks in graph order.
+    Raises ValueError for a partition of other sizes or ranks."""
+    n = mesh.size
+    if partition is None:
+        partition = partition_landmarks(None, None, L, n_parts=n)
+    part = np.asarray(partition.part, np.int64)
+    if len(part) != L or partition.n_parts != n or (L and (part.min() < 0 or part.max() >= n)):
+        raise ValueError(f"{who}: a partition of {L} landmarks into {n} parts expected")
+    lm_order = np.argsort(part, kind="stable")
+    counts = np.bincount(part, minlength=n)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    local_row = np.empty(L, np.int64)  # a landmark's row in its owner's share
+    local_row[lm_order] = np.arange(L) - starts[part[lm_order]]
+    return part, lm_order, counts, local_row, lm_order[starts[mesh.rank]:starts[mesh.rank] + counts[mesh.rank]]
+
+
+def split_ba(graph: FactorGraph, mesh: Mesh, pose_name: str, lm_name: str, partition: Partition | None, who: str):
+    """The host split of a BA graph over ``mesh`` that ``shard_ba`` and
+    ``schur_cm.shard_ba_cm`` share: (fb, rep, rep_idx, pose_first, lm_order,
+    counts, lm_local, mine, (cam, row)).  ``fb`` is the one observation
+    batch (either slot order), ``rep`` the pose-unary and (pose, pose)
+    batches with ``rep_idx`` their indices, every index checked against its
+    block's size (ValueError for any other batch or an index out of
+    range); the landmark shares are ``landmark_shares``'s; ``mine`` are this
+    rank's observations in graph order, ``cam`` their cameras and ``row``
+    their landmarks' rows in the rank's share."""
+    pb, lb = graph.blocks[pose_name], graph.blocks[lm_name]
+    C, L = pb.n, lb.n
+    obs = [fb for fb in graph.batches if tuple(fb.slots) in ((pose_name, lm_name), (lm_name, pose_name))]
+    rep = [fb for fb in graph.batches if tuple(fb.slots) in ((pose_name,), (pose_name, pose_name))]
+    if len(obs) != 1 or len(obs) + len(rep) != len(graph.batches):
+        raise ValueError(f"{who} supports exactly one pose-landmark batch plus pose-unary and pose-pose batches")
+    (fb,) = obs
+    pose_first = tuple(fb.slots) == (pose_name, lm_name)
+    rep_idx = [[_host_index(i, C, f"factor batch {u.kind!r} slot {pose_name!r}") for i in u.indices] for u in rep]
+
+    part, lm_order, counts, local_row, lm_local = landmark_shares(partition, L, mesh, who)
+    cam_t, pt_t = fb.indices if pose_first else fb.indices[::-1]
+    cam = _host_index(cam_t, C, f"factor batch {fb.kind!r} slot {pose_name!r}")
+    pt = _host_index(pt_t, L, f"factor batch {fb.kind!r} slot {lm_name!r}")
+    mine = np.flatnonzero(part[pt] == mesh.rank)
+    return fb, rep, rep_idx, pose_first, lm_order, counts, lm_local, mine, (cam[mine], local_row[pt[mine]])
+
+
 def shard_ba(
     graph: FactorGraph,
     mesh: Mesh,
@@ -115,63 +179,28 @@ def shard_ba(
     order), otherwise pose-unary and (pose, pose) batches.  Built on the
     host, the same on every rank; only the rank's share goes to
     ``mesh.device``."""
-    n, rank, device = mesh.size, mesh.rank, mesh.device
+    device = mesh.device
     pb, lb = graph.blocks[pose_name], graph.blocks[lm_name]
     C, dp, L, dl = pb.n, pb.dof, lb.n, lb.dof
-    obs = [fb for fb in graph.batches if tuple(fb.slots) in ((pose_name, lm_name), (lm_name, pose_name))]
-    rep = [fb for fb in graph.batches if tuple(fb.slots) in ((pose_name,), (pose_name, pose_name))]
-    if len(obs) != 1 or len(obs) + len(rep) != len(graph.batches):
-        raise ValueError("shard_ba supports exactly one pose-landmark batch plus pose-unary and pose-pose batches")
-    (fb,) = obs
-    pose_first = tuple(fb.slots) == (pose_name, lm_name)
-
-    if partition is None:
-        partition = partition_landmarks(None, None, L, n_parts=n)
-    part = np.asarray(partition.part, np.int64)
-    if len(part) != L or partition.n_parts != n or (L and (part.min() < 0 or part.max() >= n)):
-        raise ValueError(f"shard_ba: a partition of {L} landmarks into {n} parts expected")
-    lm_order = np.argsort(part, kind="stable")
-    counts = np.bincount(part, minlength=n)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    local_row = np.empty(L, np.int64)  # a landmark's row in its owner's slab
-    local_row[lm_order] = np.arange(L) - starts[part[lm_order]]
-    lm_local = lm_order[starts[rank]:starts[rank] + counts[rank]]
-
-    cam_t, pt_t = fb.indices if pose_first else fb.indices[::-1]
-    cam = _host_index(cam_t, C, f"factor batch {fb.kind!r} slot {pose_name!r}")
-    pt = _host_index(pt_t, L, f"factor batch {fb.kind!r} slot {lm_name!r}")
-    mine = np.flatnonzero(part[pt] == rank)  # this rank's observations, in graph order
-    cam_l, pt_l = cam[mine], local_row[pt[mine]]
-    M = fb.n
-
-    def take(v, ids):
-        return v[torch.as_tensor(ids, device=v.device)].to(device)
-
-    obs_data = {k: (take(v, mine) if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == M
-                    else (v.to(device) if torch.is_tensor(v) else v)) for k, v in fb.data.items()}
-
-    u_dest, pis, pjs = [], [], []
-    for u in rep:
-        idx = [_host_index(i, C, f"factor batch {u.kind!r} slot {pose_name!r}") for i in u.indices]
-        u_dest += idx
-        if len(idx) == 2:
-            pis.append(idx[0])
-            pjs.append(idx[1])
+    fb, rep, rep_idx, pose_first, lm_order, counts, lm_local, mine, (cam_l, pt_l) = split_ba(
+        graph, mesh, pose_name, lm_name, partition, "shard_ba")
+    ob = rank_batch(fb, mine, (cam_l, pt_l), device)
 
     def cat(arrays):
         return np.concatenate(arrays) if arrays else np.zeros(0, np.int64)
 
-    pi, pj = cat(pis), cat(pjs)
+    pi = cat([idx[0] for idx in rep_idx if len(idx) == 2])
+    pj = cat([idx[1] for idx in rep_idx if len(idx) == 2])
+    at = torch.as_tensor(lm_local, device=lb.values.device)
     dtype = pb.values.dtype
     return ShardedBA(
         mesh=mesh, kind=fb.kind, pose_kind=pb.kind, pose_first=pose_first, loss=fb.loss, C=C, L=L, dp=dp, dl=dl,
         lm_counts=tuple(int(c) for c in counts), lm_order=lm_order, lm_local=lm_local,
         poses=pb.values.to(device), free_p=(~pb.const_mask).to(device, dtype),
-        lms=take(lb.values, lm_local), free_l=take(~lb.const_mask, lm_local).to(dtype),
-        obs_data=obs_data, weight=take(fb.weight, mine),
-        cam_idx=torch.as_tensor(cam_l, device=device), pt_idx=torch.as_tensor(pt_l, device=device),
+        lms=lb.values[at].to(device), free_l=(~lb.const_mask[at]).to(device, dtype),
+        obs_data=ob.data, weight=ob.weight, cam_idx=ob.indices[0], pt_idx=ob.indices[1],
         by_cam=_segments(cam_l, C, device), by_lm=_segments(pt_l, len(lm_local), device),
-        unary=tuple(_batch_to(u, device) for u in rep), by_pose_u=_segments(cat(u_dest), C, device),
+        unary=tuple(_batch_to(u, device) for u in rep), by_pose_u=_segments(cat(sum(rep_idx, [])), C, device),
         pp_i=torch.as_tensor(pi, device=device), pp_j=torch.as_tensor(pj, device=device),
         by_pp_i=_segments(pi, C, device), by_pp_j=_segments(pj, C, device),
     )

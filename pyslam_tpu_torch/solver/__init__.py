@@ -1,7 +1,8 @@
 """GN/LM solver core on torch tensors.  Ported so far: the dense path
 (``assemble_dense``, Cholesky), 'lm' / 'gn' / 'dogleg', ``solve_one_iter``,
 the ``solve_ell`` pose-graph path (direct-to-ELL assembly, block-Jacobi
-PCG), the Schur-complement path of bundle adjustment and landmark SLAM
+or two-level PCG), the BCSR family (``build_pattern``, ``assemble_bcsr``,
+``bcsr_matvec``, ``solve_bcsr``), the Schur-complement path of bundle adjustment and landmark SLAM
 (``ba_assemble``, ``solve_schur`` in its 'dense' and 'pcg' modes), the
 multifrontal sparse Cholesky (``solve_sparse_chol``) and SPARSE_SCHUR
 (``solve_schur_sparse``), Venice-scale bundle adjustment
@@ -27,13 +28,18 @@ from .assemble import (
     unit_diag_where_dead,
 )
 from .bcsr import (
+    BlockPattern,
     EllDevicePlan,
     EllDirect,
+    assemble_bcsr,
     assemble_ell,
+    bcsr_matvec,
     build_ell_direct,
+    build_pattern,
     build_slot_plans,
     ell_contributions,
     ell_device_plan,
+    solve_bcsr,
     solve_ell,
     sym_block_inv,
 )
@@ -122,6 +128,11 @@ __all__ = [
     "assemble_ell",
     "sym_block_inv",
     "solve_ell",
+    "BlockPattern",
+    "build_pattern",
+    "assemble_bcsr",
+    "bcsr_matvec",
+    "solve_bcsr",
     "LAUNCHES",
     "ell_matvec",
     "ell_matvec_plain",
@@ -421,9 +432,8 @@ def solve_auto(
     ``route_auto`` decides; ``ell`` solves replicated on every rank, and
     ``_single`` (after its warning) the dense path.
 
-    The mesh route ``schur_cm`` (ROADMAP item 16b) is not ported: it
-    raises NotImplementedError, and no other solver stands in for it.
-    Returns (solved_graph, SolveInfo); on
+    ``dist.solve_schur_cm`` past ``cm_obs_crossover`` observations a rank
+    (route ``schur_cm``).  Returns (solved_graph, SolveInfo); on
     ``schur_large`` and the mesh routes, as in the reference,
     (solved_graph, cost_history)."""
     opts = options if options is not None else Options()
@@ -436,20 +446,20 @@ def solve_auto(
         schur_sparse_pair_budget=schur_sparse_pair_budget,
         cm_obs_crossover=cm_obs_crossover,
     )
-    if route == "schur_cm":
-        raise NotImplementedError(f"solve_auto: route {route!r} is not ported yet (ROADMAP item 16b)")
     kinds = {name: b.kind for name, b in graph.blocks.items()}
     names = dict(
         pose_name=next((n for n, k in kinds.items() if k != "euclidean"), None),
         lm_name=next((n for n, k in kinds.items() if k == "euclidean"), None),
     )
-    if route in ("factor_parallel", "pose_sharded", "schur_reduce"):
+    if route in ("factor_parallel", "pose_sharded", "schur_reduce", "schur_cm"):
         from .. import dist
 
         if route == "factor_parallel":
             solved, _, history = dist.solve_factor_parallel(graph, mesh, opts)
         elif route == "pose_sharded":
             solved, _, history = dist.solve_pose_sharded(graph, mesh, opts)
+        elif route == "schur_cm":
+            solved, _, history = dist.solve_schur_cm(graph, mesh, opts, **names)
         else:
             solved, _, history = dist.solve_schur_sharded(graph, mesh, opts, **names)
         return solved, history

@@ -27,6 +27,27 @@ Per LM iteration:
 The plan (``EllDirect``) is built on the host in numpy, as in the
 reference; ``ell_device_plan`` validates it and puts the index tensors the
 kernels read on the graph's device once per solve.
+
+``precond="two_level"`` adds to block-Jacobi a coarse correction over BFS
+groups of poses (``_coarse_groups``): A_c = PᵀAP is one ``slot_reduce`` of
+the damped ELL blocks into the coarse blocks that receive any, factored
+once a linear solve; r_c is one ``slot_reduce`` by group an application.
+``ell_pcg`` fuses only block-Jacobi, so this PCG is ``schur_large._pcg``
+(no host read, no breakdown guard: ``linear.pcg_solve``'s iterates) around
+``cuda_ops.ell_matvec``; ``schur_large.cg_iterations`` reads its counts.
+
+The BCSR family (``BlockPattern``, ``build_pattern``, ``assemble_bcsr``,
+``bcsr_matvec``, ``block_jacobi_inv``, ``damp_blocks``, ``EllPattern``,
+``build_ell``, ``ell_blocks``, ``ell_matvec``, ``GroupJacobi``,
+``build_group_jacobi``, ``group_jacobi_factor``, ``group_jacobi_apply``,
+``solve_bcsr``): the Hessian over the upper block pattern, diagonal
+included.  The patterns are the reference's arrays, built by numpy sorts
+in place of its per-pair Python loops.  Assembly is the linearization and
+one ``slot_reduce`` of the blocks into the upper store (and one of the
+gradient rows into their poses); the upper-store product is two
+``slot_reduce`` passes, by rows and by columns; the ELL expansion of the
+damped store multiplies through ``cuda_ops.ell_matvec``.  Each pattern's
+device plans are built once and kept by content (``bcsr_device_plan``).
 """
 
 from __future__ import annotations
@@ -38,13 +59,16 @@ import torch
 
 from ..graph.core import FactorGraph
 from . import lm as _lm
-from .assemble import dense_contributions, free_mask
+from .assemble import dense_contributions, free_mask, linearize_batch
+from .plan_cache import ClosureCache, content_key
+from .schur import Segments, _binv, _cholesky, _jtwj, _mv, _tmv
+from .schur_large import _CG_ITERATIONS, _pcg, _segments
+from . import cuda_ops
 from .cuda_ops import (
     MAX_ASSEMBLE_BATCHES,
     AssembleBatch,
     SlotPlan,
     ell_assemble,
-    ell_matvec,
     ell_pcg,
     kernel_loss,
     slot_plan,
@@ -397,10 +421,16 @@ def solve_ell(
     CG budget defaults are size-adaptive, as in the reference: rtol 3e-6 /
     at least 120 iterations up to 10k poses, rtol 1e-8 beyond, and
     ``max(120, nb // 80)`` iterations capped at 1000.  Explicit arguments
-    override.  ``precond="two_level"`` (and its ``coarse_size``) is not
-    ported yet and raises NotImplementedError."""
-    if precond != "bj":
-        raise NotImplementedError(f"precond={precond!r} is not ported yet (only 'bj')")
+    override.
+
+    ``precond``: ``"bj"`` (per-pose block-Jacobi, the ``ell_pcg`` kernel)
+    or ``"two_level"`` (additive two-level Schwarz: block-Jacobi plus a
+    coarse correction over ~``coarse_size``-pose BFS groups, A_c = PᵀAP with
+    piecewise-constant prolongation, dense-factored once a linear solve;
+    PCG by ``schur_large._pcg``, its products ``ell_matvec``).  The
+    reference takes any other name for ``"bj"``; here it raises."""
+    if precond not in ("bj", "two_level"):
+        raise ValueError(f"precond must be 'bj' or 'two_level', got {precond!r}")
     if plan is None:
         plan = build_ell_direct(graph)
     if pcg_rtol is None:
@@ -409,12 +439,13 @@ def solve_ell(
         pcg_max_iters = min(1000, max(120, plan.nb // 80))
     device = next(iter(graph.blocks.values())).values.device
     dplan = ell_device_plan(plan, device)
+    coarse = _coarse_plan(graph, plan, coarse_size, device) if precond == "two_level" else None
 
     def assemble_fn(g):
         return assemble_ell(g, dplan)
 
     def matvec_fn(He, x):
-        return ell_matvec(He, dplan.cols, x)
+        return cuda_ops.ell_matvec(He, dplan.cols, x)
 
     def solve_fn(He, g, lam, opt):
         D = He[:, 0]
@@ -426,8 +457,464 @@ def solve_ell(
         else:
             He_d = He
         Minv = sym_block_inv(D)
-        return ell_pcg(He_d, dplan.cols, Minv.contiguous(), g, pcg_rtol, pcg_max_iters).x
+        if coarse is None:
+            return ell_pcg(He_d, dplan.cols, Minv.contiguous(), g, pcg_rtol, pcg_max_iters).x
+        return _two_level_pcg(He_d, Minv, g, dplan, coarse, pcg_rtol, pcg_max_iters)
 
     return _lm.solve(
         graph, options, assemble_fn=assemble_fn, solve_fn=solve_fn, matvec_fn=matvec_fn
     )
+
+
+# --------------------------------------------------------------------------
+# Two-level preconditioner (precond="two_level")
+# --------------------------------------------------------------------------
+
+def _coarse_groups(graph: FactorGraph, plan: EllDirect, coarse_size: int):
+    """(group (nb,), G): BFS aggregation of poses into ~coarse_size groups
+    for the two-level preconditioner (the partitioner of ``dist/``)."""
+    from ..dist.partitioner import partition_poses_bfs
+
+    nb = plan.nb
+    valid = plan.valid[:, 1:] > 0
+    eu = np.repeat(np.arange(nb, dtype=np.int64), valid.sum(axis=1))
+    ev = plan.cols[:, 1:][valid].astype(np.int64)
+    und = eu < ev
+    G = max(1, -(-nb // coarse_size))
+    part = partition_poses_bfs(eu[und], ev[und], nb, G)
+    return part.part.astype(np.int32), G
+
+
+@dataclasses.dataclass(frozen=True)
+class CoarsePlan:
+    """The two-level preconditioner's tables on one device: each pose's
+    group, the plan of A_c = PᵀAP (every ELL block of the nb*K store to the
+    coarse block (group(r), group(cols[r, k])), planned over the U coarse
+    blocks that receive any, ``blocks`` their flat index in G*G) and the
+    plan of r_c (each pose's row to its group)."""
+
+    G: int
+    group: torch.Tensor  # (nb,) int64
+    blocks: torch.Tensor  # (U,) int64
+    to_coarse: Segments  # nb*K -> U
+    by_group: Segments  # nb -> G
+
+
+def _coarse_plan(graph, plan: EllDirect, coarse_size: int, device) -> CoarsePlan:
+    group, G = _coarse_groups(graph, plan, coarse_size)
+    group = group.astype(np.int64)
+    flat = (group[:, None] * G + group[plan.cols]).reshape(-1)
+    uniq, dest = np.unique(flat, return_inverse=True)
+    return CoarsePlan(G, torch.as_tensor(group, device=device), torch.as_tensor(uniq, device=device),
+                      _segments(dest.reshape(-1), len(uniq), device), _segments(group, G, device))
+
+
+def _two_level_pcg(He_d, Minv, g, dplan: EllDevicePlan, coarse: CoarsePlan, rtol, max_iters):
+    """PCG under block-Jacobi plus the coarse correction: A_c by one
+    ``slot_reduce`` of the damped blocks (padding slots hold zero blocks),
+    its Cholesky (NaN where it fails), then ``schur_large._pcg`` whose
+    products are ``ell_matvec`` and whose r_c is one ``slot_reduce``."""
+    nb, K, d, _ = He_d.shape
+    G = coarse.G
+    Ac = He_d.new_zeros((G * G, d * d))
+    Ac[coarse.blocks] = coarse.to_coarse.sum(He_d.reshape(nb * K, d * d))
+    L = _cholesky(Ac.reshape(G, G, d, d).transpose(1, 2).reshape(G * d, G * d))
+
+    def precond(r):
+        rb = r.reshape(nb, d)
+        rc = coarse.by_group.sum(rb).reshape(G * d, 1)
+        y = torch.linalg.solve_triangular(L, rc, upper=False)
+        xc = torch.linalg.solve_triangular(L.transpose(0, 1), y, upper=True).reshape(G, d)
+        return (_mv(Minv, rb) + xc[coarse.group]).reshape(-1)
+
+    x, it = _pcg(lambda v: cuda_ops.ell_matvec(He_d, dplan.cols, v), precond, g, rtol, max_iters, read_every=0,
+                 guard=False)
+    _CG_ITERATIONS.append(it)
+    return x
+
+
+# --------------------------------------------------------------------------
+# The BCSR family: upper block store over a static pattern
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPattern:
+    """Host-side static BCSR pattern for a single-block pose graph.
+
+    rows/cols: (nnzb,) upper-triangular block coordinates (row <= col),
+    lexicographically sorted, diagonal blocks first-class members.
+    maps: per batch, a list of (slot_a, slot_b, pair_pos (F,), transpose (F,))
+    entries steering each factor's block contribution to its pattern slot.
+    """
+
+    block_name: str
+    nb: int
+    d: int
+    rows: np.ndarray
+    cols: np.ndarray
+    diag_pos: np.ndarray  # (nb,) position of each diagonal block
+    maps: tuple  # per batch: tuple of (a, b, pos (F,), transpose (F,))
+
+    @property
+    def nnzb(self) -> int:
+        return len(self.rows)
+
+
+def build_pattern(graph: FactorGraph, block_name: str | None = None) -> BlockPattern:
+    """Derive the static block-sparsity pattern from the factor indices: the
+    reference's arrays, by one numpy sort of the pair keys.  Raises on a
+    graph of more than one variable block and on a factor index outside the
+    block (the reference asserts the first and clamps the second)."""
+    if block_name is None:
+        (block_name,) = graph.blocks.keys()
+    blk = graph.blocks[block_name]
+    nb, d = blk.n, blk.dof
+
+    keys = [np.arange(nb, dtype=np.int64) * (nb + 1)]
+    batch_pairs = []
+    for fb in graph.batches:
+        if not all(s == block_name for s in fb.slots):
+            raise ValueError("BCSR path supports a single variable block; use the Schur path for camera+landmark "
+                             "problems")
+        idx = [i.detach().cpu().numpy().astype(np.int64) for i in fb.indices]
+        for i in idx:
+            if len(i) and (i.min() < 0 or i.max() >= nb):
+                raise ValueError(f"factor batch {fb.kind!r}: index out of range [0, {nb}) "
+                                 f"(min {i.min()}, max {i.max()})")
+        slot_pairs = []
+        for a in range(len(idx)):
+            for b in range(a, len(idx)):
+                ia, ib = idx[a], idx[b]
+                keys.append(np.minimum(ia, ib) * nb + np.maximum(ia, ib))
+                slot_pairs.append((a, b, ia, ib))
+        batch_pairs.append(slot_pairs)
+
+    uniq = np.unique(np.concatenate(keys))
+    rows, cols = uniq // nb, uniq % nb
+    diag_pos = np.searchsorted(uniq, np.arange(nb, dtype=np.int64) * (nb + 1)).astype(np.int32)
+    maps = tuple(
+        tuple((a, b, np.searchsorted(uniq, np.minimum(ia, ib) * nb + np.maximum(ia, ib)).astype(np.int32), ia > ib)
+              for a, b, ia, ib in slot_pairs)
+        for slot_pairs in batch_pairs)
+    return BlockPattern(block_name, nb, d, rows.astype(np.int32), cols.astype(np.int32), diag_pos, maps)
+
+
+@dataclasses.dataclass(frozen=True)
+class BcsrDevicePlan:
+    """A ``BlockPattern``'s tables on one device: the ``slot_reduce`` plans
+    of the assembly (every contribution in ``assemble_bcsr``'s stacking
+    order to its pattern slot; every gradient row to its pose) and of the
+    two product passes (the stored blocks by row; the strictly-upper ones,
+    transposed, by column)."""
+
+    rows: torch.Tensor  # (nnzb,) int64
+    cols: torch.Tensor
+    diag_pos: torch.Tensor  # (nb,) int64
+    transpose: torch.Tensor  # (E,) bool, per contribution in stacking order
+    to_slot: Segments  # E contributions -> nnzb
+    to_pose: Segments  # gradient rows -> nb
+    upper: torch.Tensor  # (nnzu,) int64, the strictly-upper positions
+    by_row: Segments  # nnzb -> nb
+    by_col: Segments  # nnzu -> nb
+
+
+_DEVICE_PLANS = ClosureCache()
+
+
+def bcsr_device_plan(pattern: BlockPattern, device) -> BcsrDevicePlan:
+    """The device tables of ``pattern``, built once for its content and
+    ``device``."""
+    device = torch.device(device)
+    key = (content_key(pattern), str(device))
+    if key not in _DEVICE_PLANS:
+        nb = pattern.nb
+        pos = [p.astype(np.int64) for entries in pattern.maps for (_, _, p, _) in entries]
+        trans = [t for entries in pattern.maps for (_, _, _, t) in entries]
+        g_dest = []
+        for entries in pattern.maps:
+            for a, b, p, t in entries:
+                if a == b:  # the slot's own diagonal position names its pose
+                    g_dest.append(pattern.rows[p].astype(np.int64))
+        empty = np.zeros(0, np.int64)
+
+        def cat(a):
+            return np.concatenate(a) if a else empty
+
+        upper = np.flatnonzero(pattern.rows != pattern.cols)
+
+        def t(a, dtype=torch.int64):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+        _DEVICE_PLANS[key] = BcsrDevicePlan(
+            rows=t(pattern.rows), cols=t(pattern.cols), diag_pos=t(pattern.diag_pos),
+            transpose=t(cat(trans).astype(bool), torch.bool), to_slot=_segments(cat(pos), pattern.nnzb, device),
+            to_pose=_segments(cat(g_dest), nb, device), upper=t(upper),
+            by_row=_segments(pattern.rows.astype(np.int64), nb, device),
+            by_col=_segments(pattern.cols[upper].astype(np.int64), nb, device),
+        )
+    return _DEVICE_PLANS[key]
+
+
+def assemble_bcsr(graph: FactorGraph, pattern: BlockPattern):
+    """(H_blocks (nnzb, d, d), g (nb*d,), chi2): the linearization, then one
+    ``slot_reduce`` of every JᵀWJ block (transposed where it lands below
+    the diagonal) into the upper store and one of the gradient rows into
+    their poses; constant poses masked as in the reference."""
+    nb, d = pattern.nb, pattern.d
+    values = graph.blocks[pattern.block_name].values
+    dtype, device = values.dtype, values.device
+    dp = bcsr_device_plan(pattern, device)
+    chi2 = torch.zeros((), dtype=dtype, device=device)
+    h_parts, g_parts = [], []
+    for fb, entries in zip(graph.batches, pattern.maps):
+        r, jacs, w, c2 = linearize_batch(fb, graph.blocks)
+        chi2 = chi2 + c2
+        wr = w * r
+        for a, b, _, _ in entries:
+            h_parts.append(_jtwj(jacs[a], w, jacs[b]))
+            if a == b:
+                g_parts.append(_tmv(jacs[a], wr))
+    if h_parts:
+        C = torch.cat(h_parts)
+        C = torch.where(dp.transpose[:, None, None], C.transpose(-1, -2), C)
+        H = dp.to_slot.sum(C)
+        g = -dp.to_pose.sum(torch.cat(g_parts)).reshape(-1)
+    else:
+        H = torch.zeros((pattern.nnzb, d, d), dtype=dtype, device=device)
+        g = torch.zeros(nb * d, dtype=dtype, device=device)
+
+    # constant parameters: zero their rows/cols, unit diagonal on frozen dofs
+    free = free_mask(graph).to(dtype).reshape(nb, d)
+    H = H * free[dp.rows][:, :, None] * free[dp.cols][:, None, :]
+    eye = torch.eye(d, dtype=dtype, device=device)
+    H[dp.diag_pos] += (1.0 - free)[:, :, None] * eye
+    return H, g * free.reshape(-1), chi2
+
+
+def bcsr_matvec(H, pattern: BlockPattern, x):
+    """y = H x with upper-block storage: one ``slot_reduce`` pass of the
+    stored blocks by row, one of the strictly-upper blocks, transposed, by
+    column."""
+    nb, d = pattern.nb, pattern.d
+    dp = bcsr_device_plan(pattern, H.device)
+    xb = x.reshape(nb, d)
+    y = dp.by_row.sum(_mv(H, xb[dp.cols]))
+    y = y + dp.by_col.sum(_tmv(H[dp.upper], xb[dp.rows[dp.upper]]))
+    return y.reshape(-1)
+
+
+def block_jacobi_inv(H, pattern: BlockPattern):
+    """Inverse diagonal blocks for the preconditioner, via batched Cholesky +
+    triangular solves (NaN blocks where one is not positive definite)."""
+    return _binv(_cholesky(H[bcsr_device_plan(pattern, H.device).diag_pos]))
+
+
+def damp_blocks(H, pattern: BlockPattern, lam, floor=1e-12):
+    """Marquardt damping on the diagonal blocks: H_ii += lam * diag(H_ii).
+    Returns a new store."""
+    at = bcsr_device_plan(pattern, H.device).diag_pos
+    D = H[at]
+    diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1), min=floor)
+    H = H.clone()
+    H[at] = D + lam * torch.diag_embed(diag)
+    return H
+
+
+@dataclasses.dataclass(frozen=True)
+class EllPattern:
+    """Static symmetric ELL expansion of a BlockPattern.
+
+    For each block-row r: K slots; slot k reads stored block ``sel[r,k]``
+    (transposed when ``trans[r,k]``), multiplies x[cols[r,k]].  Padding slots
+    point at block 0 with weight 0."""
+
+    nb: int
+    d: int
+    K: int
+    cols: np.ndarray  # (nb, K) int32
+    sel: np.ndarray  # (nb, K) int32 into the BCSR block store
+    trans: np.ndarray  # (nb, K) bool
+    valid: np.ndarray  # (nb, K) float
+
+
+def build_ell(pattern: BlockPattern) -> EllPattern:
+    """The reference's ELL expansion: each row's stored blocks (as row) and
+    strictly-upper blocks (as column, transposed), in pattern order; by one
+    numpy sort."""
+    nb = pattern.nb
+    pos = np.arange(pattern.nnzb, dtype=np.int64)
+    rows, cols = pattern.rows.astype(np.int64), pattern.cols.astype(np.int64)
+    up = rows != cols
+    row = np.concatenate([rows, cols[up]])
+    col = np.concatenate([cols, rows[up]])
+    sel = np.concatenate([pos, pos[up]])
+    tr = np.concatenate([np.zeros(len(pos), bool), np.ones(int(up.sum()), bool)])
+    order = np.lexsort((sel, row))
+    row, col, sel, tr = row[order], col[order], sel[order], tr[order]
+    counts = np.bincount(row, minlength=nb)
+    K = int(counts.max())
+    k = np.arange(len(row)) - np.concatenate([[0], np.cumsum(counts)[:-1]])[row]
+    out_cols = np.zeros((nb, K), np.int32)
+    out_sel = np.zeros((nb, K), np.int32)
+    out_trans = np.zeros((nb, K), bool)
+    valid = np.zeros((nb, K), np.float64)
+    out_cols[row, k], out_sel[row, k], out_trans[row, k], valid[row, k] = col, sel, tr, 1.0
+    return EllPattern(nb, pattern.d, K, out_cols, out_sel, out_trans, valid)
+
+
+@dataclasses.dataclass(frozen=True)
+class _EllTables:
+    cols: torch.Tensor  # (nb, K) int32, what ell_matvec reads
+    sel: torch.Tensor  # (nb, K) int64
+    trans: torch.Tensor  # (nb, K) bool
+    valid: torch.Tensor  # (nb, K) bool
+
+
+def _ell_tables(ell: EllPattern, device) -> _EllTables:
+    device = torch.device(device)
+    key = ("ell", content_key(ell), str(device))
+    if key not in _DEVICE_PLANS:
+        _DEVICE_PLANS[key] = _EllTables(
+            torch.as_tensor(ell.cols, dtype=torch.int32, device=device),
+            torch.as_tensor(ell.sel, dtype=torch.int64, device=device),
+            torch.as_tensor(ell.trans, device=device), torch.as_tensor(ell.valid > 0, device=device))
+    return _DEVICE_PLANS[key]
+
+
+def ell_blocks(H, ell: EllPattern):
+    """Materialize the (nb, K, d, d) symmetric neighbor blocks from the
+    upper BCSR store — once per damped system, outside the CG loop; padding
+    slots hold zero blocks."""
+    t = _ell_tables(ell, H.device)
+    Hg = H[t.sel]  # (nb, K, d, d)
+    He = torch.where(t.trans[:, :, None, None], Hg.transpose(-1, -2), Hg)
+    return torch.where(t.valid[:, :, None, None], He, 0.0).contiguous()
+
+
+def ell_matvec(He, ell: EllPattern, x):
+    """y = H x from ELL blocks: the ``cuda_ops.ell_matvec`` kernel (its
+    plain version on the CPU)."""
+    return cuda_ops.ell_matvec(He, _ell_tables(ell, He.device).cols, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupJacobi:
+    """Static layout of the group-diagonal preconditioner."""
+
+    ng: int  # number of groups
+    G: int  # poses per group
+    d: int
+    nb_pad: int
+    sel: np.ndarray  # (ng, G, G) positions into the BCSR store (0 if none)
+    trans: np.ndarray  # (ng, G, G) transpose flags
+    valid: np.ndarray  # (ng, G, G) 1.0 where a stored block exists
+
+
+def build_group_jacobi(pattern: BlockPattern, group_size: int = 8) -> GroupJacobi:
+    """The reference's layout of G consecutive poses a group, by a numpy
+    lookup of every in-group pair in the pattern."""
+    nb, d, G = pattern.nb, pattern.d, group_size
+    ng = -(-nb // G)
+    nb_pad = ng * G
+    i = (np.arange(ng)[:, None, None] * G + np.arange(G)[None, :, None]).repeat(G, 2)
+    j = (np.arange(ng)[:, None, None] * G + np.arange(G)[None, None, :]).repeat(G, 1)
+    keys_p = pattern.rows.astype(np.int64) * nb + pattern.cols.astype(np.int64)
+    key = np.minimum(i, j) * nb + np.maximum(i, j)
+    at = np.minimum(np.searchsorted(keys_p, key), max(len(keys_p) - 1, 0))
+    found = (i < nb) & (j < nb) & (keys_p[at] == key)
+    sel = np.where(found, at, 0).astype(np.int32)
+    trans = found & (i > j)
+    valid = found.astype(np.float64)
+    return GroupJacobi(ng, G, d, nb_pad, sel, trans, valid)
+
+
+def group_jacobi_factor(H, gj: GroupJacobi):
+    """Gather the group-diagonal dense blocks and Cholesky-factorize them
+    (NaN where a factorization fails).  Call once per damped system.
+    Unfilled (padding) diagonal entries get a unit diagonal so the
+    factorization is always SPD."""
+    d, G = gj.d, gj.G
+    key = ("group", content_key(gj), str(H.device))
+    if key not in _DEVICE_PLANS:
+        _DEVICE_PLANS[key] = (torch.as_tensor(gj.sel, dtype=torch.int64, device=H.device),
+                              torch.as_tensor(gj.trans, device=H.device), torch.as_tensor(gj.valid > 0, device=H.device))
+    sel, trans, valid = _DEVICE_PLANS[key]
+    Hg = H[sel]  # (ng, G, G, d, d) gather
+    Hg = torch.where(trans[..., None, None], Hg.transpose(-1, -2), Hg)
+    Hg = torch.where(valid[..., None, None], Hg, 0.0)
+    D = Hg.transpose(2, 3).reshape(gj.ng, G * d, G * d)
+    diag = torch.diagonal(D, dim1=-2, dim2=-1)
+    return _cholesky(D + torch.diag_embed((diag == 0.0).to(H.dtype)))
+
+
+def group_jacobi_apply(L, gj: GroupJacobi, r):
+    """M^{-1} r via batched triangular solves on the group factors."""
+    n = r.shape[0]
+    rp = torch.cat([r, r.new_zeros(gj.nb_pad * gj.d - n)]).reshape(gj.ng, gj.G * gj.d, 1)
+    y = torch.linalg.solve_triangular(L, rp, upper=False)
+    z = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return z.reshape(-1)[:n]
+
+
+def solve_bcsr(
+    graph: FactorGraph,
+    options: _lm.Options = _lm.Options(),
+    pattern: BlockPattern | None = None,
+    pcg_rtol: float = 1e-8,
+    pcg_max_iters: int = 250,
+    spmv: str = "ell",
+    precond_group: int = 1,
+):
+    """GN/LM with block-sparse assembly + PCG linear solves.  Shares the LM
+    trust-region loop with the dense path (``lm.solve``); returns
+    (solved_graph, SolveInfo).
+
+    ``spmv='ell'`` (default) expands the damped system into symmetric ELL
+    neighbor lists once per linear solve, so each CG product is one
+    ``ell_matvec`` launch; ``spmv='bcsr'`` uses the two-pass ``slot_reduce``
+    product on the upper store.  ``precond_group`` > 1 uses the group
+    block-Jacobi preconditioner over that many consecutive poses (1 =
+    classic per-pose block-Jacobi).  PCG is ``schur_large._pcg`` unguarded:
+    no host read inside a linear solve."""
+    if spmv not in ("ell", "bcsr"):
+        raise ValueError(f"spmv must be 'ell' or 'bcsr', got {spmv!r}")
+    if pattern is None:
+        pattern = build_pattern(graph)
+    ell = build_ell(pattern) if spmv == "ell" else None
+    gj = build_group_jacobi(pattern, precond_group) if precond_group > 1 else None
+    nb, d = pattern.nb, pattern.d
+
+    def assemble_fn(g):
+        return assemble_bcsr(g, pattern)
+
+    def solve_fn(H, g, lam, opt):
+        Hd = damp_blocks(H, pattern, lam) if opt.method == "lm" else H
+        if ell is not None:
+            He = ell_blocks(Hd, ell)
+
+            def matvec(x):
+                return ell_matvec(He, ell, x)
+
+        else:
+
+            def matvec(x):
+                return bcsr_matvec(Hd, pattern, x)
+
+        if gj is not None:
+            L_g = group_jacobi_factor(Hd, gj)
+
+            def precond(r):
+                return group_jacobi_apply(L_g, gj, r)
+
+        else:
+            Minv = block_jacobi_inv(Hd, pattern)
+
+            def precond(r):
+                return _mv(Minv, r.reshape(nb, d)).reshape(-1)
+
+        dx, it = _pcg(matvec, precond, g, pcg_rtol, pcg_max_iters, read_every=0, guard=False)
+        _CG_ITERATIONS.append(it)
+        return dx
+
+    return _lm.solve(graph, options, assemble_fn=assemble_fn, solve_fn=solve_fn)

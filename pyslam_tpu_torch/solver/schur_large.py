@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -103,9 +104,13 @@ class LargeBA:
     by_pp_i: Segments
     by_pp_j: Segments
     rows: torch.Tensor  # _ROWS on the device: the linearization's row gather
-    # co-observation pair tables of linear="dense" (build_dense_pairs); None
-    # until that solve first needs them
+    # co-observation pair tables of linear="dense" and precond="stale"
+    # (build_dense_pairs); None until a solve first needs them
     pairs: "DensePairs | None" = None
+    # same-cluster pair tables of precond="cluster" (build_cluster_pairs),
+    # built for clusters of cpairs_G cameras
+    cpairs: "DensePairs | None" = None
+    cpairs_G: int = 0
 
 
 def _ceil_to(x, m):
@@ -253,35 +258,52 @@ def _unary(plan, poses, want_grad, dp=6):
     return chi2, sums[:, dp:].reshape(-1, dp, dp), sums[:, :dp], PP
 
 
-def _cost(plan, poses, lms):
-    """chi2 at (poses, lms) without Jacobians: the cost-only pass."""
+def _obs_cost(plan, poses, lms):
+    """The observations' chi2 at (poses, lms), without Jacobians."""
     cost = poses.new_empty(plan.M)
     for lo, hi in _chunks(plan):
         r, _ = _observations(plan, lo, hi, poses, lms, False)
         cost[lo:hi] = (plan.loss.loss(r) * plan.weight[lo:hi, None]).sum(1)
-    return cost.sum() + _unary(plan, poses, False)
+    return cost.sum()
 
 
-def _linearize(plan, poses, lms):
-    """The normal equations at (poses, lms): (chi2, parts), ``parts`` the
-    pieces ``schur._schur_reduce`` reads (Hpp, g_p, Hll, g_l, W, PP and the
-    plan), masked by ``schur.mask_constants``."""
-    M = plan.M
-    cost = poses.new_empty(M)
-    rows = poses.new_empty((M, len(_ROWS)))
+def _cost(plan, poses, lms):
+    """chi2 at (poses, lms) without Jacobians: the cost-only pass."""
+    return _obs_cost(plan, poses, lms) + _unary(plan, poses, False)
+
+
+def _obs_rows(plan, poses, lms):
+    """Every observation's cost (M,) and rows (M, 54) in ``_ROWS`` order,
+    linearized chunk by chunk into full-length buffers."""
+    cost = poses.new_empty(plan.M)
+    rows = poses.new_empty((plan.M, len(_ROWS)))
     for lo, hi in _chunks(plan):
         r, jacs = _observations(plan, lo, hi, poses, lms, True)
         J = torch.cat(jacs, -1)  # (n, m, 9)
         w = plan.loss.weight(r) * plan.weight[lo:hi, None]
         cost[lo:hi] = (plan.loss.loss(r) * plan.weight[lo:hi, None]).sum(1)
         rows[lo:hi] = torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, 81)], 1)[:, plan.rows]
-    cam = plan.by_cam.sum(rows[:, :27])
-    lm = plan.by_lm.sum(rows[:, 27:36])
+    return cost, rows
+
+
+def _parts(plan, poses, cam, lm, rows):
+    """The masked pieces ``schur._schur_reduce`` reads from the camera sums
+    ``cam`` (C, 27), the landmark sums ``lm`` (L, 9) and the rows W, with
+    the pose-unary and (pose, pose) batches added: (their chi2, parts)."""
     c_u, H_u, g_u, PP = _unary(plan, poses, True)
     Hpp, g_p, Hll, g_l, W, PP = mask_constants(
         plan, _from_upper(cam[:, 6:], 6) + H_u, -cam[:, :6] - g_u, _from_upper(lm[:, 3:], 3), -lm[:, :3],
-        rows[:, 36:].reshape(M, 6, 3), PP, plan.free_p, plan.free_l)
-    return cost.sum() + c_u, dict(Hpp=Hpp, g_p=g_p, Hll=Hll, g_l=g_l, W=W, PP=PP, plan=plan)
+        rows[:, 36:].reshape(plan.M, 6, 3), PP, plan.free_p, plan.free_l)
+    return c_u, dict(Hpp=Hpp, g_p=g_p, Hll=Hll, g_l=g_l, W=W, PP=PP, plan=plan)
+
+
+def _linearize(plan, poses, lms):
+    """The normal equations at (poses, lms): (chi2, parts), ``parts`` the
+    pieces ``schur._schur_reduce`` reads (Hpp, g_p, Hll, g_l, W, PP and the
+    plan), masked by ``schur.mask_constants``."""
+    cost, rows = _obs_rows(plan, poses, lms)
+    c_u, parts = _parts(plan, poses, plan.by_cam.sum(rows[:, :27]), plan.by_lm.sum(rows[:, 27:36]), rows)
+    return cost.sum() + c_u, parts
 
 
 # --------------------------------------------------------------------------
@@ -312,11 +334,14 @@ def cg_iterations() -> list:
     return [int(n) for n in _CG_ITERATIONS]
 
 
-def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None):
+def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None, guard=True):
     """PCG from x0 = 0, the reference's fused loop: stop when ||r||² <=
     rtol² ||b||² (tested before each iteration; NaN stops) or after
     ``max_iters`` iterations; where rz <= 0 or pAp <= 0 (exact convergence,
-    breakdown) the iteration keeps r and p as they are.  The stop test is
+    breakdown) the iteration keeps r and p as they are; ``guard=False``
+    drops that guard, as ``linear.pcg_solve`` and the reference's
+    ``pcg_solve`` have none (a zero pAp gives a non-finite step, the test
+    then stops the loop and the LM loop rejects the step).  The stop test is
     applied on the device (``torch.where`` keeps x, r and p once it has
     failed) and read by the host every ``read_every`` iterations, where the
     loop ends if it has failed (None: ``CG_READ_EVERY`` at the time of the
@@ -356,15 +381,18 @@ def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None):
                 break
         Ap = matvec(p)
         (pAp,) = dots((p, Ap))
-        ok = (rz > 0.0) & (pAp > 0.0)
-        step = run & ok
-        alpha = torch.where(ok, rz / torch.where(ok, pAp, 1.0), 0.0)
+        if guard:
+            ok = (rz > 0.0) & (pAp > 0.0)
+            step = run & ok
+            alpha = torch.where(ok, rz / torch.where(ok, pAp, 1.0), 0.0)
+        else:  # where the loop no longer runs, the selects below drop these values
+            step, alpha = run, rz / pAp
         x = torch.where(run, x + alpha * p, x)
         r = torch.where(step, r - alpha * Ap, r)
         z = precond(r)
         rz_r, rn2 = dots((r, z), (r, r))
         rz_new = torch.where(step, rz_r, rz)
-        beta = torch.where(ok, rz_new / torch.where(ok, rz, 1.0), 0.0)
+        beta = torch.where(ok, rz_new / torch.where(ok, rz, 1.0), 0.0) if guard else rz_new / rz
         p = torch.where(step, z + beta * p, p)
         rz = rz_new
         done = done + run
@@ -379,13 +407,15 @@ def _reduce(parts, lam, method, cam_sum=None):
     return Hll_inv, g_red, schur_block_diag(parts["plan"], Hpp, Hll_inv, W, cam_sum), Hpp
 
 
-def _solve_pcg(parts, lam, method, rtol, max_iters, cam_sum=None):
-    """PCG on S dx = g_red under the block inverse of D; ``cam_sum`` as in
-    ``schur._schur_reduce`` (``dist/schur_reduce.py`` sums over the
-    ranks there)."""
+def _solve_pcg(parts, lam, method, rtol, max_iters, cam_sum=None, make_precond=None):
+    """PCG on S dx = g_red under the block inverse of D, or under
+    ``make_precond(parts, Hll_inv, D)`` where given (the cluster and stale-S
+    preconditioners); ``cam_sum`` as in ``schur._schur_reduce``
+    (``dist/schur_reduce.py`` sums over the ranks there)."""
     Hll_inv, g_red, D, Hpp = _reduce(parts, lam, method, cam_sum)
     matvec = schur_matvec(parts["plan"], Hpp, Hll_inv, parts["W"], parts["PP"], cam_sum)
-    x, it = _pcg(matvec, block_jacobi(_binv(_cholesky(D))), g_red.reshape(-1), rtol, max_iters)
+    precond = block_jacobi(_binv(_cholesky(D))) if make_precond is None else make_precond(parts, Hll_inv, D)
+    x, it = _pcg(matvec, precond, g_red.reshape(-1), rtol, max_iters)
     _CG_ITERATIONS.append(it)
     return Hll_inv, x
 
@@ -426,6 +456,8 @@ class DensePairs:
     block_i: torch.Tensor  # (U,) int64
     block_j: torch.Tensor
     by_block: Segments
+    # the (pose, pose) couplings ``by_block`` sums, as rows of PP (None: all)
+    pp_rows: torch.Tensor | None = None
 
 
 def build_dense_pairs(plan: LargeBA, n_pair_chunks: int = 4) -> DensePairs:
@@ -459,17 +491,110 @@ def build_dense_pairs(plan: LargeBA, n_pair_chunks: int = 4) -> DensePairs:
     )
 
 
-def _dense_S(pairs, parts, Hll_inv, D):
-    """The reduced camera system S (6C, 6C) = D - sym(Σ_pairs W_a Hll⁻¹
-    W_bᵀ) + couplings: D at half weight and the pair products summed into
-    unique blocks above the diagonal, then S_pre + S_preᵀ."""
-    plan, W, PP = parts["plan"], parts["W"], parts["PP"]
-    C, li = plan.C, plan.pt_idx
+def build_cluster_pairs(plan: LargeBA, cluster: int, n_pair_chunks: int = 4) -> DensePairs:
+    """The same-cluster subset of the co-observation pairs, for the cluster
+    block-Jacobi preconditioner: pairs (a, b) with cam(a) // cluster ==
+    cam(b) // cluster, in the reference's order and orientation, and the
+    plan of the sum of their products, of half of every camera's diagonal
+    block (a unit block for each camera past C in the last cluster) and of
+    the same-cluster (pose, pose) couplings into the unique blocks of the
+    K = ceil(C / cluster) diagonal (6 cluster, 6 cluster) blocks of S.
+    ``block_i`` / ``block_j`` name a block by its two cameras, counted over
+    K * cluster (the reference buckets it as cid * cluster² + la * cluster +
+    lb)."""
+    from .schur_sparse import _coobservation_pairs
+
+    C, G = plan.C, int(cluster)
+    if G < 1:
+        raise ValueError(f"cluster_size must be at least 1, got {cluster}")
+    ci = plan.cam_idx.cpu().numpy()
+    li = plan.pt_idx.cpu().numpy()
+    pa, pb, _ = _coobservation_pairs(ci, li, plan.L)
+    keep = pa < pb
+    pa, pb = pa[keep].astype(np.int64), pb[keep].astype(np.int64)
+    i, j = ci[pa], ci[pb]
+    same = (i // G) == (j // G)
+    pa, pb, i, j = pa[same], pb[same], i[same], j[same]
+    swap = i > j
+    pa, pb = np.where(swap, pb, pa), np.where(swap, pa, pb)
+    ii, jj = np.minimum(i, j), np.maximum(i, j)
+    Cp = -(-C // G) * G
+    cams = np.arange(Cp, dtype=np.int64)
+    pi, pj = plan.pp_i.cpu().numpy(), plan.pp_j.cpu().numpy()
+    pp_rows = np.flatnonzero((pi // G) == (pj // G))
+    # a block as its two padded cameras: ii * Cp + jj
+    keys = np.concatenate([ii * Cp + jj, cams * (Cp + 1), pi[pp_rows] * Cp + pj[pp_rows]])
+    uniq, dest = np.unique(keys, return_inverse=True)
+    device = plan.cam_idx.device
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
+
+    return DensePairs(
+        P=len(pa), n_pair_chunks=n_pair_chunks, pair_a=t(pa), pair_b=t(pb), block_i=t(uniq // Cp),
+        block_j=t(uniq % Cp), by_block=_segments(dest.reshape(-1), len(uniq), device), pp_rows=t(pp_rows),
+    )
+
+
+def _pair_blocks(pairs, W, Hll_inv, li):
+    """-(W_a Hll⁻¹ W_bᵀ) of every pair, (P, 36), in ``n_pair_chunks``
+    chunks (the chunk bounds the gathered blocks' memory)."""
     blocks = W.new_empty((pairs.P, 36))
     chunk = max(-(-pairs.P // max(pairs.n_pair_chunks, 1)), 1)
     for lo in range(0, pairs.P, chunk):
         a, b = pairs.pair_a[lo:lo + chunk], pairs.pair_b[lo:lo + chunk]
         blocks[lo:lo + chunk] = -_mm(_mm(W[a], Hll_inv[li[a]]), W[b].transpose(-1, -2)).reshape(-1, 36)
+    return blocks
+
+
+def _equilibrated_cholesky(S):
+    """(L, s): the lower Cholesky factor of S scaled by s = diag(S)^-1/2 on
+    both sides (NaN where it fails), over the last two axes."""
+    s = torch.rsqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1), min=1e-30))
+    return _cholesky(S * s[..., :, None] * s[..., None, :]), s
+
+
+def _factor_apply(L, s, r):
+    """(s L⁻ᵀ L⁻¹ s) r for factors (..., n, n) and r (..., n)."""
+    y = torch.linalg.solve_triangular(L, (r * s)[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0] * s
+
+
+def _cluster_precond(cpairs, G, parts, Hll_inv, D):
+    """The cluster block-Jacobi preconditioner r -> M⁻¹ r: the (6G, 6G)
+    diagonal blocks of S from the same-cluster pairs (one ``slot_reduce``
+    into their unique blocks, D at half weight, the same-cluster
+    couplings), symmetrized, Jacobi-equilibrated and factored by one batched
+    Cholesky; applied by batched triangular solves."""
+    plan, W, PP = parts["plan"], parts["W"], parts["PP"]
+    C = plan.C
+    K = -(-C // G)
+    Cp = K * G
+    Dp = D.reshape(C, 36)
+    if Cp > C:  # the padded cameras of the last cluster: unit blocks, decoupled
+        eye = torch.eye(6, dtype=D.dtype, device=D.device).reshape(1, 36)
+        Dp = torch.cat([Dp, eye.expand(Cp - C, 36)])
+    rows = [_pair_blocks(cpairs, W, Hll_inv, plan.pt_idx), 0.5 * Dp, PP[cpairs.pp_rows].reshape(-1, 36)]
+    sums = cpairs.by_block.sum(torch.cat(rows))
+    S = W.new_zeros((K, G, G, 6, 6))
+    S[cpairs.block_i // G, cpairs.block_i % G, cpairs.block_j % G] = sums.reshape(-1, 6, 6)  # unique blocks
+    S = S.transpose(2, 3).reshape(K, 6 * G, 6 * G)
+    L, s = _equilibrated_cholesky(S + S.transpose(1, 2))
+
+    def precond(r):
+        rp = torch.cat([r.reshape(C, 6), r.new_zeros((Cp - C, 6))]).reshape(K, 6 * G)
+        return _factor_apply(L, s, rp).reshape(Cp, 6)[:C].reshape(-1)
+
+    return precond
+
+
+def _dense_S(pairs, parts, Hll_inv, D):
+    """The reduced camera system S (6C, 6C) = D - sym(Σ_pairs W_a Hll⁻¹
+    W_bᵀ) + couplings: D at half weight and the pair products summed into
+    unique blocks above the diagonal, then S_pre + S_preᵀ."""
+    plan, W, PP = parts["plan"], parts["W"], parts["PP"]
+    C = plan.C
+    blocks = _pair_blocks(pairs, W, Hll_inv, plan.pt_idx)
     sums = pairs.by_block.sum(torch.cat([blocks, 0.5 * D.reshape(C, 36), PP.reshape(-1, 36)]))
     S = W.new_zeros((C, C, 6, 6))
     S[pairs.block_i, pairs.block_j] = sums.reshape(-1, 6, 6)  # unique blocks
@@ -485,6 +610,12 @@ def _solve_dense(pairs, parts, lam, method):
     s = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-30))
     x = cholesky_solve(S * s[:, None] * s[None, :], g_red.reshape(-1) * s)
     return Hll_inv, x * s
+
+
+def _stale_factor(pairs, parts, Hll_inv, D):
+    """(L, s): the equilibrated Cholesky factor of this solve's dense S
+    (``_dense_S``), kept as the preconditioner of the next solves."""
+    return _equilibrated_cholesky(_dense_S(pairs, parts, Hll_inv, D))
 
 
 # --------------------------------------------------------------------------
@@ -527,34 +658,62 @@ def solve_schur_large(
 
     ``dual_order`` is the reference's TPU layout switch (a landmark-ordered
     copy of W for its cumsum sums); here every sum goes through one
-    ``slot_reduce`` plan, so it has no effect.  ``precond="cluster"`` and
-    ``precond="stale"`` are not ported (NotImplementedError, ROADMAP item
-    15a); with ``linear="dense"`` the reference ignores ``precond`` and so
-    does this.  ``cluster_size`` and ``stale_refresh`` belong to them."""
+    ``slot_reduce`` plan, so it has no effect.
+
+    ``precond`` (PCG only; with ``linear="dense"`` the reference ignores it
+    and so does this): ``"jacobi"``, the exact 6 x 6 block diagonal of S;
+    ``"cluster"``, the dense (6G, 6G) diagonal blocks of S over clusters of
+    G = ``cluster_size`` consecutive cameras, assembled each linear solve
+    from the same-cluster co-observation pairs (``build_cluster_pairs``,
+    built once and kept on the plan) and factored by one batched Cholesky;
+    ``"stale"``, the equilibrated Cholesky factor of the dense S
+    (``build_dense_pairs``, kept on the plan) of one linear solve,
+    refactored every ``stale_refresh`` linear solves (rejected LM steps
+    count) and applied in between by two triangular solves.  Both take at
+    most 60 CG iterations, as in the reference, checked before any pair
+    table is built."""
     lb = plan if plan is not None else prepare_large_ba(graph, n_chunks, pose_name, lm_name)
     if linear not in ("pcg", "dense"):
         raise ValueError(f"linear must be 'pcg' or 'dense', got {linear!r}")
     if precond not in ("jacobi", "cluster", "stale"):
         raise ValueError(f"precond must be 'jacobi', 'cluster' or 'stale', got {precond!r}")
-    if linear == "pcg" and precond in ("cluster", "stale"):
-        if pcg_max_iters > 60:
-            raise ValueError(f"precond={precond!r} runs in the fused PCG path only (pcg_max_iters <= 60)")
-        raise NotImplementedError(f"solve_schur_large: precond={precond!r} is not ported yet (ROADMAP item 15a)")
+    if linear == "pcg" and precond in ("cluster", "stale") and pcg_max_iters > 60:
+        # checked before the pair tables below are built
+        raise ValueError(f"precond={precond!r} runs in the fused PCG path only (pcg_max_iters <= 60)")
     pairs = None
-    if linear == "dense":
+    if linear == "dense" or (linear == "pcg" and precond == "stale"):
         if lb.pairs is None or lb.pairs.n_pair_chunks != n_pair_chunks:
             lb.pairs = build_dense_pairs(lb, n_pair_chunks)
         pairs = lb.pairs
+    make_precond = None
+    if linear == "pcg" and precond == "cluster":
+        if lb.cpairs is None or lb.cpairs_G != cluster_size or lb.cpairs.n_pair_chunks != n_pair_chunks:
+            lb.cpairs = build_cluster_pairs(lb, cluster_size, n_pair_chunks)
+            lb.cpairs_G = cluster_size
+        cpairs = lb.cpairs
+
+        make_precond = functools.partial(_cluster_precond, cpairs, cluster_size)
+
+    elif linear == "pcg" and precond == "stale":
+        stale = {"fac": None, "age": 0}
+
+        def make_precond(parts, Hll_inv, D):
+            if stale["fac"] is None or stale["age"] >= stale_refresh:
+                stale["fac"] = _stale_factor(pairs, parts, Hll_inv, D)
+                stale["age"] = 0
+            stale["age"] += 1
+            L, s = stale["fac"]
+            return functools.partial(_factor_apply, L, s)
 
     def linearize(state):
         return _linearize(lb, *state)
 
     def solve_from(state, lin, lam):
         parts = lin[1]
-        if pairs is not None:
+        if linear == "dense":
             Hll_inv, x = _solve_dense(pairs, parts, lam, options.method)
         else:
-            Hll_inv, x = _solve_pcg(parts, lam, options.method, pcg_rtol, pcg_max_iters)
+            Hll_inv, x = _solve_pcg(parts, lam, options.method, pcg_rtol, pcg_max_iters, make_precond=make_precond)
         return _back_substitute_retract(parts, Hll_inv, *state, x)
 
     if speculative:
@@ -581,6 +740,7 @@ __all__ = [
     "solve_schur_large",
     "prepare_large_ba",
     "build_dense_pairs",
+    "build_cluster_pairs",
     "DensePairs",
     "LargeBA",
 ]

@@ -1146,3 +1146,126 @@ def test_three_frame_track_on_the_card_matches_cpu(cuda_device):
         if str(dev) != "cpu":
             assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
     np.testing.assert_allclose(out[str(cuda_device)], out["cpu"], rtol=0, atol=1e-8)
+
+
+# --------------------------------------------------------------------------
+# The last modules: solve_schur_cm, the cluster and stale preconditioners,
+# two-level PCG and the BCSR family
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_matvec_at_the_ell_pattern_shape(cuda_device, dtype):
+    """``bcsr.ell_matvec`` over ``ell_blocks`` of a damped BCSR store, whose
+    padding slots name column 0 with zero blocks (the kernel assumes
+    nothing of slot 0), against its plain version and the upper store's
+    ``bcsr_matvec``."""
+    g = build.pose_graph(synth.se3_sphere(n_poses=300, seed=0), dtype=dtype, device=cuda_device)
+    pattern = bcsr.build_pattern(g)
+    H = bcsr.damp_blocks(bcsr.assemble_bcsr(g, pattern)[0], pattern, 1e-3)
+    ell = bcsr.build_ell(pattern)
+    He = bcsr.ell_blocks(H, ell)
+    cols = bcsr._ell_tables(ell, cuda_device).cols
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=ell.nb * ell.d)).to(cuda_device, dtype)
+    cuda_ops.reset_launches()
+    out = bcsr.ell_matvec(He, ell, x)
+    again = bcsr.ell_matvec(He, ell, x)
+    ref = ell_matvec_plain(He, cols, x)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["ell_matvec"] == 2 and torch.equal(out, again)
+    assert (ell.valid == 0).any() and not ell.cols[ell.valid == 0].any()
+    _assert_close(out, ref, KERNEL_TOL[dtype])
+    _assert_close(out, bcsr.bcsr_matvec(H, pattern, x), KERNEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slot_reduce_at_the_bcsr_and_coarse_plans(cuda_device, dtype):
+    g = build.pose_graph(synth.se3_sphere(n_poses=300, seed=0), dtype=dtype, device=cuda_device)
+    pattern = bcsr.build_pattern(g)
+    dp = bcsr.bcsr_device_plan(pattern, cuda_device)
+    coarse = bcsr._coarse_plan(g, bcsr.build_ell_direct(g), 32, cuda_device)
+    for k, (seg, C) in enumerate(((dp.to_slot, 36), (dp.to_pose, 6), (dp.by_row, 6), (dp.by_col, 6),
+                                  (coarse.to_coarse, 36), (coarse.by_group, 6))):
+        _check_slot_plan(cuda_device, seg.perm, seg.offsets, seg.n_slots, C, dtype, k)
+
+
+@pytest.mark.parametrize("precond", ["cluster", "stale"])
+def test_slot_reduce_at_the_pair_plans_of_the_preconditioners(cuda_device, precond):
+    from pyslam_tpu_torch.solver import schur_large
+
+    plan = schur_large.prepare_large_ba(build.ba_graph(synth.ba_synthetic(n_cams=30, n_pts=600, seed=1),
+                                                       dtype=torch.float64, device=cuda_device), 4)
+    pairs = (schur_large.build_cluster_pairs(plan, 8, 2) if precond == "cluster"
+             else schur_large.build_dense_pairs(plan, 2))
+    for dtype in (torch.float32, torch.float64):
+        _check_slot_plan(cuda_device, pairs.by_block.perm, pairs.by_block.offsets, pairs.by_block.n_slots, 36, dtype, 7)
+
+
+@pytest.mark.parametrize("kw", [dict(precond="cluster", cluster_size=3), dict(precond="stale", stale_refresh=2)])
+def test_schur_large_preconditioners_on_the_card_match_the_cpu_path(cuda_device, kw):
+    from pyslam_tpu_torch.solver import schur_large
+
+    data = synth.ba_synthetic(n_cams=8, n_pts=64, seed=3)
+    opts = Options(method="lm", max_iters=12)
+    common = dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50, **kw)
+    _, c_c, h_c = schur_large.solve_schur_large(build.ba_graph(data, dtype=torch.float64, device="cpu"), opts,
+                                                **common)
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    _, c_g, h_g = schur_large.solve_schur_large(build.ba_graph(data, dtype=torch.float64, device=cuda_device), opts,
+                                                **common)
+    assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    assert linear.HOST_READS["pcg"] == 0
+    assert len(h_g) == len(h_c)
+    np.testing.assert_allclose(h_g, h_c, rtol=1e-9)
+
+
+@pytest.mark.parametrize("case", ["two_level", "bcsr_ell", "bcsr_bcsr", "bcsr_ell_g8"])
+def test_two_level_and_bcsr_on_the_card_match_the_cpu_path(cuda_device, case):
+    """f64 solves on the card against the CPU path, no host read in a
+    linear solve, the products ``ell_matvec`` launches (the ELL cases)."""
+    data = synth.se3_sphere(n_poses=60, seed=11)
+    opts = Options(method="lm", max_iters=15)
+
+    def run(g):
+        if case == "two_level":
+            return bcsr.solve_ell(g, opts, pcg_rtol=1e-8, pcg_max_iters=600, precond="two_level", coarse_size=16)
+        spmv, group = {"bcsr_ell": ("ell", 1), "bcsr_bcsr": ("bcsr", 1), "bcsr_ell_g8": ("ell", 8)}[case]
+        return bcsr.solve_bcsr(g, opts, spmv=spmv, precond_group=group)
+
+    s_c, i_c = run(build.pose_graph(data, dtype=torch.float64, device="cpu"))
+    cuda_ops.reset_launches()
+    linear.reset_host_reads()
+    s_g, i_g = run(build.pose_graph(data, dtype=torch.float64, device=cuda_device))
+    assert linear.HOST_READS["pcg"] == 0 and cuda_ops.LAUNCHES["ell_pcg"] == 0
+    assert cuda_ops.LAUNCHES["slot_reduce_plain"] == cuda_ops.LAUNCHES["ell_matvec_plain"] == 0
+    assert cuda_ops.LAUNCHES["ell_matvec"] > 0 or case == "bcsr_bcsr"
+    assert i_g.iterations == i_c.iterations
+    np.testing.assert_allclose(i_g.chi2.item(), i_c.chi2.item(), rtol=1e-9)
+    assert (s_g.blocks["poses"].values.cpu() - s_c.blocks["poses"].values).abs().max().item() <= 1e-8
+
+
+def test_schur_cm_on_the_card_matches_the_cpu_path(cuda_device, tmp_path):
+    """``solve_schur_cm`` on a one-rank world over gloo with the rank on the
+    card, against the CPU path in f64."""
+    from pyslam_tpu_torch import dist
+
+    data = synth.ba_synthetic(n_cams=8, n_pts=64, seed=3)
+    opts = Options(method="lm", max_iters=12)
+    dist.init_distributed(f"file://{tmp_path / 'world'}", 1, 0, backend="gloo", device="cpu")
+    try:
+        out = {}
+        for dev in ("cpu", cuda_device):
+            mesh = dist.make_mesh(axis_name="l", device=dev)
+            cuda_ops.reset_launches()
+            solved, chi2, hist = dist.solve_schur_cm(build.ba_graph(data, dtype=torch.float64, device=dev), mesh, opts,
+                                                     n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=60)
+            out[str(dev)] = (hist, solved.blocks["poses"].values.cpu())
+            if dev != "cpu":
+                assert cuda_ops.LAUNCHES["slot_reduce"] > 0 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    finally:
+        torch.distributed.destroy_process_group()
+    (h_c, p_c), (h_g, p_g) = out["cpu"], out[str(cuda_device)]
+    assert len(h_g) == len(h_c)
+    np.testing.assert_allclose(h_g, h_c, rtol=1e-9)
+    assert (p_g - p_c).abs().max().item() <= 1e-8

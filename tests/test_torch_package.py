@@ -50,6 +50,10 @@ def test_import_leaves_jax_out():
         "import pyslam_tpu_torch.dist, pyslam_tpu_torch.dist.mesh, pyslam_tpu_torch.dist.partitioner\n"
         "import pyslam_tpu_torch.dist.factor_parallel, pyslam_tpu_torch.dist.schur_reduce\n"
         "import pyslam_tpu_torch.dist.pose_sharded, pyslam_tpu_torch.testing\n"
+        "import pyslam_tpu_torch.dist.schur_cm\n"
+        "from pyslam_tpu_torch.dist import solve_schur_cm, shard_ba_cm, make_cm_step, ShardedCM\n"
+        "from pyslam_tpu_torch.solver import BlockPattern, build_pattern, assemble_bcsr, bcsr_matvec, solve_bcsr\n"
+        "from pyslam_tpu_torch.solver.schur_large import build_cluster_pairs\n"
         "from pyslam_tpu_torch.dist import make_mesh, init_distributed, solve_schur_sharded, solve_pose_sharded\n"
         "import pyslam_tpu_torch.imu, pyslam_tpu_torch.io.euroc, pyslam_tpu_torch.io.trajectory\n"
         "import pyslam_tpu_torch.graph.initialize, pyslam_tpu_torch.solver.gnc\n"

@@ -18,10 +18,12 @@ The reference tests without a counterpart here, and why:
     the port has no host-driven CG segments (a TPU runtime limit); the
     breakdown guard it tests is held here on the port's one loop
     (``test_pcg_breakdown_guard_freezes_the_state``).
-  * ``TestClusterPrecond`` and ``TestDualOrder::test_dual_order_bal``'s
-    cumsum layout: the cluster and stale preconditioners are not ported
-    (ROADMAP item 15a; ``test_unported_preconditioners_raise``), and the
-    dual order has no effect (``test_dual_order_has_no_effect``).
+  * ``TestDualOrder::test_dual_order_bal``'s cumsum layout: the dual
+    order has no effect here (``test_dual_order_has_no_effect``).
+
+``TestClusterPrecond`` (the cluster and stale-S preconditioners) is held
+case by case against the reference (``SOLVES``), with its pair tables and
+against the Jacobi preconditioner's optimum and CG iterations.
 """
 
 import dataclasses
@@ -219,6 +221,25 @@ SOLVES = {
     "dense_stereo": ("stereo", dict(method="lm", max_iters=15), dict(n_chunks=4, linear="dense")),
     "dense_bal": ("bal", dict(method="lm", max_iters=15), dict(n_chunks=4, linear="dense")),
     "dense_between": ("between", dict(method="lm", max_iters=15), dict(n_chunks=4, linear="dense")),
+    # the reference's TestClusterPrecond: cluster block-Jacobi (a cluster
+    # size that divides C, and one that pads the last cluster) and the
+    # stale-S factor refreshed every solve or every few
+    "cluster2": ("stereo", dict(method="lm", max_iters=15),
+                 dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50, precond="cluster", cluster_size=2)),
+    "cluster4": ("stereo", dict(method="lm", max_iters=15),
+                 dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50, precond="cluster", cluster_size=4)),
+    "cluster_between": ("between", dict(method="lm", max_iters=15),
+                        dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50, precond="cluster", cluster_size=3)),
+    "cluster_default_budget": ("stereo_cauchy", dict(method="lm", max_iters=12),
+                               dict(n_chunks=4, precond="cluster", cluster_size=3)),
+    "stale1": ("stereo", dict(method="lm", max_iters=15),
+               dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50, precond="stale", stale_refresh=1)),
+    "stale3": ("stereo", dict(method="lm", max_iters=15),
+               dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50, precond="stale", stale_refresh=3)),
+    "stale_between": ("between", dict(method="lm", max_iters=15),
+                      dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50, precond="stale", stale_refresh=2)),
+    "stale_classic": ("stereo_prior", dict(method="lm", max_iters=10),
+                      dict(n_chunks=4, precond="stale", stale_refresh=2, speculative=False)),
 }
 
 
@@ -253,6 +274,102 @@ def test_dense_pairs_are_the_reference_pairs():
     real = np.asarray(jp.pair_w) > 0
     for f in ("pair_a", "pair_b"):
         np.testing.assert_array_equal(getattr(tp, f).numpy(), np.asarray(getattr(jp, f))[real])
+
+
+@pytest.mark.parametrize("G", [2, 3, 4])
+def test_cluster_pairs_are_the_reference_pairs(G):
+    """``build_cluster_pairs``: the reference's same-cluster pairs in its
+    order and orientation (its padding rows aside), and the blocks they
+    and the diagonal and same-cluster couplings fill are the reference's
+    buckets q = cid G² + la G + lb."""
+    from pyslam_tpu.solver.schur_large import build_cluster_pairs as j_build_cluster_pairs
+
+    jg, tg = graphs("between")
+    jp = j_build_cluster_pairs(j_prepare_large_ba(jg, 4), G, 4)
+    tp = tsl.build_cluster_pairs(tsl.prepare_large_ba(tg, 4), G, 4)
+    real = np.asarray(jp.pair_w) > 0
+    for f in ("pair_a", "pair_b"):
+        np.testing.assert_array_equal(getattr(tp, f).numpy(), np.asarray(getattr(jp, f))[real])
+    C = tg.blocks["poses"].n
+    cams = np.arange(-(-C // G) * G)
+    pi, pj = np.arange(7), np.arange(1, 8)  # the graph's odometry chain
+    same = pi // G == pj // G
+    j_buckets = np.concatenate([np.asarray(jp.pair_q)[real], (cams // G) * G * G + (cams % G) * (G + 1),
+                                (pi // G * G * G + pi % G * G + pj % G)[same]])
+    bi, bj = tp.block_i.numpy(), tp.block_j.numpy()
+    np.testing.assert_array_equal(np.sort(bi // G * G * G + bi % G * G + bj % G), np.unique(j_buckets))
+    np.testing.assert_array_equal(tp.pp_rows.numpy(), np.flatnonzero(same))
+
+
+@pytest.mark.parametrize("precond,kw", [("cluster", dict(cluster_size=2)), ("cluster", dict(cluster_size=3)),
+                                        ("stale", dict(stale_refresh=1)), ("stale", dict(stale_refresh=3))])
+def test_preconditioners_reach_the_jacobi_optimum(precond, kw):
+    """The reference's ``TestClusterPrecond``: a preconditioner changes the
+    CG path, not the optimum (chi2 within 1e-8 of ``jacobi``'s), and the
+    exact cluster blocks or the dense S need no more CG iterations a
+    linear solve than the 6 x 6 block diagonal."""
+    _, tg = graphs("stereo")
+    opts = dict(method="lm", max_iters=15)
+    common = dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=50)
+    tsl.reset_cg_iterations()
+    _, c_j, h_j = _solve(tg, opts, **common)
+    its_j = tsl.cg_iterations()
+    tsl.reset_cg_iterations()
+    _, c_p, h_p = _solve(tg, opts, precond=precond, **common, **kw)
+    its_p = tsl.cg_iterations()
+    np.testing.assert_allclose(c_p, c_j, rtol=1e-8)
+    assert len(its_p) == len(its_j) and all(a <= b for a, b in zip(its_p, its_j)), (its_p, its_j)
+    if precond == "stale" and kw["stale_refresh"] == 1:
+        assert all(n <= 2 for n in its_p)  # S's own factor: one iteration, a second for rounding
+
+
+def test_stale_refreshes_every_few_solves_rejections_included(monkeypatch):
+    """The stale factor is rebuilt at the first linear solve and whenever
+    ``stale_refresh`` solves have used it, rejected LM steps counted."""
+    _, tg = graphs("bal")
+    built = []
+    factor = tsl._stale_factor
+    monkeypatch.setattr(tsl, "_stale_factor", lambda *a: built.append(1) or factor(*a))
+    lams = []
+    loop = tsl.host_lm_loop_speculative
+
+    def recorded(linearize, solve_from, state, options, on_accept=None):
+        def solve(state, lin, lam):
+            lams.append((lam, len(built)))
+            return solve_from(state, lin, lam)
+
+        return loop(linearize, solve, state, options, on_accept)
+
+    monkeypatch.setattr(tsl, "host_lm_loop_speculative", recorded)
+    _, _, hist = _solve(tg, dict(method="lm", max_iters=12, min_cost_decrease=1.0 - 1e-15), n_chunks=4,
+                        precond="stale", stale_refresh=3)
+    n = len(lams)
+    assert n > len(hist) > 2  # some steps were rejected
+    assert len(built) == -(-n // 3)
+    assert [b for _, b in lams] == [-(-k // 3) for k in range(n)]  # factors built before solve k
+
+
+def test_plan_caches_cluster_and_stale_pairs():
+    """The pair tables are built once and kept on the plan (the reference's
+    ``test_plan_caches_cluster_pairs`` and
+    ``test_stale_reuses_dense_pair_tables``); another cluster size
+    rebuilds them."""
+    _, tg = graphs("stereo")
+    opts = dict(method="lm", max_iters=4)
+    plan = tsl.prepare_large_ba(tg, 4)
+    a = _solve(tg, opts, n_chunks=4, plan=plan, precond="cluster", cluster_size=4)
+    cp = plan.cpairs
+    assert cp is not None and plan.cpairs_G == 4 and plan.pairs is None
+    b = _solve(tg, opts, n_chunks=4, plan=plan, precond="cluster", cluster_size=4)
+    assert plan.cpairs is cp
+    assert_bits(a, b)
+    _solve(tg, opts, n_chunks=4, plan=plan, precond="cluster", cluster_size=3)
+    assert plan.cpairs is not cp and plan.cpairs_G == 3
+    _solve(tg, opts, n_chunks=4, plan=plan, precond="stale")
+    pairs = plan.pairs
+    assert pairs is not None
+    _solve(tg, opts, n_chunks=4, plan=plan, precond="stale")
+    assert plan.pairs is pairs
 
 
 # --------------------------------------------------------------------------
@@ -433,15 +550,19 @@ def test_pcg_on_a_block_runs_each_column_as_alone(read_every):
 
 
 def test_unported_preconditioners_raise():
+    """The preconditioners that once raised here solve now; what still
+    raises is the reference's budget check, before any pair table is built
+    (the plan stays as it was), and a bad ``linear`` or ``precond``."""
     _, tg = graphs("stereo")
     plan = tsl.prepare_large_ba(tg, 4)
     opts = tlm.Options(method="lm", max_iters=3)
     for precond in ("cluster", "stale"):
-        with pytest.raises(NotImplementedError, match="15a"):
-            tsl.solve_schur_large(tg, opts, plan=plan, precond=precond)
         with pytest.raises(ValueError, match="fused"):  # the reference's budget check comes first
             tsl.solve_schur_large(tg, opts, plan=plan, precond=precond, pcg_max_iters=100)
-    assert plan.pairs is None
+    assert plan.pairs is None and plan.cpairs is None
+    for precond in ("cluster", "stale"):
+        _, chi2, hist = tsl.solve_schur_large(tg, opts, plan=plan, precond=precond, cluster_size=3)
+        assert np.isfinite(chi2) and chi2 < hist[0]
     with pytest.raises(ValueError, match="linear"):
         tsl.solve_schur_large(tg, opts, plan=plan, linear="cholmod")
     with pytest.raises(ValueError, match="precond"):

@@ -88,9 +88,19 @@ def test_options_match_reference():
 
 @pytest.mark.parametrize("case", ["two_level"])
 def test_unported_options_raise(case):
-    tg = to_port(jax_graph("l2"))
-    with pytest.raises(NotImplementedError):
-        tb.solve_ell(tg, tlm.Options(), precond="two_level")
+    """``precond="two_level"``, which once raised here, solves as the
+    reference's does (``tests/test_torch_bcsr.py`` holds it case by case);
+    what raises now is a name that is neither it nor ``"bj"``, which the
+    reference would take for ``"bj"``."""
+    jg = jax_graph("l2")
+    tg = to_port(jg)
+    kw = dict(pcg_rtol=1e-8, pcg_max_iters=600, coarse_size=16)
+    ts, ti = tb.solve_ell(tg, tlm.Options(max_iters=15), precond=case, **kw)
+    js, ji = jb.solve_ell(jg, jlm.Options(max_iters=15), precond=case, **kw)
+    assert (ti.iterations, ti.status) == (int(ji.iterations), int(ji.status))
+    np.testing.assert_allclose(ti.chi2.item(), float(ji.chi2), rtol=1e-9)
+    with pytest.raises(ValueError, match="precond"):
+        tb.solve_ell(tg, tlm.Options(), precond="ilu")
 
 
 @pytest.mark.parametrize("graph,speculative", [("l2", True), ("robust_prior", False)])

@@ -11,14 +11,14 @@ reference, in f64 on the CPU.
 * ``solve_auto``: each ported route end to end on a small graph gives the
   bits of the solver it names (``schur_large`` forced on a small graph,
   its gate checked on real graphs of 2,000,000 and 2,000,001
-  observations); ``schur_sqrt`` and, on a mesh, ``schur_cm`` raise
-  NotImplementedError.
+  observations); on a mesh, ``schur_cm`` solves through
+  ``dist.solve_schur_cm``.
 * the mesh routes: the reference's route on the reference's shape-only
   mesh cases at 3 and 8 ranks, where the two byte models agree; the pinned
   difference where they part (the port prices logical bytes, the
   reference TPU tiles); a 1-rank mesh takes the single-chip route.  The
-  mesh routes run end to end on gloo ranks in ``test_torch_factor_parallel``
-  and ``test_torch_schur_sharded``.
+  mesh routes run end to end on gloo ranks in ``test_torch_factor_parallel``,
+  ``test_torch_schur_sharded`` and ``test_torch_schur_cm``.
 * ``solve_batched``: each problem's chi2 within 1e-10 relative of the
   reference's ``solve_batched`` and of its own ``solve``, values within
   1e-10, the same iteration count, stop code and accept sequence, in
@@ -448,16 +448,27 @@ def test_solve_auto_runs_the_schur_sqrt_route():
                                rtol=0, atol=5e-4)
 
 
-def test_solve_auto_refuses_what_is_not_ported():
-    """On a mesh, ``schur_cm`` (ROADMAP item 16b) raises; no other solver
-    stands in."""
+def test_solve_auto_refuses_what_is_not_ported(tmp_path):
+    """On a mesh, the route ``schur_cm`` is the reference's, and
+    ``solve_auto`` solves through it (a world of one gloo rank, the route
+    given): the bits of ``dist.solve_schur_cm`` at its defaults, the accepted
+    costs within 1e-9 of the reference's ``solve_auto`` on three devices.
+    Nothing of the port refuses this route any more; the name is kept."""
+    from torch_dist_ranks import run_group, to_arrays
+
     jg, tg, _ = real("ba_small")
     kw = dict(cm_obs_crossover=10)
     assert jsolver.route_auto(jg, mesh=j_make_mesh(3), **kw) == route_auto(tg, mesh=port_mesh(3), **kw) == "schur_cm"
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        solve_auto(tg, mesh=port_mesh(3), **kw)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        dist.solve_schur_cm(tg, port_mesh(3))
+    arrays, options = to_arrays(jg), dict(method="lm", max_iters=6)
+    (out,) = run_group(1, [dict(key="auto", solver="auto", graph=arrays, options=options,
+                                kw=dict(route="schur_cm", force=True, **kw)),
+                           dict(key="cm", solver="cm", graph=arrays, options=options)], tmp_path)
+    assert out["auto"]["history"] == out["cm"]["history"] and out["auto"]["lams"] == out["cm"]["lams"]
+    for k in out["cm"]["values"]:
+        np.testing.assert_array_equal(out["auto"]["values"][k], out["cm"]["values"][k])
+    _, j_history = jsolver.solve_auto(jg, jlm.Options(**options), mesh=j_make_mesh(3, axis_name="l"), **kw)
+    np.testing.assert_allclose(out["cm"]["history"], j_history, rtol=1e-9)
+    assert out["cm"]["history"][-1] < 0.01 * out["cm"]["history"][0]
 
 
 # --------------------------------------------------------------------------

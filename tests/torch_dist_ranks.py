@@ -2,7 +2,7 @@
 of a spawned group runs.  It imports neither JAX nor the test modules, so
 the spawned processes load only torch and the port.
 
-A job is a dict: ``key``; ``solver`` ("schur", "pose", "factor", "auto",
+A job is a dict: ``key``; ``solver`` ("schur", "cm", "pose", "factor", "auto",
 "mesh" or "marginals": the sharded pose and landmark marginals at the
 graph's estimate, ``kw`` their indices and PCG settings); ``graph``, the arrays ``convert.graph_from_numpy`` takes;
 ``options``, the ``lm.Options`` fields; ``kw``, the solver's keyword
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from pyslam_tpu_torch import dist
-from pyslam_tpu_torch.dist import factor_parallel, pose_sharded, schur_reduce
+from pyslam_tpu_torch.dist import factor_parallel, pose_sharded, schur_cm, schur_reduce
 from pyslam_tpu_torch.graph import convert
 from pyslam_tpu_torch import solver
 from pyslam_tpu_torch.solver import cuda_ops, lm
@@ -32,6 +32,7 @@ _SOLVERS = {
     "schur": (schur_reduce, dist.solve_schur_sharded),
     "pose": (pose_sharded, dist.solve_pose_sharded),
     "factor": (factor_parallel, dist.solve_factor_parallel),
+    "cm": (schur_cm, dist.solve_schur_cm),
 }
 
 
@@ -68,7 +69,7 @@ def _solve(mesh, job):
         # pose_sharded budget is too large for these tests)
         route, force = kw.pop("route"), kw.pop("force", False)
         module = {"factor_parallel": factor_parallel, "pose_sharded": pose_sharded,
-                  "schur_reduce": schur_reduce}[route]
+                  "schur_reduce": schur_reduce, "schur_cm": schur_cm}[route]
         saved, saved_route = module.host_lm_loop, solver.route_auto
         module.host_lm_loop = _recorded(module, record)
         if force:
