@@ -48,10 +48,9 @@ that it reaches its converged cost and went through the kernels:
     observations; n_chunks 128, PCG 1e-4 / 12, LM 10) through
     ``prepare_large_ba`` + ``solve_schur_large`` after a one-iteration
     warm-up, under 1.001 x ``venice_full_conv``, with ``route_auto`` naming
-    ``schur_large`` and ``solve_auto`` running it; ``slot_reduce``'s two
-    kernels at its sums by camera and by landmark, each against the plain
-    version and a second run; its data generation takes 30 to 50 s of host
-    numpy;
+    ``schur_large`` and ``solve_auto`` running it; ``slot_reduce`` at its
+    sums by camera and by landmark, against the plain version and a second
+    run; its data generation takes 30 to 50 s of host numpy;
   * the multi-device layer (``dist/``) on a process group of one rank over
     NCCL (a ``file://`` store in a temporary directory): bench config 5,
     Venice-mini through ``solve_schur_sharded`` (PCG 1e-4 / 30, LM 15)
@@ -417,7 +416,8 @@ def check_kernel(name, fn, plain, args, report, key, flop, library=None, calls=T
 def hold_kernel(name, fn, plain, args, report, library=None, quiet=False):
     """``fn`` against ``plain`` on the same inputs in f32 and f64, within
     ``REL_TOL`` of the plain output's largest entry, and ``library`` where
-    given; the f32 error goes to the kernels line's ``max_abs_err``.
+    given (``slot_reduce`` also bit for bit against a second run); the f32
+    error goes to the kernels line's ``max_abs_err``.
     Returns the largest relative error; logs each dtype's unless
     ``quiet``."""
     import torch
@@ -431,6 +431,8 @@ def hold_kernel(name, fn, plain, args, report, library=None, quiet=False):
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
         tname = str(dtype).split(".")[-1]
+        if name == "slot_reduce":  # no atomics on values: the same bits on every run
+            check(torch.equal(out, fn(*a)), f"{name} {tname}: two runs differ")
         worst = max(worst, err / scale if scale else err)
         if not quiet:
             log(f"{name} {tname} out{tuple(out.shape)}: max_abs_err {err!r} max|ref| {scale!r} rel {err / scale!r}")
@@ -613,64 +615,36 @@ def index_add_library(contrib, perm, offsets, n_slots):
     return call
 
 
-def slot_reduce_kernel(contrib, perm, offsets, n_slots, long):
-    """One of ``slot_reduce``'s two kernels by name, through the library's
-    entry points (``long``: a block a destination, else a sub-warp), for
-    the measurements that compare the two; the call counts no launch.  The
-    arguments are ``cuda_ops.slot_reduce``'s, on the card, n_slots > 0."""
-    import torch
+def slot_fns(longest):
+    """``slot_reduce`` at a plan's longest segment, as the package's plans
+    call it (the body that ``cuda_ops.slot_reduce_body`` gives the plan),
+    and its plain version: the kernel and plain arguments of
+    ``check_kernel`` and ``hold_kernel``."""
+    import functools
 
-    from pyslam_tpu_torch import _ext
     from pyslam_tpu_torch.solver import cuda_ops
 
-    out = torch.empty((n_slots, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
-    fn_name = f"pyslam_slot_reduce_{'long_' if long else ''}{cuda_ops._SUFFIX[contrib.dtype]}"
-    err = getattr(_ext.library(), fn_name)(
-        contrib.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), n_slots, contrib.shape[1],
-        torch.cuda.current_stream(contrib.device).cuda_stream,
-    )
-    cuda_ops._raise_on_error(fn_name, err)
-    return out
+    return functools.partial(cuda_ops.slot_reduce, longest=longest), cuda_ops.slot_reduce_plain
 
 
 def check_slot_venice(label, contrib, seg, report):
-    """``slot_reduce`` on one Venice-scale plan: each of its two kernels
-    against the plain version in f32 and f64 and bit for bit against a
-    second run, then the device time of each kernel, of the plain version
-    and of ``index_add_`` beside the call's bound.  The kernel that the
-    shape picks (``slot_reduce_is_long``) gives the kernels line its time
-    (key ``config6_<label>``); the other kernel's time is printed beside."""
-    import torch
-
+    """``slot_reduce`` on one Venice-scale plan: against the plain version
+    in f32 and f64 and bit for bit against a second run (``hold_kernel``),
+    then the device time of the kernel, of the plain version and of
+    ``index_add_`` beside the call's bound, under the kernels line's key
+    ``config6_<label>``."""
     from pyslam_tpu_torch.solver import cuda_ops
 
-    E, width = contrib.shape
+    width = contrib.shape[1]
     args = [contrib, seg.perm, seg.offsets, seg.n_slots]
-    picked = cuda_ops.slot_reduce_is_long(E, seg.n_slots)
-    times = {}
-    for long in (True, False):
-        name = "block a destination" if long else "sub-warp a destination"
-        for dtype in (torch.float32, torch.float64):
-            a = [contrib.to(dtype), *args[1:]]
-            out = slot_reduce_kernel(*a, long)
-            again = slot_reduce_kernel(*a, long)
-            ref = cuda_ops.slot_reduce_plain(*a)
-            torch.cuda.synchronize()
-            err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
-            tname = str(dtype).split(".")[-1]
-            log(f"slot_reduce {label} [{name}] {tname}: max_abs_err {err!r} max|ref| {scale!r}")
-            check(torch.equal(out, again), f"slot_reduce {label} [{name}] {tname}: two runs differ")
-            check(err <= REL_TOL[tname] * scale, f"slot_reduce {label} [{name}] {tname}: error {err}")
-            if dtype is torch.float32 and long == picked:
-                report["slot_reduce"]["max_abs_err"] = max(report["slot_reduce"]["max_abs_err"], err)
-        times[long] = median_ms(lambda *b: slot_reduce_kernel(*b, long), args, calls=10, inner=5)
+    kernel, plain = slot_fns(seg.longest)
+    hold_kernel("slot_reduce", kernel, plain, args, report)
     lib = index_add_library(*args)
     n_bytes = tensor_bytes(contrib, seg.perm, seg.offsets) + seg.n_slots * width * 4
     add_times(report, "slot_reduce", f"config6_{label.split()[-1].replace('=', '')}_ms",
-              dict(ms=times[picked], plain_ms=median_ms(cuda_ops.slot_reduce_plain, args, calls=5),
+              dict(ms=median_ms(kernel, args, calls=10, inner=5),
+                   plain_ms=median_ms(cuda_ops.slot_reduce_plain, args, calls=5),
                    library_ms=median_ms(lib, (), calls=10)), n_bytes, contrib.numel())
-    log(f"slot_reduce {label}: block a destination {times[True]!r} ms, sub-warp a destination {times[False]!r} ms; "
-        f"the shape picks the {'block' if picked else 'sub-warp'} kernel")
 
 
 def parse_phases(spec):
@@ -781,9 +755,10 @@ def main(argv=None) -> int:
         bsr = bsr_matrix(He, plan)
         check_kernel("ell_matvec", cuda_ops.ell_matvec, cuda_ops.ell_matvec_plain, [He, dplan.cols, x], report, "ms",
                      flop=2 * nb * K * d * d, library=lambda: (bsr @ x[:, None])[:, 0])
-        for contrib, perm, offsets, n_slots in ((h_contrib, dplan.h_perm, dplan.h_offsets, nb * K),
-                                                (g_contrib, dplan.g_perm, dplan.g_offsets, nb)):
-            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+        for contrib, perm, offsets, n_slots, longest in (
+                (h_contrib, dplan.h_perm, dplan.h_offsets, nb * K, dplan.h_longest),
+                (g_contrib, dplan.g_perm, dplan.g_offsets, nb, dplan.g_longest)):
+            check_kernel("slot_reduce", *slot_fns(longest),
                          [contrib, perm, offsets, n_slots], report, "ms", flop=contrib.numel(),
                          library=index_add_library(contrib, perm, offsets, n_slots))
         # ell_pcg on the first linear system of the solve: He damped as
@@ -846,7 +821,7 @@ def main(argv=None) -> int:
                                     ("S product, by camera", W_t, s_plan.by_cam)):
             contrib = contrib.reshape(M, -1).contiguous()
             log(f"config4 {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
-            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+            check_kernel("slot_reduce", *slot_fns(seg.longest),
                          [contrib, seg.perm, seg.offsets, seg.n_slots], report, "config4_ms", flop=contrib.numel(),
                          library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots))
         again_4, grad_again, chi2_again = schur.ba_assemble(g_4, plan=s_plan)
@@ -1171,7 +1146,7 @@ def main(argv=None) -> int:
             contrib = torch.from_numpy(rng.normal(size=(w.fwd_perm.shape[0], chol_m.d))).to(dev, torch.float32)
             log(f"config2 sparse_chol wave {i} (N={w.N}, bpad={w.bpad}): contributions {tuple(contrib.shape)} into "
                 f"{w.fwd_slots} destinations")
-            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+            check_kernel("slot_reduce", *slot_fns(w.fwd_longest),
                          [contrib, w.fwd_perm, w.fwd_offsets, w.fwd_slots], report, "config2_sparse_chol_ms",
                          flop=contrib.numel(), library=index_add_library(contrib, w.fwd_perm, w.fwd_offsets, w.fwd_slots))
 
@@ -1280,7 +1255,7 @@ def main(argv=None) -> int:
         PP_2k = parts_2k["PP"]
         contrib = torch.cat([Hpp_2k, PP_2k, PP_2k.transpose(-1, -2), -Cp]).reshape(-1, 9).contiguous()
         log(f"schur_sparse assemble_S_ell: contributions {tuple(contrib.shape)} into {tables.n_slots} ELL slots")
-        check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+        check_kernel("slot_reduce", *slot_fns(tables.longest),
                      [contrib, tables.perm, tables.offsets, tables.n_slots], report, "schur_sparse_ms",
                      flop=contrib.numel(), library=index_add_library(contrib, tables.perm, tables.offsets, tables.n_slots))
         del parts_2k, Cp, contrib, steps, exact
@@ -1446,7 +1421,7 @@ def main(argv=None) -> int:
         config6 = dict(g_6=g_6, plan_6=plan_6, common6=common6, chi2_6=chi2_6, cg6=cg6, wall6=wall6, peak6=peak6,
                        iters6=iters6)
 
-        # ---- phase 21: slot_reduce at the Venice shapes, both kernels -----------
+        # ---- phase 21: slot_reduce at the Venice shapes -------------------------
         # The sums of config 6 by camera (4,650,850 rows into 1,700: the 27 terms
         # of a linearization, the 21 of D, the 6 of a Schur product) and by
         # landmark (into 1,000,000: 9 and 3), on rows drawn from a seeded
@@ -1689,7 +1664,7 @@ def sharded_phases(ctx):
                                             ("S product, by camera", torch.randn((M5, 6), generator=gen, device=dev),
                                              sb.by_cam)):
                     log(f"config5 {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
-                    check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                    check_kernel("slot_reduce", *slot_fns(seg.longest),
                                  [contrib, seg.perm, seg.offsets, seg.n_slots], report, "config5_ms", flop=contrib.numel(),
                                  library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots))
                 del sb, rows5, contrib
@@ -1729,7 +1704,7 @@ def sharded_phases(ctx):
                 for label, contrib, seg in (("Hessian blocks", h_rows, sp1.h_seg), ("gradient rows", g_rows, sp1.g_seg)):
                     log(f"sphere2500_pose_sharded {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} "
                         f"destinations")
-                    check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+                    check_kernel("slot_reduce", *slot_fns(seg.longest),
                                  [contrib, seg.perm, seg.offsets, seg.n_slots], report, "pose_sharded_ms",
                                  flop=contrib.numel(), library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots))
                 del sp1, h_rows, g_rows
@@ -1885,7 +1860,7 @@ def schur_cm_phase(ctx, mesh):
     for label, contrib, seg in (("by camera", rows[:, :27].contiguous(), sb.plan.by_cam),
                                 ("by landmark", rows[:, 27:36].contiguous(), sb.plan.by_lm)):
         log(f"schur_cm config5 {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
-        check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+        check_kernel("slot_reduce", *slot_fns(seg.longest),
                      [contrib, seg.perm, seg.offsets, seg.n_slots], report, "schur_cm_ms", flop=contrib.numel(),
                      library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots), calls=20)
     del sb, rows, contrib
@@ -2006,7 +1981,7 @@ def precond_phases(ctx):
             E = len(seg.perm)
             contrib = torch.randn((E, 36), generator=gen, device=dev)
             log(f"{path} pair blocks: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
-            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+            check_kernel("slot_reduce", *slot_fns(seg.longest),
                          [contrib, seg.perm, seg.offsets, seg.n_slots], report, f"{precond}_pairs_ms",
                          flop=contrib.numel(), library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots),
                          calls=5)
@@ -2082,7 +2057,7 @@ def precond_phases(ctx):
                                        ("coarse r_c", coarse.by_group, 6, "coarse_ms")):
             contrib = torch.randn((len(seg.perm), width), generator=gen, device=dev)
             log(f"sphere2500 {label}: contributions {tuple(contrib.shape)} into {seg.n_slots} destinations")
-            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+            check_kernel("slot_reduce", *slot_fns(seg.longest),
                          [contrib, seg.perm, seg.offsets, seg.n_slots], report, key, flop=contrib.numel(),
                          library=index_add_library(contrib, seg.perm, seg.offsets, seg.n_slots))
         log(f"phase 51 (two-level and BCSR on sphere2500): {time.perf_counter() - t_phase!r} s")
@@ -2157,7 +2132,7 @@ def dense_slot_reduce(label, g, report, key):
     for grp, parts in groups:
         contrib = torch.cat(parts[grp.shape]).float().contiguous()
         log(f"{label} dense group {grp.shape}: contributions {tuple(contrib.shape)} into {grp.n_slots} destinations")
-        check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+        check_kernel("slot_reduce", *slot_fns(grp.longest),
                      [contrib, grp.perm, grp.offsets, grp.n_slots], report, key, flop=contrib.numel(),
                      library=index_add_library(contrib, grp.perm, grp.offsets, grp.n_slots))
 
@@ -2240,9 +2215,10 @@ def robust_init_vio_phases(ctx):
         dplan = bcsr.ell_device_plan(plan, dev)
         check(bcsr.ell_assemble_batches(g_rot) is None, "chordal_rot must take the general ELL assembly")
         h_contrib, g_contrib, _ = bcsr.ell_contributions(g_rot, plan)
-        for contrib, perm, offsets, n_slots in ((h_contrib, dplan.h_perm, dplan.h_offsets, plan.nb * plan.K),
-                                                (g_contrib, dplan.g_perm, dplan.g_offsets, plan.nb)):
-            check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain,
+        for contrib, perm, offsets, n_slots, longest in (
+                (h_contrib, dplan.h_perm, dplan.h_offsets, plan.nb * plan.K, dplan.h_longest),
+                (g_contrib, dplan.g_perm, dplan.g_offsets, plan.nb, dplan.g_longest)):
+            check_kernel("slot_reduce", *slot_fns(longest),
                          [contrib, perm, offsets, n_slots], report, f"chordal_{name}_ms", flop=contrib.numel(),
                          library=index_add_library(contrib, perm, offsets, n_slots))
         He, g_vec, _ = bcsr.assemble_ell(g_rot, dplan)
@@ -2735,13 +2711,16 @@ def sqrt_phase(ctx):
     plan = schur_sqrt.build_sqrt_plan(g32)
     perm, offsets = (torch.from_numpy(a).to(dev) for a in plan.pair_plan)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for width, (pm, of, n_slots) in ((plan.dp * plan.dp, (perm, offsets, len(plan.pair_blocks))),
-                                     (plan.dp, (*(torch.from_numpy(a).to(dev) for a in plan.grad_plan), plan.C))):
+    for width, (pm, of, n_slots), longest in (
+            (plan.dp * plan.dp, (perm, offsets, len(plan.pair_blocks)), cuda_ops.slot_longest(plan.pair_plan[1])),
+            (plan.dp, (*(torch.from_numpy(a).to(dev) for a in plan.grad_plan), plan.C),
+             cuda_ops.slot_longest(plan.grad_plan[1]))):
         contrib = torch.randn((len(pm), width), generator=gen, device=dev)
         log(f"sqrt ladybug-49 slot_reduce: {tuple(contrib.shape)} into {n_slots}")
-        check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain, [contrib, pm, of, n_slots],
+        kernel, plain = slot_fns(longest)
+        check_kernel("slot_reduce", kernel, plain, [contrib, pm, of, n_slots],
                      report, "sqrt_ladybug_ms", flop=contrib.numel(), library=index_add_library(contrib, pm, of, n_slots))
-        a, b = cuda_ops.slot_reduce(contrib, pm, of, n_slots), cuda_ops.slot_reduce(contrib, pm, of, n_slots)
+        a, b = kernel(contrib, pm, of, n_slots), kernel(contrib, pm, of, n_slots)
         check(torch.equal(a, b), "slot_reduce at the square-root shape: two runs differ")
     log(f"phase 36 (schur_sqrt): {time.perf_counter() - t_phase!r} s")
 
@@ -4018,17 +3997,15 @@ def stereo_slam_phase(ctx):
         items = list(recorded.values())
         largest = max(range(len(items)), key=lambda i: items[i][0].numel())
         worst, shapes = 0.0, []
-        for i, args in enumerate(items):
-            contrib, perm, offsets, n_slots = args
-            long = cuda_ops.slot_reduce_is_long(contrib.shape[0], n_slots)
-            shapes.append(f"{tuple(contrib.shape)} into {n_slots}{' (long kernel)' if long else ''}")
+        for i, (contrib, perm, offsets, n_slots, longest) in enumerate(items):
+            args = [contrib, perm, offsets, n_slots]
+            shapes.append(f"{tuple(contrib.shape)} into {n_slots}")
             if i == largest:
-                check_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain, list(args), report,
+                check_kernel("slot_reduce", *slot_fns(longest), args, report,
                              f"stereo_slam_40_{stage}_ms", flop=contrib.numel(),
                              library=index_add_library(contrib, perm, offsets, n_slots))
             else:
-                worst = max(worst, hold_kernel("slot_reduce", cuda_ops.slot_reduce, cuda_ops.slot_reduce_plain, args,
-                                               report, quiet=True))
+                worst = max(worst, hold_kernel("slot_reduce", *slot_fns(longest), args, report, quiet=True))
         log(f"stereo_slam_40 {stage}: slot_reduce held at {len(recorded)} plans and widths "
             f"({', '.join(shapes[:8])}{', ...' if len(shapes) > 8 else ''}), {shapes[largest]} timed; the others' "
             f"largest relative error {worst!r}")
@@ -4060,14 +4037,14 @@ def record_slot_reduce(calls):
     ``_slot_reduce``, behind the autograd wrapper too) also records its
     arguments into ``calls`` the first time it meets a plan and width:
     (perm's address, n_slots, contrib's shape) -> (contrib, perm, offsets,
-    n_slots). The launch itself, and its count, are unchanged."""
+    n_slots, longest). The launch itself, and its count, are unchanged."""
     from pyslam_tpu_torch.solver import cuda_ops
 
     inner = cuda_ops._slot_reduce
 
-    def recorded(contrib, perm, offsets, n_slots):
-        calls.setdefault((perm.data_ptr(), n_slots, tuple(contrib.shape)), (contrib, perm, offsets, n_slots))
-        return inner(contrib, perm, offsets, n_slots)
+    def recorded(contrib, perm, offsets, n_slots, longest=None):
+        calls.setdefault((perm.data_ptr(), n_slots, tuple(contrib.shape)), (contrib, perm, offsets, n_slots, longest))
+        return inner(contrib, perm, offsets, n_slots, longest)
 
     cuda_ops._slot_reduce = recorded
     try:

@@ -98,9 +98,17 @@ the solvers run), every iteration and every 8th, in turns (at least 9
 rounds), on a 1-rank NCCL mesh: the median wall with quartiles, the CG
 iterations and the collectives of a solve under each.
 
-The extra cell ``slot_sweep`` (not in the default list) times both
-kernels of ``slot_reduce`` on random plans of 1,024 to 131,072
-destinations (the measurement behind ``cuda_ops.slot_reduce_is_long``).
+The extra cells of ``slot_reduce`` (not in the default list), each with
+the kernels of another checkout beside when ``--parent DIR`` names one
+(its ``_ext.py`` builds its own library; its shape rule picks between its
+kernels): ``slot_sweep`` times the kernel on random plans of 1,024 to
+131,072 destinations, uniform and Zipf-distributed rows a destination;
+``slot_pairs`` prints the rows a destination of bench config 6's two pair
+plans (``cluster`` 64 and ``stale``) and times the kernel, ``index_add_``
+and the plain version there beside the bound; ``slot_shapes`` times the
+kernel and the parent's in turns at every shape of PERF.md's kernel table,
+recorded from one solve of each cell.  Each names the body that the plan's
+longest segment gives (``cuda_ops.slot_reduce_body``).
 
 The extra cell ``block_idioms`` (not in the default list) times the Schur
 path's small block products at config 6's shapes in two forms, batched
@@ -1275,32 +1283,236 @@ def kernel_split(dev, dev_us, calls=50):
                 print(f"   {dev_us(e) / e.count:10.3f} us  {e.key[:110]}")
 
 
-def slot_sweep(dev):
-    """Device time of each of ``slot_reduce``'s two kernels, named, on
-    random plans of 1,024 to 131,072 destinations of 64 to 2,736 rows each
-    (at most 24M rows), widths 6 and 27: what ``slot_reduce_is_long``'s
-    rule was set from."""
+def slot_sweep(dev, parent):
+    """Device time of ``slot_reduce`` on random plans of 1,024 to 131,072
+    destinations (at most 24M rows), widths 6 and 27: destinations drawn
+    uniformly (64 to 2,736 rows each on average) and Zipf-distributed rows
+    per destination (exponent 1.3, capped at 20,000 rows, the skew of
+    bench config 6's pair plans); with ``--parent``, the parent
+    checkout's kernels by entry point beside."""
     import numpy as np
     import torch
 
-    from chip_smoke import median_ms, slot_reduce_kernel
+    from chip_smoke import median_ms
     from pyslam_tpu_torch.solver import cuda_ops
 
+    old, entries = parent_slot_kernels(parent) if parent else (None, [])
     gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
     for n_slots in (1024, 1700, 4096, 8192, 16384, 32768, 65536, 131072):
-        for rows in (64, 128, 300, 2736):
-            E = n_slots * rows
+        for rows in (64, 128, 300, 2736, "zipf"):
+            if rows == "zipf":
+                sizes = np.minimum(rng.zipf(1.3, n_slots), 20_000)
+                dest = np.repeat(np.arange(n_slots), sizes)
+                rng.shuffle(dest)
+            else:
+                dest = rng.integers(0, n_slots, n_slots * rows)
+            E = len(dest)
             if E > 24_000_000:
                 continue
-            sp = cuda_ops.slot_plan(np.random.default_rng(0).integers(0, n_slots, E), n_slots)
+            sp = cuda_ops.slot_plan(dest, n_slots)
             perm, off = torch.as_tensor(sp.perm, device=dev), torch.as_tensor(sp.offsets, device=dev)
             for C in (6, 27):
                 x = torch.randn((E, C), generator=gen, device=dev)
-                t = {long: median_ms(lambda *a, long=long: slot_reduce_kernel(*a, long), [x, perm, off, n_slots],
-                                     calls=7, inner=3) for long in (True, False)}
-                print(f"   slot_reduce {n_slots} destinations x {rows} rows, width {C}: block {t[True]!r} ms, "
-                      f"sub-warp {t[False]!r} ms, sub-warp / block {t[False] / t[True]!r}, the rule picks "
-                      f"{'block' if cuda_ops.slot_reduce_is_long(E, n_slots) else 'sub-warp'}", flush=True)
+                args = [x, perm, off, n_slots]
+                body = cuda_ops.slot_reduce_body(E, n_slots, C, sp.longest)
+                t = {f"this ({body})": median_ms(functools.partial(cuda_ops.slot_reduce, longest=sp.longest), args,
+                                                 calls=7, inner=3)}
+                for entry in entries:
+                    t[f"parent {entry or 'default'}"] = median_ms(lambda *a, entry=entry: old(*a, entry), args, calls=7,
+                                                                  inner=3)
+                print(f"   slot_sweep {n_slots} destinations, {rows} rows (E {E}, longest {int(np.diff(sp.offsets).max())}),"
+                      f" width {C}: {t} ms", flush=True)
+
+
+def parent_slot_kernels(parent):
+    """``slot_reduce``'s kernels in the checkout at ``parent`` (its
+    ``_ext.py`` loaded as a module of its own, its library built from its
+    sources into its own ``build/``), by entry point: a function
+    ``(contrib, perm, offsets, n_slots, entry) -> out`` that counts no
+    launch, with ``entry`` "" or, on a library that has it, "long_"; and
+    the entry points the library has."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("_parent_ext", os.path.join(parent, "pyslam_tpu_torch", "_ext.py"))
+    ext = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ext)
+    lib = ext.library()
+    suffix = {torch.float32: "f32", torch.float64: "f64"}
+
+    def call(contrib, perm, offsets, n_slots, entry):
+        out = torch.empty((n_slots, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
+        fn_name = f"pyslam_slot_reduce_{entry}{suffix[contrib.dtype]}"
+        err = getattr(lib, fn_name)(contrib.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), n_slots,
+                                    contrib.shape[1], torch.cuda.current_stream(contrib.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"{fn_name}: CUDA error {err}")
+        return out
+
+    entries = [e for e in ("", "long_") if f"pyslam_slot_reduce_{e}f32" in ext._SIGNATURES]
+    return call, entries
+
+
+def rows_per_destination(offsets):
+    """The distribution of a plan's rows per destination, as a dict: max,
+    p99, p90, median, and the share of all rows that lie in destinations
+    longer than 256, 1,024 and 4,096 rows."""
+    import numpy as np
+
+    n = np.diff(offsets.cpu().numpy().astype(np.int64))
+    E = max(int(n.sum()), 1)
+    return dict(destinations=len(n), rows=int(n.sum()), max=int(n.max()), p99=float(np.percentile(n, 99)),
+                p90=float(np.percentile(n, 90)), median=float(np.median(n)),
+                **{f"share_over_{k}": float(n[n > k].sum() / E) for k in (256, 1024, 4096)})
+
+
+_CONFIG6 = []
+
+
+def config6_cell(dev):
+    """``large_cell("config6", dev)``, built once a process."""
+    if not _CONFIG6:
+        _CONFIG6.append(large_cell("config6", dev))
+    return _CONFIG6[0]
+
+
+def slot_pairs(dev, parent):
+    """``slot_reduce`` at bench config 6's two pair plans (``cluster`` of
+    64 cameras and ``stale``, the sums of ``chip_smoke.py``'s phase 50, 36
+    wide, on seeded rows): the distribution of rows per destination, then
+    the device time of this checkout's ``slot_reduce``, of each kernel of
+    the ``parent`` checkout by entry point (with ``--parent``), of
+    ``index_add_`` and of the plain version, beside the bound."""
+    import torch
+
+    from chip_smoke import bound_ms, index_add_library, median_ms, tensor_bytes
+    from pyslam_tpu_torch.solver import cuda_ops, schur_large
+
+    _, _, plan, _ = config6_cell(dev)
+    old, entries = parent_slot_kernels(parent) if parent else (None, [])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, build_pairs in (("cluster64", lambda: schur_large.build_cluster_pairs(plan, 64, 4)),
+                              ("stale", lambda: schur_large.build_dense_pairs(plan, 4))):
+        seg = build_pairs().by_block
+        E = len(seg.perm)
+        print(f"   slot_pairs {name}: rows per destination {rows_per_destination(seg.offsets)}", flush=True)
+        x = torch.randn((E, 36), generator=gen, device=dev)
+        args = [x, seg.perm, seg.offsets, seg.n_slots]
+        ref = cuda_ops.slot_reduce_plain(*args)
+        body = cuda_ops.slot_reduce_body(E, seg.n_slots, 36, seg.longest)
+        variants = {f"this checkout ({body})": functools.partial(cuda_ops.slot_reduce, longest=seg.longest)}
+        for entry in entries:
+            variants[f"parent {entry or 'default'}"] = lambda *a, entry=entry: old(*a, entry)
+        times = {}
+        for label, fn in variants.items():
+            err = (fn(*args) - ref).abs().max().item()
+            times[label] = median_ms(fn, args, calls=7, inner=3)
+            print(f"   slot_pairs {name} [{label}]: {times[label]!r} ms, max_abs_err {err!r}", flush=True)
+        lib = index_add_library(*args)
+        b_ms, by = bound_ms(tensor_bytes(x, seg.perm, seg.offsets, ref), x.numel())
+        print(f"   slot_pairs {name}: {E} x 36 into {seg.n_slots}; index_add_ {median_ms(lib, (), calls=7, inner=3)!r} "
+              f"ms, plain {median_ms(cuda_ops.slot_reduce_plain, args, calls=3)!r} ms, bound {b_ms!r} ms by {by}",
+              flush=True)
+        del x, ref, args, seg
+
+
+def recorded_slot_calls(run):
+    """Every distinct ``slot_reduce`` call of ``run()`` (one a plan and
+    width): a list of (contrib, perm, offsets, n_slots, longest), recorded
+    by ``chip_smoke.record_slot_reduce``."""
+    from chip_smoke import record_slot_reduce
+
+    calls = {}
+    with record_slot_reduce(calls):
+        run()
+    return list(calls.values())
+
+
+def slot_shape_calls(dev):
+    """(label, calls) of the ``slot_reduce`` shapes of PERF.md's kernel
+    table but the pair plans: sphere2500's general assembly (and its plan at
+    the chordal rotation stage's width 81), one solve of each cell that
+    sums with it (configs 1, 2, 7, 4, 8, Venice-mini, whose sums are those
+    of ``schur_cm``'s one-rank plans, the BCSR and two-level paths, the
+    square-root path), one VO frame, and config 6's sums by camera and by
+    landmark at phase 21's widths on seeded rows."""
+    import torch
+
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.pipelines import DenseRGBDPipeline
+    from pyslam_tpu_torch.sensors import RGBDCamera
+    from pyslam_tpu_torch.solver import bcsr
+    from pyslam_tpu_torch.testing import VO_CAM, vo_frames
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = build.pose_graph(synth.se3_sphere(n_poses=2500, seed=0), dtype=torch.float32, device=dev)
+    plan = bcsr.build_ell_direct(g)
+    dplan = bcsr.ell_device_plan(plan, dev)
+    h, gr, _ = bcsr.ell_contributions(g, plan)
+    sphere = [(h, dplan.h_perm, dplan.h_offsets, plan.nb * plan.K, dplan.h_longest),
+              (gr, dplan.g_perm, dplan.g_offsets, plan.nb, dplan.g_longest)]
+    yield "sphere2500", sphere
+    yield "chordal 81", [(torch.randn((h.shape[0], 81), generator=gen, device=dev), dplan.h_perm, dplan.h_offsets,
+                          plan.nb * plan.K, dplan.h_longest)]
+    for name in ("config1", "config2", "config7", "config4", "config8", "bcsr_sphere2500", "two_level_sphere2500",
+                 "sqrt_ladybug"):
+        _, _, run = make_cell(name, dev)
+        yield name, recorded_slot_calls(run)
+    g_vm, o_vm, plan_vm, common_vm = large_cell("venice_mini", dev)
+    yield "venice_mini", recorded_slot_calls(lambda: run_large(g_vm, o_vm, plan_vm, common_vm))
+    frames = vo_frames(3)
+    pipe = DenseRGBDPipeline(RGBDCamera(**VO_CAM), pyrlevels=4, keyframe_trans_thresh=1e9, device=dev)
+    pipe.track(*frames[0])
+    yield "vo_rgbd_vga", recorded_slot_calls(lambda: pipe.track(*frames[1]))
+    _, _, plan6, _ = config6_cell(dev)
+    n_obs = len(plan6.by_cam.perm)
+    for label, seg, width in (("camera", plan6.by_cam, 27), ("camera", plan6.by_cam, 21), ("camera", plan6.by_cam, 6),
+                              ("landmark", plan6.by_lm, 9), ("landmark", plan6.by_lm, 3)):
+        yield f"config6 by {label}", [(torch.randn((n_obs, width), generator=gen, device=dev), seg.perm, seg.offsets,
+                                       seg.n_slots, seg.longest)]
+
+
+def slot_shapes(dev, parent, rounds=4):
+    """``slot_reduce`` at every shape of ``slot_shape_calls``: the device
+    time of 20 calls back to back of this checkout's kernel and, with
+    ``--parent``, of the parent checkout's (its own shape rule between its
+    kernels), in turns (parent, this, this, parent, ...; ``rounds`` of each,
+    each the median of 5 measurements), with each side's spread (largest
+    less smallest), and ``index_add_``'s time and the bound beside."""
+    import torch
+
+    from chip_smoke import bound_ms, index_add_library, median_ms, tensor_bytes
+    from pyslam_tpu_torch.solver import cuda_ops
+
+    old, _ = parent_slot_kernels(parent) if parent else (None, [])
+
+    def parent_call(contrib, perm, offsets, n_slots):  # the parent's rule: slot_reduce_is_long
+        E = contrib.shape[0]
+        return old(contrib, perm, offsets, n_slots, "long_" if E * 1024 >= 64 * n_slots * max(n_slots, 1024) else "")
+
+    for label, calls in slot_shape_calls(dev):
+        for contrib, perm, offsets, n_slots, longest in calls:
+            args = [contrib.float().contiguous(), perm, offsets, n_slots]
+            sides = {"this": functools.partial(cuda_ops.slot_reduce, longest=longest),
+                     **({"parent": parent_call} if old else {})}
+            ref = cuda_ops.slot_reduce_plain(*args)
+            for side, fn in sides.items():
+                err = (fn(*args) - ref).abs().max().item()
+                assert err <= 1e-5 * max(ref.abs().max().item(), 1e-30), (label, side, err)
+            times = {k: [] for k in sides}
+            for rnd in range(rounds):
+                for side in list(sides)[::1 if rnd % 2 else -1]:
+                    times[side].append(1e3 * median_ms(sides[side], args, calls=5, inner=20))
+            lib_us = 1e3 * median_ms(index_add_library(*args), (), calls=5, inner=20)
+            b_ms, by = bound_ms(tensor_bytes(*args[:3], ref), contrib.numel())
+            line = "  ".join(f"{k} {statistics.median(v)!r} us (spread {max(v) - min(v)!r})" for k, v in times.items())
+            n = offsets[1:] - offsets[:-1]
+            body = cuda_ops.slot_reduce_body(contrib.shape[0], n_slots, contrib.shape[1], longest)
+            print(f"   slot_shapes {label} {tuple(contrib.shape)} into {n_slots} (longest {int(n.max()) if n_slots else 0}"
+                  f" rows, {body}): {line}; index_add_ {lib_us!r} us; bound {1e3 * b_ms!r} us by {by}", flush=True)
 
 
 def pcg_columns(dev, reps):
@@ -1368,6 +1580,7 @@ def main() -> int:
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--parent", default=None, help="a checkout whose slot_reduce kernels the slot cells time beside")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -1397,7 +1610,13 @@ def main() -> int:
             pcg_loop_variants(dev, args.reps)
             continue
         if name == "slot_sweep":
-            slot_sweep(dev)
+            slot_sweep(dev, args.parent)
+            continue
+        if name == "slot_pairs":
+            slot_pairs(dev, args.parent)
+            continue
+        if name == "slot_shapes":
+            slot_shapes(dev, args.parent)
             continue
         if name == "block_idioms":
             block_idioms(dev)

@@ -32,7 +32,8 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # C entry points: name -> argtypes (pointers, then scalars, then the stream)
 _ELL_MATVEC = [_P, _P, _P, _P, _I, _I, _I, _P]
-_SLOT_REDUCE = [_P, _P, _P, _P, _I, _I, _P]
+# contrib, perm, offsets, out, partial, arrivals, E, n_slots, C, body, unit, lanes, units a lane, group, stream
+_SLOT_REDUCE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # He, cols, Minv, b, x, scratch, iters, counter, nb, K, d, columns, rtol, max_iters, stream
 _ELL_PCG = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P]
 # poses, const_mask, cols, idx, entries, offsets, n_batches, then host tables
@@ -44,8 +45,6 @@ _SIGNATURES = {
     "pyslam_ell_matvec_f64": _ELL_MATVEC,
     "pyslam_slot_reduce_f32": _SLOT_REDUCE,
     "pyslam_slot_reduce_f64": _SLOT_REDUCE,
-    "pyslam_slot_reduce_long_f32": _SLOT_REDUCE,
-    "pyslam_slot_reduce_long_f64": _SLOT_REDUCE,
     "pyslam_ell_assemble_f32": _ELL_ASSEMBLE,
     "pyslam_ell_assemble_f64": _ELL_ASSEMBLE,
     "pyslam_ell_pcg_f32": _ELL_PCG,

@@ -73,6 +73,7 @@ class DenseGroup:
     offsets: torch.Tensor
     n_slots: int
     pos: torch.Tensor
+    longest: int | None = None  # the plan's longest segment (``slot_reduce``'s ``longest``)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +102,8 @@ def _group(shape, keys, D, device):
         return torch.as_tensor(np.ascontiguousarray(a, dt), device=device)
 
     return DenseGroup(
-        tuple(shape), t(sp.perm, np.int32), t(sp.offsets, np.int32), len(uniq), t(pos.reshape(-1), np.int64)
+        tuple(shape), t(sp.perm, np.int32), t(sp.offsets, np.int32), len(uniq), t(pos.reshape(-1), np.int64),
+        sp.longest,
     )
 
 
@@ -215,7 +217,7 @@ def _reduce_into(flat, groups, parts, sign):
     group."""
     for grp in groups:
         contrib = torch.cat(parts[grp.shape]).contiguous()
-        out = slot_reduce(contrib, grp.perm, grp.offsets, grp.n_slots).reshape(-1)
+        out = slot_reduce(contrib, grp.perm, grp.offsets, grp.n_slots, grp.longest).reshape(-1)
         flat.index_put_((grp.pos,), sign * out)
 
 

@@ -241,6 +241,8 @@ class EllDevicePlan:
     a_idx: torch.Tensor | None = None  # (F_total, 2)
     a_entries: torch.Tensor | None = None  # (E,), segments h_offsets
     a_first: tuple | None = None
+    h_longest: int | None = None  # the slot plans' longest segments (``slot_reduce``'s ``longest``)
+    g_longest: int | None = None
 
 
 def ell_device_plan(plan: EllDirect, device) -> EllDevicePlan:
@@ -256,7 +258,8 @@ def ell_device_plan(plan: EllDirect, device) -> EllDevicePlan:
     tables = build_assemble_tables(plan, hp)
     a_idx, a_entries, a_first = (t(tables[0]), t(tables[1]), tables[2]) if tables else (None, None, None)
     return EllDevicePlan(
-        plan, t(plan.cols), t(hp.perm), t(hp.offsets), t(gp.perm), t(gp.offsets), a_idx, a_entries, a_first
+        plan, t(plan.cols), t(hp.perm), t(hp.offsets), t(gp.perm), t(gp.offsets), a_idx, a_entries, a_first,
+        hp.longest, gp.longest,
     )
 
 
@@ -323,8 +326,8 @@ def assemble_ell_general(graph: FactorGraph, dplan: EllDevicePlan):
     nb, d, K = plan.nb, plan.d, plan.K
     dtype = next(iter(graph.blocks.values())).values.dtype
     h_contrib, g_contrib, chi2 = ell_contributions(graph, plan)
-    He = slot_reduce(h_contrib, dplan.h_perm, dplan.h_offsets, nb * K).reshape(nb, K, d, d)
-    g = -slot_reduce(g_contrib, dplan.g_perm, dplan.g_offsets, nb).reshape(-1)
+    He = slot_reduce(h_contrib, dplan.h_perm, dplan.h_offsets, nb * K, dplan.h_longest).reshape(nb, K, d, d)
+    g = -slot_reduce(g_contrib, dplan.g_perm, dplan.g_offsets, nb, dplan.g_longest).reshape(-1)
 
     # constant parameters: zero rows/cols, unit diagonal at slot 0
     free = free_mask(graph).to(dtype).reshape(nb, d)

@@ -428,7 +428,7 @@ def _landmark_B(aux, indices):
         t = torch.as_tensor(slot, device=device)
         rows = (W[torch.as_tensor(obs, device=device)] @ Hi[t]).reshape(len(obs), dp * dl)
         summed = slot_reduce(rows.contiguous(), torch.as_tensor(sp.perm, device=device),
-                             torch.as_tensor(sp.offsets, device=device), len(dest))
+                             torch.as_tensor(sp.offsets, device=device), len(dest), sp.longest)
         B.view(k * C, dp, dl)[torch.as_tensor(dest, device=device)] = summed.reshape(-1, dp, dl)
     observed = np.array([len(w) > 0 for w in where], bool)
     return B.permute(1, 2, 0, 3).reshape(C * dp, k * dl), Hi, observed

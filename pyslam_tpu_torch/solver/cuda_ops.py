@@ -315,6 +315,7 @@ class SlotPlan:
     perm: np.ndarray  # (E,) int32
     offsets: np.ndarray  # (n_slots + 1,) int32
     n_slots: int
+    longest: int  # the rows of the longest segment (0 without rows)
 
 
 def _stable_argsort(dest, n_slots):
@@ -340,7 +341,7 @@ def slot_plan(dest: np.ndarray, n_slots: int) -> SlotPlan:
     perm = _stable_argsort(dest, n_slots).astype(np.int32)
     counts = np.bincount(dest, minlength=n_slots)
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    return SlotPlan(perm, offsets, n_slots)
+    return SlotPlan(perm, offsets, n_slots, int(counts.max()) if n_slots else 0)
 
 
 def _segment_ids(offsets, n_slots, E=None):
@@ -358,29 +359,118 @@ def slot_reduce_plain(contrib, perm, offsets, n_slots):
     return out.index_add_(0, _segment_ids(offsets, n_slots), contrib[perm.long()])
 
 
-# A sum into few destinations of many rows each takes the kernel that gives
-# a destination a whole block (csrc/slot_reduce.cu says why): up to
-# LONG_SLOTS destinations, those with at least LONG_MIN_ROWS rows each on
-# average; past that, the rows a destination needs grow in proportion to
-# the destinations.  The block kernel's time grows with its blocks, the
-# sub-warp kernel's with the longest chain of rows and falls as more
-# sub-warps fill the card: measured on an H100 from 1,024 to 131,072
-# destinations of 64 to 2,736 rows (PERF.md), the rule picks the faster
-# kernel at every point of width 6; at width 27 (no template: the sub-warp
-# kernel sums one column a lane) the block kernel also wins at points the
-# rule gives the sub-warp, by up to 4.9 times at 4,096 destinations of 128
-# rows.
+# The kernel's grain (csrc/slot_reduce.cu says why): its unit kernel sums a
+# segment of at most SLOT_SEQ_ROWS rows in plan order by a sub-warp of its
+# own (the bits of the sequential sum), a longer one by the tiles of
+# SLOT_TILE_ROWS plan positions (the .cu file's kTileRows; read here, not
+# set), whole up to SLOT_TILE_ROWS rows and past that in chunks of that many
+# rows whose sums are then added in chunk order.
+SLOT_SEQ_ROWS = 64
+SLOT_TILE_ROWS = 256
+
+# Where a plan's longest segment is known (``slot_reduce(..., longest=)``),
+# two more bodies take the shapes where they were measured faster
+# (``slot_reduce_body``): a sub-warp a segment with the width a template
+# parameter, and a block of SLOT_BLOCK_THREADS threads a destination whose
+# longest chain of rows is at most SLOT_BLOCK_DEPTH.  Plans whose segments
+# all have at most SLOT_TILE_ROWS rows keep the choice that the rule of
+# LONG_SLOTS and LONG_MIN_ROWS made between those two before the unit
+# kernel came, and with it their bits: a block for at least LONG_MIN_ROWS *
+# max(1, n_slots / LONG_SLOTS) rows a destination on average, else
+# sub-warps.
+SLOT_BLOCK_THREADS = 1024
+SLOT_BLOCK_DEPTH = 64
 LONG_SLOTS = 1024
 LONG_MIN_ROWS = 64
+_BODY = {"tiles": 0, "subwarps": 1, "block": 2}
+
+# Per (device, stream), int32 zeros: the kernel's arrival counters, one a
+# tile; the kernel puts every counter it uses back to 0.
+_SLOT_ARRIVALS: dict = {}
 
 
-def slot_reduce_is_long(E: int, n_slots: int) -> bool:
-    """Whether ``slot_reduce`` sums this shape with a block per destination
-    (few destinations of many rows) and not a sub-warp: at least
-    ``LONG_MIN_ROWS * max(1, n_slots / LONG_SLOTS)`` rows a destination on
-    average.  The shape alone decides, so one plan always sums in one
+def slot_longest(offsets) -> int:
+    """The rows of a plan's longest segment, from its offsets on the host
+    (numpy): what ``slot_reduce``'s ``longest`` takes, computed once where
+    the plan is built."""
+    offsets = np.asarray(offsets)
+    return int(np.diff(offsets).max()) if len(offsets) > 1 else 0
+
+
+def slot_block_depth(longest: int, C: int) -> int:
+    """The rows that the block kernel's thread of the longest segment adds
+    one after the other: it keeps SLOT_BLOCK_THREADS // C rows in flight
+    (one past SLOT_BLOCK_THREADS columns, which it walks again for each
+    SLOT_BLOCK_THREADS of them)."""
+    cols = min(C, SLOT_BLOCK_THREADS)
+    return -(-longest // (SLOT_BLOCK_THREADS // cols)) * -(-C // cols)
+
+
+def slot_reduce_body(E: int, n_slots: int, C: int, longest) -> str:
+    """The body ``slot_reduce`` sums a plan of E rows into n_slots
+    destinations of C values with: "tiles" (the unit kernel with its tile
+    blocks: any plan, the only body when ``longest`` is None), "subwarps"
+    (a sub-warp a segment, in plan order) or "block" (a block a
+    destination).  Segments of at most SLOT_TILE_ROWS rows: the block where
+    the rule of LONG_SLOTS and LONG_MIN_ROWS gives it, else sub-warps.
+    Longer ones: the block where its longest chain
+    (``slot_block_depth``) is at most SLOT_BLOCK_DEPTH rows, else the
+    tiles.  The plan and C alone decide, so one plan always sums in one
     order."""
-    return E * LONG_SLOTS >= LONG_MIN_ROWS * n_slots * max(n_slots, LONG_SLOTS)
+    if longest is None:
+        return "tiles"
+    if longest <= SLOT_TILE_ROWS:
+        few_long = E * LONG_SLOTS >= LONG_MIN_ROWS * n_slots * max(n_slots, LONG_SLOTS)
+        return "block" if few_long else "subwarps"
+    return "block" if slot_block_depth(longest, C) <= SLOT_BLOCK_DEPTH else "tiles"
+
+
+def slot_reduce_tiles(E: int) -> int:
+    """The kernel's tiles for a plan of E positions: ceil(E /
+    SLOT_TILE_ROWS), ``group`` a block (``slot_reduce_layout``) beside the
+    blocks of the short segments.  Its scratch holds two rows a tile
+    (``slot_reduce`` allocates (2 tiles, C)): a tile holds the starts of at
+    most two chunks."""
+    return -(-E // SLOT_TILE_ROWS)
+
+
+def _slot_lanes(units: int) -> int:
+    """Lanes a short segment's sub-warp takes for a row of ``units`` units:
+    the power of two below it, or the one above when that would leave lanes
+    with more than a quarter of extra work; 32 at most."""
+    p = 1
+    while p < 32 and 2 * p <= units:
+        p *= 2
+    return 2 * p if p < 32 and 4 * units > 5 * p else p
+
+
+def slot_reduce_layout(E: int, C: int, itemsize: int, address: int) -> tuple:
+    """(unit, lanes, units a lane, group) of the kernel for a plan of E rows
+    of C values of ``itemsize`` bytes whose first row is at ``address``:
+    the bytes of one load or store (16, 8 or the value's own: the widest
+    that divides the row and the address); the lanes of a short segment's
+    sub-warp and the units each lane holds (1, 2 or 4; a wider row is
+    walked again for the units past lanes x 4); the tiles a block of the
+    long segments' chunks takes: about 128 KB of rows, 64 tiles at most,
+    and no more than leave two such blocks for each of the card's 132
+    SMs."""
+    row = C * itemsize
+    unit = next(u for u in (16, 8, itemsize) if u >= itemsize and row % u == 0 and address % u == 0)
+    units = row // unit
+    lanes = _slot_lanes(units)
+    per_lane = -(-units // lanes)
+    group = max(1, min(64, (1 << 17) // (SLOT_TILE_ROWS * row), slot_reduce_tiles(E) // 264))
+    return unit, lanes, 1 if per_lane <= 1 else 2 if per_lane <= 2 else 4, group
+
+
+def _slot_arrivals(device, stream, tiles):
+    key = (device, stream.cuda_stream)
+    buf = _SLOT_ARRIVALS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024, 2 * (0 if buf is None else buf.numel())), dtype=torch.int32,
+                          device=device)
+        _SLOT_ARRIVALS[key] = buf
+    return buf
 
 
 def slot_reduce_backward(grad_out, perm, offsets):
@@ -400,32 +490,38 @@ class _SlotReduce(torch.autograd.Function):
     ``slot_reduce_backward``."""
 
     @staticmethod
-    def forward(ctx, contrib, perm, offsets, n_slots):
+    def forward(ctx, contrib, perm, offsets, n_slots, longest):
         ctx.save_for_backward(perm, offsets)
-        return _slot_reduce(contrib, perm, offsets, n_slots)
+        return _slot_reduce(contrib, perm, offsets, n_slots, longest)
 
     @staticmethod
     def backward(ctx, grad_out):
         perm, offsets = ctx.saved_tensors
-        return slot_reduce_backward(grad_out.contiguous(), perm, offsets), None, None, None
+        return slot_reduce_backward(grad_out.contiguous(), perm, offsets), None, None, None, None
 
 
-def slot_reduce(contrib, perm, offsets, n_slots):
+def slot_reduce(contrib, perm, offsets, n_slots, longest=None):
     """out (n_slots, C), out[s] = sum_{e in [offsets[s], offsets[s+1])}
     contrib[perm[e]], for contrib (E, C) contiguous, perm (E,) int32 and
     offsets (n_slots + 1,) int32 ascending from 0 to E.  A slot without
     contributions (E = 0: all of them) is 0.
+
+    ``longest``: the rows of the plan's longest segment (``SlotPlan.longest``
+    or ``slot_longest``, noted where the plan is built), from which the
+    kernel's body is chosen (``slot_reduce_body``); None takes the body that
+    sums every plan.  The same plan and width with the same ``longest`` give
+    the same bits on every call.
 
     Differentiable: where ``contrib`` requires grad and grad mode is on,
     the call goes through ``_SlotReduce``, whose backward is the gather of
     ``slot_reduce_backward``; elsewhere it is the kernel (or, on the CPU,
     the plain version) alone."""
     if contrib.requires_grad and torch.is_grad_enabled():
-        return _SlotReduce.apply(contrib, perm, offsets, n_slots)
-    return _slot_reduce(contrib, perm, offsets, n_slots)
+        return _SlotReduce.apply(contrib, perm, offsets, n_slots, longest)
+    return _slot_reduce(contrib, perm, offsets, n_slots, longest)
 
 
-def _slot_reduce(contrib, perm, offsets, n_slots):
+def _slot_reduce(contrib, perm, offsets, n_slots, longest=None):
     if contrib.dim() != 2:
         raise ValueError(f"contrib: shape {tuple(contrib.shape)}, expected (E, C)")
     E, C = contrib.shape
@@ -441,10 +537,16 @@ def _slot_reduce(contrib, perm, offsets, n_slots):
         return out
     from .._ext import library
 
-    fn_name = f"pyslam_slot_reduce_{'long_' if slot_reduce_is_long(E, n_slots) else ''}{_SUFFIX[contrib.dtype]}"
+    body = slot_reduce_body(E, n_slots, C, longest)
+    tiles = slot_reduce_tiles(E) if body == "tiles" else 0
+    unit, lanes, per_lane, group = slot_reduce_layout(E, C, contrib.element_size(), contrib.data_ptr())
+    partial = torch.empty((2 * tiles, C), dtype=contrib.dtype, device=contrib.device)
+    stream = torch.cuda.current_stream(contrib.device)
+    arrivals = _slot_arrivals(contrib.device, stream, tiles)
+    fn_name = f"pyslam_slot_reduce_{_SUFFIX[contrib.dtype]}"
     err = getattr(library(), fn_name)(
-        contrib.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), n_slots, C,
-        torch.cuda.current_stream(contrib.device).cuda_stream,
+        contrib.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), partial.data_ptr(),
+        arrivals.data_ptr(), E, n_slots, C, _BODY[body], unit, lanes, per_lane, group, stream.cuda_stream,
     )
     _raise_on_error(fn_name, err)
     LAUNCHES["slot_reduce"] += 1

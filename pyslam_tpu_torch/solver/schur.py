@@ -59,11 +59,13 @@ class Segments:
     perm: torch.Tensor  # (E,) int32
     offsets: torch.Tensor  # (n_slots + 1,) int32
     n_slots: int
+    longest: int | None = None  # the plan's longest segment (``slot_reduce``'s ``longest``)
 
     def sum(self, x):
         """(E, *shape) -> (n_slots, *shape)."""
         width = math.prod(x.shape[1:])  # not -1: x may have no rows
-        out = slot_reduce(x.reshape(x.shape[0], width).contiguous(), self.perm, self.offsets, self.n_slots)
+        out = slot_reduce(x.reshape(x.shape[0], width).contiguous(), self.perm, self.offsets, self.n_slots,
+                          self.longest)
         return out.reshape((self.n_slots,) + x.shape[1:])
 
 
@@ -172,7 +174,8 @@ def schur_plan(graph: FactorGraph, pose_name: str = "poses", lm_name: str = "lan
         if key not in made:
             sp = slot_plan(dest, n_slots)
             made[key] = Segments(
-                torch.as_tensor(sp.perm, device=device), torch.as_tensor(sp.offsets, device=device), n_slots)
+                torch.as_tensor(sp.perm, device=device), torch.as_tensor(sp.offsets, device=device), n_slots,
+                sp.longest)
         return made[key]
 
     def pairs(rows, cols, n_cols):

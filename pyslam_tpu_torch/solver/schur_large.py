@@ -127,7 +127,8 @@ def _host_index(t, n, what):
 
 def _segments(dest, n_slots, device):
     sp = slot_plan(dest, n_slots)
-    return Segments(torch.as_tensor(sp.perm, device=device), torch.as_tensor(sp.offsets, device=device), n_slots)
+    return Segments(torch.as_tensor(sp.perm, device=device), torch.as_tensor(sp.offsets, device=device), n_slots,
+                    sp.longest)
 
 
 def prepare_large_ba(

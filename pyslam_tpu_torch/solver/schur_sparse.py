@@ -163,6 +163,7 @@ class SchurSparseTables:
     perm: torch.Tensor
     offsets: torch.Tensor
     n_slots: int
+    longest: int | None = None  # the plan's longest segment (``slot_reduce``'s ``longest``)
 
 
 def plan_tables(plan: SchurSparsePlan, device) -> SchurSparseTables:
@@ -179,7 +180,8 @@ def plan_tables(plan: SchurSparsePlan, device) -> SchurSparseTables:
             return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
 
         cache[device] = SchurSparseTables(
-            t(plan.pair_a), t(plan.pair_b), t(plan.pair_l), t(sp.perm, np.int32), t(sp.offsets, np.int32), n_slots)
+            t(plan.pair_a), t(plan.pair_b), t(plan.pair_l), t(sp.perm, np.int32), t(sp.offsets, np.int32), n_slots,
+            sp.longest)
     return cache[device]
 
 
@@ -189,7 +191,7 @@ def assemble_S_ell(plan: SchurSparsePlan, tables: SchurSparseTables, Hpp, PP, W,
     dp = Hpp.shape[1]
     Cp = _mm(_mm(W[tables.pair_a], Hll_inv[tables.pair_l]), W[tables.pair_b].transpose(-1, -2))
     contrib = torch.cat([Hpp, PP, PP.transpose(-1, -2), -Cp]).reshape(-1, dp * dp)
-    He = slot_reduce(contrib, tables.perm, tables.offsets, tables.n_slots)
+    He = slot_reduce(contrib, tables.perm, tables.offsets, tables.n_slots, tables.longest)
     return He.reshape(plan.chol.ell.nb, plan.chol.ell.K, dp, dp)
 
 

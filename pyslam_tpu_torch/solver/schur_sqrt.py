@@ -37,7 +37,7 @@ import torch
 from ..graph.core import FactorGraph
 from . import lm as _lm
 from .assemble import linearize_batch
-from .cuda_ops import slot_plan, slot_reduce
+from .cuda_ops import slot_longest, slot_plan, slot_reduce
 from .linear import cholesky_solve
 from .plan_cache import ClosureCache, content_key
 
@@ -190,7 +190,8 @@ def _closures(plan: SqrtBAPlan, device):
     pair_perm, pair_off = (t(a, torch.int32) for a in plan.pair_plan)
     pair_blocks = t(plan.pair_blocks)
     grad_perm, grad_off = (t(a, torch.int32) for a in plan.grad_plan)
-    unary = [tuple(t(a, torch.int32) for a in p) for p in plan.unary_plans]
+    pair_longest, grad_longest = slot_longest(plan.pair_plan[1]), slot_longest(plan.grad_plan[1])
+    unary = [(*(t(a, torch.int32) for a in p), slot_longest(p[1])) for p in plan.unary_plans]
 
     def assemble_fn(g):
         """The raw linearization pieces as 'H' (a dict); the elimination
@@ -221,11 +222,11 @@ def _closures(plan: SqrtBAPlan, device):
                     ))
             else:  # a pose-unary batch (build_sqrt_plan refused the others)
                 (J,) = jacs
-                perm, off = unary[u]
+                perm, off, longest = unary[u]
                 u += 1
                 JtW = J.transpose(1, 2) * w[:, None, :]
-                Hu = slot_reduce((JtW @ J).reshape(J.shape[0], dp * dp).contiguous(), perm, off, C)
-                gu = -slot_reduce((JtW @ r[..., None])[..., 0].contiguous(), perm, off, C)
+                Hu = slot_reduce((JtW @ J).reshape(J.shape[0], dp * dp).contiguous(), perm, off, C, longest)
+                gu = -slot_reduce((JtW @ r[..., None])[..., 0].contiguous(), perm, off, C, longest)
                 pieces["unary"].append((Hu.reshape(C, dp, dp), gu))
         pieces["free_p"] = (~pb.const_mask).to(dtype)
         pieces["free_l"] = (~lb.const_mask).to(dtype)
@@ -272,8 +273,9 @@ def _closures(plan: SqrtBAPlan, device):
         # camera-pair sums written into their blocks at unique positions
         H = torch.zeros((C * C, dp * dp), dtype=dtype, device=device)
         if pair_rows:
-            H[pair_blocks] = slot_reduce(torch.cat(pair_rows).contiguous(), pair_perm, pair_off, len(plan.pair_blocks))
-            grad = slot_reduce(torch.cat(grad_rows).contiguous(), grad_perm, grad_off, C)
+            H[pair_blocks] = slot_reduce(torch.cat(pair_rows).contiguous(), pair_perm, pair_off, len(plan.pair_blocks),
+                                         pair_longest)
+            grad = slot_reduce(torch.cat(grad_rows).contiguous(), grad_perm, grad_off, C, grad_longest)
         else:
             grad = torch.zeros((C, dp), dtype=dtype, device=device)
         H = H.reshape(C, C, dp, dp).permute(0, 2, 1, 3).reshape(C, dp, C, dp)

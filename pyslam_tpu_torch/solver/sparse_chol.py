@@ -452,6 +452,7 @@ class DeviceWave:
     # columns are the variables ``bwd_var``, each once
     bwd_pos: torch.Tensor
     bwd_var: torch.Tensor
+    fwd_longest: int | None = None  # the forward plan's longest segment (``slot_reduce``'s ``longest``)
 
     @property
     def fwd_slots(self) -> int:
@@ -491,7 +492,7 @@ def _device_wave(nb, d, wave, device):
     return DeviceWave(
         kpad, bpad, N, t(cols_idx), t(bnd_idx), t(np.repeat(col_pad > 0, d, axis=1), bool), t(tbl_orig),
         t(tbl_l) if tbl_l.any() else None, t(tbl_r) if tbl_r.any() else None,
-        t(sp.perm, np.int32), t(sp.offsets, np.int32), t(uniq[uniq < nb]), t(pos), t(ci_flat[pos]),
+        t(sp.perm, np.int32), t(sp.offsets, np.int32), t(uniq[uniq < nb]), t(pos), t(ci_flat[pos]), sp.longest,
     )
 
 
@@ -571,7 +572,7 @@ def _solve_factored(plan: CholPlan, factors, g):
         n_real = w.fwd_dest.shape[0]
         if n_real:
             upd = (L21 @ y).reshape(w.N * w.bpad, d * m)
-            bvec[w.fwd_dest] -= slot_reduce(upd, w.fwd_perm, w.fwd_offsets, w.fwd_slots)[:n_real].reshape(-1, d, m)
+            bvec[w.fwd_dest] -= slot_reduce(upd, w.fwd_perm, w.fwd_offsets, w.fwd_slots, w.fwd_longest)[:n_real].reshape(-1, d, m)
     xvec = g.new_zeros((nb + 1, d, m))
     for w, (L11, L21), y in zip(reversed(waves), reversed(factors), reversed(ys)):
         xb = xvec[w.bi].reshape(w.N, w.bpad * d, m)

@@ -23,6 +23,7 @@ from pyslam_tpu_torch.io import synth as tsynth
 from pyslam_tpu_torch.losses import CauchyLoss as TCauchy
 from pyslam_tpu_torch.solver import bcsr as tb
 from pyslam_tpu_torch.solver.assemble import free_mask, linearize_batch
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 REL = 1e-10
 

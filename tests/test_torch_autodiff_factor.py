@@ -42,6 +42,7 @@ from pyslam_tpu_torch.lie import se2, se3, sim3
 from pyslam_tpu_torch.losses import L2Loss
 from pyslam_tpu_torch.sensors import StereoCamera
 from pyslam_tpu_torch.solver import Options, solve
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = 1e-12
 OPS = {"se2": (se2, jse2, 3), "se3": (se3, jse3, 6), "sim3": (sim3, jsim3, 7)}

@@ -23,6 +23,7 @@ from pyslam_tpu.lie import se2 as jse2
 from pyslam_tpu.lie import se3 as jse3
 from pyslam_tpu_torch import sensors as tsensors
 from pyslam_tpu_torch.graph import core as tcore
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F = 9
 CAMERA = dict(cu=320.0, cv=240.0, fu=500.0, fv=480.0, b=0.25)

@@ -29,6 +29,7 @@ from pyslam_tpu_torch.io import bal as tbal
 from pyslam_tpu_torch.io import synth as tsynth
 from pyslam_tpu_torch.losses import HuberLoss as THuber
 from pyslam_tpu_torch.losses import L2Loss as TL2
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 FIELDS = [f.name for f in dataclasses.fields(tbal.BALData)]
 CPU = dict(dtype=torch.float64, device="cpu")

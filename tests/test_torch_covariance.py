@@ -36,21 +36,11 @@ from pyslam_tpu_torch import solver as tsolver
 from pyslam_tpu_torch.graph import FactorBatch, FactorGraph
 from pyslam_tpu_torch.solver import covariance as tcov
 from pyslam_tpu_torch.solver.cuda_ops import LAUNCHES, reset_launches
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 EXACT, PCG = 1e-10, 1e-7
 RTOL = 1e-10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU ops in this module are many and small: under the
-    parallel test run, with every worker's thread pool on the same cores,
-    they run ten times slower on torch's default threads than on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_rel(out, ref, rel):

@@ -14,9 +14,6 @@ JAX reference.  ``ell_pcg`` runs many dependent iterations, each with its
 dot products summed in another order than ``torch.dot``: see ``PCG_TOL``.
 """
 
-import os
-import sys
-
 import numpy as np
 import pytest
 import torch
@@ -39,8 +36,8 @@ from pyslam_tpu_torch.solver.cuda_ops import (
 from pyslam_tpu_torch.solver.lm import Options
 from pyslam_tpu_torch.testing import se3_stress_graph
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import slot_reduce_kernel  # noqa: E402  (the repository root's script: each kernel by name)
+from torch_support import (  # noqa: F401  (one_torch_thread: autouse)
+    one_torch_thread, sequential_slot_sum, slot_reduce_model, tiled_slot_sum)
 
 DENSE_GRAPHS = {
     "se2": lambda: synth.se2_loop(n_poses=30, n_loops=4, seed=0),
@@ -111,42 +108,42 @@ def test_ell_matvec_kernel_takes_a_longer_x(cuda_device, nb, n_x, K, d, dtype):
         _assert_close(out, ref, KERNEL_TOL[dtype])
 
 
-# every templated width, one that takes the generic body (5), the
-# sphere2500 shapes, a plan with long segments and many empty ones, E = 0
+# the sphere2500 shapes, widths of every copy unit (16, 8, 4 bytes), a plan
+# with long segments and many empty ones, E = 0
 SLOT_SHAPES = [
     (22500, 19792, 36), (2500, 9896, 6), (3500, 7814, 9), (3500, 7814, 3), (400, 1620, 49), (400, 820, 7),
     (300, 1000, 5), (1000, 40, 36), (7, 900, 36), (7, 900, 9), (10, 0, 36), (10, 0, 5),
-    # few destinations of many rows: a block per destination (the Schur sums
-    # of bench config 4 by camera), widths that leave threads idle, one row
-    # in flight, more columns than a block has threads, the largest grid
+    # few destinations of many rows (the Schur sums of bench config 4 by
+    # camera), one destination, rows wider than a slab (600, 1500), the
+    # largest grid
     (49, 25769, 36), (49, 25769, 6), (1, 5000, 3), (3, 2000, 5), (2, 700, 600), (2, 300, 1500), (1024, 70000, 9),
 ]
 
 
-def _ordered_sum(rows, long):
-    """The sum of one destination's rows (in plan order) as the kernel
-    forms it.  A sub-warp adds them one after the other.  The block of 1024
-    threads that a long segment gets keeps R = 1024 // C rows in flight:
-    partial sum r adds the rows r, r + R, ... one after the other, then the
-    partial sums meet pairwise, the upper half onto the lower."""
-    n, C = rows.shape
-    if not long:
-        acc = torch.zeros(C, dtype=rows.dtype)
-        for row in rows:
-            acc += row
-        return acc
-    R = max(1024 // C, 1)
-    partial = torch.zeros((R, C), dtype=rows.dtype)
-    for e in range(n):
-        partial[e % R] += rows[e]
-    h = 1
-    while 2 * h < R:
-        h *= 2
-    while h >= 1 and R > 1:
-        for r in range(min(h, R - h)):
-            partial[r] += partial[r + h]
-        h //= 2
-    return partial[0]
+def _check_tiled(out, contrib, perm, offsets, n_slots):
+    """``out``, a call without the plan's longest segment, has the bits of
+    the unit kernel's order (``tiled_slot_sum``), and where every segment
+    has at most ``SLOT_SEQ_ROWS`` rows, those of the sequential sum.  Then
+    the call with it, as the package's plans make it: the plain version's
+    sums, the same bits twice, the bits of its body's order
+    (``slot_reduce_model``: the sequential sum where the body is
+    sub-warps), one launch a call."""
+    model = tiled_slot_sum(contrib, perm, offsets, n_slots, cuda_ops.SLOT_TILE_ROWS, cuda_ops.SLOT_SEQ_ROWS)
+    assert torch.equal(out.cpu(), model)
+    n = offsets[1:] - offsets[:-1]
+    if n_slots and int(n.max()) <= cuda_ops.SLOT_SEQ_ROWS:
+        assert torch.equal(model, sequential_slot_sum(contrib, perm, offsets, n_slots))
+    longest = int(n.max()) if n_slots else 0
+    n0 = cuda_ops.LAUNCHES["slot_reduce"]
+    by_body = slot_reduce(contrib, perm, offsets, n_slots, longest)
+    assert torch.equal(by_body, slot_reduce(contrib, perm, offsets, n_slots, longest))
+    assert cuda_ops.LAUNCHES["slot_reduce"] == n0 + (2 if n_slots * contrib.shape[1] else 0)
+    if contrib.shape[0]:
+        _assert_close(by_body, slot_reduce_plain(contrib, perm, offsets, n_slots), KERNEL_TOL[contrib.dtype])
+    model = slot_reduce_model(contrib, perm, offsets, n_slots, longest)
+    assert torch.equal(by_body.cpu(), model)
+    if cuda_ops.slot_reduce_body(contrib.shape[0], n_slots, contrib.shape[1], longest) == "subwarps":
+        assert torch.equal(model, sequential_slot_sum(contrib, perm, offsets, n_slots))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -163,15 +160,10 @@ def test_slot_reduce_kernel_matches_plain(cuda_device, n_slots, E, C, dtype):
     ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["slot_reduce"] == 2
-    assert cuda_ops.slot_reduce_is_long(E, n_slots) == (
-        E * cuda_ops.LONG_SLOTS >= cuda_ops.LONG_MIN_ROWS * n_slots * max(n_slots, cuda_ops.LONG_SLOTS))
-    assert torch.equal(out, again)  # no atomics: the same bits every run
+    assert torch.equal(out, again)  # no atomics on values: the same bits every run
     if E:
         _assert_close(out, ref, KERNEL_TOL[dtype])
-        # the kernel's order exactly: the same sum on the host gives the same bits
-        slot = min(3, n_slots - 1)
-        rows = contrib[torch.from_numpy(plan.perm[plan.offsets[slot] : plan.offsets[slot + 1]]).long()].cpu()
-        assert torch.equal(out[slot].cpu(), _ordered_sum(rows, cuda_ops.slot_reduce_is_long(E, n_slots)))
+        _check_tiled(out, contrib, perm, offsets, n_slots)
     else:
         assert not out.any()
 
@@ -187,35 +179,81 @@ VENICE_SLOT_SHAPES = [(1700, 1700 * 300, 27), (1700, 1700 * 300, 21), (1700, 170
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_slots,E,C", VENICE_SLOT_SHAPES)
 def test_slot_reduce_both_kernels_past_1024_destinations(cuda_device, n_slots, E, C, dtype):
-    """Each kernel, named, against the plain version and bit for bit across
-    two runs; the dispatch takes one of them by the shape alone."""
+    """The kernel against the plain version, bit for bit across two runs
+    and against the host model of its order."""
     rng = np.random.default_rng(7)
     plan = bcsr.slot_plan(rng.integers(0, n_slots, E), n_slots)
     contrib = torch.from_numpy(rng.normal(size=(E, C))).to(cuda_device, dtype)
     perm = torch.from_numpy(plan.perm).to(cuda_device)
     offsets = torch.from_numpy(plan.offsets).to(cuda_device)
-    ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
-    outs = {}
-    for long in (True, False):
-        outs[long] = slot_reduce_kernel(contrib, perm, offsets, n_slots, long)
-        assert torch.equal(outs[long], slot_reduce_kernel(contrib, perm, offsets, n_slots, long))
-        _assert_close(outs[long], ref, KERNEL_TOL[dtype])
-    picked = cuda_ops.slot_reduce_is_long(E, n_slots)
-    assert torch.equal(slot_reduce(contrib, perm, offsets, n_slots), outs[picked])
+    out = slot_reduce(contrib, perm, offsets, n_slots)
+    assert torch.equal(out, slot_reduce(contrib, perm, offsets, n_slots))
+    _assert_close(out, slot_reduce_plain(contrib, perm, offsets, n_slots), KERNEL_TOL[dtype])
+    _check_tiled(out, contrib, perm, offsets, n_slots)
+
+
+def _skewed_sizes(kind, R, S):
+    """Rows per destination of a skewed plan: one destination of 20,000
+    rows among 4,000 of 1 to 5; destinations of S - 1, S, S + 1, R - 1, R
+    and R + 1 rows (and twice and three times R, around the chunk cuts)
+    among short ones; Zipf-distributed rows, as the pair plans of bench
+    config 6 have them."""
+    rng = np.random.default_rng(11)
+    if kind == "one_long":
+        sizes = np.concatenate([[20_000], rng.integers(1, 6, 4000)])
+    elif kind == "around_R":
+        sizes = np.concatenate([[S - 1, S, S + 1, R - 1, R, R + 1, 2 * R - 1, 2 * R, 2 * R + 1, 3 * R],
+                                rng.integers(0, 4, 500)])
+    else:
+        sizes = np.minimum(rng.zipf(1.4, 3000), 18_576)
+    rng.shuffle(sizes)
+    return sizes
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_slot_reduce_kernel_takes_an_unaligned_view(cuda_device, dtype):
-    """A contiguous view that starts off the 16-byte grid takes the generic
-    body and gives the same sums."""
+@pytest.mark.parametrize("C", [36, 21, 27, 81])
+@pytest.mark.parametrize("kind", ["one_long", "around_R", "zipf"])
+def test_slot_reduce_kernel_on_skewed_plans(cuda_device, kind, C, dtype):
+    """Skewed plans: the plain version's sums, the same bits on a second
+    run and the host model's bits (``tiled_slot_sum``), one launch a
+    call."""
+    sizes = _skewed_sizes(kind, cuda_ops.SLOT_TILE_ROWS, cuda_ops.SLOT_SEQ_ROWS)
+    n_slots = len(sizes)
+    rng = np.random.default_rng(12)
+    dest = np.repeat(np.arange(n_slots), sizes)
+    rng.shuffle(dest)
+    plan = bcsr.slot_plan(dest, n_slots)
+    contrib = torch.from_numpy(rng.normal(size=(len(dest), C))).to(cuda_device, dtype)
+    perm, offsets = torch.from_numpy(plan.perm).to(cuda_device), torch.from_numpy(plan.offsets).to(cuda_device)
+    cuda_ops.reset_launches()
+    out = slot_reduce(contrib, perm, offsets, n_slots)
+    again = slot_reduce(contrib, perm, offsets, n_slots)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["slot_reduce"] == 2 and torch.equal(out, again)
+    _assert_close(out, slot_reduce_plain(contrib, perm, offsets, n_slots), KERNEL_TOL[dtype])
+    _check_tiled(out, contrib, perm, offsets, n_slots)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [36, 81, 1500])
+def test_slot_reduce_kernel_takes_an_unaligned_view(cuda_device, C, dtype):
+    """A contiguous view that starts off the 16-byte grid takes copies of
+    the value's own size (4 or 8 bytes) and gives the same bits, also past
+    a chunk cut."""
     rng = np.random.default_rng(6)
-    n_slots, E, C = 50, 200, 36
-    plan = bcsr.slot_plan(rng.integers(0, n_slots, E), n_slots)
+    sizes = np.concatenate([[700], rng.integers(0, 6, 50)])
+    n_slots, E = len(sizes), int(sizes.sum())
+    dest = np.repeat(np.arange(n_slots), sizes)
+    rng.shuffle(dest)
+    plan = bcsr.slot_plan(dest, n_slots)
     flat = torch.from_numpy(rng.normal(size=E * C + 1)).to(cuda_device, dtype)
     perm, offsets = torch.from_numpy(plan.perm).to(cuda_device), torch.from_numpy(plan.offsets).to(cuda_device)
     view = flat[1:].reshape(E, C)
     assert view.is_contiguous() and view.data_ptr() % 16 != 0
-    assert torch.equal(slot_reduce(view, perm, offsets, n_slots), slot_reduce(view.clone(), perm, offsets, n_slots))
+    assert cuda_ops.slot_reduce_layout(E, C, view.element_size(), view.data_ptr())[0] == view.element_size()
+    out = slot_reduce(view, perm, offsets, n_slots)
+    assert torch.equal(out, slot_reduce(view.clone(), perm, offsets, n_slots))
+    _check_tiled(out, view, perm, offsets, n_slots)
 
 
 # --------------------------------------------------------------------------
@@ -692,6 +730,7 @@ def _check_slot_plan(device, perm, offsets, n_slots, C, dtype, seed):
     assert cuda_ops.LAUNCHES["slot_reduce"] == 2
     assert torch.equal(out, again)
     _assert_close(out, ref, KERNEL_TOL[dtype])
+    _check_tiled(out, contrib, perm, offsets, n_slots)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -850,8 +889,8 @@ def test_slot_reduce_at_the_schur_sqrt_shape(cuda_device, dtype):
     """The reduced camera system of the square-root path at Ladybug-49's
     size: 112,000 camera-pair contributions of width 36 into the 128
     co-observing pairs of its 2,401 blocks (clustered cameras: up to 6,758
-    rows a pair, the block-per-destination kernel), and the gradient rows
-    (width 6 into 49), against the plain version and a second run."""
+    rows a pair), and the gradient rows (width 6 into 49), against the plain
+    version, a second run and the host model of the kernel's order."""
     from pyslam_tpu_torch.io import bal
     from pyslam_tpu_torch.solver import schur_sqrt
 
@@ -859,7 +898,6 @@ def test_slot_reduce_at_the_schur_sqrt_shape(cuda_device, dtype):
     plan = schur_sqrt.build_sqrt_plan(g)
     assert len(plan.pair_plan[0]) == 112_000 and plan.C == 49
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    assert cuda_ops.slot_reduce_is_long(112_000, len(plan.pair_blocks))
     for (perm, offsets), width, n_slots in ((plan.pair_plan, 36, len(plan.pair_blocks)), (plan.grad_plan, 6, 49)):
         perm, offsets = (torch.from_numpy(a).to(cuda_device) for a in (perm, offsets))
         contrib = torch.randn((len(perm), width), generator=gen, device=cuda_device, dtype=dtype)
@@ -867,6 +905,7 @@ def test_slot_reduce_at_the_schur_sqrt_shape(cuda_device, dtype):
         ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
         _assert_close(out, ref, KERNEL_TOL[dtype])
         assert torch.equal(out, slot_reduce(contrib, perm, offsets, n_slots))
+        _check_tiled(out, contrib, perm, offsets, n_slots)
 
 
 def _gn_makes_no_sync(sm, state):

@@ -34,6 +34,7 @@ from pyslam_tpu_torch.graph.core import FactorBatch, FactorGraph
 from pyslam_tpu_torch.io import synth
 from pyslam_tpu_torch.losses import L2Loss
 from pyslam_tpu_torch.solver import Options, assemble_dense, cuda_ops, solve_implicit
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 OPTS = dict(method="lm", max_iters=60, min_cost_decrease=1 - 1e-13, min_update_norm=1e-14)
 REL = 1e-8

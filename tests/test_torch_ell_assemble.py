@@ -34,6 +34,7 @@ from pyslam_tpu_torch.solver import bcsr as tb
 from pyslam_tpu_torch.solver import cuda_ops
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.testing import se3_stress_arrays, se3_stress_graph
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 # the losses the kernel evaluates: (class name, fields)
 LOSSES = {

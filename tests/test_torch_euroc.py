@@ -12,6 +12,7 @@ from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu.io import trajectory as jtraj
 from pyslam_tpu_torch.io import euroc as teuroc
 from pyslam_tpu_torch.io import trajectory as ttraj
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def _same(a, b):

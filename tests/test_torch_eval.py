@@ -15,6 +15,7 @@ from pyslam_tpu.eval import interpolate_poses as jax_interpolate
 from pyslam_tpu.lie import se2 as jse2
 from pyslam_tpu.lie import se3 as jse3
 from pyslam_tpu_torch.eval import TrajectoryMetrics, TrajectoryVisualizer, associate, interpolate_poses
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = 1e-12
 

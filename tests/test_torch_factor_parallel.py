@@ -32,6 +32,7 @@ from pyslam_tpu_torch.graph import FactorGraph, graph_from_numpy
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver import route_auto
 from pyslam_tpu_torch.solver.assemble import assemble_dense
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 WORLDS = (1, 3)
@@ -66,7 +67,8 @@ AUTO = dict(key="sphere_auto", solver="auto", graph=ARRAYS["sphere"][1], options
 def ranks(tmp_path_factory):
     """{world size: [each rank's results]}."""
     tmp = tmp_path_factory.mktemp("factor_parallel")
-    return {n: run_group(n, JOBS + ([AUTO] if n > 1 else []), tmp) for n in WORLDS}
+    # every world together takes about 7 s
+    return {n: run_group(n, JOBS + ([AUTO] if n > 1 else []), tmp, timeout_s=30) for n in WORLDS}
 
 
 def jax_solve(monkeypatch, name, n):

@@ -21,6 +21,7 @@ from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu.solver import fixed_lag as jfl
 from pyslam_tpu_torch.solver import fixed_lag as tfl
 from pyslam_tpu_torch.testing import drive_fixed_lag, drive_fixed_lag_landmarks, window_trajectory
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = dict(j=jnp.float64, t=torch.float64)
 

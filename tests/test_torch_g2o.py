@@ -17,6 +17,7 @@ from pyslam_tpu.io import g2o as jg2o
 from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu_torch.io import g2o as tg2o
 from pyslam_tpu_torch.io import synth as tsynth
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 DATASETS = {
     "se2_manhattan": lambda s: s.se2_manhattan(n_poses=200, seed=1),

@@ -25,6 +25,7 @@ from pyslam_tpu.solver import lm as jlm
 from pyslam_tpu_torch.solver import bcsr as tbcsr
 from pyslam_tpu_torch.solver import gnc as tgnc
 from pyslam_tpu_torch.solver import lm as tlm
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 OPTS = dict(method="lm", max_iters=30, min_cost_decrease=0.999)
 

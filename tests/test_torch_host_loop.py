@@ -30,6 +30,7 @@ from pyslam_tpu_torch.solver import host_lm_loop, host_lm_loop_speculative
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver.linear import HOST_READS, reset_host_reads
 from pyslam_tpu_torch.solver.schur_large import solve_schur_large
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def scripted_step(costs, dx_norms=None, lams=None, wrap=float):

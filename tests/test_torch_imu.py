@@ -25,6 +25,7 @@ from pyslam_tpu.solver import lm as jlm
 from pyslam_tpu_torch import imu as T
 from pyslam_tpu_torch.graph.core import FACTOR_KERNELS as TK
 from pyslam_tpu_torch.solver import lm as tlm
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 B_G = np.array([0.002, -0.001, 0.003])
 B_A = np.array([0.05, -0.03, 0.02])

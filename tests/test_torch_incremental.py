@@ -21,6 +21,7 @@ from pyslam_tpu_torch.sensors import StereoCamera as TStereo
 from pyslam_tpu_torch.solver import Options
 from pyslam_tpu_torch.solver import incremental as tinc
 from pyslam_tpu_torch.testing import drive_incremental, drive_incremental_landmarks
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def _pair(opts, **kw):

@@ -38,6 +38,7 @@ from pyslam_tpu_torch.io import synth as tsynth
 from pyslam_tpu_torch.solver import bcsr
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver import route_auto
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 CPU = dict(dtype=torch.float64, device="cpu")
 

@@ -23,7 +23,9 @@ from pyslam_tpu.solver.pallas_ops import ell_matvec_pallas, scatter_matmul
 from pyslam_tpu_torch import _ext
 from pyslam_tpu_torch.solver import cuda_ops
 from pyslam_tpu_torch.solver.bcsr import slot_plan
-from pyslam_tpu_torch.solver.cuda_ops import ell_matvec, slot_reduce
+from pyslam_tpu_torch.solver.cuda_ops import ell_matvec, slot_reduce, slot_reduce_plain
+from torch_support import (  # noqa: F401
+    CHUNK_STRIDE, block_slot_sum, one_torch_thread, sequential_slot_sum, slot_reduce_model, tiled_slot_sum)
 
 
 def _random_ell(nb, K, d, seed):
@@ -138,17 +140,180 @@ def test_slot_plan_sorts_as_numpy_stable_argsort(n_slots, E):
     np.testing.assert_array_equal(np.diff(plan.offsets), np.bincount(dest, minlength=n_slots))
 
 
-def test_slot_reduce_kernel_choice_reads_the_shape_only():
-    """Few destinations of many rows take the block-per-destination kernel:
-    the Schur sums by camera of bench configs 4 and 6, not their sums by
-    landmark, not the assemblies of the pose-graph cells.  Past 1,024
-    destinations the rows a destination needs grow with the destinations."""
-    long = cuda_ops.slot_reduce_is_long
-    assert long(25769, 49) and long(64, 1) and long(1024 * 64, 1024)
-    assert long(4_650_850, 1700) and long(10**6, 1025) and long(4096 * 256, 4096)
-    assert not long(25769, 7000) and not long(19792, 22500) and not long(63, 1)
-    assert not long(4_650_850, 1_000_000) and not long(1700 * 64, 1700) and not long(16384 * 300, 16384)
-    assert not long(0, 5)
+def test_slot_reduce_grid_follows_from_the_shape():
+    """A tile a SLOT_TILE_ROWS plan positions, and none when there are
+    none: the grid needs no read of the device.  The scratch holds two rows
+    a tile (a tile holds at most two chunk starts)."""
+    R = cuda_ops.SLOT_TILE_ROWS
+    assert R == 256 and cuda_ops.SLOT_SEQ_ROWS == 64
+    assert [cuda_ops.slot_reduce_tiles(E) for E in (0, 1, R - 1, R, R + 1, 19792, 6_240_488)] == [
+        0, 1, 1, 1, 2, 78, 24_377]
+
+
+@pytest.mark.parametrize("E,C,itemsize,address,layout", [
+    (19792, 36, 4, 0, (16, 8, 2, 1)),        # sphere2500's blocks: nine 16-byte units, 8 lanes of 2
+    (9896, 6, 4, 0, (8, 4, 1, 1)),           # gradient rows: 24 bytes, three 8-byte units
+    (4_650_850, 9, 4, 0, (4, 8, 2, 14)),     # config 6 by landmark: 36 bytes, 4-byte units, 128 KB a block
+    (19792, 81, 4, 0, (4, 32, 4, 1)),        # the chordal rotation assembly: 81 units, 32 lanes of up to 3
+    (6_240_488, 36, 4, 0, (16, 8, 2, 3)),    # a pair plan of config 6
+    (6_240_488, 36, 4, 4, (4, 32, 2, 3)),    # ... a view off the 16-byte grid: 36 units
+    (6_240_488, 36, 4, 8, (8, 16, 2, 3)),    # ... on the 8-byte grid
+    (4_650_850, 6, 4, 0, (8, 4, 1, 21)),     # config 6 by camera, width 6
+    (200_000, 6, 4, 0, (8, 4, 1, 2)),        # no more than two blocks an SM's worth of tiles
+    (200_000, 36, 8, 0, (16, 16, 2, 1)),
+    (200_000, 27, 8, 8, (8, 32, 1, 2)),
+    (10**8, 3, 4, 0, (4, 4, 1, 42)),
+    (1000, 600, 4, 0, (16, 32, 4, 1)),       # 150 units: 128 a walk of the segment, then 22
+    (10**8, 1, 8, 8, (8, 1, 1, 64)),
+    (0, 5, 4, 0, (4, 4, 2, 1)),
+])
+def test_slot_reduce_layout(E, C, itemsize, address, layout):
+    """The unit is the widest of 16 and 8 bytes that divides the row and
+    its address, else the value's own size; a sub-warp of the lanes that
+    the sub-warp kernel's rule gave the row's units, each lane holding 1, 2
+    or 4 units; about 128 KB of rows a block of chunks, while that leaves
+    at least 264 such blocks."""
+    unit, lanes, per_lane, group = cuda_ops.slot_reduce_layout(E, C, itemsize, address)
+    assert (unit, lanes, per_lane, group) == layout
+    assert C * itemsize % unit == 0 and address % unit == 0 and 32 % lanes == 0
+    assert 1 <= group <= 64 and (group == 1 or group * cuda_ops.SLOT_TILE_ROWS * C * itemsize <= 1 << 17)
+
+
+def test_tiled_slot_sum_models_the_kernel_order():
+    """The host model of the kernel's order that the card's tests hold it to:
+    the plain version's sums; a segment of at most SLOT_SEQ_ROWS rows with
+    the bits of the sequential sum; a longer one of at most SLOT_TILE_ROWS
+    rows as J = 8 strided sums added in order; a longer one still with the
+    bits of its chunks' sums added in order, each chunk so."""
+    R, S, J = cuda_ops.SLOT_TILE_ROWS, cuda_ops.SLOT_SEQ_ROWS, CHUNK_STRIDE
+    assert (R, S, J) == (256, 64, 8)
+    rng = np.random.default_rng(3)
+    sizes = np.concatenate([[5 * R + 3, R - 1, R, R + 1, S, S + 1, 0, 0], rng.integers(0, 6, 300)])
+    rng.shuffle(sizes)
+    n_slots = len(sizes)
+    dest = np.repeat(np.arange(n_slots), sizes)
+    rng.shuffle(dest)
+    plan = slot_plan(dest, n_slots)
+    contrib = torch.from_numpy(rng.normal(size=(len(dest), 5)).astype(np.float32))
+    perm, offsets = _t(plan.perm), _t(plan.offsets)
+    model = tiled_slot_sum(contrib, perm, offsets, n_slots, R, S)
+    ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
+    assert (model - ref).abs().max() <= 1e-5 * ref.abs().max()
+    short = torch.from_numpy(sizes <= S)
+    assert torch.equal(model[short], sequential_slot_sum(contrib, perm, offsets, n_slots)[short])
+
+    def strided(rows):
+        acc = torch.zeros(5)
+        for j in range(J):
+            part = torch.zeros(5)
+            for row in rows[j::J]:
+                part = part + row
+            acc = acc + part
+        return acc
+
+    for size in (S + 1, R):
+        (s,) = np.flatnonzero(sizes == size)
+        assert torch.equal(model[s], strided(contrib[perm[plan.offsets[s]:plan.offsets[s + 1]].long()]))
+    (s,) = np.flatnonzero(sizes == 5 * R + 3)
+    rows = contrib[perm[plan.offsets[s]:plan.offsets[s + 1]].long()]
+    acc = torch.zeros(5)
+    for k in range(6):
+        acc = acc + strided(rows[k * R:(k + 1) * R])
+    assert torch.equal(model[s], acc)
+
+
+def test_slot_plan_notes_the_longest_segment():
+    """A plan's longest segment is noted where the plan is built, from the
+    host array, and travels with the plan to ``slot_reduce``: on
+    ``SlotPlan``, ``Segments``, ``DenseGroup`` and ``EllDevicePlan``."""
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth as tsynth
+    from pyslam_tpu_torch.solver import assemble, bcsr
+    from pyslam_tpu_torch.solver.schur_large import _segments
+
+    plan = slot_plan(np.array([0, 0, 0, 2, 2, 3]), 5)
+    assert plan.longest == 3 == cuda_ops.slot_longest(plan.offsets)
+    assert slot_plan(np.zeros(0, np.int64), 4).longest == 0 == cuda_ops.slot_longest(np.zeros(5, np.int32))
+    assert slot_plan(np.zeros(0, np.int64), 0).longest == 0 == cuda_ops.slot_longest(np.zeros(1, np.int32))
+    seg = _segments(np.array([1, 1, 0, 1]), 3, "cpu")
+    assert seg.longest == 3 and seg.offsets.tolist() == [0, 1, 4, 4]
+    g = build.pose_graph(tsynth.se3_sphere(n_poses=30, seed=0), dtype=torch.float64, device="cpu")
+    d_plan = assemble.dense_plan(g)
+    for grp in d_plan.h_groups + d_plan.g_groups:
+        assert grp.longest == int(np.diff(grp.offsets.numpy()).max())
+    dplan = bcsr.ell_device_plan(bcsr.build_ell_direct(g), "cpu")
+    assert dplan.h_longest == cuda_ops.slot_longest(dplan.h_offsets.numpy())
+    assert dplan.g_longest == cuda_ops.slot_longest(dplan.g_offsets.numpy())
+
+
+# (E, n_slots, C, longest, body) at the shapes of PERF.md's kernel table
+@pytest.mark.parametrize("E,n_slots,C,longest,body", [
+    (19792, 22500, 36, 8, "subwarps"),        # sphere2500's Hessian blocks
+    (9896, 2500, 6, 8, "subwarps"),           # ... gradient rows
+    (19792, 22500, 81, 8, "subwarps"),        # the chordal rotation assembly
+    (4_650_850, 1_000_000, 9, 5, "subwarps"),  # config 6 by landmark
+    (4453, 250, 4, 20, "subwarps"),           # config 8's window
+    (25769, 49, 36, 610, "block"),            # config 4 by camera: chain 22 rows
+    (25769, 49, 6, 610, "block"),             # ... 4 rows
+    (22500, 172, 36, 1056, "block"),          # two-level A_c: 38 rows
+    (2500, 20, 6, 125, "block"),              # two-level r_c: the old rule's block
+    (331_635, 300, 27, 2345, "block"),        # Venice-mini by camera: 64 rows
+    (331_635, 300, 36, 2345, "tiles"),        # ... 84 rows
+    (112_000, 128, 36, 6758, "tiles"),        # the square-root path's camera pairs
+    (4_650_850, 1700, 6, 23016, "tiles"),     # config 6 by camera
+    (6_240_488, 17076, 36, 18576, "tiles"),   # config 6's cluster pair plan
+    (6_240_488, 17076, 36, None, "tiles"),    # no longest: the body that sums any plan
+    (100, 1, 3, 100, "block"),                # one segment of 100 rows: the old rule's block
+    (300, 10, 3, 100, "subwarps"),            # 30 rows a destination on average: the old rule's sub-warps
+    (0, 4, 6, 0, "subwarps"),
+])
+def test_slot_reduce_body(E, n_slots, C, longest, body):
+    """The body follows from the shape and the plan's longest segment: the
+    old rule's choice where every segment has at most SLOT_TILE_ROWS rows,
+    past that the block where its longest chain has at most
+    SLOT_BLOCK_DEPTH rows, else the tiles."""
+    assert cuda_ops.slot_reduce_body(E, n_slots, C, longest) == body
+
+
+@pytest.mark.parametrize("longest,C,depth", [(610, 36, 22), (610, 6, 4), (2345, 27, 64), (2345, 36, 84),
+                                             (6758, 6, 40), (10, 1500, 20), (0, 9, 0)])
+def test_slot_block_depth(longest, C, depth):
+    """ceil(longest / (1024 // C)) rows a thread, again for each 1024
+    columns past 1024."""
+    assert cuda_ops.slot_block_depth(longest, C) == depth
+
+
+@pytest.mark.parametrize("C", [6, 36, 600, 1500])
+def test_block_slot_sum_models_the_block_order(C):
+    """The host model of the block body: the plain version's sums, and a
+    segment's bits those of Rb strided partial sums met pairwise."""
+    rng = np.random.default_rng(4)
+    sizes = np.array([700, 0, 3, 1, 1200, 40])
+    n_slots = len(sizes)
+    dest = np.repeat(np.arange(n_slots), sizes)
+    rng.shuffle(dest)
+    plan = slot_plan(dest, n_slots)
+    contrib = torch.from_numpy(rng.normal(size=(len(dest), C)).astype(np.float32))
+    perm, offsets = _t(plan.perm), _t(plan.offsets)
+    model = block_slot_sum(contrib, perm, offsets, n_slots)
+    ref = slot_reduce_plain(contrib, perm, offsets, n_slots)
+    assert (model - ref).abs().max() <= 1e-5 * ref.abs().max()
+    Rb = max(1024 // C, 1)
+    rows = contrib[perm[plan.offsets[4]:plan.offsets[5]].long()]
+    partial = [torch.zeros(C) for _ in range(Rb)]
+    for e in range(len(rows)):
+        partial[e % Rb] = partial[e % Rb] + rows[e]
+    h = 1
+    while 2 * h < Rb:
+        h *= 2
+    while Rb > 1 and h >= 1:
+        for r in range(min(h, Rb - h)):
+            partial[r] = partial[r] + partial[r + h]
+        h //= 2
+    assert torch.equal(model[4], partial[0])
+    assert torch.equal(slot_reduce_model(contrib, perm, offsets, n_slots, plan.longest),
+                       model if cuda_ops.slot_reduce_body(len(dest), n_slots, C, plan.longest) == "block"
+                       else tiled_slot_sum(contrib, perm, offsets, n_slots, 256, 64))
 
 
 def test_slot_reduce_of_nothing_is_zero():

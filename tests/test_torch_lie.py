@@ -15,6 +15,7 @@ from pyslam_tpu.lie import se3 as jse3
 from pyslam_tpu.lie import so3 as jso3
 from pyslam_tpu_torch.lie import se3 as tse3
 from pyslam_tpu_torch.lie import so3 as tso3
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 REGIMES = ["small", "generic", "near_pi"]
 TOL = {"small": 1e-12, "generic": 1e-12, "near_pi": 1e-9}

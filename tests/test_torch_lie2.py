@@ -20,6 +20,7 @@ from pyslam_tpu.lie import so2 as jso2
 from pyslam_tpu_torch.lie import se2 as tse2
 from pyslam_tpu_torch.lie import sim3 as tsim3
 from pyslam_tpu_torch.lie import so2 as tso2
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 N = 16
 TOL = {

@@ -11,6 +11,7 @@ import torch
 
 from pyslam_tpu import losses as jl
 from pyslam_tpu_torch import losses as tl
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 LOSSES = [
     ("L2Loss", {}),

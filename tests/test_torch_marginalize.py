@@ -34,6 +34,7 @@ from pyslam_tpu_torch.graph import FACTOR_KERNELS, FactorBatch, FactorGraph, Var
 from pyslam_tpu_torch.lie import se2, se3
 from pyslam_tpu_torch.losses import L2Loss
 from pyslam_tpu_torch.solver import Options, assemble_dense, solve, solve_ell
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 
@@ -272,7 +273,6 @@ def test_marginalized_pose_graph_through_solve_ell(optima):
     np.testing.assert_allclose(ti.chi2.item(), float(ji.chi2), rtol=1e-9)
     np.testing.assert_allclose(_np(t3.blocks["poses"].values), np.asarray(j3.blocks["poses"].values), rtol=0,
                                atol=1e-8)
-
 
 
 def test_vio_window_marginalization_matches_reference():

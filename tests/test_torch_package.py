@@ -21,16 +21,23 @@ from pyslam_tpu_torch.lie import se2, se3, sim3, so2, so3
 from pyslam_tpu_torch.pipelines import stereo_match
 from pyslam_tpu_torch.solver import FixedLagLandmarkSmoother, FixedLagSmoother, IncrementalSmoother, covariance
 from pyslam_tpu_torch.testing import se3_stress_graph
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "pyslam_tpu_torch"
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pyslam_tpu)\b", re.M)
 
 
+# A subprocess here takes about 3 s (an import of torch and the package):
+# a hang fails its test after SUBPROCESS_TIMEOUT_S, and a slow host has room.
+SUBPROCESS_TIMEOUT_S = 15
+
+
 def _run(code, cwd=ROOT):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run(
-        [sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=SUBPROCESS_TIMEOUT_S,
     )
 
 
@@ -275,7 +282,7 @@ def test_chip_smoke_fails_without_a_gpu():
     result line."""
     proc = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py")],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        cwd=ROOT, capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S,
     )
     if proc.returncode == 0:
         pytest.skip("a CUDA device is present: the script ran for real")

@@ -11,6 +11,7 @@ import pyslam_tpu.dist.partitioner as jp
 import pyslam_tpu_torch.dist.partitioner as tp
 from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu_torch import dist
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def _same(a, b):

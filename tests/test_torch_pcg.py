@@ -34,6 +34,7 @@ from pyslam_tpu_torch.solver import cuda_ops
 from pyslam_tpu_torch.solver.bcsr import sym_block_inv
 from pyslam_tpu_torch.solver.cuda_ops import ell_pcg
 from pyslam_tpu_torch.solver.linear import HOST_READS, reset_host_reads
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def _sphere_system():

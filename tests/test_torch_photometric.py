@@ -22,6 +22,7 @@ from pyslam_tpu_torch.pipelines import PhotometricResidualSE3
 from pyslam_tpu_torch.sensors import RGBDCamera, StereoCamera
 from pyslam_tpu_torch.testing import PLANE_CAM, render_rgbd, render_stereo
 from pyslam_tpu_torch.utils import pack_corners
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = 1e-12
 KINDS = ["photometric_se3", "photometric_affine_se3"]

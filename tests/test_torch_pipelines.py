@@ -24,6 +24,7 @@ from pyslam_tpu_torch.pipelines import DenseRGBDPipeline, DenseStereoPipeline
 from pyslam_tpu_torch.pipelines.keyframes import DenseRGBDKeyframe, DenseStereoKeyframe
 from pyslam_tpu_torch.sensors import RGBDCamera, StereoCamera
 from pyslam_tpu_torch.testing import PLANE_CAM, render_rgbd, render_stereo
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4  # per frame, translation (m) and rotation (rad), float32 in both packages

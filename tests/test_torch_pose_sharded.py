@@ -38,6 +38,7 @@ from pyslam_tpu_torch import dist
 from pyslam_tpu_torch.graph import graph_from_numpy
 from pyslam_tpu_torch.solver import bcsr, cuda_ops
 from pyslam_tpu_torch.solver import lm as tlm
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 
@@ -135,10 +136,11 @@ def ranks(tmp_path_factory):
         dict(key="auto", solver="auto", graph=ARRAYS["se2"][1], options=AUTO_OPTIONS,
              kw=dict(route="pose_sharded", force=True)),
     ]
-    out = {3: run_group(3, three, tmp)}
+    # the three groups together take about 35 s
+    out = {3: run_group(3, three, tmp, timeout_s=105)}
     # one host died: the checkpoint of three ranks resumes on two
-    out[2] = run_group(2, [job("ck_resume", "se2", CK_HALF, checkpoint_path=ck3, resume=True)], tmp)
-    out[1] = run_group(1, [job("se2", "se2"), job("se2_again", "se2")], tmp)
+    out[2] = run_group(2, [job("ck_resume", "se2", CK_HALF, checkpoint_path=ck3, resume=True)], tmp, timeout_s=105)
+    out[1] = run_group(1, [job("se2", "se2"), job("se2_again", "se2")], tmp, timeout_s=105)
     return out, dict(ck3=ck3, bare=bare)
 
 

@@ -25,6 +25,7 @@ from pyslam_tpu_torch.graph import build, register_autodiff_factor
 from pyslam_tpu_torch.graph.core import FACTOR_KERNELS
 from pyslam_tpu_torch.io import synth
 from pyslam_tpu_torch.residuals import _ResidualBase
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 REL = 1e-8
 CAM = dict(cu=320.0, cv=240.0, fu=500.0, fv=500.0, b=0.25, w=640, h=480)

@@ -21,6 +21,7 @@ from pyslam_tpu.sensors import StereoCamera as JaxStereo
 from pyslam_tpu_torch import testing
 from pyslam_tpu_torch.pipelines.ransac import FrameToFrameRANSAC, draw_samples, kabsch, ransac_from_samples
 from pyslam_tpu_torch.sensors import StereoCamera
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAM_ARGS = dict(cu=320.0, cv=240.0, fu=500.0, fv=500.0, b=0.3, w=640, h=480)

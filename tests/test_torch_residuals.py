@@ -25,6 +25,7 @@ from pyslam_tpu_torch import imu as timu
 from pyslam_tpu_torch.graph.marginalize import _ensure_dense_prior_kernel as t_prior_kernel
 from pyslam_tpu_torch.lie import SE2, SE3, Sim3
 from pyslam_tpu_torch.sensors import RGBDCamera, StereoCamera
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = 1e-12
 CAM = dict(cu=320.0, cv=240.0, fu=500.0, fv=480.0, b=0.25, w=640, h=480)

@@ -38,18 +38,9 @@ from pyslam_tpu_torch import dist
 from pyslam_tpu_torch.graph import graph_from_numpy
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver import schur
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Many small CPU ops: one torch thread a worker (see
-    ``test_torch_schur_sharded.py``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _stereo(seed=3, loss=None):
@@ -149,10 +140,12 @@ def ranks(tmp_path_factory):
         job("ck_resume", CK_GRAPH, CK_HALF, checkpoint_path=ck3, resume=True, **CK),
         job("jax_resume", CK_GRAPH, CK_HALF, checkpoint_path=jax_ck, resume=True, **CK),
     ]
-    out = {3: run_group(3, three, tmp)}
+    # the three groups together take about 33 s
+    out = {3: run_group(3, three, tmp, timeout_s=100)}
     # one host died: the checkpoint of three ranks resumes on two
-    out[2] = run_group(2, [job("ck_resume", CK_GRAPH, CK_HALF, checkpoint_path=ck3, resume=True, **CK)], tmp)
-    out[1] = run_group(1, [job("stereo", "stereo"), job("stereo_again", "stereo")], tmp)
+    out[2] = run_group(2, [job("ck_resume", CK_GRAPH, CK_HALF, checkpoint_path=ck3, resume=True, **CK)], tmp,
+                       timeout_s=100)
+    out[1] = run_group(1, [job("stereo", "stereo"), job("stereo_again", "stereo")], tmp, timeout_s=100)
     return out, dict(ck3=ck3, jax_ck=jax_ck)
 
 

@@ -58,6 +58,7 @@ from pyslam_tpu_torch.solver.linear import HOST_READS, reset_host_reads
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import profile_port  # noqa: E402  (the repository root's script, for its plain CG loop)
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 

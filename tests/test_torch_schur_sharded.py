@@ -44,19 +44,9 @@ from pyslam_tpu_torch import dist
 from pyslam_tpu_torch.graph import graph_from_numpy
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver import schur
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU ops in this module are many and small: under the
-    parallel test run, with every worker's thread pool on the same cores,
-    they run ten times slower on torch's default threads than on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _stereo(seed=3, loss=None, n_cams=8, n_pts=64, obs_per_pt=4):
@@ -187,10 +177,12 @@ def ranks(tmp_path_factory):
         dict(key="auto", solver="auto", graph=ARRAYS["stereo"][1], options=AUTO_OPTIONS,
              kw=dict(route="schur_reduce")),
     ] + ck_jobs
-    out = {3: run_group(3, three, tmp)}
+    # the three groups together take about 41 s
+    out = {3: run_group(3, three, tmp, timeout_s=125)}
     # one host died: the checkpoint of three ranks resumes on two
-    out[2] = run_group(2, [job("ck_resume", CK_GRAPH, CK_HALF, checkpoint_path=ck3, resume=True, **CK)], tmp)
-    out[1] = run_group(1, [job("stereo", "stereo"), job("stereo_again", "stereo")], tmp)
+    out[2] = run_group(2, [job("ck_resume", CK_GRAPH, CK_HALF, checkpoint_path=ck3, resume=True, **CK)], tmp,
+                       timeout_s=125)
+    out[1] = run_group(1, [job("stereo", "stereo"), job("stereo_again", "stereo")], tmp, timeout_s=125)
     return out, dict(ck3=ck3, bare=bare, jax_ck=jax_ck)
 
 
@@ -358,7 +350,9 @@ def test_shard_ba_takes_either_observation_order():
 @pytest.fixture(scope="module")
 def marginal_ranks(tmp_path_factory):
     """Each of two ranks' results of the marginals jobs."""
-    return run_group(2, [marginals_job(name) for name in MARGINAL_GRAPHS], tmp_path_factory.mktemp("marginals"))
+    # about 37 s
+    return run_group(2, [marginals_job(name) for name in MARGINAL_GRAPHS], tmp_path_factory.mktemp("marginals"),
+                     timeout_s=110)
 
 
 @pytest.mark.parametrize("name", MARGINAL_GRAPHS)

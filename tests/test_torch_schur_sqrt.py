@@ -27,6 +27,7 @@ from pyslam_tpu.losses import HuberLoss as JHuber
 from pyslam_tpu.solver import Options as JOptions
 from pyslam_tpu.solver import schur_sqrt as jsq
 from pyslam_tpu_torch.solver import Options, schur_sqrt, solve_schur
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 

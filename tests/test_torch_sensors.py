@@ -12,6 +12,7 @@ import torch
 
 from pyslam_tpu import sensors as jsensors
 from pyslam_tpu_torch import sensors as tsensors
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 CAMERAS = {
     "StereoCamera": dict(cu=321.5, cv=239.25, fu=505.0, fv=498.0, b=0.24, w=640, h=480),

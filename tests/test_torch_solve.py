@@ -17,6 +17,7 @@ from pyslam_tpu.solver.linear import pcg_solve as j_pcg_solve
 from pyslam_tpu_torch.solver import bcsr as tb
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver.linear import HOST_READS, pcg_solve, reset_host_reads
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 CASES = [
     ("l2", "lm", True),

@@ -69,6 +69,7 @@ from pyslam_tpu_torch.solver import (
     sparse_chol,
 )
 from pyslam_tpu_torch.solver.linear import HOST_READS, reset_host_reads
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 
@@ -462,7 +463,7 @@ def test_solve_auto_refuses_what_is_not_ported(tmp_path):
     arrays, options = to_arrays(jg), dict(method="lm", max_iters=6)
     (out,) = run_group(1, [dict(key="auto", solver="auto", graph=arrays, options=options,
                                 kw=dict(route="schur_cm", force=True, **kw)),
-                           dict(key="cm", solver="cm", graph=arrays, options=options)], tmp_path)
+                           dict(key="cm", solver="cm", graph=arrays, options=options)], tmp_path, timeout_s=15)
     assert out["auto"]["history"] == out["cm"]["history"] and out["auto"]["lams"] == out["cm"]["lams"]
     for k in out["cm"]["values"]:
         np.testing.assert_array_equal(out["auto"]["values"][k], out["cm"]["values"][k])

@@ -33,6 +33,7 @@ from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver import sparse_chol as tsc
 from pyslam_tpu_torch.solver.cuda_ops import LAUNCHES, reset_launches
 from pyslam_tpu_torch.solver.linear import HOST_READS, reset_host_reads
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 F64 = jnp.float64
 

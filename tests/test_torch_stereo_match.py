@@ -12,6 +12,7 @@ from pyslam_tpu.pipelines.keyframes import compute_disparity as jax_compute_disp
 from pyslam_tpu.pipelines.stereo_match import block_match as jax_block_match
 from pyslam_tpu_torch.pipelines.keyframes import compute_disparity
 from pyslam_tpu_torch.pipelines.stereo_match import _cumsum, block_match
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def _pair(H, W, d_true, seed, noise=0.0, smooth=3):

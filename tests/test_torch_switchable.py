@@ -30,6 +30,7 @@ from pyslam_tpu_torch.io import g2o as tg2o
 from pyslam_tpu_torch.io import synth as tsynth
 from pyslam_tpu_torch.solver import assemble as tassemble
 from pyslam_tpu_torch.solver import lm as tlm
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 CPU = dict(dtype=torch.float64, device="cpu")
 

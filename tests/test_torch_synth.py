@@ -8,6 +8,7 @@ import pytest
 
 from pyslam_tpu.io import synth as jsynth
 from pyslam_tpu_torch.io import synth as tsynth
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 GENERATORS = [
     ("se3_sphere", dict(n_poses=80, seed=3)),

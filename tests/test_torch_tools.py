@@ -29,6 +29,7 @@ from pyslam_tpu_torch.graph import build
 from pyslam_tpu_torch.graph.core import FactorBatch, FactorGraph
 from pyslam_tpu_torch.io import synth
 from pyslam_tpu_torch.solver import Options, solve
+from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = 1e-12
 

@@ -161,10 +161,12 @@ def to_arrays(g):
 _STORE = itertools.count()
 
 
-def run_group(world_size, jobs, tmp_dir, timeout_s=300.0):
+def run_group(world_size, jobs, tmp_dir, timeout_s):
     """``run_jobs`` on ``world_size`` gloo ranks, spawned; a world of one
     runs in this process, its group destroyed after.  Every rank's results,
-    in rank order."""
+    in rank order.  The ranks are killed, and the call raises, after
+    ``timeout_s`` (each caller gives about three times what its groups
+    take), so that a hang fails its own tests only."""
     store = tmp_dir / f"group_{world_size}_{next(_STORE)}"
     store.mkdir()
     if world_size > 1:
