@@ -115,12 +115,20 @@ path's small block products at config 6's shapes in two forms, batched
 ``@`` and broadcast products, and Hll's inverse by Cholesky and by the
 adjugate.
 
-The extra cell ``pcg_columns`` (not in the default list) times
-``ell_pcg`` alone at sphere2500's shapes: the main path's damped f32
-solve (one column) and, on a package that takes a block of right-hand
-sides, a covariance query's undamped f64 system with one unit column and
-with the plan's most columns; run it with ``--root`` on a parent checkout
-and on this one in turns to compare the kernels.
+The extra cell ``pcg_columns`` (not in the default list) times the
+``ell_pcg`` kernel alone, with the kernel of another checkout beside when
+``--parent DIR`` names one (its library built from its sources, as the
+slot cells build theirs), in turns, at least 9 rounds, one launch between
+CUDA events each: sphere2500's main-path solve (damped, m = 1, f32 and
+f64), both chordal rotation stages (d = 9 and 4), the covariance system
+with 36 columns and with one (f64), and the non-resident plan (30,000
+rows); the median, spread and µs an iteration of each, and whether x and
+the counts equal the parent's bit for bit.  Then the split of a launch
+into its phases (a copy of the kernel with clock marks at its block
+barriers), one barrier of each kind alone at the kernel's grid
+(``grid.sync()`` with a read of the G partial sums, against the carrying
+barrier with and without its fences), and ``torch.cholesky_solve`` of the
+36 columns on the dense factor.
 
 The extra cell ``kernels`` (not in the default list) is no solve: it runs
 sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
@@ -1332,14 +1340,9 @@ def parent_slot_kernels(parent):
     ``(contrib, perm, offsets, n_slots, entry) -> out`` that counts no
     launch, with ``entry`` "" or, on a library that has it, "long_"; and
     the entry points the library has."""
-    import importlib.util
-
     import torch
 
-    spec = importlib.util.spec_from_file_location("_parent_ext", os.path.join(parent, "pyslam_tpu_torch", "_ext.py"))
-    ext = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ext)
-    lib = ext.library()
+    ext, lib = parent_library(parent)
     suffix = {torch.float32: "f32", torch.float64: "f64"}
 
     def call(contrib, perm, offsets, n_slots, entry):
@@ -1515,34 +1518,96 @@ def slot_shapes(dev, parent, rounds=4):
                   f" rows, {body}): {line}; index_add_ {lib_us!r} us; bound {1e3 * b_ms!r} us by {by}", flush=True)
 
 
-def pcg_columns(dev, reps):
-    """``ell_pcg`` alone at sphere2500's shapes, median device ms of ``reps``
-    launches between CUDA events: the first LM step's damped f32 system (m
-    = 1, rtol 3e-6, cap 120: the main path's linear solve) and, where the
-    package takes a block of right-hand sides, the undamped f64 system of a
-    covariance query at the ground truth (rtol 1e-10, cap 2000) with one
-    unit column and with the plan's most columns (rounded down to a
-    multiple of 6)."""
+def parent_library(parent):
+    """The kernel library of the checkout at ``parent``: its ``_ext.py``
+    loaded as a module of its own, the library built from its sources into
+    its own ``build/``; (module, library)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_parent_ext", os.path.join(parent, "pyslam_tpu_torch", "_ext.py"))
+    ext = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ext)
+    return ext, ext.library()
+
+
+def pcg_callers(parent):
+    """``ell_pcg``'s kernel alone, this checkout's and (with ``parent``) the
+    parent checkout's, each called with its own conventions on buffers made
+    once: {side: prepare(He, cols, Minv, B (n, m), rtol, max_iters) ->
+    (launch(), result())}, launch() one launch that counts nothing,
+    result() (x (n, m), iterations (m,)).  The parent takes b and x as
+    (m, n) and scratch of 3 m n + 3 grid m values (its layout before the
+    carrying barriers); this checkout (n, mp) and ``pcg_scratch_values``."""
+    import ctypes
+
     import torch
 
-    from pyslam_tpu_torch.graph import build
-    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch._ext import library
     from pyslam_tpu_torch.solver import cuda_ops
+
+    def prepare_with(lib, layout_this):
+        def prepare(He, cols, Minv, B, rtol, max_iters):
+            nb, K, d, _ = He.shape
+            n, m = B.shape
+            out = (ctypes.c_int * 6)()
+            err = lib.pyslam_ell_pcg_plan(nb, K, d, He.element_size(), m, out)
+            if err:
+                raise RuntimeError(f"pyslam_ell_pcg_plan: {err}")
+            if layout_this:
+                mp = cuda_ops.pcg_layout_columns(m, He.dtype)
+                bk = B.new_zeros((n, mp))
+                bk[:, :m] = B
+                n_scratch = cuda_ops.pcg_scratch_values(n, mp, out[0], He.dtype)
+            else:
+                bk = B.t().contiguous()
+                n_scratch = 3 * m * n + 3 * out[0] * m
+            xk = torch.empty_like(bk)
+            scratch = torch.empty(n_scratch, dtype=He.dtype, device=He.device)
+            its = torch.empty(m, dtype=torch.int32, device=He.device)
+            counter = torch.zeros(1, dtype=torch.int64, device=He.device)
+            fn = getattr(lib, f"pyslam_ell_pcg_{'f64' if He.dtype is torch.float64 else 'f32'}")
+            stream = torch.cuda.current_stream(He.device).cuda_stream
+            args = (He.data_ptr(), cols.data_ptr(), Minv.data_ptr(), bk.data_ptr(), xk.data_ptr(), scratch.data_ptr(),
+                    its.data_ptr(), counter.data_ptr(), nb, K, d, m, rtol, max_iters, stream)
+
+            def launch(keep=(bk, xk, scratch, its, counter)):  # the buffers live as long as the launch
+                err = fn(*args)
+                if err:
+                    raise RuntimeError(f"ell_pcg: error {err}")
+
+            def result():
+                return (xk[:, :m] if layout_this else xk.t()).clone(), its.clone()
+
+            return launch, result
+
+        return prepare
+
+    sides = {"this": prepare_with(library(), True)}
+    if parent:
+        sides["parent"] = prepare_with(parent_library(parent)[1], False)
+    return sides
+
+
+def pcg_systems(dev):
+    """(label, He, cols, Minv, B, rtol, max_iters) of ``ell_pcg`` at the
+    shapes of PERF.md's kernel table: sphere2500's first LM system (damped
+    at lambda_init, f32 and f64, m = 1, rtol 3e-6, cap 120: the main path's
+    linear solve); the first GN systems of the chordal rotation stages
+    (undamped, f32, rtol 1e-6, cap 250) of sphere2500 (d = 9) and of config
+    2's graph (d = 4); sphere2500's undamped covariance system at the
+    ground truth (f64, rtol 1e-10, cap 2000) with 36 unit columns at poses
+    spread over the graph (phase 37's block before the carrying barriers:
+    6 poses) and with one; and the non-resident plan, a random
+    block-diagonally dominant ELL system of 30,000 rows of 6 (f32, m = 1,
+    rtol 1e-5, cap 200: He does not fit in shared memory), built as the
+    card tests build theirs."""
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch.graph import build, initialize
+    from pyslam_tpu_torch.io import synth
     from pyslam_tpu_torch.solver.bcsr import assemble_ell, build_ell_direct, ell_device_plan, sym_block_inv
     from pyslam_tpu_torch.solver.lm import Options
-
-    def device_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
 
     data = synth.se3_sphere(n_poses=2500, seed=0)
     g = build.pose_graph(data, dtype=torch.float32, device=dev)
@@ -1551,28 +1616,249 @@ def pcg_columns(dev, reps):
     He, b, _ = assemble_ell(g, dplan)
     He[:, 0] += Options().lambda_init * torch.diag_embed(
         torch.clamp(torch.diagonal(He[:, 0], dim1=-2, dim2=-1), min=1e-12))
-    Minv = sym_block_inv(He[:, 0]).contiguous()
-    its = int(cuda_ops.ell_pcg(He, dplan.cols, Minv, b, 3e-6, 120).iterations)
-    t = device_ms(lambda: cuda_ops.ell_pcg(He, dplan.cols, Minv, b, 3e-6, 120))
-    print(f"   ell_pcg f32 damped, m = 1: {t!r} ms, {its} iterations, {1e3 * t / max(its, 1)!r} us an iteration",
-          flush=True)
-    cap = cuda_ops.ell_pcg_plan(plan.nb, plan.K, 6, torch.float64, dev).get("max_columns")
-    if cap is None:
-        return
+    for dtype in (torch.float32, torch.float64):
+        A = He.to(dtype).contiguous()
+        yield (f"sphere2500 damped {str(dtype)[6:]} m=1", A, dplan.cols, sym_block_inv(A[:, 0]).contiguous(),
+               b.to(dtype)[:, None].contiguous(), 3e-6, 120)
+    for name, dset in (("sphere2500 d=9", data), ("config2 d=4", synth.se2_manhattan(3500, seed=1))):
+        d = dset.dim
+        R_meas = np.asarray(dset.T_meas, np.float64)[:, :d, :d]
+        g_rot = initialize._rotation_graph(dset.edges_i, dset.edges_j, R_meas, dset.T_gt.shape[0], 0, np.eye(d),
+                                           torch.float32, dev)
+        rplan = ell_device_plan(build_ell_direct(g_rot), dev)
+        Hr, gr, _ = assemble_ell(g_rot, rplan)
+        yield f"chordal {name} m=1", Hr, rplan.cols, sym_block_inv(Hr[:, 0]).contiguous(), gr[:, None].contiguous(), \
+            1e-6, 250
     g64 = build.pose_graph(data, dtype=torch.float64, device=dev)
     g64 = g64.with_values({"poses": dataclasses.replace(g64.blocks["poses"], values=torch.as_tensor(
         data.T_gt, dtype=torch.float64, device=dev))})
     He64, _, _ = assemble_ell(g64, dplan)
     Minv64 = sym_block_inv(He64[:, 0]).contiguous()
     n = plan.nb * 6
-    for m in (1, cap - cap % 6):
+    for m in (36, 1):
         B = torch.zeros((n, m), dtype=torch.float64, device=dev)
         B[(torch.arange(m, device=dev) * 389 % plan.nb) * 6 + torch.arange(m, device=dev) % 6,
           torch.arange(m, device=dev)] = 1.0
-        its = cuda_ops.ell_pcg(He64, dplan.cols, Minv64, B, 1e-10, 2000).iterations.tolist()
-        t = device_ms(lambda: cuda_ops.ell_pcg(He64, dplan.cols, Minv64, B, 1e-10, 2000))
-        print(f"   ell_pcg f64 covariance, m = {m}: {t!r} ms, launch iterations {max(its)} (columns {its}), "
-              f"{1e3 * t / max(max(its), 1)!r} us an iteration of the launch", flush=True)
+        yield f"covariance f64 m={m}", He64, dplan.cols, Minv64, B, 1e-10, 2000
+    # the non-resident plan: tests/test_torch_cuda.py's _spd_ell at 30,000 x 9 x 6 (rows coupled at four random
+    # offsets, each pair stored as a block and its transpose, the diagonal blocks dominant)
+    rng = np.random.default_rng(6)
+    nb, K, d = 30000, 9, 6
+    Hn = np.zeros((nb, K, d, d))
+    rows = np.arange(nb)
+    cols = np.tile(rows.astype(np.int32)[:, None], (1, K))
+    for j, o in enumerate(rng.choice(np.arange(1, nb), size=(K - 1) // 2, replace=False)):
+        blk = 0.3 * rng.normal(size=(nb, d, d))
+        Hn[rows, 1 + 2 * j], cols[rows, 1 + 2 * j] = blk, (rows + o) % nb
+        Hn[(rows + o) % nb, 2 + 2 * j], cols[(rows + o) % nb, 2 + 2 * j] = blk.transpose(0, 2, 1), rows
+    A = rng.normal(size=(nb, d, d))
+    Hn[:, 0] = A @ A.transpose(0, 2, 1) + (1.0 + np.abs(Hn[:, 1:]).sum((1, 2, 3)))[:, None, None] * np.eye(d)
+    Hn = torch.from_numpy(Hn).to(dev, torch.float32)
+    yield ("non-resident 30000x9x6 f32 m=1", Hn, torch.from_numpy(cols).to(dev), torch.linalg.inv(Hn[:, 0]).contiguous(),
+           torch.from_numpy(rng.normal(size=(nb * d, 1))).to(dev, torch.float32), 1e-5, 200)
+
+
+def pcg_phase_library():
+    """A copy of ``csrc/ell_pcg.cu`` with clock64() marks between the phases
+    of an iteration, built into ``build/pcg_phases/`` at the package's
+    flags: thread 0 of every block adds the cycles since the last mark to
+    its block's row of a device array (eight phases), which
+    ``pyslam_debug_phases(out, reset)`` copies out or zeroes.  The marks
+    sit at block barriers, so a phase counts the block's wait for its
+    slowest thread, and a barrier phase the wait for the slowest block."""
+    import ctypes
+    import shutil
+
+    from pyslam_tpu_torch import _ext
+
+    src = open(os.path.join(os.path.dirname(_ext.__file__), "csrc", "ell_pcg.cu")).read()
+
+    def mark(k):
+        return ("if (threadIdx.x == 0) { const long long now = clock64(); "
+                f"g_phase_cycles[blockIdx.x * 8 + {k}] += now - phase_last; phase_last = now; }}\n")
+
+    def at(anchor, text, before=False):
+        nonlocal src
+        assert src.count(anchor) == 1, anchor
+        src = src.replace(anchor, text + anchor if before else anchor + text)
+
+    at("namespace {\n\nconstexpr int kThreads", "__device__ long long g_phase_cycles[256 * 8];\n", before=True)
+    # one column: 0 the p update and the product, 1 the first barrier, 2 the
+    # vector updates and the arrival, 3 the second barrier's poll
+    at("  while (sqrt_t(rr) > tol && it < a.max_iters) {", "  long long phase_last = clock64();\n", before=True)
+    at("\n    T v = T(0);", "\n" + mark(0).rstrip("\n"), before=True)
+    at("    barrier_sums<T, 1, false>(a.slots1, G, epoch, bc, pap);\n", mark(1))
+    at("    barrier_sums<T, 2, false>(a.slots2, G, epoch, bc, sums);\n", mark(2), before=True)
+    at("    barrier_sums<T, 2, false>(a.slots2, G, epoch, bc, sums);\n", mark(3))
+    # a block of columns: 7 the lists, 0 the p update, 1 the product, 2 the
+    # first barrier, 3 the vector items, 4 the second barrier's arrival and
+    # the owners' sums, 6 the totals' poll
+    at("  for (;;) {\n", "  long long phase_last = clock64();\n", before=True)
+    at("    if (n_run == 0) break;\n", mark(7))
+    at("    // Ap, and the row's share of p.Ap, of item (lr, group)", mark(0), before=True)
+    at("    // first barrier: p.Ap of every running column", mark(1), before=True)
+    at("    vector_items(false);\n", mark(2), before=True)
+    at("    vector_items(false);\n    __syncthreads();\n", mark(3))
+    at("    own_totals<T, 2, true>(a.slots2, a.tot2, act_s, m, epoch, warp, lane);\n", mark(4))
+    at("    if (warp < n_run) fence_gpu();  // acquire: the next product reads the others' z and p\n", mark(6))
+    src += ('\nextern "C" int pyslam_debug_phases(void* out, int reset) {\n'
+            '  static long long zero[256 * 8];\n'
+            '  return reset ? (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero))\n'
+            '               : (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(zero));\n}\n')
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pcg_phases")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "ell_pcg.cu"), "w") as f:
+        f.write(src)
+    shutil.copy(os.path.join(os.path.dirname(_ext.__file__), "csrc", "ell_row.cuh"), out_dir)
+    lib_path = os.path.join(out_dir, "libpcg_phases.so")
+    cmd = [_ext._nvcc(), *_ext._ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared", "-o", lib_path,
+           os.path.join(out_dir, "ell_pcg.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed: {proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _ext._SIGNATURES.items():
+        if name.startswith("pyslam_ell_pcg"):
+            getattr(lib, name).argtypes = argtypes
+    lib.pyslam_debug_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def pcg_phases(lib, prepare, B):
+    """The phase split of one launch of the traced library (``prepare`` as
+    ``pcg_callers`` makes it): the mean over blocks of each phase's cycles,
+    as shares of their sum, and the launch's iterations."""
+    import torch
+
+    launch, result = prepare
+    buf = torch.zeros(256 * 8, dtype=torch.int64)
+    launch()
+    torch.cuda.synchronize()
+    lib.pyslam_debug_phases(None, 1)
+    launch()
+    torch.cuda.synchronize()
+    lib.pyslam_debug_phases(buf.data_ptr(), 0)
+    grid = torch.cuda.get_device_properties(B.device).multi_processor_count
+    cycles = buf.view(256, 8)[:grid].double().mean(0)
+    return (cycles / cycles.sum()).tolist(), max(result()[1].tolist())
+
+
+def pcg_columns(dev, reps, parent):
+    """``ell_pcg``'s kernel alone at every shape of ``pcg_systems``, this
+    checkout's and, with ``--parent``, the parent checkout's in turns
+    (parent, this, this, parent, ...; ``reps`` rounds, at least 9, one
+    launch between CUDA events a measurement, after a warm-up): the median,
+    the spread (largest less smallest) and µs an iteration of the launch,
+    and whether x and the counts equal the parent's bit for bit (else the
+    largest difference of x relative to its largest entry).  Then one
+    barrier of each kind alone, 2,000 in a launch at a grid of one block a
+    SM (``pyslam_ell_pcg_barrier_probe``: the parent's ``grid.sync()`` and
+    read of the partial sums, against the carrying barrier with its fences,
+    as the second barrier of an iteration, and without, as the first), f32
+    and f64,
+    in turns; the phase split of one launch of sphere2500's solve and of
+    the 36-column block (``pcg_phase_library``); and
+    ``torch.cholesky_solve`` of the 36 covariance columns on the dense H's
+    factor (its factorization not timed)."""
+    import torch
+
+    from pyslam_tpu_torch._ext import library
+    from pyslam_tpu_torch.solver import cuda_ops
+    from pyslam_tpu_torch.solver.assemble import unit_diag_where_dead_
+
+    def event_ms(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    sides = pcg_callers(parent)
+    cov = None
+    for label, He, cols, Minv, B, rtol, max_iters in pcg_systems(dev):
+        runs = {side: prep(He, cols, Minv, B, rtol, max_iters) for side, prep in sides.items()}
+        times = {side: [] for side in runs}
+        for launch, _ in runs.values():
+            launch()
+        torch.cuda.synchronize()
+        for rnd in range(reps):
+            for side in list(runs)[::1 if rnd % 2 else -1]:
+                times[side].append(event_ms(runs[side][0]))
+        x, its = runs["this"][1]()
+        iters = max(its.tolist())
+        line = "  ".join(f"{k} {1e3 * statistics.median(v)!r} us (spread {1e3 * (max(v) - min(v))!r}; "
+                         f"{1e3 * statistics.median(v) / max(iters, 1)!r} us an iteration)" for k, v in times.items())
+        if "parent" in runs:
+            xp, itsp = runs["parent"][1]()
+            same = torch.equal(x, xp) and torch.equal(its, itsp)
+            diff = ((x - xp).abs().max() / xp.abs().max().clamp(min=1e-300)).item()
+            line += (f"; bits {'equal' if same else 'differ'} to the parent's (x rel {diff!r}, iterations "
+                     f"{'equal' if torch.equal(its, itsp) else f'{its.tolist()} against {itsp.tolist()}'})")
+        print(f"   ell_pcg {label} ({tuple(B.shape)}, launch iterations {iters}): {line}", flush=True)
+        if label.startswith("covariance") and B.shape[1] == 36:
+            cov = (He, cols, B)
+        del runs
+
+    traced = pcg_phase_library()
+    names = {1: ("p update and product", "first barrier", "vector updates and arrival", "second barrier"),
+             36: ("p update", "product", "first barrier", "vector items", "second arrival and owners' sums", "",
+                  "totals' poll", "list")}
+    from pyslam_tpu_torch import _ext
+
+    for label, He, cols, Minv, B, rtol, max_iters in pcg_systems(dev):
+        if label not in ("sphere2500 damped float32 m=1", "covariance f64 m=36"):
+            continue
+        saved, _ext.library = _ext.library, lambda: traced
+        try:
+            prepare = pcg_callers(None)["this"](He, cols, Minv, B, rtol, max_iters)
+        finally:
+            _ext.library = saved
+        shares, iters = pcg_phases(traced, prepare, B)
+        split = ", ".join(f"{n} {100 * f:.1f}%" for n, f in zip(names[B.shape[1]], shares) if n)
+        print(f"   ell_pcg {label}: phase split of a traced launch ({iters} iterations, mean over blocks): {split}",
+              flush=True)
+        del prepare
+
+    lib = library()
+    G = torch.cuda.get_device_properties(dev).multi_processor_count
+    rounds = 2000
+    for dtype in (torch.float32, torch.float64):
+        scratch = torch.zeros(1 << 17, dtype=dtype, device=dev)
+        out = torch.zeros(1, dtype=dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def probe(kind):
+            err = lib.pyslam_ell_pcg_barrier_probe(out.element_size(), kind, rounds, scratch.data_ptr(),
+                                                    out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"pyslam_ell_pcg_barrier_probe: {err}")
+
+        kinds = {0: "grid.sync() + read", 1: "carrying, fenced", 2: "carrying, no fence"}
+        times = {kind: [] for kind in kinds}
+        for kind in kinds:
+            probe(kind)
+        for rnd in range(reps):
+            for kind in list(kinds)[::1 if rnd % 2 else -1]:
+                times[kind].append(1e3 * event_ms(lambda: probe(kind)) / rounds)
+        line = "; ".join(f"{name} {statistics.median(times[k])!r} us (spread {max(times[k]) - min(times[k])!r})"
+                         for k, name in kinds.items())
+        print(f"   barrier alone, {G} blocks of 512 threads, two {str(dtype)[6:]} values a block: {line}", flush=True)
+
+    He, cols, B = cov
+    nb, K, d, _ = He.shape
+    n = nb * d
+    H = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    rows = torch.arange(nb, device=dev)
+    for k in range(K):
+        H.view(nb, d, nb, d)[rows, :, cols[:, k].long(), :] += He[:, k]
+    unit_diag_where_dead_(H)
+    L, info = torch.linalg.cholesky_ex(H)
+    del H
+    torch.cholesky_solve(B, L)
+    t = sorted(event_ms(lambda: torch.cholesky_solve(B, L)) for _ in range(reps))
+    print(f"   torch.cholesky_solve of the 36 covariance columns (info {int(info)}): {1e3 * statistics.median(t)!r} us "
+          f"(spread {1e3 * (t[-1] - t[0])!r})", flush=True)
 
 
 def main() -> int:
@@ -1580,7 +1866,8 @@ def main() -> int:
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--parent", default=None, help="a checkout whose slot_reduce kernels the slot cells time beside")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose slot_reduce or ell_pcg kernels the slot cells and pcg_columns time beside")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -1622,7 +1909,7 @@ def main() -> int:
             block_idioms(dev)
             continue
         if name == "pcg_columns":
-            pcg_columns(dev, max(args.reps, 9))
+            pcg_columns(dev, max(args.reps, 9), args.parent)
             continue
         if name == "sharded_cg_reads":
             sharded_cg_reads(dev, max(args.reps, 9))

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "pyslam_ell_pcg_f64": _ELL_PCG,
     # nb, K, d, element size, columns, out (6 ints)
     "pyslam_ell_pcg_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    # element size, kind, rounds, scratch, out, stream
+    "pyslam_ell_pcg_barrier_probe": [_I, _I, _I, _P, _P, _P],
 }
 
 _LIB = None

@@ -166,6 +166,7 @@ _PCG_ERRORS = {
     -2: "the solve's vectors do not fit in shared memory (nb * d too large for this kernel)",
     -3: "the grid cannot be co-resident with this much shared memory",
     -4: "more columns than one launch carries (ell_pcg_plan's max_columns)",
+    -5: "the grid is larger than the carrying barrier's slots (160 blocks)",
 }
 _PCG_PLANS: dict = {}
 
@@ -269,37 +270,76 @@ def ell_pcg(He, cols, Minv, b, rtol, max_iters):
         raise ValueError(f"max_iters: {max_iters}, expected >= 0")
     if _route(He, cols, Minv, b) == "cpu":
         return ell_pcg_plain(He, cols, Minv, b, rtol, max_iters)
-    from .._ext import library
-
-    lib = library()
     dev = b.device
+    n = nb * d
     m = 1 if b.dim() == 1 else b.shape[1]
     cap = ell_pcg_plan(nb, K, d, He.dtype, dev)["max_columns"]
-    fn_name = f"pyslam_ell_pcg_{_SUFFIX[He.dtype]}"
     with torch.cuda.device(dev):
-        if dev not in _PCG_ITERATIONS:
-            _PCG_ITERATIONS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
-        # the kernel keeps each column contiguous: (m, nb*d)
-        bt = b.reshape(-1, m).t().contiguous()
-        xt = torch.empty_like(bt)
+        B = b.reshape(n, m)
+        X = torch.empty_like(B)
         iterations = torch.empty(m, dtype=torch.int32, device=dev)
         resident = nb
         for s in range(0, m, cap):
             mc = min(cap, m - s)
             plan = ell_pcg_plan(nb, K, d, He.dtype, dev, mc)
             resident = min(resident, plan["resident_rows"])
-            # p of two iterations in turn, z, and the blocks' partial dot products
-            scratch = torch.empty(3 * mc * nb * d + 3 * plan["grid"] * mc, dtype=He.dtype, device=dev)
-            err = getattr(lib, fn_name)(
-                He.data_ptr(), cols.data_ptr(), Minv.data_ptr(), bt[s].data_ptr(), xt[s].data_ptr(),
-                scratch.data_ptr(), iterations[s:].data_ptr(), _PCG_ITERATIONS[dev].data_ptr(),
-                nb, K, d, mc, rtol, max_iters, torch.cuda.current_stream(dev).cuda_stream,
-            )
-            _raise_on_pcg_error(fn_name, err)
-            LAUNCHES["ell_pcg"] += 1
+            # the kernel's layout: (n, mp), the columns padded to whole 16 bytes
+            mp = pcg_layout_columns(mc, He.dtype)
+            whole = mc == mp == m and (m == 1 or B.data_ptr() % 16 == 0)
+            if whole:
+                bk, xk = B, X
+            else:
+                bk = B.new_zeros((n, mp))
+                bk[:, :mc] = B[:, s:s + mc]
+                xk = B.new_empty((n, mp))
+            scratch = torch.empty(pcg_scratch_values(n, mp, plan["grid"], He.dtype), dtype=He.dtype, device=dev)
+            ell_pcg_launch(He, cols, Minv, bk, xk, scratch, iterations[s:s + mc], rtol, max_iters)
+            if not whole:
+                X[:, s:s + mc] = xk[:, :mc]
     if b.dim() == 1:
-        return PcgResult(xt[0], iterations[0], resident)
-    return PcgResult(xt.t().contiguous(), iterations, resident)
+        return PcgResult(X.reshape(n), iterations[0], resident)
+    return PcgResult(X, iterations, resident)
+
+
+def ell_pcg_launch(He, cols, Minv, bk, xk, scratch, iterations, rtol, max_iters):
+    """One launch of the ``ell_pcg`` kernel on CUDA tensors, the caller's
+    scratch included (the kernel clears what it needs of it): mc =
+    ``iterations.numel()`` columns, at most the plan's ``max_columns``, b
+    and x in the kernel's layout (nb*d, ``pcg_layout_columns(mc)``), b's
+    padding columns zero, and ``pcg_scratch_values`` values of scratch.
+    Counts the launch; the checks of shapes are ``ell_pcg``'s."""
+    from .._ext import library
+
+    nb, K, d, _ = He.shape
+    dev = He.device
+    if dev not in _PCG_ITERATIONS:
+        _PCG_ITERATIONS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    fn_name = f"pyslam_ell_pcg_{_SUFFIX[He.dtype]}"
+    err = getattr(library(), fn_name)(
+        He.data_ptr(), cols.data_ptr(), Minv.data_ptr(), bk.data_ptr(), xk.data_ptr(), scratch.data_ptr(),
+        iterations.data_ptr(), _PCG_ITERATIONS[dev].data_ptr(), nb, K, d, iterations.numel(), rtol, max_iters,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on_pcg_error(fn_name, err)
+    LAUNCHES["ell_pcg"] += 1
+
+
+def pcg_layout_columns(m, dtype) -> int:
+    """Columns of ``ell_pcg``'s layout for a launch of m: 1 for one column,
+    else m rounded up to whole 16 bytes (b and x as (n, mp), the padding
+    zero)."""
+    per = 128 // torch.finfo(dtype).bits
+    return 1 if m == 1 else -(-m // per) * per
+
+
+def pcg_scratch_values(n, mp, grid, dtype) -> int:
+    """Values of ``ell_pcg``'s scratch for n = nb*d, mp layout columns, the
+    plan's grid and the values' dtype: the two carrying barriers' slots and
+    column totals (2 mp (grid + 1) lines of 128 bytes), the prologue's
+    partial sums (grid, mp, 2), p of two iterations and z, (n, mp) each,
+    twice that for one column (each value tagged with its iteration)."""
+    tagged = 2 if mp == 1 else 1
+    return 256 // (torch.finfo(dtype).bits // 8) * (grid + 1) * mp + 2 * grid * mp + 3 * tagged * n * mp
 
 
 # --------------------------------------------------------------------------

@@ -510,6 +510,78 @@ def test_ell_pcg_plan_columns(cuda_device):
     assert big["max_columns"] == 1 and 0 < big["resident_rows"] < 30000
 
 
+def _launch_on(He, cols, Minv, B, rtol, max_iters, scratch):
+    """One ``ell_pcg`` launch of B's columns on the caller's scratch: x
+    (nb*d, m) and the iteration counts, queued on the current stream."""
+    n, m = B.shape
+    bk = B.new_zeros((n, cuda_ops.pcg_layout_columns(m, B.dtype)))
+    bk[:, :m] = B
+    xk = torch.empty_like(bk)
+    its = torch.empty(m, dtype=torch.int32, device=B.device)
+    cuda_ops.ell_pcg_launch(He, cols, Minv, bk, xk, scratch, its, rtol, max_iters)
+    return xk[:, :m], its
+
+
+def _scratch(He, m, cuda_device):
+    nb, K, d, _ = He.shape
+    grid = cuda_ops.ell_pcg_plan(nb, K, d, He.dtype, cuda_device, m)["grid"]
+    n_values = cuda_ops.pcg_scratch_values(nb * d, cuda_ops.pcg_layout_columns(m, He.dtype), grid, He.dtype)
+    return torch.empty(n_values, dtype=He.dtype, device=cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,K,d", [(2500, 9, 6), (2500, 9, 9), (3500, 7, 4), (30000, 9, 6)])
+@pytest.mark.parametrize("m", ["one", "mid", "max"])
+def test_ell_pcg_kernel_stale_scratch_same_bits(cuda_device, nb, K, d, dtype, m):
+    """The carrying barriers' slots are cleared by every launch: scratch
+    filled with 0x00, with 0xFF, left as a previous launch of the same
+    shapes left it, or shared by two launches back to back on one stream,
+    gives the bits of a launch on fresh scratch, x and counts; columns that
+    stop at different iterations (b, unit columns, a zero column, random
+    ones), m = 1, 12 and the plan's maximum (1 for the non-resident plan)."""
+    He, cols, Minv, b = _spd_ell(nb, K, d, 6, cuda_device, dtype)
+    cap = cuda_ops.ell_pcg_plan(nb, K, d, dtype, cuda_device)["max_columns"]
+    n_cols = {"one": 1, "mid": min(12, cap), "max": cap}[m]
+    B = _pcg_columns(b, n_cols)
+    rtol = PCG_RTOL[dtype]
+    fresh = ell_pcg(He, cols, Minv, B, rtol, 200)
+    torch.cuda.synchronize()
+    scratch = _scratch(He, n_cols, cuda_device)
+    for fill in (0x00, 0xFF, None):  # None: the state the launch before left
+        if fill is not None:
+            scratch.view(torch.uint8).fill_(fill)
+        x, its = _launch_on(He, cols, Minv, B, rtol, 200, scratch)
+        torch.cuda.synchronize()
+        assert torch.equal(x, fresh.x) and torch.equal(its, fresh.iterations), fill
+    first = _launch_on(He, cols, Minv, B, rtol, 200, scratch)
+    second = _launch_on(He, cols, Minv, B, rtol, 200, scratch)  # no synchronisation between
+    torch.cuda.synchronize()
+    for x, its in (first, second):
+        assert torch.equal(x, fresh.x) and torch.equal(its, fresh.iterations)
+    assert len(set(fresh.iterations.tolist())) > (1 if n_cols > 4 else 0)
+
+
+def test_ell_pcg_barrier_probe_runs(cuda_device):
+    """The measurement entry point of the barriers launches and sums what
+    every block contributed: round r adds (blk + r) + 1 over the G blocks,
+    alike for every kind."""
+    from pyslam_tpu_torch._ext import library
+
+    G = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    rounds = 10
+    want = sum(G * (G - 1) / 2 + G * r + G for r in range(rounds))
+    for dtype in (torch.float32, torch.float64):
+        for kind in (0, 1, 2):
+            scratch = torch.full((1 << 17,), float("nan"), dtype=dtype, device=cuda_device)
+            out = torch.zeros(1, dtype=dtype, device=cuda_device)
+            err = library().pyslam_ell_pcg_barrier_probe(
+                out.element_size(), kind, rounds, scratch.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(cuda_device).cuda_stream)
+            assert err == 0
+            torch.cuda.synchronize()
+            assert out.item() == want, (dtype, kind)
+
+
 def test_wrappers_refuse_mixed_devices(cuda_device):
     He, cols, x = _random_ell(8, 3, 6, 1, cuda_device, torch.float32)
     with pytest.raises(ValueError, match="different devices"):

@@ -254,3 +254,14 @@ def test_ell_pcg_block_shapes_refused():
     for bad in (torch.zeros(b.shape[0] + 1, 2, dtype=torch.float64), torch.zeros(b.shape[0], 2, 1, dtype=torch.float64)):
         with pytest.raises(ValueError, match="b: shape"):
             ell_pcg(He_t, torch.from_numpy(cols), Minv, bad, 1e-8, 10)
+
+
+def test_ell_pcg_kernel_layout_sizes():
+    """The kernel's layout of a block: whole 16 bytes of columns (4 in f32,
+    2 in f64), one column as it is; its scratch a 128-byte line a slot and
+    a column total of the two barriers, the prologue's partial sums (2 grid
+    mp), p twice and z (3 n mp; one column's tagged, 6 n)."""
+    assert [cuda_ops.pcg_layout_columns(m, torch.float32) for m in (1, 2, 4, 5, 36, 37)] == [1, 4, 4, 8, 36, 40]
+    assert [cuda_ops.pcg_layout_columns(m, torch.float64) for m in (1, 2, 3, 36, 43, 44)] == [1, 2, 4, 36, 44, 44]
+    assert cuda_ops.pcg_scratch_values(15000, 36, 132, torch.float64) == (32 * 133 + 2 * 132) * 36 + 3 * 15000 * 36
+    assert cuda_ops.pcg_scratch_values(15000, 1, 132, torch.float32) == 64 * 133 + 2 * 132 + 6 * 15000

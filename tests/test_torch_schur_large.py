@@ -13,7 +13,9 @@ observation batch's slot order.
 The reference tests without a counterpart here, and why:
   * ``TestClosedKernelRegistry::test_content_keyed_names``: the registry
     keys jit caches by the content of a closure's data; the port has no
-    jit cache, and ``register_closed_kernel`` waits for ROADMAP item 21.
+    jit cache, and its ``register_closed_kernel`` names are held to content
+    in ``tests/test_torch_autodiff_factor.py``
+    (``test_closed_kernel_names_follow_content``).
   * ``TestPCGSegmentBreakdown::test_exact_convergence_mid_segment_freezes``:
     the port has no host-driven CG segments (a TPU runtime limit); the
     breakdown guard it tests is held here on the port's one loop
