@@ -534,10 +534,9 @@ def check_assemble(label, graph, report=None):
     block = graph.blocks["poses"]
     dev, tname = block.values.device, str(block.values.dtype).split(".")[-1]
     dplan = bcsr.ell_device_plan(bcsr.build_ell_direct(graph), dev)
-    batches = bcsr.ell_assemble_batches(graph)
-    check(batches is not None, f"{label}: the graph is not one ell_assemble takes")
-    args = (block.values, block.const_mask, batches, dplan.cols, dplan.a_idx, dplan.a_entries,
-            dplan.h_offsets, dplan.a_first)
+    args = bcsr.ell_assemble_args(graph, dplan)
+    check(args is not None, f"{label}: the graph is not one ell_assemble takes")
+    batches = args[2]
     out = cuda_ops.ell_assemble(*args)
     again = cuda_ops.ell_assemble(*args)
     ref = cuda_ops.ell_assemble_plain(*args)
@@ -567,9 +566,11 @@ def check_assemble(label, graph, report=None):
     )
     measurements = [t for bt in batches for t in (bt.T_obs, bt.sqrt_info, bt.weight)]
     n_bytes = tensor_bytes(block.values, block.const_mask, *measurements, dplan.cols, dplan.a_idx, dplan.a_entries,
-                           dplan.h_offsets, *out)
+                           dplan.a_rows, *out)
     n_rows = sum(bt.n_slots * bt.weight.shape[0] for bt in batches)
-    flop = (ASSEMBLE_FLOP["factor"] * dplan.a_idx.shape[0] + ASSEMBLE_FLOP["contribution"] * dplan.a_entries.shape[0]
+    # every entry's block in its row's diagonal slot, and the off-diagonal block of those that name a slot
+    n_blocks = dplan.a_entries.shape[0] + int((dplan.a_entries[:, 1] > 0).sum())
+    flop = (ASSEMBLE_FLOP["factor"] * dplan.a_idx.shape[0] + ASSEMBLE_FLOP["contribution"] * n_blocks
             + ASSEMBLE_FLOP["gradient_row"] * n_rows)
     add_times(report, "ell_assemble", "ms", times, n_bytes, flop)
     log(f"ell_assemble {label}: library_ms is the general route (ell_contributions + two slot_reduce + masks)")
@@ -706,7 +707,7 @@ def main(argv=None) -> int:
         solve_ell,
     )
     from pyslam_tpu_torch.solver.lm import STATUS_NAMES, Options, _dense_solve, solve
-    from pyslam_tpu_torch.testing import se3_stress_graph
+    from pyslam_tpu_torch.testing import se3_pair_graph, se3_stress_graph
 
     with open(os.path.join(ROOT, "bench", "baseline_cache.json")) as f:
         chi2_ref = float(json.load(f)["chi2"])
@@ -771,12 +772,14 @@ def main(argv=None) -> int:
 
         # ---- phase 3a: ell_assemble vs its plain version -------------------
         # sphere2500 (timed), then the stress graph (special angles, priors,
-        # padding, a frozen interior pose) under L2 and Cauchy, f32 and f64
+        # padding, a frozen interior pose) under L2 and Cauchy, and the graph
+        # whose slots sum several factors of one pose pair, f32 and f64
         check_assemble("sphere2500", graph, report)
         check_assemble("sphere2500", build.pose_graph(data, dtype=torch.float64))
         for dtype in (torch.float32, torch.float64):
             check_assemble("stress graph L2", se3_stress_graph(dtype=dtype))
             check_assemble("stress graph Cauchy", se3_stress_graph(loss=CauchyLoss(2.0), dtype=dtype))
+            check_assemble("shared pairs Cauchy", se3_pair_graph(loss=CauchyLoss(2.0), dtype=dtype))
             check_assemble("sphere2500 Cauchy", build.pose_graph(data, loss=CauchyLoss(2.0), dtype=dtype))
 
     # ---- phase 3b: slot_reduce at the dense-assembly shapes of configs 1, 2, 7

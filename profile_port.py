@@ -130,6 +130,18 @@ barriers), one barrier of each kind alone at the kernel's grid
 barrier with and without its fences), and ``torch.cholesky_solve`` of the
 36 columns on the dense factor.
 
+The extra cell ``assemble`` (not in the default list) times the
+``ell_assemble`` kernel alone, with the kernel of another checkout beside
+when ``--parent DIR`` names one (its library built from its sources; it
+is called through the C entry of the slot-grained kernel, with the tables
+it read, the Hessian slot plan's entries), in turns (parent, this, this, parent, ...), at least
+9 rounds: sphere2500 and the 30,000-pose sphere in f32 and f64, the stress
+graph under a Cauchy loss in f32 and f64, and the graph whose factors share
+pose pairs in f64.  Each round times one call between CUDA events and 20
+back to back; then each side's kernels under ``torch.profiler`` by name,
+the wrapper's host µs a call, whether He, g and chi2 equal the parent's bit
+for bit, and each side's registers and stack from the compiler's report.
+
 The extra cell ``kernels`` (not in the default list) is no solve: it runs
 sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
 under ``torch.profiler``, in f32 and f64, and prints the mean device time
@@ -1150,9 +1162,7 @@ def ell_split(g, o, dev, reps):
             )[0]
 
     if hasattr(cuda_ops, "ell_assemble"):
-        block = next(iter(g.blocks.values()))
-        args = (block.values, block.const_mask, bcsr.ell_assemble_batches(g), dplan.cols, dplan.a_idx,
-                dplan.a_entries, dplan.h_offsets, dplan.a_first)
+        args = bcsr.ell_assemble_args(g, dplan)
         inside = dict(ell_assemble=host_ms(lambda: cuda_ops.ell_assemble(*args), reps),
                       assemble_ell_general=host_ms(lambda: bcsr.assemble_ell_general(g, dplan), reps))
     else:  # before the ell_assemble kernel: linearization in tensor code, then two slot_reduce
@@ -1861,13 +1871,306 @@ def pcg_columns(dev, reps, parent):
           f"(spread {1e3 * (t[-1] - t[0])!r})", flush=True)
 
 
+def assemble_shapes(dev):
+    """(label, graph) of ``ell_assemble`` at the shapes of PERF.md: the
+    sphere2500 of config 3 and the 30,000-pose sphere of the card tests
+    (``se3_sphere(seed=0)``), and the stress graph under a Cauchy loss
+    (special angles, priors, padding, a frozen interior pose), each in f32
+    and f64; and in f64 ``testing.se3_pair_graph``, whose slots sum several
+    factors of one pose pair, in one batch both ways."""
+    import torch
+
+    from pyslam_tpu_torch.graph import build
+    from pyslam_tpu_torch.io import synth
+    from pyslam_tpu_torch.losses import CauchyLoss
+    from pyslam_tpu_torch.testing import se3_pair_graph, se3_stress_graph
+
+    for n_poses in (2500, 30000):
+        data = synth.se3_sphere(n_poses=n_poses, seed=0)
+        for dtype in (torch.float32, torch.float64):
+            yield f"sphere{n_poses} {str(dtype)[6:]}", build.pose_graph(data, dtype=dtype, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        yield f"stress_cauchy {str(dtype)[6:]}", se3_stress_graph(loss=CauchyLoss(2.0), dtype=dtype, device=dev)
+    yield "pairs float64", se3_pair_graph(loss=CauchyLoss(2.0), device=dev)
+
+
+def parent_assemble(parent, g, dev):
+    """The parent checkout's ``ell_assemble`` kernel on ``g`` through its C
+    entry, the slot-grained kernel's signature (the Hessian slot plan's
+    ``entries`` and offsets, scratch of 84 values a factor and a chi2
+    partial every 32 factors), its buffers made once: (launch(), (He, g,
+    chi2))."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops
+
+    lib = parent_library(parent)[1]
+    plan = bcsr.build_ell_direct(g)
+    hp, _ = bcsr.build_slot_plans(plan)
+    idx, codes, first = [], [], [0]
+    for batch_entries in plan.maps:  # the parent's build_assemble_tables
+        slots = {a: np.asarray(pos_ab, np.int64) // plan.K for a, b, pos_ab, _ in batch_entries if a == b}
+        factor = first[-1] + np.arange(len(slots[0]), dtype=np.int64)
+        idx.append(np.stack([slots[0], slots[len(slots) - 1]], axis=1))
+        for a, b, _, pos_ba in batch_entries:
+            codes.append(factor << 3 | a << 2 | b << 1)
+            if pos_ba is not None:
+                codes.append(factor << 3 | a << 2 | b << 1 | 1)
+        first.append(first[-1] + len(factor))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+
+    idx, entries, offsets = t(np.concatenate(idx)), t(np.concatenate(codes)[hp.perm]), t(hp.offsets)
+    cols = t(plan.cols)
+    block = next(iter(g.blocks.values()))
+    batches = bcsr.ell_assemble_batches(g)
+    n, dtype, nb, K = len(batches), block.values.dtype, plan.nb, plan.K
+    codes = [cuda_ops.kernel_loss(bt.loss) for bt in batches]
+    tables = [(ctypes.c_void_p * n)(*[getattr(bt, k).data_ptr() for bt in batches])
+              for k in ("T_obs", "sqrt_info", "weight")]
+    tables += [(ctypes.c_int * (n + 1))(*first), (ctypes.c_int * n)(*[bt.n_slots for bt in batches]),
+               (ctypes.c_int * n)(*[c[0] for c in codes]), (ctypes.c_double * (3 * n))(*[v for c in codes for v in c[1:]])]
+    He = torch.empty((nb, K, 6, 6), dtype=dtype, device=dev)
+    gv = torch.empty(nb * 6, dtype=dtype, device=dev)
+    chi2 = torch.empty((), dtype=dtype, device=dev)
+    scratch_len = first[-1] * 84 + -(-first[-1] // 32)
+    scratch = torch.empty(scratch_len, dtype=dtype, device=dev)
+    fn = getattr(lib, f"pyslam_ell_assemble_{'f64' if dtype is torch.float64 else 'f32'}")
+    args = (block.values.data_ptr(), block.const_mask.data_ptr(), cols.data_ptr(), idx.data_ptr(), entries.data_ptr(),
+            offsets.data_ptr(), n, *(ctypes.addressof(x) for x in tables), scratch.data_ptr(), scratch_len,
+            He.data_ptr(), gv.data_ptr(), chi2.data_ptr(), nb, K, torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch(keep=(tables, idx, entries, offsets, cols, scratch)):  # the buffers live as long as the launch
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"parent ell_assemble: error {err}")
+
+    return launch, (He, gv, chi2)
+
+
+def assemble_cell(dev, dev_us, reps, parent, calls=20):
+    """``ell_assemble`` alone at every shape of ``assemble_shapes``: this
+    checkout's wrapper and, with ``--parent``, the parent checkout's kernel
+    (``parent_assemble``) in turns (parent, this, this, parent, ...;
+    ``reps`` rounds, at least 9).  A round times each side's call alone
+    (one call between CUDA events) and back to back (``calls`` calls
+    between events, over ``calls``), each behind a hold of the stream so
+    that the host has queued everything before the first event fires:
+    medians and spreads (largest less smallest).  Then each side under
+    ``torch.profiler`` (``calls`` calls): the mean device µs of every kernel
+    by name, the stages apart; the wrapper's host µs a call (its checks,
+    ctypes tables and allocations, ``calls`` calls queued without a
+    synchronisation, median of 5); whether He, g and chi2 equal the
+    parent's bit for bit (else the largest difference relative to the
+    largest entry), and the compiler's registers and spills of each side's
+    assembly kernels; then the phase split of this checkout's stages
+    (``assemble_phases``) at sphere2500 and the 30,000-pose sphere."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyslam_tpu_torch import _ext
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        queue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(max(1_000_000, int(4 * queue_s * 2e9)))  # longer than the host takes to queue the calls
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return 1e3 * start.elapsed_time(end) / n
+
+    def spread(v):
+        return f"{statistics.median(v)!r} (spread {max(v) - min(v)!r})"
+
+    for label, g in assemble_shapes(dev):
+        dplan = bcsr.ell_device_plan(bcsr.build_ell_direct(g), dev)
+        args = bcsr.ell_assemble_args(g, dplan)
+        sides = {"this": (lambda: cuda_ops.ell_assemble(*args), None)}
+        if parent:
+            sides["parent"] = parent_assemble(parent, g, dev)
+        out = {}
+        for side, (fn, bufs) in sides.items():
+            res = fn()
+            torch.cuda.synchronize()
+            out[side] = [x.clone() for x in (bufs or res)]
+        single = {side: [] for side in sides}
+        b2b = {side: [] for side in sides}
+        for rnd in range(reps):
+            for side in list(sides)[::1 if rnd % 2 else -1]:
+                single[side].append(timed(sides[side][0], 1))
+                b2b[side].append(timed(sides[side][0], calls))
+        line = "; ".join(f"{side} single {spread(single[side])} b2b {spread(b2b[side])}" for side in sides)
+        print(f"   assemble {label} (nb {dplan.host.nb}, K {dplan.host.K}, factors {dplan.a_idx.shape[0]}), us, "
+              f"{reps} rounds: {line}", flush=True)
+        for side, (fn, _) in sides.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            split = ", ".join(f"{e.key[:60]} {dev_us(e) / e.count!r}" for e in kern if e.count == calls)
+            print(f"   assemble {label} {side}: device us a call by kernel: {split}", flush=True)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                cuda_ops.ell_assemble(*args)
+            host.append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+        print(f"   assemble {label}: the wrapper's host us a call {spread(host)}", flush=True)
+        if parent:
+            diffs = []
+            for name, a, b in zip(("He", "g", "chi2"), out["this"], out["parent"]):
+                same = torch.equal(a, b)
+                rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-300)).item()
+                where = ""
+                if name == "He" and not same:  # which blocks: diagonal, off-diagonal
+                    blocks = (a != b).flatten(2).any(-1)
+                    where = f", {int(blocks[:, 0].sum())} diagonal and {int(blocks[:, 1:].sum())} off-diagonal blocks"
+                elif name == "g" and not same:
+                    where = f", {int((a != b).view(-1, 6).any(-1).sum())} rows"
+                diffs.append(f"{name} {'equal' if same else f'differ (rel {rel!r}{where})'}")
+            print(f"   assemble {label}: bits against the parent's: {', '.join(diffs)}", flush=True)
+        del sides, out
+    assemble_phases(dev, ("sphere2500 float32", "sphere2500 float64", "sphere30000 float32"))
+    logs = {"this": _ext.BUILD_INFO.get("log") or ""}
+    if parent:
+        logs["parent"] = parent_library(parent)[0].BUILD_INFO.get("log") or ""
+    for side, text in logs.items():
+        for chunk in text.split("Compiling entry function ")[1:]:
+            fn_name = chunk.split("'")[1]
+            if re.search(r"assemble|linearize_kernel|(?<!slot_)reduce_kernelI", fn_name):
+                info = "; ".join(line.split(":", 1)[-1].strip() for line in chunk.splitlines()
+                                 if "stack frame" in line or "Used" in line)
+                print(f"   ptxas {side} {fn_name}: {info}", flush=True)
+
+
+def assemble_phase_library():
+    """A copy of ``csrc/ell_assemble.cu`` with clock64() marks between the
+    phases of each stage, built into ``build/assemble_phases/`` at the
+    package's flags: thread 0 of every stage-1 block and lane 0 of every
+    stage-2 warp add the cycles since their last mark to a device array
+    (``pyslam_debug_assemble_phases(out, reset)`` copies it out or zeroes
+    it).  Stage 1: 0 the loads and the pose algebra, 1 the rows of sqrt_info
+    (J_0, J_1, w, w r), 2 chi2, 10 the records' copy; stage 2, lane 0 of
+    every warp: 4 the prologue and the wait for stage 1, 5 the entries and
+    the staged records, 6 the parts, 7 the ordered sums, 8 the masks and the
+    stores; 3 and 9 count the blocks and the warps.  Each block adds to the
+    row of counters of its index modulo 256, so that few marks meet on one
+    address."""
+    import ctypes
+    import shutil
+
+    from pyslam_tpu_torch import _ext
+
+    src = open(os.path.join(os.path.dirname(_ext.__file__), "csrc", "ell_assemble.cu")).read()
+
+    def mark(k, who):  # 256 rows of counters, one by block index modulo 256, so that few marks meet
+        return (f"if ({who}) {{ const long long now = clock64(); "
+                f"atomicAdd(&g_phase_cycles[(blockIdx.x % 256) * 16 + {k}], "
+                "(unsigned long long)(now - phase_last)); phase_last = now; }\n")
+
+    def at(anchor, text, before=False):
+        nonlocal src
+        assert src.count(anchor) == 1, anchor
+        src = src.replace(anchor, text + anchor if before else anchor + text)
+
+    one, lead = "threadIdx.x == 0", "lane == 0"
+    at("namespace {\n\nconstexpr int kMaxBatches", "__device__ unsigned long long g_phase_cycles[256 * 16];\n", before=True)
+    at("  T fw = T(0);\n", "  long long phase_last = clock64();\n"
+       "  if (threadIdx.x == 0) atomicAdd(&g_phase_cycles[(blockIdx.x % 256) * 16 + 3], 1ull);\n")
+    at("    T tR[9];  // t^ R of the adjoint", "    " + mark(0, one), before=True)
+    at("  __syncthreads();\n  if (sub == 0) {  // the factor's chi2", "  " + mark(1, one), before=True)
+    at("  // the block's records, one contiguous run of the scratch", "  " + mark(2, one), before=True)
+    at("  launch_dependents();\n}", "  " + mark(10, one), before=True)
+    at("  if (r >= nb) return;  // a whole warp leaves together\n",
+       "  long long phase_last = clock64();\n"
+       "  if (threadIdx.x % 32 == 0) atomicAdd(&g_phase_cycles[(blockIdx.x % 256) * 16 + 9], 1ull);\n")
+    at("  wait_for_previous_grid();\n\n  for (int u0", "  " + mark(4, lead), before=True)
+    at("      // every part of the chunk's entries, a lane a row", "      " + mark(5, lead), before=True)
+    at("      // then each unit's sum, in entry order", "      " + mark(6, lead), before=True)
+    at("      __syncwarp();\n    }\n#pragma unroll\n    for (int j = 0; j < kUnitsPerLane; ++j) {", "      " + mark(7, lead),
+       before=True)
+    at("        for (int t = 0; t < 6; ++t) g[6LL * r + t] = -acc[j][t] * free_r;\n      }\n    }\n  }\n",
+       "  " + mark(8, lead))
+    src += ('\nextern "C" int pyslam_debug_assemble_phases(void* out, int reset) {\n'
+            '  static unsigned long long zero[256 * 16];\n'
+            '  return reset ? (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero))\n'
+            '               : (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(zero));\n}\n')
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "assemble_phases")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "ell_assemble.cu"), "w") as f:
+        f.write(src)
+    lib_path = os.path.join(out_dir, "libassemble_phases.so")
+    cmd = [_ext._nvcc(), *_ext._ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared", "-o", lib_path,
+           os.path.join(out_dir, "ell_assemble.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed: {proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _ext._SIGNATURES.items():
+        if name.startswith("pyslam_ell_assemble"):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    lib.pyslam_debug_assemble_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def assemble_phases(dev, shapes):
+    """The phase split of one ``ell_assemble`` call of the traced library
+    at each of ``shapes`` (labels of ``assemble_shapes``): the mean cycles a
+    stage-1 block and a stage-2 warp spend in each phase."""
+    import torch
+
+    from pyslam_tpu_torch import _ext
+    from pyslam_tpu_torch.solver import bcsr, cuda_ops
+
+    lib = assemble_phase_library()
+    names = {0: "loads and pose algebra", 1: "rows", 2: "chi2", 10: "records' copy", 4: "prologue and wait",
+             5: "entries and records", 6: "parts", 7: "ordered sums", 8: "masks and stores"}
+    for label, g in assemble_shapes(dev):
+        if label not in shapes:
+            continue
+        args = bcsr.ell_assemble_args(g, bcsr.ell_device_plan(bcsr.build_ell_direct(g), dev))
+        saved, _ext.library = _ext.library, lambda: lib
+        try:
+            cuda_ops.ell_assemble(*args)  # warm
+            torch.cuda.synchronize()
+            lib.pyslam_debug_assemble_phases(None, 1)
+            cuda_ops.ell_assemble(*args)
+            torch.cuda.synchronize()
+        finally:
+            _ext.library = saved
+        buf = torch.zeros(256 * 16, dtype=torch.int64)
+        lib.pyslam_debug_assemble_phases(buf.data_ptr(), 0)
+        c = buf.view(256, 16).sum(0).tolist()
+        split = ", ".join(f"{n} {c[k] / max(c[3 if k in (0, 1, 2, 10) else 9], 1):.0f}" for k, n in names.items())
+        print(f"   assemble {label}: mean cycles a stage-1 block ({c[3]}) / stage-2 warp ({c[9]}) by phase: {split}",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--parent", default=None,
-                    help="a checkout whose slot_reduce or ell_pcg kernels the slot cells and pcg_columns time beside")
+                    help="a checkout whose kernels the slot cells, pcg_columns and assemble time beside")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -1910,6 +2213,9 @@ def main() -> int:
             continue
         if name == "pcg_columns":
             pcg_columns(dev, max(args.reps, 9), args.parent)
+            continue
+        if name == "assemble":
+            assemble_cell(dev, dev_us, max(args.reps, 9), args.parent)
             continue
         if name == "sharded_cg_reads":
             sharded_cg_reads(dev, max(args.reps, 9))

@@ -1,18 +1,13 @@
-// One destination row of the ordered segment sum, shared by the stand-alone
-// reduction (slot_reduce.cu) and by stage 2 of the fused SE(3) assembly
-// (ell_assemble.cu):
+// One destination row of the ordered segment sum of slot_reduce.cu:
 //
 //   acc[:] = sum_{e in [lo, hi)} row(plan[e])[:]         (C values a row)
 //
-// plan is the int32 table sorted by destination (slot_reduce: perm, the
-// contribution to add; ell_assemble: a packed (factor, role) entry) and
-// row(p, u) returns unit u of the row that plan value p names: a load for
-// slot_reduce, a small J^T W J product for ell_assemble.
+// plan is the int32 table sorted by destination (perm, the contribution to
+// add) and row(p, u) returns unit u of the row that plan value p names.
 //
-// A row of C values is cut into units of V values: by default 16, 8 or
-// sizeof(T) bytes, the widest that divides the row, so that a unit is one
-// vector load or store; a caller whose arithmetic has another natural
-// grain names its own V (ell_assemble: a row of its 6 x 6 block).
+// A row of C values is cut into units of V values: 16, 8 or sizeof(T)
+// bytes, the widest that divides the row, so that a unit is one vector
+// load or store.
 // A sub-warp of kLanes lanes (a power of two) works on one destination;
 // lane l owns the units l, l + kLanes, ... and keeps their sums in
 // registers.  The plan values of a segment are loaded once, kLanes at a
@@ -46,8 +41,9 @@ constexpr int slot_vec_bytes(int row_bytes, int elem_bytes) {
   return row_bytes % 16 == 0 ? 16 : (row_bytes % 8 == 0 ? 8 : elem_bytes);
 }
 
-template <typename T, int C, int V = slot_vec_bytes(C * (int)sizeof(T), (int)sizeof(T)) / (int)sizeof(T)>
+template <typename T, int C>
 struct SlotRow {
+  static constexpr int V = slot_vec_bytes(C * (int)sizeof(T), (int)sizeof(T)) / (int)sizeof(T);
   static_assert(C % V == 0, "a row is a whole number of units");
   static constexpr int kVec = V;  // values a unit
   static constexpr int kUnits = C / V;

@@ -194,16 +194,22 @@ def build_slot_plans(plan: EllDirect) -> tuple[SlotPlan, SlotPlan]:
 
 
 def build_assemble_tables(plan: EllDirect, h_plan: SlotPlan):
-    """The tables the ``ell_assemble`` kernel reads beside the Hessian slot
-    plan, or None where a batch has other than one or two slots:
+    """The tables the ``ell_assemble`` kernel reads beside the ELL columns,
+    or None where a batch has other than one or two slots:
 
     * ``idx`` (F_total, 2) int32: the poses of every factor, the batches one
       after the other (a one-slot factor names its pose twice);
-    * ``entries`` (E,) int32: for every position of ``h_plan`` the
-      contribution it adds, packed as ``factor << 3 | a << 2 | b << 1 | t``:
-      the block J_aᵀ W J_b of that factor, transposed where t = 1.  The
-      contributions are numbered as ``build_slot_plans`` stacks them, so the
-      kernel sums every slot in the order ``slot_reduce`` does;
+    * ``entries`` (E, 2) int32, by pose row r: every contribution to r's
+      diagonal slot in the order ``h_plan`` sums it, packed as ``factor << 3
+      | a << 2 | b << 1 | t`` (the block J_aᵀ W J_b of that factor,
+      transposed where t = 1), beside the slot k of row r that the same
+      factor's off-diagonal block goes to (where a == b names a two-slot
+      factor whose other pose is another; else 0).  The contributions are
+      numbered as ``build_slot_plans`` stacks them; an off-diagonal slot's
+      are those of its row's entries that name it, in the row's order, which
+      is the order ``h_plan`` sums that slot (a factor adds its blocks to
+      its two diagonal slots in the same sequence as to the pair's slots);
+    * ``rows`` (nb + 1,) int32: the segments of ``entries`` by row;
     * ``first``: each batch's first factor, then F_total."""
     idx, codes, first = [], [], [0]
     for entries in plan.maps:
@@ -223,7 +229,18 @@ def build_assemble_tables(plan: EllDirect, h_plan: SlotPlan):
     if len(codes) != len(h_plan.perm):
         raise ValueError(f"{len(codes)} contributions for a slot plan of {len(h_plan.perm)}")
     idx = np.concatenate(idx) if idx else np.zeros((0, 2), np.int64)
-    return idx.astype(np.int32), codes[h_plan.perm].astype(np.int32), tuple(first)
+    by_slot = codes[h_plan.perm]
+    slot = np.repeat(np.arange(plan.nb * plan.K), np.diff(h_plan.offsets))
+    diagonal = slot % plan.K == 0
+    # the off-diagonal slot of each (factor, t): a pair's block goes to row
+    # idx[factor, t], the transposed one (t = 1) to the second pose's row
+    k_of = np.zeros(2 * first[-1], np.int64)
+    k_of[(by_slot[~diagonal] >> 3) * 2 + (by_slot[~diagonal] & 1)] = slot[~diagonal] % plan.K
+    diag = by_slot[diagonal]
+    a = (diag >> 2) & 1
+    k = np.where(a == ((diag >> 1) & 1), k_of[(diag >> 3) * 2 + a], 0)
+    rows = np.concatenate([[0], np.cumsum(np.diff(h_plan.offsets)[:: plan.K])])
+    return idx.astype(np.int32), np.stack([diag, k], axis=1).astype(np.int32), rows.astype(np.int32), tuple(first)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,7 +256,8 @@ class EllDevicePlan:
     g_perm: torch.Tensor
     g_offsets: torch.Tensor
     a_idx: torch.Tensor | None = None  # (F_total, 2)
-    a_entries: torch.Tensor | None = None  # (E,), segments h_offsets
+    a_entries: torch.Tensor | None = None  # (E, 2), segments a_rows
+    a_rows: torch.Tensor | None = None  # (nb + 1,)
     a_first: tuple | None = None
     h_longest: int | None = None  # the slot plans' longest segments (``slot_reduce``'s ``longest``)
     g_longest: int | None = None
@@ -256,10 +274,10 @@ def ell_device_plan(plan: EllDirect, device) -> EllDevicePlan:
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
 
     tables = build_assemble_tables(plan, hp)
-    a_idx, a_entries, a_first = (t(tables[0]), t(tables[1]), tables[2]) if tables else (None, None, None)
+    a_idx, a_entries, a_rows = (t(x) for x in tables[:3]) if tables else (None, None, None)
     return EllDevicePlan(
-        plan, t(plan.cols), t(hp.perm), t(hp.offsets), t(gp.perm), t(gp.offsets), a_idx, a_entries, a_first,
-        hp.longest, gp.longest,
+        plan, t(plan.cols), t(hp.perm), t(hp.offsets), t(gp.perm), t(gp.offsets), a_idx, a_entries, a_rows,
+        tables[3] if tables else None, hp.longest, gp.longest,
     )
 
 
@@ -305,18 +323,23 @@ def ell_assemble_batches(graph: FactorGraph):
     return out
 
 
+def ell_assemble_args(graph: FactorGraph, dplan: EllDevicePlan):
+    """The arguments of ``ell_assemble`` for ``graph`` on ``dplan``, or None
+    where the kernel does not take the graph."""
+    batches = ell_assemble_batches(graph)
+    if batches is None or dplan.a_entries is None:
+        return None
+    block = next(iter(graph.blocks.values()))
+    return (block.values, block.const_mask, batches, dplan.cols, dplan.a_idx, dplan.a_entries, dplan.a_rows,
+            dplan.a_first)
+
+
 def assemble_ell(graph: FactorGraph, dplan: EllDevicePlan):
     """(He (nb, K, d, d), g (nb*d,), chi2) straight from the factor batches:
     through ``ell_assemble`` for the graphs ``ell_assemble_batches`` takes,
     else ``ell_contributions`` and two ``slot_reduce``."""
-    batches = ell_assemble_batches(graph)
-    if batches is not None and dplan.a_entries is not None:
-        block = next(iter(graph.blocks.values()))
-        return ell_assemble(
-            block.values, block.const_mask, batches, dplan.cols, dplan.a_idx, dplan.a_entries,
-            dplan.h_offsets, dplan.a_first,
-        )
-    return assemble_ell_general(graph, dplan)
+    args = ell_assemble_args(graph, dplan)
+    return assemble_ell_general(graph, dplan) if args is None else ell_assemble(*args)
 
 
 def assemble_ell_general(graph: FactorGraph, dplan: EllDevicePlan):

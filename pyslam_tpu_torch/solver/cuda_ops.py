@@ -21,8 +21,9 @@ Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
   this card wants it: the whole ``assemble_ell`` of an SE(3) pose graph
   (linearization of every ``between_se3`` / ``prior_se3`` factor, the
   ordered sums into the ELL slots, the masks, the gradient and chi2) in two
-  launches, around the row sum (``csrc/slot_row.cuh``) it shares with
-  ``slot_reduce``.
+  programmatic dependent launches: a team of lanes a factor, then a warp a
+  pose row that stages each incident factor's record once, forms its blocks
+  and sums every slot of its row in the plan's order.
 
 Dispatch: a tensor on the CPU goes to the plain version (the CPU tests use
 it); a tensor on a CUDA device launches the kernel or raises.  There is no
@@ -598,8 +599,8 @@ def _slot_reduce(contrib, perm, offsets, n_slots, longest=None):
 # --------------------------------------------------------------------------
 
 MAX_ASSEMBLE_BATCHES = 8  # the kernel's batch table
-_LIN = 84  # values stage 1 stores a factor: J1 (36), J2 (36), w (6), w r (6)
-_LINEARIZE_THREADS = 32  # stage 1's block: one chi2 partial a block
+_LIN = 84  # values stage 1 stores a factor: J_0 (36), J_1 (36), w (6), w r (6)
+_LINEARIZE_FACTORS = 32  # stage 1's block: one chi2 partial a block
 
 _ASSEMBLE_ERRORS = {
     -1: f"more than {MAX_ASSEMBLE_BATCHES} factor batches",
@@ -638,13 +639,16 @@ def kernel_loss(loss):
     return None
 
 
-def ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, offsets, first):
+def ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, rows, first):
     """Plain version, in the kernel's two stages on the kernel's own tables.
     Stage 1, per factor: both Jacobians, w and w r from ``lie/se3.py`` (a
-    prior's one Jacobian first).  Stage 2, per entry of ``entries``: the
-    block J_a^T diag(w) J_b or its transpose, summed into its ELL slot in
-    table order; the diagonal slots' entries with a == b also give the
-    gradient rows."""
+    prior's one Jacobian first).  Stage 2: each factor's blocks D_a = J_a^T
+    diag(w) J_a, C = J_0^T diag(w) J_1 and gradient rows J_a^T w r; then per
+    entry of pose row r (``rows`` its segments of ``entries``) the entry's
+    block (D_a, or C or its transpose for a factor on one pose twice) summed
+    into r's diagonal slot; where the entry names an off-diagonal slot k, C
+    (transposed where a = 1) summed into slot k; where a == b, its gradient
+    row summed into pose r; each in table order."""
     LAUNCHES["ell_assemble_plain"] += 1
     nb, K = cols.shape
     n_factors = idx.shape[0]
@@ -668,16 +672,21 @@ def ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, offsets, 
         w[lo:hi] = bt.loss.weight(r) * bt.weight[:, None]
         wr[lo:hi] = w[lo:hi] * r
         chi2 = chi2 + torch.sum(bt.loss.loss(r) * bt.weight[:, None])
+    D = Jac.transpose(-1, -2) @ (w[:, None, :, None] * Jac)  # (F, 2, 6, 6)
+    C = Jac[:, 0].transpose(1, 2) @ (w[..., None] * Jac[:, 1])  # (F, 6, 6)
+    G = (Jac.transpose(-1, -2) @ wr[:, None, :, None])[..., 0]  # (F, 2, 6)
 
-    p = entries.long()
-    f, a, b = p >> 3, (p >> 2) & 1, (p >> 1) & 1  # factor << 3 | a << 2 | b << 1 | transposed
-    C = Jac[f, a].transpose(1, 2) @ (w[f][..., None] * Jac[f, b])
-    C = torch.where((p & 1).bool()[:, None, None], C.transpose(1, 2), C)
-    seg = _segment_ids(offsets, nb * K)
-    He = poses.new_zeros((nb * K, 36)).index_add_(0, seg, C.reshape(-1, 36)).reshape(nb, K, 6, 6)
-    rows = (a == b) & (seg % K == 0)
-    G = (Jac[f, a].transpose(1, 2) @ wr[f][..., None])[..., 0]
-    g = poses.new_zeros((nb, 6)).index_add_(0, (seg // K)[rows], G[rows])
+    p, k = entries[:, 0].long(), entries[:, 1].long()
+    f, a, b, t = p >> 3, (p >> 2) & 1, (p >> 1) & 1, (p & 1).bool()  # factor << 3 | a << 2 | b << 1 | t
+    row = _segment_ids(rows, nb, entries.shape[0])
+    own = a == b
+    Cf = C[f]
+    block = torch.where(own[:, None, None], D[f, a], torch.where(t[:, None, None], Cf.transpose(1, 2), Cf))
+    He = poses.new_zeros((nb * K, 36)).index_add_(0, row * K, block.reshape(-1, 36))
+    off = k > 0
+    pair = torch.where(a[off].bool()[:, None, None], Cf[off].transpose(1, 2), Cf[off])
+    He = He.index_add_(0, row[off] * K + k[off], pair.reshape(-1, 36)).reshape(nb, K, 6, 6)
+    g = poses.new_zeros((nb, 6)).index_add_(0, row[own], G[f[own], a[own]])
 
     free = (~const_mask).to(poses.dtype)
     He = He * free[:, None, None, None] * free[cols.long()][:, :, None, None]
@@ -685,19 +694,21 @@ def ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, offsets, 
     return He, (-g * free[:, None]).reshape(-1), chi2
 
 
-def ell_assemble(poses, const_mask, batches, cols, idx, entries, offsets, first):
+def ell_assemble(poses, const_mask, batches, cols, idx, entries, rows, first):
     """The direct-to-ELL normal equations of an SE(3) pose graph: (He (nb,
     K, 6, 6), g (nb*6,), chi2 0-dim), what ``bcsr.assemble_ell`` returns,
     as new tensors on every call.
 
     poses (nb, 4, 4) f32 or f64, const_mask (nb,) bool, ``batches`` a
     sequence of at most ``MAX_ASSEMBLE_BATCHES`` ``AssembleBatch``es whose
-    losses ``kernel_loss`` takes, and the tables of ``bcsr.ell_device_plan``:
-    cols (nb, K) int32, idx (F_total, 2) int32 the two poses of every factor
-    (a prior names its pose twice), entries (E,) int32 the packed (factor,
-    role) contributions sorted by ELL slot, offsets (nb*K + 1,) int32 their
-    segments, ``first`` the host tuple of each batch's first factor and
-    F_total.  Index values are trusted: the plan validates them."""
+    losses ``kernel_loss`` takes, and the tables of ``bcsr.ell_device_plan``
+    (``bcsr.build_assemble_tables``): cols (nb, K) int32, idx (F_total, 2)
+    int32 the two poses of every factor (a prior names its pose twice),
+    entries (E, 2) int32 by pose row the packed (factor, role) contributions
+    to its diagonal slot beside the off-diagonal slot each names, rows (nb +
+    1,) int32 their segments, ``first`` the host tuple of each batch's first
+    factor and F_total.  Index values are trusted: the plan validates
+    them."""
     if poses.dim() != 3 or tuple(poses.shape[1:]) != (4, 4):
         raise ValueError(f"poses: shape {tuple(poses.shape)}, expected (nb, 4, 4)")
     if poses.dtype not in _SUFFIX:
@@ -716,10 +727,10 @@ def ell_assemble(poses, const_mask, batches, cols, idx, entries, offsets, first)
     _check("const_mask", const_mask, torch.bool, (nb,))
     _check("cols", cols, torch.int32, (nb, K))
     _check("idx", idx, torch.int32, (n_factors, 2))
-    if entries.dim() != 1:
-        raise ValueError(f"entries: shape {tuple(entries.shape)}, expected (E,)")
-    _check("entries", entries, torch.int32, (entries.shape[0],))
-    _check("offsets", offsets, torch.int32, (nb * K + 1,))
+    if entries.dim() != 2 or entries.shape[1] != 2:
+        raise ValueError(f"entries: shape {tuple(entries.shape)}, expected (E, 2)")
+    _check("entries", entries, torch.int32, (entries.shape[0], 2))
+    _check("rows", rows, torch.int32, (nb + 1,))
     codes = []
     for b, bt in enumerate(batches):
         F = first[b + 1] - first[b]
@@ -732,15 +743,18 @@ def ell_assemble(poses, const_mask, batches, cols, idx, entries, offsets, first)
         if code is None:
             raise ValueError(f"batch {b}: the kernel does not evaluate {bt.loss!r}")
         codes.append(code)
-    tensors = [poses, const_mask, cols, idx, entries, offsets]
+    tensors = [poses, const_mask, cols, idx, entries, rows]
     for bt in batches:
         tensors += [bt.T_obs, bt.sqrt_info, bt.weight]
     for name, t in [("poses", poses)] + [(f"batch {b} {k}", getattr(bt, k)) for b, bt in enumerate(batches)
                                          for k in ("T_obs", "sqrt_info")]:
         if t.data_ptr() % 16:  # the kernel reads them 16 bytes at a time
             raise ValueError(f"{name}: storage not aligned to 16 bytes")
+    for name, t in (("idx", idx), ("entries", entries)):
+        if t.data_ptr() % 8:  # read as int2
+            raise ValueError(f"{name}: storage not aligned to 8 bytes")
     if _route(*tensors) == "cpu":
-        return ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, offsets, first)
+        return ell_assemble_plain(poses, const_mask, batches, cols, idx, entries, rows, first)
     from .._ext import library
 
     dev = poses.device
@@ -761,12 +775,12 @@ def ell_assemble(poses, const_mask, batches, cols, idx, entries, offsets, first)
         g = torch.empty(nb * 6, dtype=dtype, device=dev)
         chi2 = torch.empty((), dtype=dtype, device=dev)
         # stage 1's per-factor values and its blocks' chi2 partials
-        scratch_len = n_factors * _LIN + -(-n_factors // _LINEARIZE_THREADS)
+        scratch_len = n_factors * _LIN + -(-n_factors // _LINEARIZE_FACTORS)
         scratch = torch.empty(scratch_len, dtype=dtype, device=dev)
         fn_name = f"pyslam_ell_assemble_{_SUFFIX[dtype]}"
         err = getattr(library(), fn_name)(
             poses.data_ptr(), const_mask.data_ptr(), cols.data_ptr(), idx.data_ptr(), entries.data_ptr(),
-            offsets.data_ptr(), n, *(ctypes.addressof(t) for t in (t_obs, sqrt_info, weight, first_c, n_slots,
+            rows.data_ptr(), n, *(ctypes.addressof(t) for t in (t_obs, sqrt_info, weight, first_c, n_slots,
                                                                    loss_id, loss_params)),
             scratch.data_ptr(), scratch_len, He.data_ptr(), g.data_ptr(), chi2.data_ptr(), nb, K,
             torch.cuda.current_stream(dev).cuda_stream,

@@ -16,6 +16,9 @@ sphere never shows:
   mixed signs; no axis component is near 0, where the square root that
   recovers the axis amplifies rounding noise in any implementation).
 
+``se3_pair_graph`` gives several factors to one pose pair, in one batch in
+both directions and across batches, beside priors.
+
 Everything is made with numpy in f64 from the seed and then cast, so that
 two packages or two devices get the same problem.
 """
@@ -98,13 +101,57 @@ def se3_stress_arrays(n_poses=60, seed=11):
     return blocks, batches
 
 
+def se3_pair_arrays(n_poses=64, seed=5):
+    """A pose graph whose factors share pose pairs, as numpy arrays in the
+    form of ``se3_stress_arrays``: ``se3_sphere``'s edges, then in the same
+    batch every loop closure again in the other direction (the measurement
+    inverted) and the first three loop closures again as they are; a batch
+    of priors; a second ``between_se3`` batch on the first five odometry
+    pairs, reversed.  A slot then sums several blocks of one factor batch in
+    both directions and blocks of two batches."""
+    data = synth.se3_sphere(n_poses=n_poses, seed=seed)
+    rng = np.random.default_rng(seed)
+    T0 = _exp(rng.normal(scale=0.05, size=(n_poses, 6))) @ np.asarray(data.T_init, np.float64)
+    const = np.zeros(n_poses, bool)
+    const[0] = True
+    i, j = np.asarray(data.edges_i, np.int64), np.asarray(data.edges_j, np.int64)
+    T, S = np.asarray(data.T_meas, np.float64), np.asarray(data.sqrt_info, np.float64)
+    loops = np.nonzero(np.abs(j - i) > 1)[0]
+    again = loops[:3]
+    first = dict(i=np.concatenate([i, j[loops], i[again]]), j=np.concatenate([j, i[loops], j[again]]),
+                 T=np.concatenate([T, np.linalg.inv(T[loops]), T[again]]), S=np.concatenate([S, S[loops], S[again]]))
+    prior_idx = np.array([3, n_poses // 2], np.int64)
+    blocks = {"poses": dict(kind="se3", values=T0, const_mask=const)}
+    batches = [
+        dict(kind="between_se3", slots=("poses", "poses"), indices=[first["i"], first["j"]],
+             data={"T_obs": first["T"], "sqrt_info": first["S"]}, weight=np.ones(len(first["i"]))),
+        dict(kind="prior_se3", slots=("poses",), indices=[prior_idx],
+             data={"T_obs": np.asarray(data.T_gt, np.float64)[prior_idx],
+                   "sqrt_info": np.broadcast_to(np.eye(6) * 10.0, (len(prior_idx), 6, 6)).copy()},
+             weight=np.ones(len(prior_idx))),
+        dict(kind="between_se3", slots=("poses", "poses"), indices=[j[:5], i[:5]],
+             data={"T_obs": np.linalg.inv(T[:5]), "sqrt_info": S[:5]}, weight=np.ones(5)),
+    ]
+    return blocks, batches
+
+
 def se3_stress_graph(n_poses=60, seed=11, loss=None, dtype=torch.float64, device=None) -> FactorGraph:
     """The stress graph on ``device`` (None: the package's default).  ``loss``
     (default L2) is the loss of both ``between_se3`` batches; the priors
     are L2."""
+    return _graph_of(se3_stress_arrays(n_poses, seed), loss, dtype, device)
+
+
+def se3_pair_graph(n_poses=64, seed=5, loss=None, dtype=torch.float64, device=None) -> FactorGraph:
+    """``se3_pair_arrays`` as a graph, the losses as ``se3_stress_graph``
+    gives them."""
+    return _graph_of(se3_pair_arrays(n_poses, seed), loss, dtype, device)
+
+
+def _graph_of(arrays, loss, dtype, device) -> FactorGraph:
     device = resolve_device(device)
     loss = loss if loss is not None else L2Loss()
-    blocks, batches = se3_stress_arrays(n_poses, seed)
+    blocks, batches = arrays
 
     def tensor(a):
         return torch.tensor(a, dtype=dtype, device=device)

@@ -34,7 +34,7 @@ from pyslam_tpu_torch.solver.cuda_ops import (
     slot_reduce_plain,
 )
 from pyslam_tpu_torch.solver.lm import Options
-from pyslam_tpu_torch.testing import se3_stress_graph
+from pyslam_tpu_torch.testing import se3_pair_graph, se3_stress_graph
 
 from torch_support import (  # noqa: F401  (one_torch_thread: autouse)
     one_torch_thread, sequential_slot_sum, slot_reduce_model, tiled_slot_sum)
@@ -278,10 +278,7 @@ L1_F32_TOL = 5e-3
 
 
 def _assemble_args(g, device):
-    dplan = bcsr.ell_device_plan(bcsr.build_ell_direct(g), device)
-    block = g.blocks["poses"]
-    return (block.values, block.const_mask, bcsr.ell_assemble_batches(g), dplan.cols, dplan.a_idx,
-            dplan.a_entries, dplan.h_offsets, dplan.a_first)
+    return bcsr.ell_assemble_args(g, bcsr.ell_device_plan(bcsr.build_ell_direct(g), device))
 
 
 def _check_assemble(args, dtype, tol=None):
@@ -301,12 +298,27 @@ def _check_assemble(args, dtype, tol=None):
     return out
 
 
+def _assert_halves_transposed(He, cols):
+    """Every stored off-diagonal block is the transpose of its partner in
+    the other pose's row, bit for bit."""
+    nb, K = cols.shape
+    c = cols.long()
+    r = torch.arange(nb, device=c.device)[:, None].expand(nb, K)
+    back = c[c] == r[..., None]  # (nb, K, K): row c[r, k] names r at slot k'
+    rr, kk = torch.nonzero(c != r, as_tuple=True)
+    assert len(rr) and (back[rr, kk].sum(-1) == 1).all()
+    partner = back[rr, kk].int().argmax(-1)
+    assert torch.equal(He[rr, kk], He[c[rr, kk], partner].transpose(-1, -2))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_poses", [60, 2500, 30000])
 def test_ell_assemble_kernel_matches_plain_on_spheres(cuda_device, n_poses, dtype):
     g = build.pose_graph(synth.se3_sphere(n_poses=n_poses, seed=3), dtype=dtype, device=cuda_device)
-    He, gvec, _ = _check_assemble(_assemble_args(g, cuda_device), dtype)
+    args = _assemble_args(g, cuda_device)
+    He, gvec, _ = _check_assemble(args, dtype)
     assert He.shape[0] == n_poses and gvec.shape == (n_poses * 6,)
+    _assert_halves_transposed(He, args[3])
     # pose 0 is the anchor: identity at slot 0, zero elsewhere in its row, zero gradient
     assert torch.equal(He[0, 0], torch.eye(6, dtype=dtype, device=cuda_device))
     assert not He[0, 1:].any() and not gvec[:6].any()
@@ -319,7 +331,9 @@ def test_ell_assemble_kernel_matches_plain_on_the_stress_graph(cuda_device, loss
     factors, a general sqrt_info, a frozen interior pose, every loss."""
     g = se3_stress_graph(loss=ASSEMBLE_LOSSES[loss], dtype=dtype, device=cuda_device)
     tol = L1_F32_TOL if (loss, dtype) == ("l1", torch.float32) else None
-    He, gvec, _ = _check_assemble(_assemble_args(g, cuda_device), dtype, tol)
+    args = _assemble_args(g, cuda_device)
+    He, gvec, _ = _check_assemble(args, dtype, tol)
+    _assert_halves_transposed(He, args[3])
     mid = He.shape[0] // 2
     cols = bcsr.build_ell_direct(g).cols
     for frozen in (0, mid):
@@ -328,6 +342,15 @@ def test_ell_assemble_kernel_matches_plain_on_the_stress_graph(cuda_device, loss
     # the frozen pose's column is zero in its neighbours' rows
     r, k = np.nonzero((cols == mid) & (np.arange(len(cols))[:, None] != mid))
     assert len(r) and not He[r, k].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_assemble_kernel_matches_plain_where_factors_share_pairs(cuda_device, dtype):
+    """Slots that sum several factors of one pose pair (one batch both ways,
+    two batches), priors beside betweens: the row tables' order."""
+    g = se3_pair_graph(loss=CauchyLoss(2.0), dtype=dtype, device=cuda_device)
+    He, _, _ = _check_assemble(_assemble_args(g, cuda_device), dtype)
+    assert torch.equal(He[0, 0], torch.eye(6, dtype=dtype, device=cuda_device))
 
 
 def test_ell_assemble_kernel_general_route_agrees(cuda_device):

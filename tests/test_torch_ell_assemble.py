@@ -6,7 +6,9 @@ the JAX ``assemble_ell``, on the same numpy inputs.
 The problem is ``testing.se3_stress_graph``: ``se3_sphere(60, seed=11)``
 with loop closures, SE(3) priors, zero-weight padding factors, pose 0 and an
 interior pose frozen, a general 6x6 ``sqrt_info`` and error rotations of
-exactly 0, below 1e-4 and within 1e-3 of pi.  Tolerances: He and g within
+exactly 0, below 1e-4 and within 1e-3 of pi; and ``testing.se3_pair_graph``,
+whose slots sum several factors of one pose pair.  The kernel's row tables
+are held to the slot plans' order.  Tolerances: He and g within
 1e-10 of their largest entry, chi2 within 1e-12 relative; a solve takes the
 reference's iterations, stop code and accept sequence, chi2 within 1e-8 and
 poses within 1e-6.  The CUDA kernel is held against the plain version on the
@@ -33,7 +35,7 @@ from pyslam_tpu_torch import losses as tlosses
 from pyslam_tpu_torch.solver import bcsr as tb
 from pyslam_tpu_torch.solver import cuda_ops
 from pyslam_tpu_torch.solver import lm as tlm
-from pyslam_tpu_torch.testing import se3_stress_arrays, se3_stress_graph
+from pyslam_tpu_torch.testing import se3_pair_arrays, se3_pair_graph, se3_stress_arrays, se3_stress_graph
 from torch_support import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 # the losses the kernel evaluates: (class name, fields)
@@ -47,10 +49,11 @@ LOSSES = {
 }
 
 
-def jax_stress_graph(loss):
-    """The stress graph in the reference's classes, from the same arrays."""
+def jax_stress_graph(loss, arrays=None):
+    """The stress graph (or the graph of ``arrays``) in the reference's
+    classes, from the same arrays."""
     name, fields = LOSSES[loss] if isinstance(loss, str) else loss
-    blocks, batches = se3_stress_arrays()
+    blocks, batches = se3_stress_arrays() if arrays is None else arrays
     b = blocks["poses"]
     j_blocks = {"poses": JVariableBlock.create(b["kind"], jnp.asarray(b["values"]), jnp.asarray(b["const_mask"]))}
     j_batches = [
@@ -71,10 +74,7 @@ def port_stress_graph(loss):
 
 
 def _kernel_args(tg):
-    dplan = tb.ell_device_plan(tb.build_ell_direct(tg), "cpu")
-    block = tg.blocks["poses"]
-    return [block.values, block.const_mask, tb.ell_assemble_batches(tg), dplan.cols, dplan.a_idx, dplan.a_entries,
-            dplan.h_offsets, dplan.a_first]
+    return list(tb.ell_assemble_args(tg, tb.ell_device_plan(tb.build_ell_direct(tg), "cpu")))
 
 
 def _assert_matches(out, ref):
@@ -136,17 +136,21 @@ def test_frozen_poses_get_identity_rows():
     assert He[free, 0].diagonal(dim1=-2, dim2=-1).min() > 0
 
 
-def test_plan_tables_cover_every_role_once_in_slot_plan_order():
-    tg = port_stress_graph("l2")
+def _check_tables(tg):
+    """The kernel's tables name every contribution of ``build_slot_plans``
+    once, and each ELL slot's in the order its slot plan sums them: row r's
+    diagonal slot its segment of ``entries``, slot k of row r the
+    off-diagonal blocks of the entries that name k, in segment order."""
     plan = tb.build_ell_direct(tg)
     hp, _ = tb.build_slot_plans(plan)
-    idx, entries, first = tb.build_assemble_tables(plan, hp)
+    idx, entries, rows, first = tb.build_assemble_tables(plan, hp)
     assert first == (0, *np.cumsum([fb.n for fb in tg.batches]).tolist())
-    assert idx.dtype == entries.dtype == np.int32 and idx.shape == (first[-1], 2)
+    assert idx.dtype == entries.dtype == rows.dtype == np.int32
+    assert idx.shape == (first[-1], 2) and entries.shape[1] == 2 and rows.shape == (plan.nb + 1,)
     for b, fb in enumerate(tg.batches):
-        rows = idx[first[b] : first[b + 1]]
-        np.testing.assert_array_equal(rows[:, 0], fb.indices[0].numpy())
-        np.testing.assert_array_equal(rows[:, 1], fb.indices[-1].numpy())
+        at = idx[first[b] : first[b + 1]]
+        np.testing.assert_array_equal(at[:, 0], fb.indices[0].numpy())
+        np.testing.assert_array_equal(at[:, 1], fb.indices[-1].numpy())
     # the contributions as build_slot_plans stacks them, and where each goes
     code, dest = [], []
     for b, batch_entries in enumerate(plan.maps):
@@ -158,16 +162,49 @@ def test_plan_tables_cover_every_role_once_in_slot_plan_order():
                 code.append(factor << 3 | a << 2 | bb << 1 | 1)
                 dest.append(pos_ba)
     code, dest = np.concatenate(code), np.concatenate(dest)
-    n_between, n_prior = first[1] + first[3] - first[2], first[2] - first[1]
-    assert len(code) == 4 * n_between + n_prior == len(entries)
     assert len(set(code.tolist())) == len(code)  # every (factor, role) is its own code
-    assert sorted(entries.tolist()) == sorted(code.tolist())  # and appears exactly once
-    number = {c: n for n, c in enumerate(code.tolist())}
-    for s in range(plan.nb * plan.K):
-        seg = entries[hp.offsets[s] : hp.offsets[s + 1]].tolist()
-        assert all(dest[number[c]] == s for c in seg)
-        numbers = [number[c] for c in seg]
-        assert numbers == sorted(numbers) == hp.perm[hp.offsets[s] : hp.offsets[s + 1]].tolist()
+    want = [code[hp.perm[hp.offsets[s] : hp.offsets[s + 1]]].tolist() for s in range(plan.nb * plan.K)]
+    assert all((dest[hp.perm[hp.offsets[s] : hp.offsets[s + 1]]] == s).all() for s in range(plan.nb * plan.K))
+    got = [[] for _ in range(plan.nb * plan.K)]
+    for r in range(plan.nb):
+        for c, k in entries[rows[r] : rows[r + 1]].tolist():
+            got[r * plan.K].append(c)
+            if k:
+                assert 0 < k < plan.K and (c >> 2) & 1 == (c >> 1) & 1
+                got[r * plan.K + k].append((c >> 3) << 3 | 2 | (c >> 2) & 1)
+    assert got == want
+    return code, first
+
+
+def test_plan_tables_cover_every_role_once_in_slot_plan_order():
+    code, first = _check_tables(port_stress_graph("l2"))
+    n_between, n_prior = first[1] + first[3] - first[2], first[2] - first[1]
+    assert len(code) == 4 * n_between + n_prior
+
+
+def test_plan_tables_keep_slot_plan_order_where_factors_share_pairs():
+    """Several factors on one pose pair, in one batch both ways and across
+    batches, beside priors: every slot still in its slot plan's order."""
+    tg = se3_pair_graph(device="cpu")
+    plan = tb.build_ell_direct(tg)
+    hp, _ = tb.build_slot_plans(plan)
+    assert hp.longest >= 3
+    _check_tables(tg)
+
+
+@pytest.mark.parametrize("route", ["dispatch", "plain"])
+def test_ell_assemble_matches_reference_where_factors_share_pairs(route):
+    blocks, batches = se3_pair_arrays()
+    jg = jax_stress_graph("cauchy", (blocks, batches))
+    tg = se3_pair_graph(loss=tlosses.CauchyLoss(k=2.0), device="cpu")
+    ref = jb.assemble_ell(jg, jb.build_ell_direct(jg))
+    cuda_ops.reset_launches()
+    if route == "dispatch":
+        out = tb.assemble_ell(tg, tb.ell_device_plan(tb.build_ell_direct(tg), "cpu"))
+    else:
+        out = cuda_ops.ell_assemble_plain(*_kernel_args(tg))
+    assert cuda_ops.LAUNCHES["ell_assemble_plain"] == 1 and cuda_ops.LAUNCHES["slot_reduce_plain"] == 0
+    _assert_matches(out, ref)
 
 
 def _se2_graph():
@@ -216,7 +253,7 @@ BAD_INPUTS = ["poses_shape", "poses_half", "poses_noncontiguous", "const_mask_in
 
 @pytest.mark.parametrize("case", BAD_INPUTS)
 def test_ell_assemble_rejects_bad_inputs(case):
-    poses, const_mask, batches, cols, idx, entries, offsets, first = _kernel_args(port_stress_graph("l2"))
+    poses, const_mask, batches, cols, idx, entries, rows, first = _kernel_args(port_stress_graph("l2"))
     if case == "poses_shape":
         poses = poses[:, :3]
     elif case == "poses_half":
@@ -232,7 +269,7 @@ def test_ell_assemble_rejects_bad_inputs(case):
     elif case == "entries_2d":
         entries = entries[:, None]
     elif case == "offsets_length":
-        offsets = offsets[:-1]
+        rows = rows[:-1]
     elif case == "first_length":
         first = first[:-1]
     elif case == "first_descending":
@@ -248,7 +285,7 @@ def test_ell_assemble_rejects_bad_inputs(case):
     else:
         batches = [batches[0]._replace(n_slots=3)] + batches[1:]
     with pytest.raises((TypeError, ValueError)):
-        cuda_ops.ell_assemble(poses, const_mask, batches, cols, idx, entries, offsets, first)
+        cuda_ops.ell_assemble(poses, const_mask, batches, cols, idx, entries, rows, first)
 
 
 def test_plan_without_one_or_two_slot_batches_has_no_tables():
