@@ -164,7 +164,14 @@ that it reaches its converged cost and went through the kernels:
     ("bcsr", 1), ("ell", 8) under its gate, no host read in a linear
     solve; ``slot_reduce`` at the rank's camera-sorted plans, the pair
     plans of S, the BCSR and coarse plans, ``ell_matvec`` at the
-    ``EllPattern`` shape.
+    ``EllPattern`` shape;
+  * the native tokenizer (phase 52, host only): Venice-mini written by
+    ``write_bal`` (``synthetic_bal(300, 60000, obs_per_pt=6)``) and bench
+    config 2's graph by ``write_g2o``, each read back through the native
+    path (``native.parse_doubles`` / ``native.scan_tagged``, built with
+    ``g++`` at its first call) and through the plain Python tokenizers; the
+    arrays must be equal, and both host load times are logged with the
+    card's name and power limit.
 
 Run from the repository root on a machine with a CUDA device and
 ``nvcc``; with no arguments it runs every phase:
@@ -1472,6 +1479,8 @@ def main(argv=None) -> int:
     later_covariance_phases(ctx)
     api_phases(ctx)
     vo_phases(ctx)
+    if want(52):
+        io_phase(ctx)
     log(f"total: {time.perf_counter() - t_start!r} s")
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
@@ -4064,6 +4073,67 @@ def vo_phases(ctx):
         vo_stereo_phase(ctx)
     if ctx["want"](48):
         stereo_slam_phase(ctx)
+
+
+def io_phase(ctx):
+    """Phase 52: the g2o and BAL readers through the native tokenizer and
+    through their plain versions, on a config 5 (Venice-mini) BAL file and
+    config 2's g2o file: the same arrays, and the host time of each."""
+    import pathlib
+    import tempfile
+
+    import numpy as np
+
+    from pyslam_tpu_torch import native
+    from pyslam_tpu_torch.io import bal, g2o, synth
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.available()
+    log(f"native tokenizer build (g++, or the cached library): {time.perf_counter() - t0!r} s")
+
+    def load_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times), out
+
+    def same(a, b, label):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, np.ndarray):
+                check(x.dtype == y.dtype and np.array_equal(x, y), f"{label}: {f.name} differs native / plain")
+            else:
+                check(x == y, f"{label}: {f.name} differs native / plain")
+
+    with tempfile.TemporaryDirectory() as td:
+        files = {"venice_mini_bal": os.path.join(td, "venice_mini.bal"),
+                 "config2_m3500_g2o": os.path.join(td, "m3500.g2o")}
+        bal.write_bal(files["venice_mini_bal"], bal.synthetic_bal(300, 60000, obs_per_pt=6))
+        g2o.write_g2o(files["config2_m3500_g2o"], synth.se2_manhattan(n_poses=3500, seed=1))
+        readers = {
+            "venice_mini_bal": (lambda p: bal.read_bal(p),
+                                lambda p: bal.read_bal(p, _parse=bal._parse_bal_plain),
+                                lambda p: native.parse_doubles(pathlib.Path(p).read_bytes()),
+                                lambda p: bal._parse_bal_plain(pathlib.Path(p).read_bytes())),
+            "config2_m3500_g2o": (lambda p: g2o.read_g2o(p),
+                                  lambda p: g2o.read_g2o(p, _recs=g2o._tokenize_g2o_plain(p)),
+                                  lambda p: g2o._tokenize_g2o(p),
+                                  lambda p: g2o._tokenize_g2o_plain(p)),
+        }
+        for label, (fast, plain, tok_fast, tok_plain) in readers.items():
+            path = files[label]
+            ms, out = load_ms(lambda: fast(path))
+            plain_ms, out_plain = load_ms(lambda: plain(path))
+            same(out, out_plain, label)
+            tok_ms, _ = load_ms(lambda: tok_fast(path))
+            tok_plain_ms, _ = load_ms(lambda: tok_plain(path))
+            log(f"phase 52 {label} ({os.path.getsize(path)} B), host ms, median of 3, {ctx['smi']}: "
+                f"read native {ms!r} plain {plain_ms!r} ({plain_ms / ms!r}x); "
+                f"tokenizer alone native {tok_ms!r} plain {tok_plain_ms!r} ({tok_plain_ms / tok_ms!r}x)")
+    log(f"phase 52 (native tokenizer): {time.perf_counter() - t_phase!r} s")
 
 
 def cross_check(label, res, rel=1e-8):

@@ -1,8 +1,11 @@
 """BAL (Bundle Adjustment in the Large) problem file I/O.
 
 Copy of ``pyslam_tpu/io/bal.py`` (numpy only), with one difference: the
-tokenizer of ``read_bal`` is the pure-Python one (the reference's native
-C++ scanner is not ported; both give the same values).
+tokenizer of ``read_bal`` is always the native C++ parser
+(``pyslam_tpu_torch.native.parse_doubles``, built with ``g++`` at first
+use; a failed build raises, where the reference falls back to Python).  The
+``bytes.split`` tokenizer stays beside it as its plain version
+(``_parse_bal_plain``, for tests); both give the same values.
 
 Reader/writer for the BAL text format used by benchmark configs #4/#5
 (BASELINE.json:10-11).  The canonical datasets are not on disk, so
@@ -62,10 +65,21 @@ def _R_to_rodrigues(R):
     return Rotation.from_matrix(R).as_rotvec()
 
 
-def read_bal(path: str) -> BALData:
-    """Parse a BAL problem file."""
+def _parse_bal_plain(raw: bytes) -> np.ndarray:
+    """The plain version of ``native.parse_doubles``: ``bytes.split`` into
+    numpy."""
+    return np.array(raw.split(), dtype=np.float64)
+
+
+def read_bal(path: str, _parse=None) -> BALData:
+    """Parse a BAL problem file.  Its tokens go through the native parser
+    (one ``from_chars`` pass); ``_parse`` lets a test or a timing put the
+    plain tokenizer in its place."""
+    from .. import native
+
     with open(path, "rb") as f:
-        vals = np.array(f.read().split(), dtype=np.float64)
+        raw = f.read()
+    vals = (_parse or native.parse_doubles)(raw)
     nc, np_, nm = int(vals[0]), int(vals[1]), int(vals[2])
     cur = 3
     obs_block = vals[cur : cur + 4 * nm].reshape(nm, 4)

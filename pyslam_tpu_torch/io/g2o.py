@@ -2,9 +2,12 @@
 BASELINE.json:8).
 
 Copy of ``pyslam_tpu/io/g2o.py`` (numpy only), with two differences: the
-tokenizer is the pure-Python one (the reference's native C++ scanner is not
-ported; both give the same record matrices), and ``read_g2o_switchable``
-validates the vertex ids of switchable edges.
+tokenizer is always the native C++ scanner (``pyslam_tpu_torch.native``,
+built with ``g++`` at first use; a failed build raises, where the reference
+falls back to Python), and ``read_g2o_switchable`` validates the vertex ids
+of switchable edges.  The pure-Python tokenizer stays beside it as its plain
+version (``_tokenize_g2o_plain``, for tests); both give the same record
+matrices.
 
 Supported records:
   VERTEX_SE2 id x y theta
@@ -78,11 +81,34 @@ _G2O_WIDTH = {  # numeric fields per record (incl. integer id/index fields)
 def _tokenize_g2o(path) -> dict:
     """File -> {canonical tag: (N, width) f64 record matrix, file order}.
 
-    Unknown tags are skipped.  Records reaching the same canonical tag
-    through an alias keep file order within each spelling but are
-    concatenated alias-after-canonical (id-keyed semantics downstream make
-    this order-insensitive for well-formed files).
+    One native pass (``native.scan_tagged``).  Unknown tags are skipped.
+    Records reaching the same canonical tag through an alias keep file order
+    within each spelling but are concatenated alias-after-canonical (id-keyed
+    semantics downstream make this order-insensitive for well-formed files).
     """
+    from .. import native
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    tags = list(_G2O_WIDTH) + list(_G2O_ALIASES)
+    canon = list(_G2O_WIDTH) + [_G2O_ALIASES[a] for a in _G2O_ALIASES]
+    ids, offs, cnts, fields = native.scan_tagged(buf, tags)
+    groups: dict[str, list] = {}
+    for k, ctag in enumerate(canon):
+        sel = np.nonzero(ids == k)[0]
+        if not len(sel):
+            continue
+        w = _G2O_WIDTH[ctag]
+        if not np.all(cnts[sel] == w):
+            bad = sel[np.nonzero(cnts[sel] != w)[0][0]]
+            raise ValueError(f"{tags[k]} record with {cnts[bad]} fields (expected {w})")
+        groups.setdefault(ctag, []).append(fields[offs[sel][:, None] + np.arange(w)])
+    return {t: (v[0] if len(v) == 1 else np.concatenate(v, 0)) for t, v in groups.items()}
+
+
+def _tokenize_g2o_plain(path) -> dict:
+    """The plain version of ``_tokenize_g2o``: a Python loop with ``float()``
+    a token, the same record matrices in the same order."""
     acc: dict[str, dict[str, list]] = {}
     with open(path) as f:
         for line in f:
@@ -180,12 +206,11 @@ def read_g2o(path, _recs=None) -> "PoseGraphData | LandmarkSLAM2DData":
     poses, between-factor slots already swapped per the convention bridge
     above).
 
-    Two stages: tokenize (_tokenize_g2o — native C++ scanner when built,
-    Python fallback otherwise) then a fully-batched numpy assembly (one
-    quat->R, inv, eigh call over each record batch instead of per-record
-    Python), so 50k-pose files load in well under a second either way.
-    ``_recs`` lets callers that already tokenized the file (the Vertigo
-    reader) skip the second scan.
+    Two stages: tokenize (_tokenize_g2o, the native C++ scanner) then a
+    fully-batched numpy assembly (one quat->R, inv, eigh call over each
+    record batch instead of per-record Python).  ``_recs`` lets callers that
+    already tokenized the file (the Vertigo reader, or a test with the plain
+    tokenizer's records) skip the scan.
     """
     recs = _recs if _recs is not None else _tokenize_g2o(path)
     if not recs:

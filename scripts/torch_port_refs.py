@@ -84,6 +84,17 @@ the very graphs the smoke builds:
       depend on the match count alone: ``PRNGKey(0)`` every call), which
       the port is given to reproduce the reference's hypotheses.
 
+  f32 the f32 solves of both packages on the CPU, the JAX package's and the
+      port's (``device="cpu"``) on the same graphs: sphere2500 through
+      ``solve_ell`` with chip phase 4's settings (LM 30, stop at a cost
+      decrease above 0.999, PCG 3e-6 / 120) and bench config 4
+      (``ba_synthetic(49, 7000, seed=0)``) through
+      ``solve_schur(mode="pcg")`` with phase 10's (LM 25, PCG 1e-4 / 30):
+      LM iterations, stop code, chi2, and the CG iterations of every linear
+      solve (each package's PCG wrapped to record them; the JAX package's
+      by ``jax.debug.callback``); the same solves in f64 beside them.
+      Printed only; nothing goes to the npz.
+
 Phases 37 to 39 take the ground truth because it is an estimate both
 packages hold bit for bit; the chip smoke also checks the port's methods
 against each other at its own converged estimates.
@@ -100,6 +111,7 @@ dense f64 H of 11,008 x 11,008, about 1 GB; phase 35 one of 14,130 x
     python scripts/torch_port_refs.py --phases 37,38,39,41,42
     python scripts/torch_port_refs.py --phases 44
     python scripts/torch_port_refs.py --phases 46,47,48
+    python scripts/torch_port_refs.py --phases f32
 """
 
 from __future__ import annotations
@@ -817,6 +829,73 @@ def phase48():
           f"{out['seconds']:.1f} s", flush=True)
     return out, {"p48_ate": np.array([out["ate_odometry"], out["ate_pose_graph"], out["ate_joint"]]),
                  "p48_sample_counts": counts, "p48_samples": np.stack([samples[c] for c in counts])}
+
+
+def phasef32():
+    import torch
+
+    import pyslam_tpu.solver.bcsr as jbcsr
+    import pyslam_tpu.solver.schur as jschur
+    import pyslam_tpu_torch.solver.bcsr as tbcsr
+    import pyslam_tpu_torch.solver.schur as tschur
+    from pyslam_tpu_torch.graph import build as tbuild
+    from pyslam_tpu_torch.io import synth as tsynth
+    from pyslam_tpu_torch.solver import Options as TOptions
+
+    counts = {"jax": [], "port": []}
+
+    def jax_counted(fn):
+        def counted(*args, **kw):
+            x, it = fn(*args, **kw)
+            jax.debug.callback(lambda n: counts["jax"].append(int(n)), it)
+            return x, it
+        return counted
+
+    def port_counted(fn, field):
+        def counted(*args, **kw):
+            out = fn(*args, **kw)
+            counts["port"].append(int(out.iterations if field else out[1]))
+            return out
+        return counted
+
+    jbcsr.pcg_solve = jax_counted(jbcsr.pcg_solve)
+    jschur.pcg_solve = jax_counted(jschur.pcg_solve)
+    tbcsr.ell_pcg = port_counted(tbcsr.ell_pcg, True)
+    tschur.pcg_solve = port_counted(tschur.pcg_solve, False)
+    torch.set_num_threads(4)
+
+    def record(name, run_jax, run_port):
+        out = {}
+        for pkg, run in (("jax", run_jax), ("port", run_port)):
+            counts[pkg].clear()
+            t0 = time.perf_counter()
+            info = run()
+            jax.effects_barrier()
+            out[pkg] = dict(chi2=float(info.chi2), iterations=int(info.iterations), status=int(info.status),
+                            cg_iterations=list(counts[pkg]), seconds=time.perf_counter() - t0)
+            print(name, pkg, out[pkg], flush=True)
+        return out
+
+    sphere = dict(n_poses=2500, seed=0)
+    o4 = dict(method="lm", max_iters=30, min_cost_decrease=0.999)
+    ba = dict(n_cams=49, n_pts=7000, seed=0)
+    o10 = dict(method="lm", max_iters=25)
+    out = {}
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.float64, torch.float64)):
+        key = tdt.__repr__().split(".")[-1]
+        out[f"sphere2500_{key}"] = record(
+            f"sphere2500_{key}",
+            lambda: jbcsr.solve_ell(build.pose_graph(synth.se3_sphere(**sphere), dtype=jdt), Options(**o4),
+                                    pcg_rtol=3e-6, pcg_max_iters=120)[1],
+            lambda: tbcsr.solve_ell(tbuild.pose_graph(tsynth.se3_sphere(**sphere), dtype=tdt, device="cpu"),
+                                    TOptions(**o4), pcg_rtol=3e-6, pcg_max_iters=120)[1])
+        out[f"config4_pcg_{key}"] = record(
+            f"config4_pcg_{key}",
+            lambda: jschur.solve_schur(build.ba_graph(synth.ba_synthetic(**ba), dtype=jdt), Options(**o10),
+                                       mode="pcg", pcg_rtol=1e-4, pcg_max_iters=30)[1],
+            lambda: tschur.solve_schur(tbuild.ba_graph(tsynth.ba_synthetic(**ba), dtype=tdt, device="cpu"),
+                                       TOptions(**o10), mode="pcg", pcg_rtol=1e-4, pcg_max_iters=30)[1])
+    return out
 
 
 def main():

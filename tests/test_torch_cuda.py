@@ -14,6 +14,8 @@ JAX reference.  ``ell_pcg`` runs many dependent iterations, each with its
 dot products summed in another order than ``torch.dot``: see ``PCG_TOL``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -365,6 +367,41 @@ def test_ell_assemble_kernel_general_route_agrees(cuda_device):
     assert not any(n for k, n in cuda_ops.LAUNCHES.items() if k.endswith("_plain"))
     for a, r in zip(out, ref):
         _assert_close(a, r, 1e-11)
+
+
+def _padded(g, pad_poses):
+    """``g`` with zero-weight self-loop ``between_se3`` factors appended to
+    its batch, padded as the reference's ``test_padding_inert`` pads: the
+    batch's first measurements again, on the poses (i, i) of ``pad_poses``."""
+    (fb,) = g.batches
+    n = len(pad_poses)
+    at = torch.tensor(pad_poses, dtype=fb.indices[0].dtype, device=fb.weight.device)
+    return FactorGraph(g.blocks, [dataclasses.replace(
+        fb, indices=tuple(torch.cat([i, at]) for i in fb.indices),
+        data={k: torch.cat([v, v[:n]]) for k, v in fb.data.items()},
+        weight=torch.cat([fb.weight, fb.weight.new_zeros(n)]))])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pad_poses", [(0,), (17,), (0, 17, 17, 42, 0)], ids=["anchor", "free", "several"])
+def test_ell_assemble_zero_weight_self_loops_are_inert(cuda_device, pad_poses, dtype):
+    """Zero-weight self-loops on the frozen pose 0 and on free poses: the
+    row tables send their cross blocks to the diagonal slot (k = 0).  The
+    kernel matches its plain version, and He, g and chi2 are the unpadded
+    graph's, bit for bit; the padded factors' contributions are zero."""
+    g = build.pose_graph(synth.se3_sphere(n_poses=60, seed=3), dtype=dtype, device=cuda_device)
+    gp = _padded(g, pad_poses)
+    plan, plan_p = bcsr.build_ell_direct(g), bcsr.build_ell_direct(gp)
+    assert np.array_equal(plan_p.cols, plan.cols)  # a self-loop adds no column
+    args_p = _assemble_args(gp, cuda_device)
+    out = _check_assemble(args_p, dtype)
+    ref = ell_assemble(*_assemble_args(g, cuda_device))
+    for name, a, r in zip(("He", "g", "chi2"), out, ref):
+        assert torch.equal(a, r), name
+    h, gc, _ = bcsr.ell_contributions(gp, plan_p)
+    F = g.batches[0].n + len(pad_poses)
+    assert not h.view(-1, F, h.shape[-1])[:, -len(pad_poses):].any()
+    assert not gc.view(-1, F, gc.shape[-1])[:, -len(pad_poses):].any()
 
 
 def test_ell_assemble_refuses_mixed_devices(cuda_device):

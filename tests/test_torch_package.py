@@ -96,6 +96,8 @@ def test_import_leaves_jax_out():
         "from pyslam_tpu_torch.pipelines import DenseRGBDPipeline, DenseStereoPipeline, FrameToFrameRANSAC\n"
         "from pyslam_tpu_torch.pipelines import PhotometricResidualSE3, compute_disparity, DenseKeyframe\n"
         "from pyslam_tpu_torch.eval import associate, interpolate_poses\n"
+        "import pyslam_tpu_torch.native\n"
+        "from pyslam_tpu_torch.native import available, count_tokens, parse_doubles, scan_tagged\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyslam_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"

@@ -3,8 +3,10 @@ of a spawned group runs.  It imports neither JAX nor the test modules, so
 the spawned processes load only torch and the port.
 
 A job is a dict: ``key``; ``solver`` ("schur", "cm", "pose", "factor", "auto",
-"mesh" or "marginals": the sharded pose and landmark marginals at the
-graph's estimate, ``kw`` their indices and PCG settings); ``graph``, the arrays ``convert.graph_from_numpy`` takes;
+"mesh", "marginals": the sharded pose and landmark marginals at the
+graph's estimate, ``kw`` their indices and PCG settings, or "problem": a
+``Problem`` of ``PoseToPoseResidual`` blocks on SE(2) poses solved with the
+mesh, ``kw`` its pose-graph arrays); ``graph``, the arrays ``convert.graph_from_numpy`` takes;
 ``options``, the ``lm.Options`` fields; ``kw``, the solver's keyword
 arguments (a ``partition`` as its ``part`` array).  ``run_jobs`` runs
 the jobs in order and returns, for each key, the chi2, the cost history,
@@ -134,10 +136,34 @@ def _marginals(mesh, job):
                 lm_collectives=dict(dist.COLLECTIVES))
 
 
+def pose_graph_problem(arrays, options):
+    """A ``Problem`` of one ``PoseToPoseResidual`` an edge of a pose graph's
+    arrays (``T_init``, ``edges_i``, ``edges_j``, ``T_meas``,
+    ``sqrt_info``), SE(2) poses, f64 on the CPU, the first pose held."""
+    from pyslam_tpu_torch import SE2, PoseToPoseResidual, Problem
+
+    names = [f"T_{i}" for i in range(len(arrays["T_init"]))]
+    prob = Problem(lm.Options(**options), dtype=torch.float64, device="cpu")
+    for i, j, T, S in zip(arrays["edges_i"], arrays["edges_j"], arrays["T_meas"], arrays["sqrt_info"]):
+        prob.add_residual_block(PoseToPoseResidual(T, S), [names[int(i)], names[int(j)]])
+    prob.initialize_params({n: SE2(T) for n, T in zip(names, arrays["T_init"])})
+    prob.set_parameters_constant(names[0])
+    return prob
+
+
+def _problem(mesh, job):
+    """``Problem.solve(mesh=...)``: the cost after it and the collectives."""
+    prob = pose_graph_problem(job["kw"], job["options"])
+    dist.reset_collectives()
+    prob.solve(mesh=mesh)
+    return dict(cost=float(prob.eval_cost()), summary=[float(c) for c in prob.summary],
+                collectives=dict(dist.COLLECTIVES))
+
+
 def run_jobs(mesh, jobs):
     out = {}
     for job in jobs:
-        run = {"mesh": _mesh_checks, "marginals": _marginals}.get(job["solver"], _solve)
+        run = {"mesh": _mesh_checks, "marginals": _marginals, "problem": _problem}.get(job["solver"], _solve)
         out[job["key"]] = run(mesh, job)
     return out
 
