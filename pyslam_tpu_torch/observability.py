@@ -1,5 +1,5 @@
 """Observability and checkpointing: per-iteration JSONL solve logs,
-profiling helpers and solver-state snapshot / resume.
+profiling helpers, the solvers' spans and solver-state snapshot / resume.
 
 Counterpart of ``pyslam_tpu/observability.py``:
 
@@ -8,6 +8,10 @@ Counterpart of ``pyslam_tpu/observability.py``:
   * ``profile_trace`` is ``torch.profiler`` (CPU and, where there is one,
     the CUDA device) writing a Chrome trace into ``logdir``, in place of
     ``jax.profiler``;
+  * ``span`` marks a layer of the solvers: host nanoseconds and calls by
+    name (``SPAN_NS``, ``SPAN_CALLS``), and a ``record_function`` range in
+    the profiler's timeline while a profiler runs.  The reference's
+    ``timed`` has no counterpart: it timed the enqueue, not the work;
   * checkpoints write the leaves of a tree of dicts, lists, tuples,
     tensors and the graph dataclasses (``VariableBlock``, ``FactorBatch``,
     ``FactorGraph``) with ``np.savez`` in the reference's layout:
@@ -86,15 +90,54 @@ def profile_trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-@contextlib.contextmanager
-def timed(label: str, sink: dict | None = None):
-    """Wall-clock a block (the caller synchronizes device work inside it
-    for an accurate time)."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if sink is not None:
-        sink[label] = dt
+# Host nanoseconds and calls of each span name since ``reset_spans``, summed
+# at the outermost span of a name: a span nested in one of the same name
+# (``lm.solve`` under ``solve_ell``) adds nothing.  Read by callers that
+# account for them, as ``linear.HOST_READS`` is.
+SPAN_NS: dict = {}
+SPAN_CALLS: dict = {}
+_DEPTH: dict = {}  # name -> spans of that name open now
+
+
+def reset_spans():
+    SPAN_NS.clear()
+    SPAN_CALLS.clear()
+
+
+class span(contextlib.ContextDecorator):
+    """``with span(name):`` or ``@span(name)``: the block's host time on
+    ``time.perf_counter_ns`` into ``SPAN_NS[name]`` and one call into
+    ``SPAN_CALLS[name]``.  While a ``torch.profiler`` runs, the outermost
+    span of a name is also a ``record_function`` range, on the clock of the
+    device's events; without one it enters none (a range costs several µs
+    an entry, the check tens of ns).  Host time: the device's work shows
+    only where the host waits for it inside the span."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._t0 = 0
+        self._range = None
+
+    def __enter__(self):
+        depth = _DEPTH.get(self.name, 0)
+        _DEPTH[self.name] = depth + 1
+        if depth == 0:
+            if torch.autograd.profiler._is_profiler_enabled:
+                self._range = torch.profiler.record_function(self.name)
+                self._range.__enter__()
+            self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        depth = _DEPTH[self.name] - 1
+        _DEPTH[self.name] = depth
+        if depth == 0:
+            SPAN_NS[self.name] = SPAN_NS.get(self.name, 0) + time.perf_counter_ns() - self._t0
+            SPAN_CALLS[self.name] = SPAN_CALLS.get(self.name, 0) + 1
+            if self._range is not None:
+                rng, self._range = self._range, None
+                rng.__exit__(*exc)
+        return False
 
 
 # --------------------------------------------------------------------------
@@ -185,7 +228,10 @@ __all__ = [
     "iteration_records",
     "write_iteration_log",
     "profile_trace",
-    "timed",
+    "span",
+    "SPAN_NS",
+    "SPAN_CALLS",
+    "reset_spans",
     "save_state",
     "load_state",
     "graph_checkpoint",

@@ -58,7 +58,7 @@ from .cuda_ops import (
     slot_reduce_plain,
 )
 from .host_loop import host_lm_loop, host_lm_loop_speculative
-from .linear import HOST_READS, cholesky_solve, damp_marquardt, pcg_solve
+from .linear import HOST_READS, LM_TRIALS, cholesky_solve, damp_marquardt, pcg_solve
 from .lm import STATUS_NAMES, Options, SolveInfo, solve, solve_one_iter
 from .batched import BatchedSolveInfo, solve_batched
 from .gnc import GNCInfo, solve_gnc
@@ -117,6 +117,7 @@ __all__ = [
     "dense_plan",
     "dense_contributions",
     "HOST_READS",
+    "LM_TRIALS",
     "EllDirect",
     "EllDevicePlan",
     "SlotPlan",

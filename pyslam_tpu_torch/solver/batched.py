@@ -40,6 +40,7 @@ import torch
 
 from ..graph.core import FactorBatch, FactorGraph, VariableBlock
 from ..losses import TDistributionLoss
+from ..observability import span
 from . import lm as _lm
 from .assemble import _group, _reduce_into, dense_contributions, free_mask, structure_key
 from .linear import HOST_READS, cholesky_solve
@@ -378,7 +379,8 @@ def solve_batched(graphs, options: _lm.Options | None = None, return_info: bool 
             g = torch.where(take[:, None], g_t, g)
             cost_lin = torch.where(take, cost_new, cost_lin)
         it += 1
-        codes = status.tolist()  # the one host read of the iteration
+        with span("read"):
+            codes = status.tolist()  # the one host read of the iteration
         HOST_READS["lm"] += 1
 
     values = {n: b.values.reshape((B, sizes[n]) + tuple(b.values.shape[1:])) for n, b in best_blocks.items()}

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..graph.core import FactorGraph
+from ..observability import span
 from . import lm as _lm
 from .assemble import dense_contributions, free_mask, linearize_batch
 from .plan_cache import ClosureCache, content_key
@@ -94,6 +95,7 @@ class EllDirect:
     maps: tuple
 
 
+@span("plan")
 def build_ell_direct(graph: FactorGraph, block_name: str | None = None) -> EllDirect:
     """Vectorized (no per-edge Python): the plan build is numpy
     sort/searchsorted.  Raises on a factor index outside the block, which
@@ -271,7 +273,9 @@ def ell_device_plan(plan: EllDirect, device) -> EllDevicePlan:
     hp, gp = build_slot_plans(plan)
 
     def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+        a = np.ascontiguousarray(a, np.int32)
+        with span("read"):  # a copy from pageable host memory waits for the device
+            return torch.as_tensor(a, device=device)
 
     tables = build_assemble_tables(plan, hp)
     a_idx, a_entries, a_rows = (t(x) for x in tables[:3]) if tables else (None, None, None)
@@ -432,6 +436,7 @@ def sym_block_inv(D):
 # --------------------------------------------------------------------------
 
 
+@span("solve")
 def solve_ell(
     graph: FactorGraph,
     options: _lm.Options = _lm.Options(),
@@ -454,7 +459,11 @@ def solve_ell(
     coarse correction over ~``coarse_size``-pose BFS groups, A_c = PᵀAP with
     piecewise-constant prolongation, dense-factored once a linear solve;
     PCG by ``schur_large._pcg``, its products ``ell_matvec``).  The
-    reference takes any other name for ``"bj"``; here it raises."""
+    reference takes any other name for ``"bj"``; here it raises.
+
+    Spans (``observability.span``): ``solve`` around the call,
+    ``ell.device_plan``, and ``ell.assemble`` / ``ell.linear_solve`` around
+    each assembly and linear solve ``lm.solve`` asks for."""
     if precond not in ("bj", "two_level"):
         raise ValueError(f"precond must be 'bj' or 'two_level', got {precond!r}")
     if plan is None:
@@ -464,15 +473,18 @@ def solve_ell(
     if pcg_max_iters is None:
         pcg_max_iters = min(1000, max(120, plan.nb // 80))
     device = next(iter(graph.blocks.values())).values.device
-    dplan = ell_device_plan(plan, device)
+    with span("ell.device_plan"):
+        dplan = ell_device_plan(plan, device)
     coarse = _coarse_plan(graph, plan, coarse_size, device) if precond == "two_level" else None
 
+    @span("ell.assemble")
     def assemble_fn(g):
         return assemble_ell(g, dplan)
 
     def matvec_fn(He, x):
         return cuda_ops.ell_matvec(He, dplan.cols, x)
 
+    @span("ell.linear_solve")
     def solve_fn(He, g, lam, opt):
         D = He[:, 0]
         if opt.method == "lm":

@@ -11,15 +11,18 @@ returns the reference's ``history`` list and ``info`` dict.
 
 The values a step returns may be Python floats or 0-dim tensors; the loop
 brings the tensors of one iteration to the host in one read
-(``linear.HOST_READS["lm"]`` counts such reads).
+(``linear.HOST_READS["lm"]`` counts such reads, each a ``read`` span).  Each
+iteration is an ``lm.iteration`` span, and its accept decision is counted in
+``linear.LM_TRIALS``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..observability import span
 from . import lm as _lm
-from .linear import HOST_READS
+from .linear import HOST_READS, LM_TRIALS
 
 
 def _floats(*values):
@@ -30,7 +33,9 @@ def _floats(*values):
         return [float(v) for v in values]
     HOST_READS["lm"] += 1
     # f64 holds every f32 value exactly: the floats are those float(t) gives
-    read = iter(torch.stack([t.detach().reshape(()).to(torch.float64) for t in tensors]).tolist())
+    stacked = torch.stack([t.detach().reshape(()).to(torch.float64) for t in tensors])
+    with span("read"):
+        read = iter(stacked.tolist())
     return [next(read) if torch.is_tensor(v) else float(v) for v in values]
 
 
@@ -84,30 +89,32 @@ def host_lm_loop(step, state, options: _lm.Options, on_accept=None):
     it = 0
     n_accepted = 0
     for it in range(1, options.max_iters + 1):
-        trial, chi2, cost_new, dx_norm = step(state, lam)
-        chi2, cost_new, dx_norm = _floats(chi2, cost_new, dx_norm)
-        if not history:
-            history.append(chi2)
-            best_cost = chi2
+        with span("lm.iteration"):
+            trial, chi2, cost_new, dx_norm = step(state, lam)
+            chi2, cost_new, dx_norm = _floats(chi2, cost_new, dx_norm)
+            if not history:
+                history.append(chi2)
+                best_cost = chi2
 
-        accept = (options.method == "gn") or (cost_new < chi2)
-        if accept:
-            state = trial
-            history.append(cost_new)
-            lam = max(lam * options.lambda_down, options.lambda_min)
-            n_accepted += 1
-            if on_accept is not None:
-                on_accept(state, lam, n_accepted)
-        else:
-            lam = min(lam * options.lambda_up, options.lambda_max)
+            accept = (options.method == "gn") or (cost_new < chi2)
+            LM_TRIALS["accepted" if accept else "rejected"] += 1
+            if accept:
+                state = trial
+                history.append(cost_new)
+                lam = max(lam * options.lambda_down, options.lambda_min)
+                n_accepted += 1
+                if on_accept is not None:
+                    on_accept(state, lam, n_accepted)
+            else:
+                lam = min(lam * options.lambda_up, options.lambda_max)
 
-        improved = cost_new < best_cost
-        if improved:
-            best_state, best_cost = trial, cost_new
-            nondec = 0
-        else:
-            nondec += 1
-        status = _stop(options, accept, improved, dx_norm, cost_new, chi2, nondec)
+            improved = cost_new < best_cost
+            if improved:
+                best_state, best_cost = trial, cost_new
+                nondec = 0
+            else:
+                nondec += 1
+            status = _stop(options, accept, improved, dx_norm, cost_new, chi2, nondec)
         if status != _lm.RUNNING:
             break
 
@@ -141,30 +148,32 @@ def host_lm_loop_speculative(linearize, solve_from, state, options: _lm.Options,
     it = 0
     n_accepted = 0
     for it in range(1, options.max_iters + 1):
-        trial, dx_norm = solve_from(state, lin, lam)
-        lin_trial = linearize(trial)
-        dx_norm, cost_new = _floats(dx_norm, lin_trial[0])
-        prev_chi2 = chi2
+        with span("lm.iteration"):
+            trial, dx_norm = solve_from(state, lin, lam)
+            lin_trial = linearize(trial)
+            dx_norm, cost_new = _floats(dx_norm, lin_trial[0])
+            prev_chi2 = chi2
 
-        accept = (options.method == "gn") or (cost_new < chi2)
-        if accept:
-            state, lin, chi2 = trial, lin_trial, cost_new
-            history.append(cost_new)
-            lam = max(lam * options.lambda_down, options.lambda_min)
-            n_accepted += 1
-            if on_accept is not None:
-                on_accept(state, lam, n_accepted)
-        else:
-            lam = min(lam * options.lambda_up, options.lambda_max)
-        del lin_trial  # a rejected trial's linearization is not kept
+            accept = (options.method == "gn") or (cost_new < chi2)
+            LM_TRIALS["accepted" if accept else "rejected"] += 1
+            if accept:
+                state, lin, chi2 = trial, lin_trial, cost_new
+                history.append(cost_new)
+                lam = max(lam * options.lambda_down, options.lambda_min)
+                n_accepted += 1
+                if on_accept is not None:
+                    on_accept(state, lam, n_accepted)
+            else:
+                lam = min(lam * options.lambda_up, options.lambda_max)
+            del lin_trial  # a rejected trial's linearization is not kept
 
-        improved = cost_new < best_cost
-        if improved:
-            best_state, best_cost = trial, cost_new
-            nondec = 0
-        else:
-            nondec += 1
-        status = _stop(options, accept, improved, dx_norm, cost_new, prev_chi2, nondec)
+            improved = cost_new < best_cost
+            if improved:
+                best_state, best_cost = trial, cost_new
+                nondec = 0
+            else:
+                nondec += 1
+            status = _stop(options, accept, improved, dx_norm, cost_new, prev_chi2, nondec)
         if status != _lm.RUNNING:
             break
 

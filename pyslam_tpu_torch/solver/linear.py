@@ -26,14 +26,26 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import span
+
 # Device-to-host scalar reads made by the solver loops; reset and read by
-# callers that account for them (chip_smoke.py).
+# callers that account for them (chip_smoke.py).  Each is also a ``read``
+# span (``observability.SPAN_NS``): the host's wait on the device.
 HOST_READS = {"pcg": 0, "lm": 0}
+
+# The LM loops' trials by their accept decision (``host_loop``, ``lm.solve``):
+# a rejected trial's linearization and linear solve are work thrown away.
+LM_TRIALS = {"accepted": 0, "rejected": 0}
 
 
 def reset_host_reads():
     for k in HOST_READS:
         HOST_READS[k] = 0
+
+
+def reset_lm_trials():
+    for k in LM_TRIALS:
+        LM_TRIALS[k] = 0
 
 
 def cholesky_solve(H, g):
@@ -74,7 +86,10 @@ def pcg_solve(matvec, b, precond=None, x0=None, rtol=1e-6, max_iters=500):
     it = 0
     while it < max_iters:
         HOST_READS["pcg"] += 1
-        if not bool(torch.linalg.norm(r) > tol):
+        running = torch.linalg.norm(r) > tol
+        with span("read"):
+            running = bool(running)
+        if not running:
             break
         Ap = matvec(p)
         alpha = rz / torch.dot(p, Ap)

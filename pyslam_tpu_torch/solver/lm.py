@@ -9,6 +9,12 @@ back every comparison the accept and stop logic needs (computed on the
 device in the graph's dtype, as in the reference).  The trust radius of
 'dogleg' is updated on the device and needs no read of its own.
 
+A solve is a ``solve`` span and each iteration an ``lm.iteration`` span,
+holding the ``lm.retract`` span and the flag read's ``read`` span.  The
+copies of the damping and of the accept record to the device wait for it,
+so they are ``read`` spans too, though ``HOST_READS`` does not count them.
+``linear.LM_TRIALS`` counts the accept decisions.
+
 The default linear path is dense: ``assemble_dense`` (over the plan of
 the graph's structure, built once and kept by ``cached_dense_plan``) and
 ``_dense_solve`` (Marquardt damping and Cholesky).  A failed Cholesky
@@ -25,8 +31,9 @@ from typing import NamedTuple
 import torch
 
 from ..graph.core import FactorGraph
+from ..observability import span
 from .assemble import assemble_dense, cached_dense_plan, unit_diag_where_dead_
-from .linear import HOST_READS, cholesky_solve, damp_marquardt_
+from .linear import HOST_READS, LM_TRIALS, cholesky_solve, damp_marquardt_
 
 # Stop codes (SolveInfo.status)
 RUNNING = 0
@@ -135,6 +142,7 @@ def _dogleg_radius(opt, delta, g, dx, H, matvec_fn, cost_lin, cost_new, update_n
     return pred > 0, torch.clamp(lam, opt.trust_radius_min, opt.trust_radius_max)
 
 
+@span("solve")
 def solve(
     graph: FactorGraph,
     options: Options = Options(),
@@ -182,98 +190,105 @@ def solve(
         init_cost = graph.chi2()
     blocks = best_blocks = graph.blocks
     cost = best_cost = init_cost
-    lam = torch.tensor(opt.trust_radius_init if dogleg else opt.lambda_init, dtype=dtype, device=device)
+    with span("read"):  # a copy to the device, which waits for it
+        lam = torch.tensor(opt.trust_radius_init if dogleg else opt.lambda_init, dtype=dtype, device=device)
     nondec = 0
     status = RUNNING
     it = 0
     costs, lams, norms, accs = [init_cost], [], [], []
 
     while it < K and status == RUNNING:
-        g_cur = graph.with_values(blocks)
-        if not opt.speculative:
-            H, g, cost_lin = assemble_fn(g_cur)
-        dx = solve_fn(H, g, lam, opt)
-        if dogleg:
-            dx, interior = _dogleg_step(H, g, dx, lam, matvec_fn)
-        update_norm = torch.linalg.norm(dx)
-        trial = g_cur.retract_all(dx)
-        if opt.speculative:
-            H_t, g_t, cost_new = assemble_fn(trial)
-        else:
-            cost_new = trial.chi2()
-
-        # every comparison on the device in the graph's dtype; one read
-        checks = [
-            cost_new < cost_lin,
-            cost_new < best_cost,
-            cost_new < cost * opt.min_cost_decrease,
-            update_norm < opt.min_update_norm,
-            cost_new < opt.min_cost,
-        ]
-        if dogleg:
-            pred_pos, lam_next = _dogleg_radius(
-                opt, lam, g, dx, H, matvec_fn, cost_lin, cost_new, update_norm
-            )
-            checks += [pred_pos, interior]
-        flags = torch.stack(checks).tolist()
-        HOST_READS["lm"] += 1
-        lm_accept, improved, decrease_ok, small_update, below_min_cost = flags[:5]
-
-        lams.append(lam)
-        if opt.method == "lm":
-            accept = lm_accept  # False on NaN -> reject
-            if accept:
-                lam = torch.clamp(lam * opt.lambda_down, min=opt.lambda_min)
+        with span("lm.iteration"):
+            g_cur = graph.with_values(blocks)
+            if not opt.speculative:
+                H, g, cost_lin = assemble_fn(g_cur)
+            dx = solve_fn(H, g, lam, opt)
+            if dogleg:
+                dx, interior = _dogleg_step(H, g, dx, lam, matvec_fn)
+            with span("lm.retract"):
+                update_norm = torch.linalg.norm(dx)
+                trial = g_cur.retract_all(dx)
+            if opt.speculative:
+                H_t, g_t, cost_new = assemble_fn(trial)
             else:
-                lam = torch.clamp(lam * opt.lambda_up, max=opt.lambda_max)
-        elif dogleg:
-            accept = lm_accept and flags[5]  # and pred > 0
-            lam = lam_next
-        else:  # 'gn': unconditional step, reference behavior
-            accept = True
+                cost_new = trial.chi2()
 
-        if accept:
-            blocks = trial.blocks
-            cost = cost_new
-        if improved:
-            best_blocks = trial.blocks
-            best_cost = cost_new
-            nondec = 0
-        else:
-            nondec += 1
+            # every comparison on the device in the graph's dtype; one read
+            checks = [
+                cost_new < cost_lin,
+                cost_new < best_cost,
+                cost_new < cost * opt.min_cost_decrease,
+                update_norm < opt.min_update_norm,
+                cost_new < opt.min_cost,
+            ]
+            if dogleg:
+                pred_pos, lam_next = _dogleg_radius(
+                    opt, lam, g, dx, H, matvec_fn, cost_lin, cost_new, update_norm
+                )
+                checks += [pred_pos, interior]
+            stacked = torch.stack(checks)
+            with span("read"):
+                flags = stacked.tolist()
+            HOST_READS["lm"] += 1
+            lm_accept, improved, decrease_ok, small_update, below_min_cost = flags[:5]
 
-        # --- stopping logic (reference semantics) ---
-        max_nondec = opt.max_nondecreasing_steps if opt.allow_nondecreasing_steps else 1
-        if accept and small_update:
-            status = CONVERGED_UPDATE_NORM
-        if below_min_cost:
-            status = CONVERGED_MIN_COST
-        if opt.method == "gn":
-            # GN stops when the cost stops decreasing fast enough ...
-            if status == RUNNING and improved and not decrease_ok:
+            lams.append(lam)
+            if opt.method == "lm":
+                accept = lm_accept  # False on NaN -> reject
+                if accept:
+                    lam = torch.clamp(lam * opt.lambda_down, min=opt.lambda_min)
+                else:
+                    lam = torch.clamp(lam * opt.lambda_up, max=opt.lambda_max)
+            elif dogleg:
+                accept = lm_accept and flags[5]  # and pred > 0
+                lam = lam_next
+            else:  # 'gn': unconditional step, reference behavior
+                accept = True
+            LM_TRIALS["accepted" if accept else "rejected"] += 1
+
+            if accept:
+                blocks = trial.blocks
+                cost = cost_new
+            if improved:
+                best_blocks = trial.blocks
+                best_cost = cost_new
+                nondec = 0
+            else:
+                nondec += 1
+
+            # --- stopping logic (reference semantics) ---
+            max_nondec = opt.max_nondecreasing_steps if opt.allow_nondecreasing_steps else 1
+            if accept and small_update:
+                status = CONVERGED_UPDATE_NORM
+            if below_min_cost:
+                status = CONVERGED_MIN_COST
+            if opt.method == "gn":
+                # GN stops when the cost stops decreasing fast enough ...
+                if status == RUNNING and improved and not decrease_ok:
+                    status = CONVERGED_COST_DECREASE
+                # ... or has not improved for max_nondecreasing_steps.
+                if status == RUNNING and nondec >= max_nondec:
+                    status = STOPPED_NONDECREASING
+            elif status == RUNNING and accept and not decrease_ok and (not dogleg or flags[6]):
+                # LM/dogleg: 'converged' when an accepted step yields a tiny
+                # relative decrease; rejected steps just shrink the region.
+                # Dogleg also requires the step to have been interior: a
+                # radius-limited step with small decrease means the region is
+                # still growing, not that the optimum is reached.
                 status = CONVERGED_COST_DECREASE
-            # ... or has not improved for max_nondecreasing_steps.
-            if status == RUNNING and nondec >= max_nondec:
-                status = STOPPED_NONDECREASING
-        elif status == RUNNING and accept and not decrease_ok and (not dogleg or flags[6]):
-            # LM/dogleg: 'converged' when an accepted step yields a tiny
-            # relative decrease; rejected steps just shrink the region.
-            # Dogleg also requires the step to have been interior: a
-            # radius-limited step with small decrease means the region is
-            # still growing, not that the optimum is reached.
-            status = CONVERGED_COST_DECREASE
 
-        costs.append(cost)
-        norms.append(update_norm)
-        accs.append(accept)
-        if opt.speculative and accept:
-            H, g, cost_lin = H_t, g_t, cost_new
-        it += 1
+            costs.append(cost)
+            norms.append(update_norm)
+            accs.append(accept)
+            if opt.speculative and accept:
+                H, g, cost_lin = H_t, g_t, cost_new
+            it += 1
 
     if status == RUNNING:
         status = MAX_ITERS
     accepted = torch.zeros(K, dtype=torch.bool, device=device)
-    accepted[: len(accs)] = torch.tensor(accs, dtype=torch.bool, device=device)
+    with span("read"):
+        accepted[: len(accs)] = torch.tensor(accs, dtype=torch.bool, device=device)
     info = SolveInfo(
         chi2=best_cost,
         iterations=it,

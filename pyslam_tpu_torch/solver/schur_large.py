@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..graph.core import FACTOR_KERNELS, FactorGraph, VariableBlock, retract
+from ..observability import span
 from . import lm as _lm
 from .cuda_ops import _stable_argsort, slot_plan
 from .host_loop import host_lm_loop, host_lm_loop_speculative
@@ -131,6 +132,7 @@ def _segments(dest, n_slots, device):
                     sp.longest)
 
 
+@span("plan")
 def prepare_large_ba(
     graph: FactorGraph,
     n_chunks: int = 16,
@@ -273,6 +275,7 @@ def _cost(plan, poses, lms):
     return _obs_cost(plan, poses, lms) + _unary(plan, poses, False)
 
 
+@span("schur.linearize.rows")
 def _obs_rows(plan, poses, lms):
     """Every observation's cost (M,) and rows (M, 54) in ``_ROWS`` order,
     linearized chunk by chunk into full-length buffers."""
@@ -287,6 +290,7 @@ def _obs_rows(plan, poses, lms):
     return cost, rows
 
 
+@span("schur.linearize.parts")
 def _parts(plan, poses, cam, lm, rows):
     """The masked pieces ``schur._schur_reduce`` reads from the camera sums
     ``cam`` (C, 27), the landmark sums ``lm`` (L, 9) and the rows W, with
@@ -298,12 +302,15 @@ def _parts(plan, poses, cam, lm, rows):
     return c_u, dict(Hpp=Hpp, g_p=g_p, Hll=Hll, g_l=g_l, W=W, PP=PP, plan=plan)
 
 
+@span("schur.linearize")
 def _linearize(plan, poses, lms):
     """The normal equations at (poses, lms): (chi2, parts), ``parts`` the
     pieces ``schur._schur_reduce`` reads (Hpp, g_p, Hll, g_l, W, PP and the
     plan), masked by ``schur.mask_constants``."""
     cost, rows = _obs_rows(plan, poses, lms)
-    c_u, parts = _parts(plan, poses, plan.by_cam.sum(rows[:, :27]), plan.by_lm.sum(rows[:, 27:36]), rows)
+    with span("schur.linearize.sums"):
+        cam, lm = plan.by_cam.sum(rows[:, :27]), plan.by_lm.sum(rows[:, 27:36])
+    c_u, parts = _parts(plan, poses, cam, lm, rows)
     return cost.sum() + c_u, parts
 
 
@@ -335,6 +342,7 @@ def cg_iterations() -> list:
     return [int(n) for n in _CG_ITERATIONS]
 
 
+@span("schur.pcg")
 def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None, guard=True):
     """PCG from x0 = 0, the reference's fused loop: stop when ||r||² <=
     rtol² ||b||² (tested before each iteration; NaN stops) or after
@@ -378,7 +386,10 @@ def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None, guard=
         run = run & (rn2 > tol2)
         if read_every and k % read_every == 0:
             HOST_READS["pcg"] += 1
-            if not bool(run.any()):
+            running = run.any()
+            with span("read"):
+                running = bool(running)
+            if not running:
                 break
         Ap = matvec(p)
         (pAp,) = dots((p, Ap))
@@ -400,6 +411,7 @@ def _pcg(matvec, precond, b, rtol, max_iters, read_every=None, psum=None, guard=
     return x, done
 
 
+@span("schur.reduce")
 def _reduce(parts, lam, method, cam_sum=None):
     """``schur._schur_reduce`` (LM damping, Hll⁻¹, the reduced gradient)
     and the exact block diagonal D of S: (Hll_inv, g_red, D, damped Hpp).
@@ -421,6 +433,7 @@ def _solve_pcg(parts, lam, method, rtol, max_iters, cam_sum=None, make_precond=N
     return Hll_inv, x
 
 
+@span("schur.back_substitute")
 def _back_substitute_retract(parts, Hll_inv, poses, lms, x):
     """dx_l = Hll⁻¹ (g_l - Wᵀ dx_p) (``schur._back_substitute``; a constant
     or dead landmark's row is 0, as the masks leave it), the retraction and
@@ -624,6 +637,7 @@ def _stale_factor(pairs, parts, Hll_inv, D):
 # --------------------------------------------------------------------------
 
 
+@span("solve")
 def solve_schur_large(
     graph: FactorGraph,
     options: _lm.Options = _lm.Options(),

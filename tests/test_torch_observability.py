@@ -13,6 +13,9 @@ test of its own.
     ``test_torch_tools.py::test_graph_checkpoint_resume_exact``;
   * ``TestCheckpoint::test_profile_trace_smoke``: the reference traces
     through ``jax.profiler``; the port's ``profile_trace`` writes a
-    ``torch.profiler`` ``trace.json``, held by
-    ``test_torch_tools.py::test_profile_trace_and_timed``.
+    ``torch.profiler`` ``trace.json`` that holds the solver's spans
+    (``observability.span``), held by
+    ``test_torch_tools.py::test_profile_trace_and_timed``.  The reference's
+    ``timed`` has no counterpart in the port: it timed the enqueue of
+    device work, and the spans take its place (``tests/test_torch_spans.py``).
 """

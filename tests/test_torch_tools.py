@@ -5,7 +5,7 @@ packed sampler the same bits as the four-gather one), ``debug.py`` (the
 reference's messages; ``nan_debug`` raises at the first NaN and restores
 its state) and ``observability.py`` (iteration records within 1e-8 of the
 reference's for the same solve, checkpoints in the reference's npz
-layout, the profiler's trace file).
+layout, the profiler's trace file with the solver's spans).
 """
 
 import json
@@ -279,8 +279,16 @@ def test_graph_checkpoint_resume_exact(solves, tmp_path):
 
 
 def test_profile_trace_and_timed(tmp_path):
-    sink = {}
-    with obs.profile_trace(str(tmp_path / "trace")), obs.timed("matmul", sink):
-        torch.ones((64, 64)) @ torch.ones((64, 64))
+    """A solve under ``profile_trace`` writes the solver's timed spans into
+    ``trace.json`` beside the ops they ran, as many ranges of each name as
+    the span totals count."""
+    g = build.pose_graph(synth.se2_loop(n_poses=12, seed=0), dtype=torch.float64, device="cpu")
+    obs.reset_spans()
+    with obs.profile_trace(str(tmp_path / "trace")):
+        solve(g, Options(method="lm", max_iters=3))
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"]) and sink["matmul"] > 0
+    names = [e.get("name", "") for e in trace["traceEvents"] if e.get("ph") == "X"]
+    assert any("mm" in n for n in names)
+    assert {"solve", "lm.iteration", "lm.retract", "read"} <= set(obs.SPAN_CALLS)
+    for name, calls in obs.SPAN_CALLS.items():
+        assert names.count(name) == calls and obs.SPAN_NS[name] > 0
