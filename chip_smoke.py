@@ -165,6 +165,12 @@ that it reaches its converged cost and went through the kernels:
     solve; ``slot_reduce`` at the rank's camera-sorted plans, the pair
     plans of S, the BCSR and coarse plans, ``ell_matvec`` at the
     ``EllPattern`` shape;
+  * ``bal_rows`` at Venice's size (phase 53): BAL Venice's counts (1,778
+    cameras, 993,923 points, 5,001,946 observations) as ``portbench``'s
+    ``venice_ba`` generator makes them on the card, the kernel against its
+    plain version in f32 and f64 and timed beside its bound and the chunked
+    path it replaces, then that benchmark's solve through
+    ``solve_schur_large`` as a main path, one launch a linearization;
   * the native tokenizer (phase 52, host only): Venice-mini written by
     ``write_bal`` (``synthetic_bal(300, 60000, obs_per_pt=6)``) and bench
     config 2's graph by ``write_g2o``, each read back through the native
@@ -221,7 +227,7 @@ H100_F32_FLOP_PER_S = 67e12
 # The 1% gates of bench/run.py on the converged costs of the stand-in
 # solvers, by the keys of bench/standin_cache.json.
 STANDIN_GATE = 1.01
-KERNELS = ("ell_matvec", "ell_pcg", "slot_reduce", "ell_assemble")
+KERNELS = ("ell_matvec", "ell_pcg", "slot_reduce", "ell_assemble", "bal_rows")
 # the paths of phase 51 through solve_bcsr, by (spmv, precond_group)
 BCSR_PATHS = {("ell", 1): "bcsr_sphere2500", ("bcsr", 1): "bcsr_bcsr_g1_sphere2500",
               ("ell", 8): "bcsr_ell_g8_sphere2500"}
@@ -248,6 +254,17 @@ ASSEMBLE_TOL = {"float32": 2e-5, "float64": 1e-11}
 # compositions, six rows of Jacobians and loss), stage 2 a 6x6 contribution
 # (36 sums of six w * J * J terms) and a gradient row (six sums of six).
 ASSEMBLE_FLOP = {"factor": 1700, "contribution": 648, "gradient_row": 72}
+# bal_rows against its plain version, each column relative to its largest
+# sum of the magnitudes of its terms (``cuda_ops.bal_rows_scale``).  f64:
+# rounding only.  f32: the kernel contracts multiply-adds where the plain
+# version rounds them apart, a residual of a few px beside a prediction of
+# hundreds differs by a few roundings of the prediction, and a robust
+# weight amplifies that (the limits of tests/test_torch_cuda.py).
+BAL_TOL = {"float32": 2e-3, "float64": 1e-10}
+# Operations of one bal_rows observation, counted from its source: the
+# projection, residual and loss (about 60), the 2 x 9 Jacobian (about 90),
+# 9 gradient rows of 3 and 45 Hessian and W rows of 5 (about 250).
+BAL_ROWS_FLOP = 400
 
 # The JAX reference's numbers for phases 28 to 31, recorded once on the CPU
 # in f64 on the graphs those phases build, by
@@ -381,12 +398,13 @@ def host_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def add_times(report, name, key, times, n_bytes, flop):
+def add_times(report, name, key, times, n_bytes, flop, label=None):
     """Accumulate one timed call into ``report[name]``: ``times`` maps
     "ms", "single_ms", "plain_ms", "library_ms" to this call's figures; the
     call's bound is computed from its bytes and operations.  ``key`` is
     "ms" for a sphere2500 call (the kernels line's columns) or
-    "<config>_ms" for a dense-assembly shape."""
+    "<config>_ms" for a dense-assembly shape; ``label`` names the shape in
+    the log where it is not sphere2500's or the config's."""
     import math
 
     r = report[name]
@@ -397,7 +415,7 @@ def add_times(report, name, key, times, n_bytes, flop):
             r[prefix + k] = r.get(prefix + k, 0.0) + v
     r.setdefault(prefix + "library_ms", None)
     r[prefix + "bound_by"] = by
-    log(f"{name} {key[:-3] or 'sphere2500'}: {times}; bound {b_ms!r} ms by {by} "
+    log(f"{name} {label or key[:-3] or 'sphere2500'}: {times}; bound {b_ms!r} ms by {by} "
         f"({n_bytes} B, {flop} flop); kernel / bound {times['ms'] / b_ms if b_ms else math.inf!r}")
 
 
@@ -581,6 +599,103 @@ def check_assemble(label, graph, report=None):
             + ASSEMBLE_FLOP["gradient_row"] * n_rows)
     add_times(report, "ell_assemble", "ms", times, n_bytes, flop)
     log(f"ell_assemble {label}: library_ms is the general route (ell_contributions + two slot_reduce + masks)")
+
+
+def venice_bal_phase(report, drive):
+    """Phase 53: ``bal_rows`` at Venice's size, on the ``venice_ba`` problem
+    of ``portbench`` (1,778 cameras, 993,923 points, 5,001,946 monocular
+    BAL observations, made on the card from seed 53) through its plan
+    (n_chunks 128).  The kernel against ``bal_rows_plain`` over the plan's
+    chunks, in f32 and f64 on the same inputs, rows and cost and the
+    cost-only launch's cost within ``BAL_TOL`` of ``bal_rows_scale``, two
+    launches bitwise equal; the device times of the kernel (20 back to back,
+    and single), its plain version and the chunked path it replaces
+    (``library_ms``) beside its bound by bytes (0.392 ms in f32).  Then the
+    benchmark's solve (LM 10, PCG 1e-4 / 12) as a main path, after a warm-up:
+    one ``bal_rows`` launch a linearization, no plain version, the cost
+    falling."""
+    import numpy as np
+    import torch
+
+    from portbench.entries import schur_large as venice_entry
+    from portbench.generators import bal_scene
+    from pyslam_tpu_torch.observability import SPAN_CALLS
+    from pyslam_tpu_torch.solver import cuda_ops, schur_large
+
+    with open(os.path.join(ROOT, "portbench", "configs", "venice_ba.json")) as f:
+        cfg = json.load(f)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    state = venice_entry.build(bal_scene.generate(cfg["sizes"], 53, dev), cfg, dev)
+    venice_entry.plan(state)
+    plan = state["plan"]
+    torch.cuda.synchronize()
+    log(f"venice_ba: {plan.C} cameras, {plan.L} points, {plan.M} observations, made and planned in "
+        f"{time.perf_counter() - t0!r} s")
+    check(plan.bal, "venice_ba: the plan does not take bal_rows")
+    chunk = plan.Mp // plan.n_chunks
+    args32 = schur_large.bal_rows_args(plan, plan.poses, plan.lms)
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype).split(".")[-1]
+        args = tuple(t.to(dtype) if t.is_floating_point() else t for t in args32)
+        cost, rows = cuda_ops.bal_rows(*args, plan.loss)
+        again = cuda_ops.bal_rows(*args, plan.loss)
+        only, none = cuda_ops.bal_rows(*args, plan.loss, rows=False)
+        ref = cuda_ops.bal_rows_plain(*args, plan.loss, chunk=chunk)
+        rows_scale, cost_scale = cuda_ops.bal_rows_scale(*args, plan.loss, chunk=chunk)
+        torch.cuda.synchronize()
+        check(none is None and torch.equal(cost, again[0]) and torch.equal(rows, again[1]),
+              f"bal_rows venice_ba {tname}: two runs differ")
+        for name, out, r, scale in (("rows", rows, ref[1], rows_scale), ("cost", cost[:, None], ref[0][:, None],
+                                    cost_scale), ("cost only", only[:, None], ref[0][:, None], cost_scale)):
+            check(out.shape == r.shape and torch.isfinite(out).all().item(), f"bal_rows venice_ba {tname} {name}: "
+                  "shape or non-finite")
+            err = ((out - r).double().abs() / scale.clamp(min=1e-300)).max().item()
+            log(f"bal_rows venice_ba {tname} {name}{tuple(out.shape)}: largest error {err!r} of its column's scale "
+                f"(limit {BAL_TOL[tname]}), max_abs_err {(out - r).abs().max().item()!r}")
+            check(err <= BAL_TOL[tname], f"bal_rows venice_ba {tname} {name}: error {err} > {BAL_TOL[tname]}")
+            if dtype is torch.float32:
+                worst = max(worst, (out - r).abs().max().item())
+        del args, cost, rows, again, only, ref
+    report["bal_rows"] = dict(max_abs_err=worst)
+
+    def kernel(*a):
+        return cuda_ops.bal_rows(*a, plan.loss)
+
+    times = dict(
+        ms=median_ms(kernel, args32, calls=20, inner=BACK_TO_BACK),
+        single_ms=median_ms(kernel, args32, calls=20),
+        plain_ms=median_ms(lambda *a: cuda_ops.bal_rows_plain(*a, plan.loss, chunk=chunk), args32, calls=3),
+        # no one PyTorch call linearizes: the chunked path that the kernel replaces
+        library_ms=median_ms(schur_large._obs_rows, (dataclasses.replace(plan, bal=False), plan.poses, plan.lms),
+                             calls=3),
+    )
+    add_times(report, "bal_rows", "ms", times, tensor_bytes(*args32, *kernel(*args32)), BAL_ROWS_FLOP * plan.M,
+              label="venice_ba")
+    log("bal_rows venice_ba: library_ms is the chunked path (the factor kernel over 128 chunks, device time)")
+
+    def run():
+        venice_entry.restore(state)
+        return venice_entry.solve(state)
+
+    run()  # warm-up
+    rows_before = SPAN_CALLS.get("schur.linearize.rows", 0)
+    t0 = time.perf_counter()
+    out, launches, reads = drive("venice_ba_bal_rows", run, ("bal_rows", "slot_reduce"))
+    wall = time.perf_counter() - t0
+    linearizations = SPAN_CALLS.get("schur.linearize.rows", 0) - rows_before
+    first = out["first_cost"]()
+    log(f"solve venice_ba_bal_rows f32 (n_chunks 128, PCG 1e-4 / 12, LM 10): wall {1e3 * wall!r} ms, chi2 {first!r} "
+        f"after the first step -> {out['chi2']!r}, linearizations {linearizations}, host reads {reads}, "
+        f"launches {launches}")
+    check(launches["bal_rows"] == linearizations > 1, f"venice_ba: {launches['bal_rows']} bal_rows launches for "
+          f"{linearizations} linearizations")
+    check(np.isfinite(out["chi2"]) and out["chi2"] <= first, f"venice_ba: chi2 {first} -> {out['chi2']}")
+    check(torch.isfinite(out["poses"]).all().item() and torch.isfinite(out["landmarks"]).all().item(),
+          "venice_ba: non-finite state")
+    del state, plan, args32, out
+    torch.cuda.empty_cache()
 
 
 def bsr_matrix(He, plan):
@@ -867,6 +982,9 @@ def main(argv=None) -> int:
         poses = solved.blocks["poses"].values
         check(tuple(poses.shape) == shape, f"{name}: poses shape {tuple(poses.shape)}")
         check(torch.isfinite(poses).all().item(), f"{name}: non-finite poses")
+
+    if want(53):
+        venice_bal_phase(report, drive)
 
     run_main = want(*range(4, 28), 49, 50)  # phases 23 to 27, 49 and 50 read what 4 to 22 made
     if run_main:
@@ -1486,7 +1604,8 @@ def main(argv=None) -> int:
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
                "ell_pcg": "pyslam_tpu_torch/csrc/ell_pcg.cu",
                "slot_reduce": "pyslam_tpu_torch/csrc/slot_reduce.cu",
-               "ell_assemble": "pyslam_tpu_torch/csrc/ell_assemble.cu"}
+               "ell_assemble": "pyslam_tpu_torch/csrc/ell_assemble.cu",
+               "bal_rows": "pyslam_tpu_torch/csrc/bal_rows.cu"}
     # ell_pcg is ell_matvec_lane_major at the grain of its caller, the
     # while_loop of pyslam_tpu/solver/linear.py:38-61; ell_assemble is
     # scatter_matmul at the grain of its caller, assemble_ell of
@@ -1494,7 +1613,10 @@ def main(argv=None) -> int:
     replaces = {"ell_matvec": "pyslam_tpu/solver/pallas_ops.py:60",
                 "ell_pcg": "pyslam_tpu/solver/pallas_ops.py:60",
                 "slot_reduce": "pyslam_tpu/solver/pallas_ops.py:143",
-                "ell_assemble": "pyslam_tpu/solver/pallas_ops.py:143"}
+                "ell_assemble": "pyslam_tpu/solver/pallas_ops.py:143",
+                # the reference linearizes BAL observations with the factor
+                # kernel's tensor ops, chunk by chunk; no Pallas kernel
+                "bal_rows": "none: the chunked factor kernel of schur_large._obs_rows (library_ms)"}
     main_paths = ("sphere2500", "sphere2500_dogleg", "config1_se2_loop_cauchy", "config1_se2_loop_l2",
                   "config2_m3500_g2o", "config7_sim3_400", "config4_ba_schur_pcg", "config4_ba_schur_dense",
                   "config8_landmark_slam_800", "config2_sparse_chol", "sparse_chol_5000", "schur_sparse_2000",
@@ -1508,7 +1630,7 @@ def main(argv=None) -> int:
                   "problem_sphere2500", "problem_covariance_f32", "problem_covariance_f64", "implicit_m3500",
                   "implicit_m3500_backward", "autodiff_sphere2500", "vo_rgbd_vga", "vo_rgbd_vga_batch16",
                   "vo_stereo_vga", "stereo_slam_40", "schur_cm_config5", "schur_cm_config6", "cluster64_config6",
-                  "stale_config6", "two_level_sphere2500", *BCSR_PATHS.values())
+                  "stale_config6", "two_level_sphere2500", "venice_ba_bal_rows", *BCSR_PATHS.values())
     # a phase selection reports the kernels and paths it ran; the default run
     # must have every kernel, launched on a main path, with every column
     kernels = [

@@ -40,6 +40,9 @@ _ELL_PCG = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P]
 # (T_obs, sqrt_info, weight pointers; first; n_slots; loss; loss_params),
 # scratch, its length, He, g, chi2, nb, K, stream
 _ELL_ASSEMBLE = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P]
+# poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, info_per_obs, weight,
+# loss, c0, c1, c2, M, cost, rows, stream
+_BAL_ROWS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _D, _D, _D, ctypes.c_longlong, _P, _P, _P]
 _SIGNATURES = {
     "pyslam_ell_matvec_f32": _ELL_MATVEC,
     "pyslam_ell_matvec_f64": _ELL_MATVEC,
@@ -47,6 +50,8 @@ _SIGNATURES = {
     "pyslam_slot_reduce_f64": _SLOT_REDUCE,
     "pyslam_ell_assemble_f32": _ELL_ASSEMBLE,
     "pyslam_ell_assemble_f64": _ELL_ASSEMBLE,
+    "pyslam_bal_rows_f32": _BAL_ROWS,
+    "pyslam_bal_rows_f64": _BAL_ROWS,
     "pyslam_ell_pcg_f32": _ELL_PCG,
     "pyslam_ell_pcg_f64": _ELL_PCG,
     # nb, K, d, element size, columns, out (6 ints)

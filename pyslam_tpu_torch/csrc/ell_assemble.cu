@@ -85,6 +85,10 @@
 
 #include <cstdint>
 
+#include "loss_eval.cuh"
+
+using namespace pyslam;  // the losses and the clamps of loss_eval.cuh
+
 namespace {
 
 constexpr int kMaxBatches = 8;
@@ -101,8 +105,6 @@ constexpr int kParts = 13;                      // stage 2: rows an entry gives 
 
 constexpr int kErrTooManyBatches = -1;
 constexpr int kErrScratchTooSmall = -2;
-
-enum Loss { kL2 = 0, kL1 = 1, kCauchy = 2, kHuber = 3, kTukey = 4, kStudentT = 5 };
 
 template <typename T>
 struct Batches {
@@ -129,10 +131,6 @@ __device__ __forceinline__ float cos_(float x) { return cosf(x); }
 __device__ __forceinline__ double cos_(double x) { return cos(x); }
 __device__ __forceinline__ float atan2_(float y, float x) { return atan2f(y, x); }
 __device__ __forceinline__ double atan2_(double y, double x) { return atan2(y, x); }
-__device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
-__device__ __forceinline__ double log1p_(double x) { return log1p(x); }
-__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_(double x) { return fabs(x); }
 
 // 16- and 8-byte (f64: 32- and 16-byte) accesses; p is aligned to as much
 __device__ __forceinline__ void load4(const float* __restrict__ p, float* o) {
@@ -164,16 +162,6 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-
-// clamps that hand a NaN on, as torch.clamp does
-template <typename T>
-__device__ __forceinline__ T at_least(T x, T lo) {
-  return x < lo ? lo : x;
-}
-template <typename T>
-__device__ __forceinline__ T at_most(T x, T hi) {
-  return x > hi ? hi : x;
-}
 
 // ---- 3 x 3 algebra on row-major T[9] --------------------------------------
 
@@ -354,48 +342,6 @@ __device__ __forceinline__ void se3_Q(const T* rho, const T* phi, T* Q) {
 #pragma unroll
   for (int i = 0; i < 9; ++i) Q[i] += m4 * (tmp[i] + pr[i]);
 }
-
-// ---- losses: losses.py, elementwise ---------------------------------------
-
-// rho(e) and the IRLS weight psi(e) / e
-template <typename T>
-__device__ __forceinline__ void loss_eval(int loss, T c0, T c1, T c2, T e, T& rho, T& w) {
-  const T eps = T(1e-12);
-  const T abs_e = abs_(e);
-  switch (loss) {
-    case kL1:
-      rho = abs_e;
-      w = T(1) / at_least(abs_e, eps);
-      break;
-    case kCauchy: {  // c0 = k, c1 = k^2 / 2
-      const T q = (e / c0) * (e / c0);
-      rho = c1 * log1p_(q);
-      w = T(1) / (T(1) + q);
-      break;
-    }
-    case kHuber:  // c0 = k
-      rho = abs_e <= c0 ? T(0.5) * e * e : c0 * (abs_e - T(0.5) * c0);
-      w = at_most(c0 / at_least(abs_e, eps), T(1));
-      break;
-    case kTukey: {  // c0 = k, c1 = k^2 / 6
-      const T q = (e / c0) * (e / c0);
-      const T one_minus = T(1) - q;
-      const bool inside = abs_e <= c0;
-      rho = inside ? c1 * (T(1) - one_minus * one_minus * one_minus) : c1;
-      w = inside ? one_minus * one_minus : T(0);
-      break;
-    }
-    case kStudentT:  // c0 = nu, c1 = scale^2, c2 = (nu + 1) / 2
-      rho = c2 * log1p_(e * e / (c0 * c1));
-      w = (c0 + T(1)) / (c0 + e * e / c1);
-      break;
-    default:  // kL2
-      rho = T(0.5) * (e * e);
-      w = T(1);
-      break;
-  }
-}
-
 
 // ---- programmatic dependent launch (sm_90) ---------------------------------
 

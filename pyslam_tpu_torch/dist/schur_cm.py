@@ -16,10 +16,12 @@ the collectives of ``dist/``, and that is what this module is:
     replicated, each rank holding its own sizes (no padding with safe
     points, which ``shard_map`` needs and ``torch.distributed`` does not);
   * a rank's share is a ``schur_large.LargeBA`` plan of its own
-    observations: sorted stably by camera once, linearized over
-    ``n_chunks`` chunks into full-length row buffers (no (Mr, m, dof)
-    Jacobian of the whole share exists at once), every sum by camera and
-    by landmark ``cuda_ops.slot_reduce`` over the plan's ``Segments``;
+    observations: sorted stably by camera once, linearized into
+    full-length row buffers (monocular BAL observations by one
+    ``cuda_ops.bal_rows`` launch, other kinds over ``n_chunks`` chunks, so
+    that no (Mr, m, dof) Jacobian of the whole share exists at once), every
+    sum by camera and by landmark ``cuda_ops.slot_reduce`` over the plan's
+    ``Segments``;
   * the Schur algebra and PCG are ``schur_large._solve_pcg`` with a
     ``cam_sum`` that follows every sum by camera with a ``mesh.psum``.
 

@@ -24,6 +24,11 @@ Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
   programmatic dependent launches: a team of lanes a factor, then a warp a
   pose row that stages each incident factor's record once, forms its blocks
   and sums every slot of its row in the plan's order.
+* ``bal_rows`` (``csrc/bal_rows.cu``) replaces no Pallas kernel: the rows of
+  ``schur_large``'s linearization of monocular BAL observations (the
+  ``reprojection_bal`` factor kernel, its loss weights and the products
+  J^T w r and J^T diag(w) J that the Schur sums read) in one launch, where
+  the factor kernel's tensor ops took about 70 launches a chunk.
 
 Dispatch: a tensor on the CPU goes to the plain version (the CPU tests use
 it); a tensor on a CUDA device launches the kernel or raises.  There is no
@@ -53,6 +58,7 @@ LAUNCHES = {
     "ell_pcg": 0, "ell_pcg_plain": 0,
     "slot_reduce": 0, "slot_reduce_plain": 0,
     "ell_assemble": 0, "ell_assemble_plain": 0,
+    "bal_rows": 0, "bal_rows_plain": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -790,3 +796,104 @@ def ell_assemble(poses, const_mask, batches, cols, idx, entries, rows, first):
     _raise_on_error(fn_name, err)
     LAUNCHES["ell_assemble"] += 1
     return He, g, chi2
+
+
+# --------------------------------------------------------------------------
+# BAL reprojection rows of the Schur path
+# --------------------------------------------------------------------------
+
+BAL_ROWS = 54  # rows an observation, in ``schur_large._ROWS`` order
+
+
+def bal_rows_plain(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight, loss, rows=True, chunk=None):
+    """Plain version: ``schur_large.obs_chunks``, the ``reprojection_bal``
+    factor kernel, the loss and ``schur._tmv`` / ``schur._jtwj``, over
+    ``chunk`` observations at a time (None: all at once)."""
+    from .schur_large import _ROWS, obs_chunks  # schur_large imports this module
+
+    LAUNCHES["bal_rows_plain"] += 1
+    data = {"obs": obs, "f": f, "k1": k1, "k2": k2, "sqrt_info": sqrt_info}
+    per_obs = {"obs", "f", "k1", "k2"} | ({"sqrt_info"} if sqrt_info.dim() == 3 else set())
+    gather = torch.as_tensor(_ROWS, device=poses.device) if rows else None
+    M = cam_idx.shape[0]
+    return obs_chunks("reprojection_bal", True, data, per_obs, poses, lms, cam_idx, pt_idx, weight, loss, gather,
+                      chunk or M)
+
+
+def bal_rows_scale(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight, loss, chunk=None):
+    """The scale of a difference from ``bal_rows_plain``, in f64: each row
+    column's largest sum of the magnitudes of its terms (the rows of |J|,
+    |w| and |r|), (54,), and the largest cost, (1,).  An entry that cancels,
+    such as the camera's H[2, 5], which sums terms of 1e6 to 1e-11, keeps
+    the rounding of its terms."""
+    from ..graph.core import FACTOR_KERNELS
+    from .schur import _jtwj, _tmv
+    from .schur_large import _ROWS
+
+    poses, lms, obs, f, k1, k2, sqrt_info, weight = (t.double() for t in (poses, lms, obs, f, k1, k2, sqrt_info,
+                                                                          weight))
+    M = cam_idx.shape[0]
+    rows, cost = poses.new_zeros(len(_ROWS)), poses.new_zeros(1)
+    for lo in range(0, M, chunk or max(M, 1)):
+        hi = min(lo + (chunk or M), M)
+        data = {"obs": obs[lo:hi], "f": f[lo:hi], "k1": k1[lo:hi], "k2": k2[lo:hi],
+                "sqrt_info": sqrt_info[lo:hi] if sqrt_info.dim() == 3 else sqrt_info}
+        r, jacs = FACTOR_KERNELS["reprojection_bal"](data, poses[cam_idx[lo:hi]], lms[pt_idx[lo:hi]])
+        J = torch.cat(jacs, -1).abs()
+        w = (loss.weight(r) * weight[lo:hi, None]).abs()
+        part = torch.cat([_tmv(J, w * r.abs()), _jtwj(J, w, J).reshape(-1, 81)], 1)[:, _ROWS]
+        rows = torch.maximum(rows, part.amax(0))
+        cost = torch.maximum(cost, (loss.loss(r) * weight[lo:hi, None]).sum(1).amax(0, keepdim=True))
+    return rows, cost
+
+
+def bal_rows(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight, loss, rows=True, chunk=None):
+    """Each monocular BAL observation's cost (M,) and, with ``rows``, its
+    rows (M, 54) in ``schur_large._ROWS`` order (else None): with r the
+    ``reprojection_bal`` residual, J = [J_camera | J_landmark] and w =
+    ``loss.weight(r) * weight``, the cost is sum(``loss.loss(r)`` *
+    weight), the rows J^T w r and the upper triangle of J^T diag(w) J.
+
+    poses (C, 4, 4) f32 or f64, lms (L, 3), cam_idx and pt_idx (M,) int64
+    (trusted: the plan validates them), obs (M, 2), f, k1, k2 and weight
+    (M,), sqrt_info (2, 2) for all observations or (M, 2, 2), all
+    contiguous on one device, and a loss that ``kernel_loss`` takes.  On a
+    CUDA device one launch (none for M = 0), the same bits on every call;
+    ``chunk`` is for the plain version, as the kernel holds no Jacobians."""
+    if poses.dim() != 3 or tuple(poses.shape[1:]) != (4, 4):
+        raise ValueError(f"poses: shape {tuple(poses.shape)}, expected (C, 4, 4)")
+    dtype = poses.dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"poses: dtype {dtype}, expected float32 or float64")
+    M = cam_idx.shape[0] if cam_idx.dim() == 1 else -1
+    _check("poses", poses, dtype, tuple(poses.shape))
+    _check("lms", lms, dtype, (lms.shape[0], 3))
+    _check("cam_idx", cam_idx, torch.int64, (M,))
+    _check("pt_idx", pt_idx, torch.int64, (M,))
+    _check("obs", obs, dtype, (M, 2))
+    for name, t in (("f", f), ("k1", k1), ("k2", k2), ("weight", weight)):
+        _check(name, t, dtype, (M,))
+    per_obs = sqrt_info.dim() == 3
+    _check("sqrt_info", sqrt_info, dtype, (M, 2, 2) if per_obs else (2, 2))
+    code = kernel_loss(loss)
+    if code is None:
+        raise ValueError(f"the kernel does not evaluate {loss!r}")
+    tensors = (poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight)
+    if _route(*tensors) == "cpu":
+        return bal_rows_plain(*tensors, loss, rows, chunk)
+    from .._ext import library
+
+    dev = poses.device
+    with torch.cuda.device(dev):
+        cost = torch.empty(M, dtype=dtype, device=dev)
+        out = torch.empty((M, BAL_ROWS), dtype=dtype, device=dev) if rows else None
+        if M == 0:  # an empty grid is a launch error: no launch, no count
+            return cost, out
+        fn_name = f"pyslam_bal_rows_{_SUFFIX[dtype]}"
+        err = getattr(library(), fn_name)(
+            *(t.data_ptr() for t in tensors[:9]), int(per_obs), weight.data_ptr(), code[0], *code[1:], M,
+            cost.data_ptr(), 0 if out is None else out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(fn_name, err)
+    LAUNCHES["bal_rows"] += 1
+    return cost, out

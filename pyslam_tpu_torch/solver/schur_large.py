@@ -14,12 +14,16 @@ GPU has none of the three, so here:
 * the observations are sorted stably by camera once (``prepare_large_ba``),
   and every sum by camera or by landmark is ``cuda_ops.slot_reduce`` over a
   plan built then: the same order, and the same bits, on every call;
-* the linearization runs the port's factor kernel over ``n_chunks`` chunks
-  of the observation axis (the chunk bounds the memory of the Jacobians)
-  and writes each observation's rows into full-length buffers (6 camera
-  gradient and 21 camera Hessian terms, 3 landmark gradient and 6 landmark
-  Hessian terms, the 18 of W, its cost), which are then summed once, so
-  ``n_chunks`` changes no result;
+* the linearization writes each observation's rows into full-length
+  buffers (6 camera gradient and 21 camera Hessian terms, 3 landmark
+  gradient and 6 landmark Hessian terms, the 18 of W, its cost), which are
+  then summed once.  Monocular BAL observations (``reprojection_bal``)
+  under an elementwise loss take one launch of ``cuda_ops.bal_rows``,
+  whose Jacobians stay in registers (on the CPU its plain twin, over the
+  same chunks as the rest); every other observation kind runs the port's
+  factor kernel over ``n_chunks`` chunks of the observation axis (the
+  chunk bounds the memory of the Jacobians).  Either way ``n_chunks``
+  changes no result;
 * PCG on the reduced camera system applies its stop rule before every
   iteration at every budget, on the device; the reference does so only for
   budgets up to 60 and tests larger ones every 25 iterations (its
@@ -48,7 +52,7 @@ import torch
 from ..graph.core import FACTOR_KERNELS, FactorGraph, VariableBlock, retract
 from ..observability import span
 from . import lm as _lm
-from .cuda_ops import _stable_argsort, slot_plan
+from .cuda_ops import _stable_argsort, bal_rows, kernel_loss, slot_plan
 from .host_loop import host_lm_loop, host_lm_loop_speculative
 from .linear import HOST_READS, cholesky_solve
 from .schur import (Segments, _back_substitute, _binv, _cholesky, _jtwj, _mm, _schur_reduce, _tmv, block_jacobi,
@@ -105,6 +109,10 @@ class LargeBA:
     by_pp_i: Segments
     by_pp_j: Segments
     rows: torch.Tensor  # _ROWS on the device: the linearization's row gather
+    # the observations go through ``cuda_ops.bal_rows`` (a
+    # ``reprojection_bal`` batch whose loss ``kernel_loss`` takes), else
+    # through the factor kernel chunk by chunk
+    bal: bool = False
     # co-observation pair tables of linear="dense" and precond="stale"
     # (build_dense_pairs); None until a solve first needs them
     pairs: "DensePairs | None" = None
@@ -203,6 +211,7 @@ def prepare_large_ba(
         pp_i=torch.as_tensor(pi, device=device), pp_j=torch.as_tensor(pj, device=device),
         by_pp_i=_segments(pi, C, device), by_pp_j=_segments(pj, C, device),
         rows=torch.as_tensor(_ROWS, device=device),
+        bal=fb.kind == "reprojection_bal" and kernel_loss(fb.loss) is not None,
     )
 
 
@@ -220,23 +229,29 @@ def _from_upper(rows, n):
 # --------------------------------------------------------------------------
 
 
-def _observations(plan, lo, hi, poses, lms, want_grad):
-    """Residuals and (camera, landmark) Jacobians of observations [lo, hi)."""
-    data = {k: (v[lo:hi] if k in plan.per_obs else v) for k, v in plan.obs_data.items()}
-    T, X = poses[plan.cam_idx[lo:hi]], lms[plan.pt_idx[lo:hi]]
-    args = (T, X) if plan.pose_first else (X, T)
-    r, jacs = FACTOR_KERNELS[plan.kind](data, *args, compute_jacobians=want_grad)
-    if want_grad and not plan.pose_first:
-        jacs = jacs[::-1]
-    return r, jacs
-
-
-def _chunks(plan):
-    chunk = plan.Mp // plan.n_chunks
-    for k in range(plan.n_chunks):
-        lo, hi = k * chunk, min((k + 1) * chunk, plan.M)
-        if lo < hi:
-            yield lo, hi
+def obs_chunks(kind, pose_first, data, per_obs, poses, lms, cam_idx, pt_idx, weight, loss, gather, chunk):
+    """The cost (M,) of M observations of factor ``kind`` and, with
+    ``gather`` (``_ROWS`` on their device), their rows (M, 54) in that
+    order, else None: the factor kernel run ``chunk`` observations at a
+    time (the chunk bounds the memory of the Jacobians).  ``data`` holds the
+    factor's measurements, those named in ``per_obs`` along the observation
+    axis; ``pose_first``: the kernel takes (pose, landmark), else the
+    reverse.  The chunked linearization, and ``cuda_ops.bal_rows_plain``."""
+    M = cam_idx.shape[0]
+    cost = poses.new_empty(M)
+    rows = None if gather is None else poses.new_empty((M, len(_ROWS)))
+    for lo in range(0, M, max(chunk, 1)):
+        hi = min(lo + chunk, M)
+        T, X = poses[cam_idx[lo:hi]], lms[pt_idx[lo:hi]]
+        r, jacs = FACTOR_KERNELS[kind]({k: (v[lo:hi] if k in per_obs else v) for k, v in data.items()},
+                                       *((T, X) if pose_first else (X, T)), compute_jacobians=gather is not None)
+        cost[lo:hi] = (loss.loss(r) * weight[lo:hi, None]).sum(1)
+        if gather is None:
+            continue
+        J = torch.cat(jacs if pose_first else jacs[::-1], -1)  # (n, m, 9)
+        w = loss.weight(r) * weight[lo:hi, None]
+        rows[lo:hi] = torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, 81)], 1)[:, gather]
+    return cost, rows
 
 
 def _unary(plan, poses, want_grad, dp=6):
@@ -261,13 +276,30 @@ def _unary(plan, poses, want_grad, dp=6):
     return chi2, sums[:, dp:].reshape(-1, dp, dp), sums[:, :dp], PP
 
 
+def bal_rows_args(plan, poses, lms):
+    """``cuda_ops.bal_rows``' tensor arguments for the observations of a
+    ``reprojection_bal`` plan at (poses, lms): the indices, measurements
+    and weights in camera order, sqrt_info as one (2, 2) or one an
+    observation."""
+    d = plan.obs_data
+    info = d["sqrt_info"] if "sqrt_info" in plan.per_obs else d["sqrt_info"].reshape(2, 2)
+    return poses, lms, plan.cam_idx, plan.pt_idx, d["obs"], d["f"], d["k1"], d["k2"], info, plan.weight
+
+
+def _obs_pass(plan, poses, lms, want_rows):
+    """Every observation's cost (M,) and, with ``want_rows``, its rows
+    (M, 54) in ``_ROWS`` order: one ``bal_rows`` launch where the plan says
+    so, else the factor kernel chunk by chunk into full-length buffers."""
+    chunk = plan.Mp // plan.n_chunks
+    if plan.bal:
+        return bal_rows(*bal_rows_args(plan, poses, lms), plan.loss, rows=want_rows, chunk=chunk)
+    return obs_chunks(plan.kind, plan.pose_first, plan.obs_data, plan.per_obs, poses, lms, plan.cam_idx,
+                      plan.pt_idx, plan.weight, plan.loss, plan.rows if want_rows else None, chunk)
+
+
 def _obs_cost(plan, poses, lms):
     """The observations' chi2 at (poses, lms), without Jacobians."""
-    cost = poses.new_empty(plan.M)
-    for lo, hi in _chunks(plan):
-        r, _ = _observations(plan, lo, hi, poses, lms, False)
-        cost[lo:hi] = (plan.loss.loss(r) * plan.weight[lo:hi, None]).sum(1)
-    return cost.sum()
+    return _obs_pass(plan, poses, lms, False)[0].sum()
 
 
 def _cost(plan, poses, lms):
@@ -277,17 +309,8 @@ def _cost(plan, poses, lms):
 
 @span("schur.linearize.rows")
 def _obs_rows(plan, poses, lms):
-    """Every observation's cost (M,) and rows (M, 54) in ``_ROWS`` order,
-    linearized chunk by chunk into full-length buffers."""
-    cost = poses.new_empty(plan.M)
-    rows = poses.new_empty((plan.M, len(_ROWS)))
-    for lo, hi in _chunks(plan):
-        r, jacs = _observations(plan, lo, hi, poses, lms, True)
-        J = torch.cat(jacs, -1)  # (n, m, 9)
-        w = plan.loss.weight(r) * plan.weight[lo:hi, None]
-        cost[lo:hi] = (plan.loss.loss(r) * plan.weight[lo:hi, None]).sum(1)
-        rows[lo:hi] = torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, 81)], 1)[:, plan.rows]
-    return cost, rows
+    """Every observation's cost (M,) and rows (M, 54) in ``_ROWS`` order."""
+    return _obs_pass(plan, poses, lms, True)
 
 
 @span("schur.linearize.parts")

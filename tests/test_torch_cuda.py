@@ -841,6 +841,163 @@ def test_solve_schur_large_on_the_card_matches_the_cpu_path(cuda_device, linear)
 
 
 # --------------------------------------------------------------------------
+# bal_rows: the BAL observations' rows of schur_large in one launch
+# --------------------------------------------------------------------------
+
+# bal_rows against bal_rows_plain, each column relative to the largest sum
+# of the magnitudes of its terms (``cuda_ops.bal_rows_scale``: an entry
+# that cancels keeps the rounding of its terms).  f64: rounding only.  f32: the kernel
+# contracts multiply-adds where the twin rounds apart, so a residual differs
+# by a few f32 roundings of the prediction (hundreds of px) beside residuals
+# of at least 0.75 px, and a robust weight amplifies that by e w'(e) / w
+# (Cauchy's and Tukey's reach 5e-4 of the scale against an f64 twin on
+# 200,001 observations, measured on the CPU; the kernel and the f32 twin
+# each err so).
+BAL_TOL = {torch.float32: 2e-3, torch.float64: 1e-10}
+
+
+def _bal_rows_args(M, dtype, device, per_obs_info, seed=0):
+    """``bal_rows``' arguments for M observations of a ``synthetic_bal``
+    scene (f, k1, k2 an observation), its cameras and points perturbed,
+    random weights in [0.5, 2] and, with ``per_obs_info``, one sqrt_info an
+    observation (a diagonal in [0.5, 1.5], off-diagonal entries within
+    0.05): the observations put each residual element 2 to 5 px from the
+    prediction, so that |r| >= 0.75 px."""
+    from pyslam_tpu_torch.graph.core import FACTOR_KERNELS
+    from pyslam_tpu_torch.io import bal
+
+    data = bal.perturbed(bal.synthetic_bal(n_cams=12, n_pts=max(-(-M // 4), 1), seed=seed), seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    cam, pt = data.cam_idx[:M].astype(np.int64), data.pt_idx[:M].astype(np.int64)
+    intr = np.asarray(data.intrinsics)[cam]
+    poses, lms = torch.from_numpy(data.T), torch.from_numpy(data.pts)
+    f, k1, k2 = (torch.from_numpy(np.ascontiguousarray(intr[:, i])) for i in range(3))
+    pred, _ = FACTOR_KERNELS["reprojection_bal"](
+        {"obs": torch.zeros(M, 2, dtype=torch.float64), "sqrt_info": torch.eye(2, dtype=torch.float64),
+         "f": f, "k1": k1, "k2": k2}, poses[cam], lms[pt], compute_jacobians=False)
+    off = rng.uniform(2.0, 5.0, size=(M, 2)) * rng.choice([-1.0, 1.0], size=(M, 2))
+    obs = pred + torch.from_numpy(off)
+    if per_obs_info:
+        info = np.zeros((M, 2, 2))
+        info[:, [0, 1], [0, 1]] = rng.uniform(0.5, 1.5, size=(M, 2))
+        info[:, [0, 1], [1, 0]] = rng.uniform(-0.05, 0.05, size=(M, 2))
+        info = torch.from_numpy(info)
+    else:
+        info = torch.tensor([[1.2, 0.03], [-0.02, 0.8]], dtype=torch.float64)
+    weight = torch.from_numpy(rng.uniform(0.5, 2.0, size=M))
+    args = (poses, lms, torch.from_numpy(cam), torch.from_numpy(pt), obs, f, k1, k2, info, weight)
+    return tuple(a.to(device, dtype).contiguous() if a.is_floating_point() else a.to(device) for a in args)
+
+
+def _check_bal_rows(args, loss, tol):
+    """The kernel against its twin on the card (cost and rows), two launches
+    bitwise equal, the cost-only launch's cost within the tolerance."""
+    cuda_ops.reset_launches()
+    cost, rows = cuda_ops.bal_rows(*args, loss)
+    again = cuda_ops.bal_rows(*args, loss)
+    only, none = cuda_ops.bal_rows(*args, loss, rows=False)
+    ref = cuda_ops.bal_rows_plain(*args, loss)
+    torch.cuda.synchronize()
+    M = args[2].shape[0]
+    assert cuda_ops.LAUNCHES["bal_rows"] == (3 if M else 0)
+    assert none is None and cost.shape == (M,) and rows.shape == (M, 54)
+    assert torch.equal(cost, again[0]) and torch.equal(rows, again[1])  # no sums across threads: the same bits
+    if M == 0:
+        return
+    rows_scale, cost_scale = cuda_ops.bal_rows_scale(*args, loss)
+    for out, r, scale in ((rows, ref[1], rows_scale), (cost[:, None], ref[0][:, None], cost_scale),
+                          (only[:, None], ref[0][:, None], cost_scale)):
+        assert torch.isfinite(out).all()
+        err = ((out - r).double().abs() / scale.clamp(min=1e-300)).max().item()
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("info", ["shared", "per_observation"])
+@pytest.mark.parametrize("loss", sorted(ASSEMBLE_LOSSES))
+def test_bal_rows_kernel_matches_plain(cuda_device, loss, info, dtype):
+    """Every loss code, one sqrt_info or one an observation, at a ragged M
+    (3,003: a last block of 59 observations, an odd tail of values in
+    f32)."""
+    args = _bal_rows_args(3003, dtype, cuda_device, info == "per_observation")
+    _check_bal_rows(args, ASSEMBLE_LOSSES[loss], BAL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", [0, 1, 127, 128, 129, 200_001])
+def test_bal_rows_kernel_at_every_block_edge(cuda_device, M, dtype):
+    """No observation (no launch, empty outputs), one, either side of a
+    block of 128 (64 in f64), and 200,001 (1,563 blocks): the kernel's
+    bits repeat and match the twin."""
+    args = _bal_rows_args(M, dtype, cuda_device, per_obs_info=M % 2 == 1, seed=M % 7)
+    _check_bal_rows(args, CauchyLoss(2.0), BAL_TOL[dtype])
+
+
+def _venice_shaped(dtype, device, loss=None):
+    """A BAL problem in Venice's form at a small size: 60 cameras, 20,000
+    points, 100,000 observations, fixed intrinsics, perturbed."""
+    from pyslam_tpu_torch.io import bal
+
+    data = bal.perturbed(bal.synthetic_bal(n_cams=60, n_pts=20_000, obs_per_pt=5, seed=4), seed=5)
+    return build.bal_graph(data, loss=loss, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+def test_bal_rows_launches_once_a_linearization(cuda_device, speculative):
+    """``solve_schur_large`` on a BAL graph at Venice's chunk count (128)
+    launches ``bal_rows`` once a linearization and once a cost-only pass,
+    and its twin never."""
+    from pyslam_tpu_torch.solver import schur_large
+
+    g = _venice_shaped(torch.float32, cuda_device)
+    plan = schur_large.prepare_large_ba(g, 128)
+    assert plan.bal
+    calls = {"lin": 0, "cost": 0}
+    linearize, cost = schur_large._linearize, schur_large._cost
+
+    def counted(what, fn):
+        def call(*a):
+            calls[what] += 1
+            return fn(*a)
+        return call
+
+    cuda_ops.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(schur_large, "_linearize", counted("lin", linearize))
+        mp.setattr(schur_large, "_cost", counted("cost", cost))
+        _, chi2, hist = schur_large.solve_schur_large(g, Options(method="lm", max_iters=5), plan=plan,
+                                                      pcg_rtol=1e-4, pcg_max_iters=12, speculative=speculative)
+    assert chi2 < hist[0] and calls["lin"] > 1
+    assert cuda_ops.LAUNCHES["bal_rows"] == calls["lin"] + calls["cost"]
+    assert cuda_ops.LAUNCHES["bal_rows_plain"] == 0
+
+
+@pytest.mark.parametrize("loss", ["l2", "huber"])
+def test_solve_schur_large_bal_on_the_card_matches_the_cpu_path(cuda_device, loss):
+    """A BAL solve through ``bal_rows`` on the card against the CPU's (its
+    twin), f64: the same accepted costs within 1e-9 and states within 1e-8;
+    a second solve on the card gives the same bits."""
+    from pyslam_tpu_torch.io import bal
+    from pyslam_tpu_torch.solver import schur_large
+
+    data = bal.perturbed(bal.synthetic_bal(n_cams=8, n_pts=300, seed=2), seed=3)
+    opts = Options(method="lm", max_iters=10)
+    kw = dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=60)
+    s_c, _, h_c = schur_large.solve_schur_large(
+        build.bal_graph(data, loss=ASSEMBLE_LOSSES[loss], dtype=torch.float64, device="cpu"), opts, **kw)
+    g = build.bal_graph(data, loss=ASSEMBLE_LOSSES[loss], dtype=torch.float64, device=cuda_device)
+    cuda_ops.reset_launches()
+    s_g, _, h_g = schur_large.solve_schur_large(g, opts, **kw)
+    again = schur_large.solve_schur_large(g, opts, **kw)
+    assert cuda_ops.LAUNCHES["bal_rows"] > 0 and cuda_ops.LAUNCHES["bal_rows_plain"] == 0
+    assert len(h_g) == len(h_c) and h_g[-1] < h_g[0]
+    np.testing.assert_allclose(h_g, h_c, rtol=1e-9)
+    assert again[2] == h_g and torch.equal(again[0].blocks["poses"].values, s_g.blocks["poses"].values)
+    for n in s_c.blocks:
+        assert (s_g.blocks[n].values.cpu() - s_c.blocks[n].values).abs().max().item() <= 1e-8
+
+
+# --------------------------------------------------------------------------
 # The sparse direct paths: sparse_chol, schur_sparse, and the batched fleet
 # --------------------------------------------------------------------------
 

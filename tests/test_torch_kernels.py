@@ -21,6 +21,7 @@ from pyslam_tpu.solver.bcsr import assemble_ell as j_assemble_ell
 from pyslam_tpu.solver.bcsr import build_ell_direct as j_build_ell_direct
 from pyslam_tpu.solver.pallas_ops import ell_matvec_pallas, scatter_matmul
 from pyslam_tpu_torch import _ext
+from pyslam_tpu_torch.losses import L2Loss
 from pyslam_tpu_torch.solver import cuda_ops
 from pyslam_tpu_torch.solver.bcsr import slot_plan
 from pyslam_tpu_torch.solver.cuda_ops import ell_matvec, slot_reduce, slot_reduce_plain
@@ -337,9 +338,16 @@ def test_cpu_tensors_run_the_plain_versions():
     ell_matvec(_t(He), _t(cols), _t(x))
     plan = slot_plan(np.array([0, 1, 1]), 2)
     slot_reduce(torch.ones(3, 36, dtype=torch.float64), _t(plan.perm), _t(plan.offsets), 2)
+    one = torch.ones(1, dtype=torch.float64)
+    cost, rows = cuda_ops.bal_rows(torch.eye(4, dtype=torch.float64)[None], torch.tensor([[0.1, 0.2, -5.0]]).double(),
+                                   torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int64),
+                                   torch.zeros(1, 2, dtype=torch.float64), 500.0 * one, 0.0 * one, 0.0 * one,
+                                   torch.eye(2, dtype=torch.float64), one, L2Loss())
+    assert cost.shape == (1,) and rows.shape == (1, 54)
     assert cuda_ops.LAUNCHES == {
         "ell_matvec": 0, "ell_matvec_plain": 1, "ell_pcg": 0, "ell_pcg_plain": 0,
         "slot_reduce": 0, "slot_reduce_plain": 1, "ell_assemble": 0, "ell_assemble_plain": 0,
+        "bal_rows": 0, "bal_rows_plain": 1,
     }
     # ell_pcg's plain version is the host loop over the plain product: one
     # product for r0 and one per iteration

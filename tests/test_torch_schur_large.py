@@ -54,7 +54,11 @@ from pyslam_tpu.solver.schur_large import build_dense_pairs as j_build_dense_pai
 from pyslam_tpu.solver.schur_large import prepare_large_ba as j_prepare_large_ba
 from pyslam_tpu.solver.schur_large import solve_schur_large as j_solve
 from pyslam_tpu_torch.graph import FactorGraph
+from pyslam_tpu_torch.graph import build as tbuild
 from pyslam_tpu_torch.graph.core import FACTOR_KERNELS, register_factor
+from pyslam_tpu_torch.io import bal as tbal
+from pyslam_tpu_torch.losses import CauchyLoss, HuberLoss, L1Loss, L2Loss, TDistributionLoss, TukeyLoss
+from pyslam_tpu_torch.solver import cuda_ops
 from pyslam_tpu_torch.solver import lm as tlm
 from pyslam_tpu_torch.solver.linear import HOST_READS, reset_host_reads
 
@@ -76,6 +80,12 @@ def _unload_compiled_programs():
 @register_factor("reprojection_landmark_first")
 def _landmark_first_kernel(data, lm, pose, compute_jacobians=True):
     r, jacs = FACTOR_KERNELS["reprojection"](data, pose, lm, compute_jacobians=compute_jacobians)
+    return r, (jacs[::-1] if compute_jacobians else None)
+
+
+@register_factor("reprojection_bal_landmark_first")
+def _bal_landmark_first_kernel(data, lm, pose, compute_jacobians=True):
+    r, jacs = FACTOR_KERNELS["reprojection_bal"](data, pose, lm, compute_jacobians=compute_jacobians)
     return r, (jacs[::-1] if compute_jacobians else None)
 
 
@@ -143,6 +153,8 @@ def graphs(name):
 
 
 def landmark_first(graph):
+    """The graph with its observation batch's slots (landmark, pose), the
+    kind of the same name with ``_landmark_first``."""
     return FactorGraph(graph.blocks, [
         dataclasses.replace(fb, kind=fb.kind + "_landmark_first", slots=fb.slots[::-1], indices=fb.indices[::-1])
         if fb.slots == ("poses", "landmarks") else fb for fb in graph.batches])
@@ -588,3 +600,131 @@ def test_plan_validation():
     bad = dataclasses.replace(fb, indices=(fb.indices[0] + pb.n - 1, fb.indices[1]))
     with pytest.raises(ValueError, match="out of range"):
         tsl.prepare_large_ba(FactorGraph(tg.blocks, [bad]))
+
+
+# --------------------------------------------------------------------------
+# bal_rows: the BAL observations' rows in one kernel (its plain twin here)
+# --------------------------------------------------------------------------
+
+# every loss cuda_ops.kernel_loss takes
+BAL_LOSSES = {
+    "l2": L2Loss(), "l1": L1Loss(), "cauchy": CauchyLoss(2.0), "huber": HuberLoss(1.0), "tukey": TukeyLoss(3.0),
+    "student_t": TDistributionLoss(5.0, 1.5),
+}
+
+
+def _port_bal(loss=None, per_obs_info=False, seed=0):
+    """A perturbed ``synthetic_bal(6, 50)`` on the port, f64 on the CPU, with
+    random weights and, with ``per_obs_info``, one random sqrt_info an
+    observation (upper triangular, positive diagonal)."""
+    g = tbuild.bal_graph(tbal.perturbed(tbal.synthetic_bal(n_cams=6, n_pts=50, seed=seed)), loss=loss,
+                         dtype=torch.float64, device="cpu")
+    (fb,) = g.batches
+    rng = np.random.default_rng(seed + 7)
+    data = dict(fb.data)
+    if per_obs_info:
+        info = np.zeros((fb.n, 2, 2))
+        info[:, [0, 1], [0, 1]] = rng.uniform(0.5, 1.5, size=(fb.n, 2))
+        info[:, 0, 1] = rng.uniform(-0.3, 0.3, size=fb.n)
+        data["sqrt_info"] = torch.from_numpy(info)
+    weight = torch.from_numpy(rng.uniform(0.5, 2.0, size=fb.n))
+    return FactorGraph(g.blocks, [dataclasses.replace(fb, data=data, weight=weight)])
+
+
+def _bal_args(plan):
+    return tsl.bal_rows_args(plan, plan.poses, plan.lms)
+
+
+def _assert_rows_close(out, ref, rel):
+    """Each column within ``rel`` of its largest reference entry."""
+    assert out.shape == ref.shape
+    scale = ref.abs().amax(0).clamp(min=1e-300)
+    assert ((out - ref).abs() <= rel * scale).all(), ((out - ref).abs() / scale).max().item()
+
+
+@pytest.mark.parametrize("n_chunks", [1, 4, 7])
+@pytest.mark.parametrize("order", ["pose_first", "landmark_first"])
+@pytest.mark.parametrize("info", ["shared", "per_observation"])
+@pytest.mark.parametrize("loss", sorted(BAL_LOSSES))
+def test_bal_rows_plain_matches_the_chunked_path(loss, info, order, n_chunks):
+    """``cuda_ops.bal_rows_plain`` (the kernel's twin) over the whole axis
+    gives the chunked path's cost and rows within 1e-12 of each column's
+    largest entry, in f64, at every loss the kernel takes, with one
+    sqrt_info or one an observation, either slot order and any chunk
+    count; and the cost-only pass its cost.  Where the plan takes the
+    kernel, its route (the twin over the plan's chunks) gives the chunked
+    path's bits."""
+    g = _port_bal(BAL_LOSSES[loss], per_obs_info=info == "per_observation")
+    if order == "landmark_first":
+        g = landmark_first(g)
+    plan = tsl.prepare_large_ba(g, n_chunks)
+    chunked = dataclasses.replace(plan, bal=False)
+    cost, rows = tsl._obs_rows(chunked, plan.poses, plan.lms)
+    t_cost, t_rows = cuda_ops.bal_rows_plain(*_bal_args(plan), plan.loss)
+    _assert_rows_close(t_rows, rows, 1e-12)
+    _assert_rows_close(t_cost[:, None], cost[:, None], 1e-12)
+    only, none = cuda_ops.bal_rows_plain(*_bal_args(plan), plan.loss, rows=False)
+    assert none is None and torch.equal(only, t_cost)
+    np.testing.assert_allclose(float(tsl._obs_cost(chunked, plan.poses, plan.lms)), float(t_cost.sum()), rtol=1e-12)
+    if plan.bal:
+        r_cost, r_rows = tsl._obs_rows(plan, plan.poses, plan.lms)
+        assert torch.equal(r_cost, cost) and torch.equal(r_rows, rows)
+        assert torch.equal(tsl._obs_cost(plan, plan.poses, plan.lms), tsl._obs_cost(chunked, plan.poses, plan.lms))
+
+
+BAL_ROUTES = {
+    # graph, whether its plan takes bal_rows
+    "bal": (lambda: _port_bal(), True),
+    "bal_cauchy_per_obs": (lambda: _port_bal(CauchyLoss(2.0), per_obs_info=True), True),
+    "bal_student_t_scale_estimated": (lambda: _port_bal(TDistributionLoss(5.0)), False),
+    "bal_landmark_first": (lambda: landmark_first(_port_bal()), False),
+    "stereo": (lambda: graphs("stereo")[1], False),
+    "stereo_cauchy": (lambda: graphs("stereo_cauchy")[1], False),
+}
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+@pytest.mark.parametrize("name", sorted(BAL_ROUTES))
+def test_bal_rows_route(name, speculative):
+    """A ``reprojection_bal`` plan whose loss ``kernel_loss`` takes
+    linearizes and costs its observations through ``bal_rows`` (here its
+    twin), one call a linearization or cost-only pass; any other plan (a
+    ``reprojection`` plan, a loss that re-estimates its scale, another
+    kind) never does."""
+    make, routed = BAL_ROUTES[name]
+    g = make()
+    plan = tsl.prepare_large_ba(g, 4)
+    assert plan.bal == routed
+    cuda_ops.reset_launches()
+    calls = {"lin": 0, "cost": 0}
+    linearize, cost = tsl._linearize, tsl._cost
+
+    def counted(what, fn):
+        def call(*a):
+            calls[what] += 1
+            return fn(*a)
+        return call
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsl, "_linearize", counted("lin", linearize))
+        mp.setattr(tsl, "_cost", counted("cost", cost))
+        _, chi2, hist = tsl.solve_schur_large(g, tlm.Options(method="lm", max_iters=4), plan=plan,
+                                              speculative=speculative)
+    assert chi2 < hist[0] and calls["lin"] > 1 and (calls["cost"] > 0) == (not speculative)
+    assert cuda_ops.LAUNCHES["bal_rows_plain"] == (calls["lin"] + calls["cost"] if routed else 0)
+    assert cuda_ops.LAUNCHES["bal_rows"] == 0
+
+
+def test_bal_rows_refuses_what_the_kernel_does_not_take():
+    """The wrapper raises on a loss the kernel does not evaluate and on
+    arguments of another type or shape, on the CPU as on the card."""
+    plan = tsl.prepare_large_ba(_port_bal(), 4)
+    args = _bal_args(plan)
+    with pytest.raises(ValueError, match="does not evaluate"):
+        cuda_ops.bal_rows(*args, TDistributionLoss(5.0))
+    with pytest.raises(TypeError, match="obs"):
+        cuda_ops.bal_rows(*args[:4], args[4].float(), *args[5:], L2Loss())
+    with pytest.raises(ValueError, match="sqrt_info"):
+        cuda_ops.bal_rows(*args[:8], args[8].reshape(1, 2, 2), args[9], L2Loss())
+    with pytest.raises(TypeError, match="cam_idx"):
+        cuda_ops.bal_rows(*args[:2], args[2].int(), *args[3:], L2Loss())
