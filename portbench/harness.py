@@ -7,7 +7,8 @@ Everything that belongs to a configuration, a traffic mix or a metric is
 found by name: ``configs/<config>.json`` names its generator
 (``generators/``), its entry into the program (``entries/``) and its
 reference (``references/``); ``traffic/<traffic>.json`` holds the loop's
-parameters; ``metrics/<metric>.py`` reads one metric from the run."""
+parameters; ``metrics/<metric>.py`` reads one metric from the run, and
+reads ``<metric>.<tag>`` too."""
 
 from __future__ import annotations
 
@@ -53,13 +54,26 @@ def traffic_of(name: str) -> dict:
 
 def metrics_for(manifest: dict, cell: str, trace: bool) -> list:
     """The metric entries this cell reports: the end-to-end ones untraced,
-    the per-layer ones traced."""
-    entries = manifest["per_layer"] if trace else manifest["end_to_end"]
-    return [m for m in entries if "workloads" not in m or cell in m["workloads"]]
+    the per-layer ones traced.  An entry with ``workloads`` goes to the
+    cells it lists; an end-to-end one without goes to every cell, and a
+    per-layer one without to every cell that reports the metric it moves."""
+    ends = [m for m in manifest["end_to_end"] if cell in m.get("workloads", [cell])]
+    if not trace:
+        return ends
+    moved = {m["name"] for m in ends}
+    return [m for m in manifest["per_layer"]
+            if cell in m.get("workloads", ()) or ("workloads" not in m and m["moves"] in moved)]
+
+
+def reader_name(name: str) -> str:
+    """The reader of a metric: its name up to the first dot, so that a cell
+    on an existing path appends ``linearize_ms.<tag>``, listing itself, and
+    ``metrics/linearize_ms.py`` reads it."""
+    return name.split(".")[0]
 
 
 def reader(name: str):
-    return importlib.import_module(f"portbench.metrics.{name}")
+    return importlib.import_module(f"portbench.metrics.{reader_name(name)}")
 
 
 def _sync(device):

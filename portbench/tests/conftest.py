@@ -23,19 +23,12 @@ def device(request):
     return request.param
 
 
-# sizes a test run holds, each cell's configuration otherwise as committed
-SMALL = {
-    "venice_ba.solve": dict(n_cams=12, n_pts=1500, n_obs=6000),
-    "sphere30k.solve": dict(n_poses=300),
-}
-
-
 def small_config(cell: str) -> dict:
-    import copy
-
+    """The cell's configuration as committed, at the sizes its file gives
+    for a test run (``test_sizes``, which the run itself never reads)."""
     from portbench import harness
 
     manifest = harness.load_manifest(ROOT)
-    cfg = copy.deepcopy(harness.config_of(manifest, harness.cell_of(manifest, cell)["config"], ROOT))
-    cfg["sizes"].update(SMALL[cell])
+    cfg = harness.config_of(manifest, harness.cell_of(manifest, cell)["config"], ROOT)
+    cfg["sizes"].update(cfg["test_sizes"])
     return cfg

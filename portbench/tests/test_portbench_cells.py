@@ -43,11 +43,32 @@ def test_a_run_at_a_small_size_is_correct(cell, trace, device):
         assert "breakdown" not in result
     else:
         assert {"busy_s", "window_s"} <= set(dev) and "breakdown" in result
-        # what the probes and counters read is there on any device
-        assert {"plan_ms", "lm_iterations", "host_reads"} <= set(result["metrics"])
+        # every metric the cell names is there, but on the CPU those of a
+        # device trace
+        named = {m["name"] for m in harness.metrics_for(MANIFEST, cell, trace)
+                 if device == "cuda" or m["source"] != "device_trace"}
+        assert set(result["metrics"]) == named
         if device == "cuda":
-            assert dev["busy_s"] > 0 and {"kernels_per_solve", "device_idle_pct"} <= set(result["metrics"])
+            assert dev["busy_s"] > 0
             assert all(len(result["breakdown"][k]) <= 10 for k in ("device_ops", "idle_gaps"))
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_cell_names_every_metric_its_path_gives(cell, device):
+    """Every per-layer reader of the benchmark, run on the cell's path: those
+    that read something there are the readers of the metrics the cell
+    names, so that a cell which leaves out a metric of its path fails here
+    by that metric's name (on the CPU, device-trace ones aside)."""
+    readers = {}
+    for m in MANIFEST["per_layer"]:
+        readers.setdefault(harness.reader_name(m["name"]), m)
+    probe = dict(MANIFEST, per_layer=[dict(m, name=name, workloads=[cell]) for name, m in readers.items()])
+    result = harness.run_cell(probe, cell, 2**31 + 98, 0.5, True, device, time.perf_counter(),
+                              config=small_config(cell))
+    on_device = {name for name, m in readers.items() if device == "cuda" or m["source"] != "device_trace"}
+    found = set(result["metrics"]) & on_device
+    named = {harness.reader_name(m["name"]) for m in harness.metrics_for(MANIFEST, cell, True)} & on_device
+    assert found == named, dict(path_gives_unnamed=sorted(found - named), named_path_lacks=sorted(named - found))
 
 
 def test_no_card_no_result(capsys):

@@ -1,10 +1,14 @@
 """The comparison that decides ``correct`` has to fail what is wrong: the
 control (the plain reference in TF32 put in the program's place) and each
-fault a cell can have, planted under a whole run at a small size.  The
-fault of an exchange between cards left out has no place in these cells:
-each runs on one card."""
+fault a cell can have, planted under a whole run at a small size.  Each
+entry into the program brings its faults in a module of its own,
+``faults/<entry>.py``, which defines every name of ``FAULTS``.  The fault
+of an exchange between cards left out has no place in these cells: each
+runs on one card."""
 
 import importlib
+import importlib.util
+import pathlib
 import time
 
 import pytest
@@ -16,6 +20,7 @@ from portbench.arith import Arith
 
 MANIFEST = harness.load_manifest(ROOT)
 CELLS = [w["name"] for w in MANIFEST["workloads"]]
+FAULTS = ("state_unchanged", "half_left_out", "chi2_altered", "variable_altered")
 
 
 def _entry(cell):
@@ -51,86 +56,24 @@ def test_the_control_is_not_correct(cell, seed, device, monkeypatch):
     assert any(c["value"] > c["limit"] for c in result["checks"].values())
 
 
-def _state_unchanged(monkeypatch):
-    from pyslam_tpu_torch.graph.core import FactorGraph
-    from pyslam_tpu_torch.solver import schur_large
-
-    monkeypatch.setattr(schur_large, "_back_substitute_retract",
-                        lambda parts, Hll_inv, poses, lms, x: ((poses, lms), x.new_zeros(())))
-    monkeypatch.setattr(FactorGraph, "retract_all", lambda self, dx: self)
-
-
-def _half_left_out(monkeypatch):
-    """The second half of the observations or edges weigh nothing."""
-    from pyslam_tpu_torch.solver import bcsr, schur_large
-
-    obs_rows = schur_large._obs_rows
-
-    def half_rows(plan, poses, lms):
-        cost, rows = obs_rows(plan, poses, lms)
-        cost[plan.M // 2:] = 0
-        rows[plan.M // 2:] = 0
-        return cost, rows
-
-    monkeypatch.setattr(schur_large, "_obs_rows", half_rows)
-    batches = bcsr.ell_assemble_batches
-
-    def half_batches(graph):
-        out = batches(graph)
-        if out is None:
-            return None
-        halved = []
-        for b in out:
-            w = b.weight.clone()
-            w[w.shape[0] // 2:] = 0
-            halved.append(b._replace(weight=w))
-        return halved
-
-    monkeypatch.setattr(bcsr, "ell_assemble_batches", half_batches)
-
-
-def _altered(what):
-    def plant(monkeypatch):
-        """The answer altered where the program makes it: the chi2 it
-        reports 1% high, or one landmark or pose moved by 0.1."""
-        from pyslam_tpu_torch.graph.core import FactorGraph, VariableBlock
-        from pyslam_tpu_torch.solver import bcsr, schur_large
-
-        def moved(graph):
-            name = "landmarks" if "landmarks" in graph.blocks else "poses"
-            b = graph.blocks[name]
-            v = b.values.clone()
-            if name == "landmarks":
-                v[v.shape[0] // 2] += 0.1
-            else:
-                v[v.shape[0] // 2, :3, 3] += 0.1
-            return FactorGraph({**graph.blocks, name: VariableBlock(b.kind, v, b.const_mask)}, graph.batches)
-
-        large = schur_large.solve_schur_large
-
-        def large_altered(*args, **kwargs):
-            graph, chi2, history = large(*args, **kwargs)
-            return (graph, chi2 * 1.01, history) if what == "chi2" else (moved(graph), chi2, history)
-
-        ell = bcsr.solve_ell
-
-        def ell_altered(*args, **kwargs):
-            graph, info = ell(*args, **kwargs)
-            return (graph, info._replace(chi2=info.chi2 * 1.01)) if what == "chi2" else (moved(graph), info)
-
-        monkeypatch.setattr(schur_large, "solve_schur_large", large_altered)
-        monkeypatch.setattr(bcsr, "solve_ell", ell_altered)
-    return plant
-
-
-FAULTS = {"state_unchanged": _state_unchanged, "half_left_out": _half_left_out,
-          "chi2_altered": _altered("chi2"), "variable_altered": _altered("variable")}
+def plant(entry: str, fault: str, monkeypatch):
+    """Plant a fault of the entry's own module, ``faults/<entry>.py`` beside
+    this file; fail, naming what is missing, where there is none."""
+    path = pathlib.Path(__file__).resolve().parent / "faults" / f"{entry}.py"
+    if not path.is_file():
+        pytest.fail(f"no faults module {path.relative_to(ROOT)} for the entry {entry!r}")
+    spec = importlib.util.spec_from_file_location(f"portbench_faults_{entry}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    if not callable(getattr(module, fault, None)):
+        pytest.fail(f"{path.relative_to(ROOT)} defines no fault {fault!r}")
+    getattr(module, fault)(monkeypatch)
 
 
 @pytest.mark.parametrize("cell", CELLS)
-@pytest.mark.parametrize("fault", list(FAULTS))
+@pytest.mark.parametrize("fault", FAULTS)
 def test_a_fault_under_the_timed_path_is_not_correct(cell, fault, device, monkeypatch):
-    FAULTS[fault](monkeypatch)
+    plant(small_config(cell)["entry"], fault, monkeypatch)
     result = _run(cell, device)
     assert result["correct"] is False, result["checks"]
 
@@ -138,3 +81,12 @@ def test_a_fault_under_the_timed_path_is_not_correct(cell, fault, device, monkey
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_same_run_without_a_fault_is_correct(cell, device):
     assert _run(cell, device)["correct"] is True
+
+
+@pytest.mark.parametrize("entry,fault,message", [
+    ("solve_ell", "no_such_fault", "defines no fault 'no_such_fault'"),
+    ("no_such_entry", "state_unchanged", "no faults module portbench/tests/faults/no_such_entry.py"),
+])
+def test_a_fault_its_module_lacks_fails_by_name(entry, fault, message, monkeypatch):
+    with pytest.raises(pytest.fail.Exception, match=message):
+        plant(entry, fault, monkeypatch)

@@ -1,14 +1,13 @@
 """BENCHMARK.json against the benchmark's contract, and every name in it
 against the file that the harness finds by that name."""
 
-import importlib
 import json
 import re
 
 import pytest
 from conftest import ROOT
 
-from portbench import judge
+from portbench import harness, judge
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -43,6 +42,8 @@ def test_configuration(config):
     assert sorted(data["reduced"]) == sorted(config["reduced"]) and len(config["reduced"]) <= 16
     for key in config["reduced"]:
         assert NAME.match(key) and key in data["sizes"] and not WIDTH.search(key)
+    # the sizes of the benchmark's own tests, each a key of the run's sizes
+    assert data["test_sizes"] and set(data["test_sizes"]) <= set(data["sizes"])
     assert any(w["config"] == config["name"] for w in MANIFEST["workloads"])
     for part in ("generator", "entry", "reference"):
         folder = {"generator": "generators", "entry": "entries", "reference": "references"}[part]
@@ -57,9 +58,9 @@ def test_cell(cell):
     assert cell["chips"] in (1, 4)
     assert cell["config"] in {c["name"] for c in MANIFEST["configs"]}
     assert (ROOT / "portbench" / "traffic" / f"{cell['traffic']}.json").is_file()
-    reported = [m for m in MANIFEST["end_to_end"] if "workloads" not in m or cell["name"] in m["workloads"]]
+    reported = harness.metrics_for(MANIFEST, cell["name"], trace=False)
     assert "setup_s" in {m["name"] for m in reported} and len(reported) >= 2
-    assert any("workloads" not in m or cell["name"] in m["workloads"] for m in MANIFEST["per_layer"])
+    assert harness.metrics_for(MANIFEST, cell["name"], trace=True)
 
 
 def test_cells_and_names_are_unique():
@@ -92,8 +93,8 @@ def test_metric(metric):
             assert "workloads" not in moves or cell in moves["workloads"]
     if metric["name"].endswith("_roofline"):
         assert metric["unit"] == "%"
-    module = importlib.import_module(f"portbench.metrics.{metric['name']}")
-    assert callable(module.read)
+    # read by metrics/<name up to its first dot>.py
+    assert callable(harness.reader(metric["name"]).read)
 
 
 def test_setup_bound():
