@@ -171,6 +171,13 @@ that it reaches its converged cost and went through the kernels:
     plain version in f32 and f64 and timed beside its bound and the chunked
     path it replaces, then that benchmark's solve through
     ``solve_schur_large`` as a main path, one launch a linearization;
+  * the 9-dof ``bal_rows`` at BAL Final's size (phase 54): 13,682 cameras
+    of 9 parameters, 4,456,117 points, 28,987,644 observations as
+    ``portbench``'s ``bal_final13682`` generator makes them on the card,
+    the kernel against its plain version (f32 whole, f64 on 2,000,000
+    observations), timed beside its bound and the chunked path, then that
+    benchmark's solve as a main path, one ``bal_rows9`` launch a
+    linearization;
   * the native tokenizer (phase 52, host only): Venice-mini written by
     ``write_bal`` (``synthetic_bal(300, 60000, obs_per_pt=6)``) and bench
     config 2's graph by ``write_g2o``, each read back through the native
@@ -265,6 +272,9 @@ BAL_TOL = {"float32": 2e-3, "float64": 1e-10}
 # projection, residual and loss (about 60), the 2 x 9 Jacobian (about 90),
 # 9 gradient rows of 3 and 45 Hessian and W rows of 5 (about 250).
 BAL_ROWS_FLOP = 400
+# ... of the 9-dof instantiation: the same 60, the 2 x 12 Jacobian (about
+# 115), 12 gradient rows of 3 and 78 Hessian and W rows of 5 (about 425)
+BAL_ROWS9_FLOP = 600
 
 # The JAX reference's numbers for phases 28 to 31, recorded once on the CPU
 # in f64 on the graphs those phases build, by
@@ -770,6 +780,109 @@ def check_slot_venice(label, contrib, seg, report):
                    library_ms=median_ms(lib, (), calls=10)), n_bytes, contrib.numel())
 
 
+def final_bal9_phase(report, drive):
+    """Phase 54: the 9-dof ``bal_rows`` at BAL Final's size, on the
+    ``bal_final13682`` problem of ``portbench`` (13,682 cameras of 9
+    parameters, 4,456,117 points, 28,987,644 observations, made on the card
+    from seed 54) through its plan (n_chunks 128).  The kernel against
+    ``bal_rows_plain`` over the plan's chunks in f32 at full size and in
+    f64 on the first 2,000,000 observations, rows and cost and the
+    cost-only launch's cost within ``BAL_TOL`` of ``bal_rows_scale``, two
+    launches bitwise equal; the device times of the kernel (20 back to back,
+    and single), its plain version and the chunked path it replaces
+    (``final_library_ms``) beside its bound by bytes (3.41 ms in f32).  Then
+    the benchmark's solve (LM 5, PCG 1e-4 / 12) as a main path, after a
+    warm-up: one ``bal_rows9`` launch a linearization, no 6-dof launch, no
+    plain version, the cost falling; its peak memory."""
+    import numpy as np
+    import torch
+
+    from portbench.entries import schur_large_bal9 as final_entry
+    from portbench.generators import bal_scene9
+    from pyslam_tpu_torch.observability import SPAN_CALLS
+    from pyslam_tpu_torch.solver import cuda_ops, schur_large
+
+    with open(os.path.join(ROOT, "portbench", "configs", "bal_final13682.json")) as f:
+        cfg = json.load(f)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    state = final_entry.build(bal_scene9.generate(cfg["sizes"], 54, dev), cfg, dev)
+    final_entry.plan(state)
+    plan = state["plan"]
+    torch.cuda.synchronize()
+    log(f"bal_final13682: {plan.C} cameras of {plan.dp} dof, {plan.L} points, {plan.M} observations, made and "
+        f"planned in {time.perf_counter() - t0!r} s")
+    check(plan.bal and plan.dp == 9, "bal_final13682: the plan does not take the 9-dof bal_rows")
+    chunk = plan.Mp // plan.n_chunks
+    args32 = schur_large.bal_rows_args(plan, plan.poses, plan.lms)
+    worst = 0.0
+    for dtype, M in ((torch.float32, plan.M), (torch.float64, 2_000_000)):
+        tname = str(dtype).split(".")[-1]
+        args = tuple(None if t is None else t.to(dtype) if t.is_floating_point() else t for t in args32)
+        args = args[:2] + tuple(None if t is None else t[:M] for t in args[2:8]) + (args[8], args[9][:M])
+        cost, rows = cuda_ops.bal_rows(*args, plan.loss)
+        again = cuda_ops.bal_rows(*args, plan.loss)
+        only, none = cuda_ops.bal_rows(*args, plan.loss, rows=False)
+        check(none is None and torch.equal(cost, again[0]) and torch.equal(rows, again[1]),
+              f"bal_rows9 bal_final13682 {tname}: two runs differ")
+        del again
+        ref = cuda_ops.bal_rows_plain(*args, plan.loss, chunk=chunk)
+        rows_scale, cost_scale = cuda_ops.bal_rows_scale(*args, plan.loss, chunk=chunk)
+        torch.cuda.synchronize()
+        for name, out, r, scale in (("rows", rows, ref[1], rows_scale), ("cost", cost[:, None], ref[0][:, None],
+                                    cost_scale), ("cost only", only[:, None], ref[0][:, None], cost_scale)):
+            check(out.shape == r.shape and torch.isfinite(out).all().item(),
+                  f"bal_rows9 bal_final13682 {tname} {name}: shape or non-finite")
+            err = ((out - r).abs() / scale.clamp(min=1e-300).to(out.dtype)).max().item()
+            log(f"bal_rows9 bal_final13682 {tname} {name}{tuple(out.shape)}: largest error {err!r} of its column's "
+                f"scale (limit {BAL_TOL[tname]}), max_abs_err {(out - r).abs().max().item()!r}")
+            check(err <= BAL_TOL[tname], f"bal_rows9 bal_final13682 {tname} {name}: error {err} > {BAL_TOL[tname]}")
+            if dtype is torch.float32:
+                worst = max(worst, (out - r).abs().max().item())
+        del args, cost, rows, only, ref
+        torch.cuda.empty_cache()
+    report.setdefault("bal_rows", {})["final_max_abs_err"] = worst
+
+    def kernel(*a):
+        return cuda_ops.bal_rows(*a, plan.loss)
+
+    times = dict(
+        ms=median_ms(kernel, args32, calls=10, inner=BACK_TO_BACK),
+        single_ms=median_ms(kernel, args32, calls=10),
+        plain_ms=median_ms(lambda *a: cuda_ops.bal_rows_plain(*a, plan.loss, chunk=chunk), args32, calls=1),
+        # no one PyTorch call linearizes: the chunked path that the kernel replaces
+        library_ms=median_ms(schur_large._obs_rows, (dataclasses.replace(plan, bal=False), plan.poses, plan.lms),
+                             calls=1),
+    )
+    n_bytes = tensor_bytes(*(t for t in args32 if t is not None), *kernel(*args32))
+    add_times(report, "bal_rows", "final_ms", times, n_bytes, BAL_ROWS9_FLOP * plan.M, label="bal_final13682 (9 dof)")
+    log("bal_rows9 bal_final13682: library_ms is the chunked path (the factor kernel over 128 chunks, device time)")
+    torch.cuda.empty_cache()
+
+    def run():
+        final_entry.restore(state)
+        return final_entry.solve(state)
+
+    run()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    rows_before = SPAN_CALLS.get("schur.linearize.rows", 0)
+    t0 = time.perf_counter()
+    out, launches, reads = drive("bal_final13682_bal_rows9", run, ("slot_reduce", "bal_rows9"))
+    wall = time.perf_counter() - t0
+    linearizations = SPAN_CALLS.get("schur.linearize.rows", 0) - rows_before
+    first = out["first_cost"]()
+    log(f"solve bal_final13682 f32 (n_chunks 128, PCG 1e-4 / 12, LM {cfg['options']['max_iters']}): wall {1e3 * wall!r} ms, chi2 {first!r} "
+        f"after the first step -> {out['chi2']!r}, linearizations {linearizations}, host reads {reads}, "
+        f"launches {launches}, peak {torch.cuda.max_memory_allocated()!r} B")
+    check(launches["bal_rows9"] == linearizations > 1 and launches["bal_rows"] == 0,
+          f"bal_final13682: {launches['bal_rows9']} bal_rows9 and {launches['bal_rows']} bal_rows launches for "
+          f"{linearizations} linearizations")
+    check(np.isfinite(out["chi2"]) and out["chi2"] <= first, f"bal_final13682: chi2 {first} -> {out['chi2']}")
+    check(torch.isfinite(out["poses"]).all().item() and torch.isfinite(out["landmarks"]).all().item(),
+          "bal_final13682: non-finite state")
+    del state, plan, args32, out
+    torch.cuda.empty_cache()
+
 def parse_phases(spec):
     """The phase numbers of a ``--phases`` argument such as "37-42" or
     "1-3,32,37-42"; None (every phase) for None."""
@@ -985,6 +1098,8 @@ def main(argv=None) -> int:
 
     if want(53):
         venice_bal_phase(report, drive)
+    if want(54):
+        final_bal9_phase(report, drive)
 
     run_main = want(*range(4, 28), 49, 50)  # phases 23 to 27, 49 and 50 read what 4 to 22 made
     if run_main:
@@ -1630,7 +1745,8 @@ def main(argv=None) -> int:
                   "problem_sphere2500", "problem_covariance_f32", "problem_covariance_f64", "implicit_m3500",
                   "implicit_m3500_backward", "autodiff_sphere2500", "vo_rgbd_vga", "vo_rgbd_vga_batch16",
                   "vo_stereo_vga", "stereo_slam_40", "schur_cm_config5", "schur_cm_config6", "cluster64_config6",
-                  "stale_config6", "two_level_sphere2500", "venice_ba_bal_rows", *BCSR_PATHS.values())
+                  "stale_config6", "two_level_sphere2500", "venice_ba_bal_rows", "bal_final13682_bal_rows9",
+                  *BCSR_PATHS.values())
     # a phase selection reports the kernels and paths it ran; the default run
     # must have every kernel, launched on a main path, with every column
     kernels = [

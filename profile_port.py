@@ -145,15 +145,21 @@ for bit, and each side's registers and stack from the compiler's report.
 The extra cell ``bal_rows`` (not in the default list) times the
 ``bal_rows`` kernel alone at Venice's size: the ``venice_ba`` problem of
 ``portbench`` (1,778 cameras, 993,923 points, 5,001,946 observations, seed
-1) through its plan, in f32 (the benchmark's) and f64.  In turns, at least
-9 rounds: one call between CUDA events and 20 back to back, with rows and
-without (the cost-only pass); then once each the plain twin
-(``bal_rows_plain`` over the plan's chunks) between events and the
-chunked path it replaces (``_obs_rows`` with the plan's ``bal``
-taken off, 128 chunks) on the host clock, synchronised; the bound by bytes;
-whether two launches give the same bits and the largest difference from
-the twin relative to each column's largest sum of the magnitudes of its
-terms (``cuda_ops.bal_rows_scale``); the compiler's registers.
+1) through its plan, in f32 (the benchmark's) and f64; and its 9-dof
+instantiation at BAL Final's size, the ``bal_final13682`` problem (13,682
+cameras of 9 parameters, 4,456,117 points, 28,987,644 observations, seed 1),
+in f32.  In turns, at least 9 rounds: one call between CUDA events and 20
+back to back, with rows and without (the cost-only pass), and with
+``--parent DIR`` the parent checkout's 6-dof kernel beside (its library
+built from its sources, called through its C entry on the same tensors;
+whether its bits are this kernel's); then once the plain twin
+(``bal_rows_plain`` over the plan's chunks) between events, and three times
+in turns the chunked path it replaces (``_obs_rows`` with the plan's
+``bal`` taken off, 128 chunks) and ``_obs_rows`` through the kernel, on the
+host clock, synchronised; the bound by bytes; whether two launches give the
+same bits and the largest difference from the twin relative to each
+column's largest sum of the magnitudes of its terms
+(``cuda_ops.bal_rows_scale``); the compiler's registers.
 
 The extra cell ``kernels`` (not in the default list) is no solve: it runs
 sphere2500's ``assemble_ell`` and its two ``slot_reduce`` calls 50 times
@@ -2177,81 +2183,121 @@ def assemble_phases(dev, shapes):
               flush=True)
 
 
-def bal_rows_cell(dev, reps, calls=20):
-    """``bal_rows`` alone at Venice's size (the module docstring)."""
+def bal_rows_cell(dev, reps, parent=None, calls=20):
+    """``bal_rows`` alone at Venice's and at BAL Final's size (the module
+    docstring)."""
     import json
 
     import torch
 
     from portbench.entries import schur_large as venice_entry
-    from portbench.generators import bal_scene
+    from portbench.entries import schur_large_bal9 as final_entry
+    from portbench.generators import bal_scene, bal_scene9
     from pyslam_tpu_torch import _ext
     from pyslam_tpu_torch.solver import cuda_ops, schur_large
 
-    cfg = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
-                                       "venice_ba.json")).read())
-    problem = bal_scene.generate(cfg["sizes"], 1, dev)
-    for dtype in (torch.float32, torch.float64):
-        state = venice_entry.build(problem, dict(cfg, dtype=str(dtype)[6:]), dev)
-        venice_entry.plan(state)
-        plan = state["plan"]
-        args = schur_large.bal_rows_args(plan, plan.poses, plan.lms)
-        chunk = plan.Mp // plan.n_chunks
-        M, C, L = plan.M, plan.C, plan.L
-        item = torch.finfo(dtype).bits // 8
-        # each input byte once (two int64 indices, obs, f, k1, k2, weight; the
-        # pose and landmark tables), each output byte once (rows, cost)
-        nbytes = M * (16 + 6 * item) + C * 16 * item + L * 3 * item + M * 55 * item
-        bound_ms = nbytes / 3.35e12 * 1e3
+    old = parent_library(parent)[1] if parent else None
+    shapes = (("venice_ba", venice_entry, bal_scene, (torch.float32, torch.float64)),
+              ("bal_final13682", final_entry, bal_scene9, (torch.float32,)))
+    for config, entry, generator, dtypes in shapes:
+        cfg = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+                                           f"{config}.json")).read())
+        problem = generator.generate(cfg["sizes"], 1, dev)
+        for dtype in dtypes:
+            state = entry.build(problem, dict(cfg, dtype=str(dtype)[6:]), dev)
+            entry.plan(state)
+            plan = state["plan"]
+            args = schur_large.bal_rows_args(plan, plan.poses, plan.lms)
+            chunk = plan.Mp // plan.n_chunks
+            M, C, L = plan.M, plan.C, plan.L
 
-        def event_ms(fn, n):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / n
+            def event_ms(fn, n):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(n):
+                    fn()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / n
 
-        def rows_call():
-            return cuda_ops.bal_rows(*args, plan.loss)
+            def rows_call():
+                return cuda_ops.bal_rows(*args, plan.loss)
 
-        def cost_call():
-            return cuda_ops.bal_rows(*args, plan.loss, rows=False)
+            def cost_call():
+                return cuda_ops.bal_rows(*args, plan.loss, rows=False)
 
-        for _ in range(3):
-            rows_call(), cost_call()
-        t = {"single": [], "b2b": [], "cost single": [], "cost b2b": []}
-        for _ in range(reps):
-            t["single"].append(event_ms(rows_call, 1))
-            t["b2b"].append(event_ms(rows_call, calls))
-            t["cost single"].append(event_ms(cost_call, 1))
-            t["cost b2b"].append(event_ms(cost_call, calls))
-        a, b = rows_call(), rows_call()
-        plain_ms = event_ms(lambda: cuda_ops.bal_rows_plain(*args, plan.loss, chunk=chunk), 1)
-        ref = cuda_ops.bal_rows_plain(*args, plan.loss, chunk=chunk)
-        chunked = dataclasses.replace(plan, bal=False)
-        chunked_ms = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            schur_large._obs_rows(chunked, plan.poses, plan.lms)
-            torch.cuda.synchronize()
-            chunked_ms.append(1e3 * (time.perf_counter() - t0))
-        scale = cuda_ops.bal_rows_scale(*args, plan.loss, chunk=chunk)[0]
-        err = ((a[1] - ref[1]).abs() / scale.clamp(min=1e-30)).max().item()
-        err_cost = ((a[0] - ref[0]).abs().max() / ref[0].abs().max()).item()
-        times = ", ".join(f"{k} {statistics.median(v)!r} ms (spread {max(v) - min(v)!r})" for k, v in t.items())
-        print(f"bal_rows {str(dtype)[6:]} M={M} C={C} L={L}: {times}; bound {bound_ms!r} ms ({nbytes} B); "
-              f"b2b at {100 * bound_ms / statistics.median(t['b2b']):.1f}% of it; plain twin {plain_ms!r} ms; "
-              f"chunked path (128 chunks, host clock) {statistics.median(chunked_ms)!r} ms {chunked_ms!r}; "
-              f"repeat bitwise {torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])}; "
-              f"largest difference from the twin: rows {err!r} (of each column's largest sum of term magnitudes), "
-              f"cost {err_cost!r} (of the largest)",
-              flush=True)
-        del state, plan, args, a, b, ref, chunked
-        torch.cuda.empty_cache()
+            a = rows_call()
+            # each input byte once (indices, obs, weight, sqrt_info, f, k1, k2
+            # where passed; the camera and landmark tables), each output byte
+            # once (rows at their width, cost)
+            nbytes = sum(t.numel() * t.element_size() for t in (*args, *a) if t is not None)
+            bound_ms = nbytes / 3.35e12 * 1e3
+            sides = {"this": rows_call}
+            if old is not None and plan.dp == 6:
+                fn = getattr(old, f"pyslam_bal_rows_{'f32' if dtype is torch.float32 else 'f64'}")
+                code = cuda_ops.kernel_loss(plan.loss)
+                per_obs = int(args[8].dim() == 3)
+
+                def parent_call(fn=fn, code=code, per_obs=per_obs):
+                    cost = torch.empty(M, dtype=dtype, device=dev)
+                    out = torch.empty((M, 54), dtype=dtype, device=dev)
+                    err = fn(*(t.data_ptr() for t in args[:9]), per_obs, args[9].data_ptr(), code[0], *code[1:], M,
+                             cost.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                    assert err == 0, err
+                    return cost, out
+
+                sides["parent"] = parent_call
+            for fn in sides.values():
+                fn(), cost_call()
+            t = {f"{side} {k}": [] for side in sides for k in ("single", "b2b")}
+            t.update({"cost single": [], "cost b2b": []})
+            order = list(sides.items())
+            for r in range(reps):
+                for side, fn in (order if r % 2 == 0 else order[::-1]):  # in turns: parent, this, this, parent
+                    t[f"{side} single"].append(event_ms(fn, 1))
+                    t[f"{side} b2b"].append(event_ms(fn, calls))
+                t["cost single"].append(event_ms(cost_call, 1))
+                t["cost b2b"].append(event_ms(cost_call, calls))
+            b = rows_call()
+            bits = ""
+            if "parent" in sides:
+                p = sides["parent"]()
+                bits = f"; the parent's bits {torch.equal(a[0], p[0]) and torch.equal(a[1], p[1])}"
+                del p
+            plain_ms = event_ms(lambda: cuda_ops.bal_rows_plain(*args, plan.loss, chunk=chunk), 1)
+            ref = cuda_ops.bal_rows_plain(*args, plan.loss, chunk=chunk)
+            scale = cuda_ops.bal_rows_scale(*args, plan.loss, chunk=chunk)[0]
+            err = ((a[1] - ref[1]).abs() / scale.clamp(min=1e-30).to(dtype)).max().item()
+            err_cost = ((a[0] - ref[0]).abs().max() / ref[0].abs().max()).item()
+            del ref
+            torch.cuda.empty_cache()
+            # the chunked path the kernel replaces, in turns with the kernel
+            chunked = dataclasses.replace(plan, bal=False)
+            chunked_ms, kernel_ms = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                schur_large._obs_rows(chunked, plan.poses, plan.lms)
+                torch.cuda.synchronize()
+                chunked_ms.append(1e3 * (time.perf_counter() - t0))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                schur_large._obs_rows(plan, plan.poses, plan.lms)
+                torch.cuda.synchronize()
+                kernel_ms.append(1e3 * (time.perf_counter() - t0))
+            times = ", ".join(f"{k} {statistics.median(v)!r} ms (spread {max(v) - min(v)!r})" for k, v in t.items())
+            print(f"bal_rows {config} {plan.dp} dof {str(dtype)[6:]} M={M} C={C} L={L}: {times}; bound "
+                  f"{bound_ms!r} ms ({nbytes} B); b2b at {100 * bound_ms / statistics.median(t['this b2b']):.1f}% "
+                  f"of it; plain twin {plain_ms!r} ms; in turns, host clock: chunked path (128 chunks) "
+                  f"{statistics.median(chunked_ms)!r} ms {chunked_ms!r} against the kernel's _obs_rows "
+                  f"{statistics.median(kernel_ms)!r} ms {kernel_ms!r}; repeat bitwise "
+                  f"{torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])}{bits}; largest difference from the twin: "
+                  f"rows {err!r} (of each column's largest sum of term magnitudes), cost {err_cost!r} (of the "
+                  "largest)", flush=True)
+            del state, plan, args, a, b, chunked
+            torch.cuda.empty_cache()
+        del problem
     log_file = os.path.join(os.path.dirname(_ext.BUILD_INFO.get("path", "")), "ptxas.log")  # cached or not
     log = open(log_file).read().splitlines() if os.path.isfile(log_file) else []
     regs, entry = [], None
@@ -2262,14 +2308,13 @@ def bal_rows_cell(dev, reps, calls=20):
             regs.append(f"{entry.split(chr(39))[1][:60]}: {line.split(':', 1)[-1].strip()}")
     print("   ptxas (bal_rows):", " | ".join(regs) or f"no {log_file}", flush=True)
 
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--parent", default=None,
-                    help="a checkout whose kernels the slot cells, pcg_columns and assemble time beside")
+                    help="a checkout whose kernels the slot cells, pcg_columns, assemble and bal_rows time beside")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -2317,7 +2362,7 @@ def main() -> int:
             assemble_cell(dev, dev_us, max(args.reps, 9), args.parent)
             continue
         if name == "bal_rows":
-            bal_rows_cell(dev, max(args.reps, 9))
+            bal_rows_cell(dev, max(args.reps, 9), args.parent)
             continue
         if name == "sharded_cg_reads":
             sharded_cg_reads(dev, max(args.reps, 9))

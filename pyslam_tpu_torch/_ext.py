@@ -41,7 +41,7 @@ _ELL_PCG = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P]
 # scratch, its length, He, g, chi2, nb, K, stream
 _ELL_ASSEMBLE = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P]
 # poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, info_per_obs, weight,
-# loss, c0, c1, c2, M, cost, rows, stream
+# loss, c0, c1, c2, M, cost, rows, stream (pyslam_bal_rows9_*: f, k1, k2 null)
 _BAL_ROWS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _D, _D, _D, ctypes.c_longlong, _P, _P, _P]
 _SIGNATURES = {
     "pyslam_ell_matvec_f32": _ELL_MATVEC,
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "pyslam_ell_assemble_f64": _ELL_ASSEMBLE,
     "pyslam_bal_rows_f32": _BAL_ROWS,
     "pyslam_bal_rows_f64": _BAL_ROWS,
+    "pyslam_bal_rows9_f32": _BAL_ROWS,
+    "pyslam_bal_rows9_f64": _BAL_ROWS,
     "pyslam_ell_pcg_f32": _ELL_PCG,
     "pyslam_ell_pcg_f64": _ELL_PCG,
     # nb, K, d, element size, columns, out (6 ints)

@@ -345,10 +345,11 @@ def route_auto(
         if (
             n_obs > 2_000_000
             and len(binary) == 1
-            # schur_large's layout is specialized to (6, 3)-dof camera /
-            # landmark blocks; 9-dof bal_cam9 graphs fall through to the
-            # generic Schur PCG
-            and blocks[pose_name].dof == 6
+            # schur_large takes se3 and 9-dof bal_cam9 cameras (the
+            # reference's takes se3 only and sends bal_cam9 graphs to the
+            # generic Schur PCG) with 3-dof landmarks
+            and blocks[pose_name].kind in ("se3", "bal_cam9")
+            and blocks[lm_name].dof == 3
             and all(
                 fb.slots in ((pose_name,), (pose_name, pose_name)) for fb in others
             )
@@ -420,8 +421,8 @@ def solve_auto(
       'dense' mode (few cameras) or 'pcg' mode, ``solve_schur_sparse``
       (many poses, sparse co-observation), ``solve_schur_sqrt`` (f32
       monocular low-parallax graphs: square-root elimination), or
-      ``solve_schur_large`` (more than 2,000,000 observations of 6-dof
-      cameras);
+      ``solve_schur_large`` (more than 2,000,000 observations of se3 or
+      bal_cam9 cameras);
     * single variable block, total dof <= dense_dof_limit -> dense Cholesky;
       larger -> ``solve_sparse_chol`` (3-dof SE(2) / euclidean) or
       ``solve_ell`` (block-Jacobi PCG);

@@ -26,7 +26,8 @@ Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
   and sums every slot of its row in the plan's order.
 * ``bal_rows`` (``csrc/bal_rows.cu``) replaces no Pallas kernel: the rows of
   ``schur_large``'s linearization of monocular BAL observations (the
-  ``reprojection_bal`` factor kernel, its loss weights and the products
+  ``reprojection_bal`` factor kernel on se3 poses, or ``reprojection_bal9``
+  on 9-parameter bal_cam9 cameras, its loss weights and the products
   J^T w r and J^T diag(w) J that the Schur sums read) in one launch, where
   the factor kernel's tensor ops took about 70 launches a chunk.
 
@@ -58,7 +59,7 @@ LAUNCHES = {
     "ell_pcg": 0, "ell_pcg_plain": 0,
     "slot_reduce": 0, "slot_reduce_plain": 0,
     "ell_assemble": 0, "ell_assemble_plain": 0,
-    "bal_rows": 0, "bal_rows_plain": 0,
+    "bal_rows": 0, "bal_rows9": 0, "bal_rows_plain": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -802,46 +803,87 @@ def ell_assemble(poses, const_mask, batches, cols, idx, entries, rows, first):
 # BAL reprojection rows of the Schur path
 # --------------------------------------------------------------------------
 
-BAL_ROWS = 54  # rows an observation, in ``schur_large._ROWS`` order
+
+def rows_of(dp: int) -> np.ndarray:
+    """One observation's rows in the order they are stored, for a camera of
+    ``dp`` dof and a 3-dof landmark: the camera gradient (dp) and upper
+    Hessian (dp (dp + 1) / 2), the landmark gradient (3) and upper Hessian
+    (6), W (3 dp); as positions in [g (n) | H (n²)] of the joint n = dp + 3
+    column Jacobian [J_camera | J_landmark].  54 rows for an ``se3`` camera,
+    90 for a ``bal_cam9`` one."""
+    n = dp + 3
+    return np.array(
+        list(range(dp))
+        + [n + n * i + j for i in range(dp) for j in range(i, dp)]
+        + list(range(dp, n))
+        + [n + n * i + j for i in range(dp, n) for j in range(i, n)]
+        + [n + n * i + j for i in range(dp) for j in range(dp, n)]
+    )
+
+
+def _bal_camera(poses, f, k1, k2):
+    """The camera dof of ``bal_rows``' arguments: 6 for se3 poses (C, 4, 4)
+    with each observation's f, k1, k2; 9 for bal_cam9 cameras (C, 19), whose
+    table carries them (f, k1, k2 None)."""
+    intrinsics = [t is not None for t in (f, k1, k2)]
+    if poses.dim() == 3 and tuple(poses.shape[1:]) == (4, 4) and all(intrinsics):
+        return 6
+    if poses.dim() == 2 and poses.shape[1] == 19 and not any(intrinsics):
+        return 9
+    raise ValueError(f"poses: shape {tuple(poses.shape)}, expected (C, 4, 4) with f, k1, k2 an observation, or "
+                     "(C, 19) bal_cam9 cameras with f, k1, k2 None")
+
+
+def _bal_data(obs, f, k1, k2, sqrt_info, dp):
+    """(kind, data, per_obs) of the factor kernel the rows of a ``dp``-dof
+    camera linearize."""
+    data, per_obs = {"obs": obs, "sqrt_info": sqrt_info}, {"obs"}
+    if dp == 6:
+        data.update(f=f, k1=k1, k2=k2)
+        per_obs |= {"f", "k1", "k2"}
+    if sqrt_info.dim() == 3:
+        per_obs.add("sqrt_info")
+    return ("reprojection_bal" if dp == 6 else "reprojection_bal9"), data, per_obs
 
 
 def bal_rows_plain(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight, loss, rows=True, chunk=None):
     """Plain version: ``schur_large.obs_chunks``, the ``reprojection_bal``
-    factor kernel, the loss and ``schur._tmv`` / ``schur._jtwj``, over
-    ``chunk`` observations at a time (None: all at once)."""
-    from .schur_large import _ROWS, obs_chunks  # schur_large imports this module
+    (se3 poses) or ``reprojection_bal9`` (bal_cam9 cameras) factor kernel,
+    the loss and ``schur._tmv`` / ``schur._jtwj``, over ``chunk``
+    observations at a time (None: all at once)."""
+    from .schur_large import obs_chunks  # schur_large imports this module
 
     LAUNCHES["bal_rows_plain"] += 1
-    data = {"obs": obs, "f": f, "k1": k1, "k2": k2, "sqrt_info": sqrt_info}
-    per_obs = {"obs", "f", "k1", "k2"} | ({"sqrt_info"} if sqrt_info.dim() == 3 else set())
-    gather = torch.as_tensor(_ROWS, device=poses.device) if rows else None
+    dp = _bal_camera(poses, f, k1, k2)
+    kind, data, per_obs = _bal_data(obs, f, k1, k2, sqrt_info, dp)
+    gather = torch.as_tensor(rows_of(dp), device=poses.device) if rows else None
     M = cam_idx.shape[0]
-    return obs_chunks("reprojection_bal", True, data, per_obs, poses, lms, cam_idx, pt_idx, weight, loss, gather,
-                      chunk or M)
+    return obs_chunks(kind, True, data, per_obs, poses, lms, cam_idx, pt_idx, weight, loss, gather, chunk or M)
 
 
 def bal_rows_scale(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight, loss, chunk=None):
     """The scale of a difference from ``bal_rows_plain``, in f64: each row
     column's largest sum of the magnitudes of its terms (the rows of |J|,
-    |w| and |r|), (54,), and the largest cost, (1,).  An entry that cancels,
-    such as the camera's H[2, 5], which sums terms of 1e6 to 1e-11, keeps
-    the rounding of its terms."""
+    |w| and |r|), (54,) or (90,), and the largest cost, (1,).  An entry
+    that cancels, such as the camera's H[2, 5], which sums terms of 1e6 to
+    1e-11, keeps the rounding of its terms."""
     from ..graph.core import FACTOR_KERNELS
     from .schur import _jtwj, _tmv
-    from .schur_large import _ROWS
 
-    poses, lms, obs, f, k1, k2, sqrt_info, weight = (t.double() for t in (poses, lms, obs, f, k1, k2, sqrt_info,
-                                                                          weight))
+    dp = _bal_camera(poses, f, k1, k2)
+    poses, lms, obs, sqrt_info, weight = (t.double() for t in (poses, lms, obs, sqrt_info, weight))
+    f, k1, k2 = (None if t is None else t.double() for t in (f, k1, k2))
+    gather = rows_of(dp)
+    kind, data, per_obs = _bal_data(obs, f, k1, k2, sqrt_info, dp)
     M = cam_idx.shape[0]
-    rows, cost = poses.new_zeros(len(_ROWS)), poses.new_zeros(1)
+    rows, cost = poses.new_zeros(len(gather)), poses.new_zeros(1)
     for lo in range(0, M, chunk or max(M, 1)):
         hi = min(lo + (chunk or M), M)
-        data = {"obs": obs[lo:hi], "f": f[lo:hi], "k1": k1[lo:hi], "k2": k2[lo:hi],
-                "sqrt_info": sqrt_info[lo:hi] if sqrt_info.dim() == 3 else sqrt_info}
-        r, jacs = FACTOR_KERNELS["reprojection_bal"](data, poses[cam_idx[lo:hi]], lms[pt_idx[lo:hi]])
+        part_data = {k: (v[lo:hi] if k in per_obs else v) for k, v in data.items()}
+        r, jacs = FACTOR_KERNELS[kind](part_data, poses[cam_idx[lo:hi]], lms[pt_idx[lo:hi]])
         J = torch.cat(jacs, -1).abs()
         w = (loss.weight(r) * weight[lo:hi, None]).abs()
-        part = torch.cat([_tmv(J, w * r.abs()), _jtwj(J, w, J).reshape(-1, 81)], 1)[:, _ROWS]
+        part = torch.cat([_tmv(J, w * r.abs()), _jtwj(J, w, J).flatten(1)], 1)[:, gather]
         rows = torch.maximum(rows, part.amax(0))
         cost = torch.maximum(cost, (loss.loss(r) * weight[lo:hi, None]).sum(1).amax(0, keepdim=True))
     return rows, cost
@@ -849,19 +891,23 @@ def bal_rows_scale(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weigh
 
 def bal_rows(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight, loss, rows=True, chunk=None):
     """Each monocular BAL observation's cost (M,) and, with ``rows``, its
-    rows (M, 54) in ``schur_large._ROWS`` order (else None): with r the
-    ``reprojection_bal`` residual, J = [J_camera | J_landmark] and w =
+    rows (M, 54) or (M, 90) in ``rows_of(dp)`` order (else
+    None): with r the residual, J = [J_camera | J_landmark] and w =
     ``loss.weight(r) * weight``, the cost is sum(``loss.loss(r)`` *
     weight), the rows J^T w r and the upper triangle of J^T diag(w) J.
 
-    poses (C, 4, 4) f32 or f64, lms (L, 3), cam_idx and pt_idx (M,) int64
-    (trusted: the plan validates them), obs (M, 2), f, k1, k2 and weight
-    (M,), sqrt_info (2, 2) for all observations or (M, 2, 2), all
-    contiguous on one device, and a loss that ``kernel_loss`` takes.  On a
-    CUDA device one launch (none for M = 0), the same bits on every call;
-    ``chunk`` is for the plain version, as the kernel holds no Jacobians."""
-    if poses.dim() != 3 or tuple(poses.shape[1:]) != (4, 4):
-        raise ValueError(f"poses: shape {tuple(poses.shape)}, expected (C, 4, 4)")
+    Two cameras: se3 poses (C, 4, 4) with f, k1, k2 (M,) each
+    observation's (``reprojection_bal``, 6 camera dof, 54 rows), or
+    bal_cam9 cameras (C, 19) = [vec(T), f, k1, k2] with f, k1, k2 None
+    (``reprojection_bal9``, 9 camera dof, the intrinsics estimated, 90
+    rows).  poses f32 or f64, lms (L, 3), cam_idx and pt_idx (M,) int64
+    (trusted: the plan validates them), obs and weight (M, 2) and (M,),
+    sqrt_info (2, 2) for all observations or (M, 2, 2), all contiguous on
+    one device, and a loss that ``kernel_loss`` takes.  On a CUDA device
+    one launch (none for M = 0), counted in ``LAUNCHES["bal_rows"]`` or
+    ``LAUNCHES["bal_rows9"]``, the same bits on every call; ``chunk`` is
+    for the plain version, as the kernel holds no Jacobians."""
+    dp = _bal_camera(poses, f, k1, k2)
     dtype = poses.dtype
     if dtype not in _SUFFIX:
         raise TypeError(f"poses: dtype {dtype}, expected float32 or float64")
@@ -872,28 +918,31 @@ def bal_rows(poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight, los
     _check("pt_idx", pt_idx, torch.int64, (M,))
     _check("obs", obs, dtype, (M, 2))
     for name, t in (("f", f), ("k1", k1), ("k2", k2), ("weight", weight)):
-        _check(name, t, dtype, (M,))
+        if t is not None:
+            _check(name, t, dtype, (M,))
     per_obs = sqrt_info.dim() == 3
     _check("sqrt_info", sqrt_info, dtype, (M, 2, 2) if per_obs else (2, 2))
     code = kernel_loss(loss)
     if code is None:
         raise ValueError(f"the kernel does not evaluate {loss!r}")
     tensors = (poses, lms, cam_idx, pt_idx, obs, f, k1, k2, sqrt_info, weight)
-    if _route(*tensors) == "cpu":
+    if _route(*(t for t in tensors if t is not None)) == "cpu":
         return bal_rows_plain(*tensors, loss, rows, chunk)
     from .._ext import library
 
     dev = poses.device
     with torch.cuda.device(dev):
         cost = torch.empty(M, dtype=dtype, device=dev)
-        out = torch.empty((M, BAL_ROWS), dtype=dtype, device=dev) if rows else None
+        out = torch.empty((M, len(rows_of(dp))), dtype=dtype, device=dev) if rows else None
         if M == 0:  # an empty grid is a launch error: no launch, no count
             return cost, out
-        fn_name = f"pyslam_bal_rows_{_SUFFIX[dtype]}"
+        name = "bal_rows" if dp == 6 else "bal_rows9"
+        fn_name = f"pyslam_{name}_{_SUFFIX[dtype]}"
         err = getattr(library(), fn_name)(
-            *(t.data_ptr() for t in tensors[:9]), int(per_obs), weight.data_ptr(), code[0], *code[1:], M,
-            cost.data_ptr(), 0 if out is None else out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            *(0 if t is None else t.data_ptr() for t in tensors[:9]), int(per_obs), weight.data_ptr(), code[0],
+            *code[1:], M, cost.data_ptr(), 0 if out is None else out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(fn_name, err)
-    LAUNCHES["bal_rows"] += 1
+    LAUNCHES[name] += 1
     return cost, out

@@ -9,16 +9,19 @@ boundary differences and drives long CG runs in host segments, three
 answers to a TPU's tile padding, slow scatters and program time limit.  A
 GPU has none of the three, so here:
 
-* per-observation blocks keep their natural layout: W (M, 6, 3) is 335 MB
-  in f32 at 4.65M observations;
+* per-observation blocks keep their natural layout: W (M, dp, 3) is 335 MB
+  in f32 at 4.65M observations of 6-dof cameras;
 * the observations are sorted stably by camera once (``prepare_large_ba``),
   and every sum by camera or by landmark is ``cuda_ops.slot_reduce`` over a
   plan built then: the same order, and the same bits, on every call;
 * the linearization writes each observation's rows into full-length
-  buffers (6 camera gradient and 21 camera Hessian terms, 3 landmark
-  gradient and 6 landmark Hessian terms, the 18 of W, its cost), which are
-  then summed once.  Monocular BAL observations (``reprojection_bal``)
-  under an elementwise loss take one launch of ``cuda_ops.bal_rows``,
+  buffers (``rows_of(dp)``: dp camera gradient and dp (dp + 1) / 2 camera
+  Hessian terms, 3 landmark gradient and 6 landmark Hessian terms, the 3 dp
+  of W; 54 for ``se3`` cameras, 90 for BAL's 9-parameter ``bal_cam9``
+  ones), and its cost, which are then summed once.  Monocular BAL
+  observations (``reprojection_bal`` on ``se3`` cameras,
+  ``reprojection_bal9`` on ``bal_cam9`` ones) under an elementwise loss
+  take one launch of ``cuda_ops.bal_rows``,
   whose Jacobians stay in registers (on the CPU its plain twin, over the
   same chunks as the rest); every other observation kind runs the port's
   factor kernel over ``n_chunks`` chunks of the observation axis (the
@@ -33,11 +36,16 @@ The Schur algebra is ``solver/schur.py``'s, on this plan: the masks
 (``mask_constants``), the damping, Hll⁻¹ and the reduced gradient
 (``_schur_reduce``), the block diagonal of S (``schur_block_diag``), the
 Schur product (``schur_matvec``) and the back-substitution.  A 3 x 3
-landmark block or a 6 x 6 block of D that is not positive definite
+landmark block or a dp x dp block of D that is not positive definite
 factors to NaN, without a host read; the LM loop rejects that step.
 
 The LM loop is ``host_loop.host_lm_loop_speculative`` (default) or
 ``host_lm_loop`` with the cost-only pass; both read once an LM iteration.
+
+Beyond the reference, whose plan takes ``se3`` cameras only, the plan
+takes BAL's 9-parameter ``bal_cam9`` cameras (SE(3) x [f, k1, k2]): every
+piece above reads the camera's dof from the plan (``LargeBA.dp``) and its
+retraction from its kind (``LargeBA.pose_kind``).
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ import torch
 from ..graph.core import FACTOR_KERNELS, FactorGraph, VariableBlock, retract
 from ..observability import span
 from . import lm as _lm
-from .cuda_ops import _stable_argsort, bal_rows, kernel_loss, slot_plan
+from .cuda_ops import _stable_argsort, bal_rows, kernel_loss, rows_of, slot_plan
 from .host_loop import host_lm_loop, host_lm_loop_speculative
 from .linear import HOST_READS, cholesky_solve
 from .schur import (Segments, _back_substitute, _binv, _cholesky, _jtwj, _mm, _schur_reduce, _tmv, block_jacobi,
@@ -62,18 +70,14 @@ from .schur import (Segments, _back_substitute, _binv, _cholesky, _jtwj, _mm, _s
 # The plan
 # --------------------------------------------------------------------------
 
+# the camera kinds of the plan, and the observation kind each takes to
+# ``cuda_ops.bal_rows``
+CAMERAS = {"se3": "reprojection_bal", "bal_cam9": "reprojection_bal9"}
 
-# One observation's rows in the order they are stored: the camera gradient
-# (6) and upper Hessian (21), the landmark gradient (3) and upper Hessian
-# (6), W (18); as positions in [g (9) | H (81)] of the joint 9-column
-# Jacobian [J_camera | J_landmark].
-_ROWS = np.array(
-    list(range(6))
-    + [9 + 9 * i + j for i in range(6) for j in range(i, 6)]
-    + list(range(6, 9))
-    + [9 + 9 * i + j for i in range(6, 9) for j in range(i, 9)]
-    + [9 + 9 * i + j for i in range(6) for j in range(6, 9)]
-)
+
+def camera_width(dp: int) -> int:
+    """The rows of a camera's sums: its gradient and upper Hessian."""
+    return dp + dp * (dp + 1) // 2
 
 
 @dataclasses.dataclass
@@ -86,12 +90,14 @@ class LargeBA:
     kind: str  # the observation batch's factor kind
     loss: object
     pose_first: bool  # the observation batch's slots are (pose, landmark)
+    pose_kind: str  # the cameras' manifold: "se3" or "bal_cam9"
+    dp: int  # a camera's dof: 6 or 9
     C: int
     L: int
     M: int  # observations
     Mp: int  # M rounded up to a multiple of n_chunks: the chunk grid
     n_chunks: int
-    poses: torch.Tensor  # (C, 4, 4)
+    poses: torch.Tensor  # (C, 4, 4) se3, or (C, 19) bal_cam9 [vec(T), f, k1, k2]
     lms: torch.Tensor  # (L, 3)
     free_p: torch.Tensor  # (C,) 1.0 free, 0.0 constant
     free_l: torch.Tensor  # (L,)
@@ -108,9 +114,10 @@ class LargeBA:
     pp_j: torch.Tensor
     by_pp_i: Segments
     by_pp_j: Segments
-    rows: torch.Tensor  # _ROWS on the device: the linearization's row gather
+    rows: torch.Tensor  # rows_of(dp) on the device: the linearization's row gather
     # the observations go through ``cuda_ops.bal_rows`` (a
-    # ``reprojection_bal`` batch whose loss ``kernel_loss`` takes), else
+    # ``reprojection_bal`` batch on se3 cameras or a ``reprojection_bal9``
+    # one on bal_cam9 cameras, whose loss ``kernel_loss`` takes), else
     # through the factor kernel chunk by chunk
     bal: bool = False
     # co-observation pair tables of linear="dense" and precond="stale"
@@ -148,13 +155,13 @@ def prepare_large_ba(
     lm_name: str = "landmarks",
 ) -> LargeBA:
     """Build the plan of ``graph`` on the host and put it on the graph's
-    device.  The graph holds ``se3`` poses, 3-dof landmarks, exactly one
-    observation batch (either slot order) and otherwise pose-unary and
-    (pose, pose) batches."""
+    device.  The graph holds ``se3`` poses or 9-dof ``bal_cam9`` cameras,
+    3-dof landmarks, exactly one observation batch (either slot order) and
+    otherwise pose-unary and (pose, pose) batches."""
     pb, lb = graph.blocks[pose_name], graph.blocks[lm_name]
-    if pb.kind != "se3" or lb.dof != 3:
+    if pb.kind not in CAMERAS or lb.dof != 3:
         raise ValueError(
-            f"{pose_name}/{lm_name} must be se3 poses + 3-dof landmarks "
+            f"{pose_name}/{lm_name} must be se3 poses or bal_cam9 cameras + 3-dof landmarks "
             f"(got {pb.kind!r} / {lb.dof}-dof); use solve_schur / "
             "solve_auto for other manifolds"
         )
@@ -200,7 +207,7 @@ def prepare_large_ba(
 
     pi, pj = cat(pis), cat(pjs)
     return LargeBA(
-        kind=fb.kind, loss=fb.loss, pose_first=pose_first, C=C, L=L, M=M,
+        kind=fb.kind, loss=fb.loss, pose_first=pose_first, pose_kind=pb.kind, dp=pb.dof, C=C, L=L, M=M,
         Mp=_ceil_to(M, n_chunks), n_chunks=n_chunks,
         poses=pb.values, lms=lb.values,
         free_p=(~pb.const_mask).to(dtype), free_l=(~lb.const_mask).to(dtype),
@@ -210,8 +217,8 @@ def prepare_large_ba(
         unary=tuple(unary), by_pose_u=_segments(cat(u_dest), C, device),
         pp_i=torch.as_tensor(pi, device=device), pp_j=torch.as_tensor(pj, device=device),
         by_pp_i=_segments(pi, C, device), by_pp_j=_segments(pj, C, device),
-        rows=torch.as_tensor(_ROWS, device=device),
-        bal=fb.kind == "reprojection_bal" and kernel_loss(fb.loss) is not None,
+        rows=torch.as_tensor(rows_of(pb.dof), device=device),
+        bal=fb.kind == CAMERAS[pb.kind] and kernel_loss(fb.loss) is not None,
     )
 
 
@@ -231,15 +238,15 @@ def _from_upper(rows, n):
 
 def obs_chunks(kind, pose_first, data, per_obs, poses, lms, cam_idx, pt_idx, weight, loss, gather, chunk):
     """The cost (M,) of M observations of factor ``kind`` and, with
-    ``gather`` (``_ROWS`` on their device), their rows (M, 54) in that
-    order, else None: the factor kernel run ``chunk`` observations at a
+    ``gather`` (``rows_of(dp)`` on their device), their rows (M,
+    len(gather)) in that order, else None: the factor kernel run ``chunk`` observations at a
     time (the chunk bounds the memory of the Jacobians).  ``data`` holds the
     factor's measurements, those named in ``per_obs`` along the observation
     axis; ``pose_first``: the kernel takes (pose, landmark), else the
     reverse.  The chunked linearization, and ``cuda_ops.bal_rows_plain``."""
     M = cam_idx.shape[0]
     cost = poses.new_empty(M)
-    rows = None if gather is None else poses.new_empty((M, len(_ROWS)))
+    rows = None if gather is None else poses.new_empty((M, len(gather)))
     for lo in range(0, M, max(chunk, 1)):
         hi = min(lo + chunk, M)
         T, X = poses[cam_idx[lo:hi]], lms[pt_idx[lo:hi]]
@@ -248,16 +255,18 @@ def obs_chunks(kind, pose_first, data, per_obs, poses, lms, cam_idx, pt_idx, wei
         cost[lo:hi] = (loss.loss(r) * weight[lo:hi, None]).sum(1)
         if gather is None:
             continue
-        J = torch.cat(jacs if pose_first else jacs[::-1], -1)  # (n, m, 9)
+        J = torch.cat(jacs if pose_first else jacs[::-1], -1)  # (n, m, dp + 3)
         w = loss.weight(r) * weight[lo:hi, None]
-        rows[lo:hi] = torch.cat([_tmv(J, w * r), _jtwj(J, w, J).reshape(-1, 81)], 1)[:, gather]
+        rows[lo:hi] = torch.cat([_tmv(J, w * r), _jtwj(J, w, J).flatten(1)], 1)[:, gather]
     return cost, rows
 
 
-def _unary(plan, poses, want_grad, dp=6):
+def _unary(plan, poses, want_grad, dp=None):
     """chi2 of the pose-unary and (pose, pose) batches; with ``want_grad``
     also their Hessian blocks and gradient rows summed by pose, (C, dp, dp)
-    and (C, dp), and the per-factor couplings PP (E, dp, dp)."""
+    and (C, dp), and the per-factor couplings PP (E, dp, dp); dp None: the
+    plan's."""
+    dp = plan.dp if dp is None else dp
     chi2 = poses.new_zeros(())
     rows, PPs = [], []
     for u in plan.unary:
@@ -278,17 +287,19 @@ def _unary(plan, poses, want_grad, dp=6):
 
 def bal_rows_args(plan, poses, lms):
     """``cuda_ops.bal_rows``' tensor arguments for the observations of a
-    ``reprojection_bal`` plan at (poses, lms): the indices, measurements
-    and weights in camera order, sqrt_info as one (2, 2) or one an
-    observation."""
+    ``reprojection_bal`` or ``reprojection_bal9`` plan at (poses, lms): the
+    indices, measurements and weights in camera order, sqrt_info as one
+    (2, 2) or one an observation; f, k1 and k2 each observation's, or None
+    where the (C, 19) cameras carry them."""
     d = plan.obs_data
     info = d["sqrt_info"] if "sqrt_info" in plan.per_obs else d["sqrt_info"].reshape(2, 2)
-    return poses, lms, plan.cam_idx, plan.pt_idx, d["obs"], d["f"], d["k1"], d["k2"], info, plan.weight
+    f, k1, k2 = (d["f"], d["k1"], d["k2"]) if plan.dp == 6 else (None, None, None)
+    return poses, lms, plan.cam_idx, plan.pt_idx, d["obs"], f, k1, k2, info, plan.weight
 
 
 def _obs_pass(plan, poses, lms, want_rows):
     """Every observation's cost (M,) and, with ``want_rows``, its rows
-    (M, 54) in ``_ROWS`` order: one ``bal_rows`` launch where the plan says
+    (M, len(plan.rows)) in ``rows_of(plan.dp)`` order: one ``bal_rows`` launch where the plan says
     so, else the factor kernel chunk by chunk into full-length buffers."""
     chunk = plan.Mp // plan.n_chunks
     if plan.bal:
@@ -309,19 +320,21 @@ def _cost(plan, poses, lms):
 
 @span("schur.linearize.rows")
 def _obs_rows(plan, poses, lms):
-    """Every observation's cost (M,) and rows (M, 54) in ``_ROWS`` order."""
+    """Every observation's cost (M,) and rows in ``rows_of(plan.dp)`` order."""
     return _obs_pass(plan, poses, lms, True)
 
 
 @span("schur.linearize.parts")
 def _parts(plan, poses, cam, lm, rows):
     """The masked pieces ``schur._schur_reduce`` reads from the camera sums
-    ``cam`` (C, 27), the landmark sums ``lm`` (L, 9) and the rows W, with
-    the pose-unary and (pose, pose) batches added: (their chi2, parts)."""
+    ``cam`` (C, ``camera_width(dp)``), the landmark sums ``lm`` (L, 9) and
+    the rows W, with the pose-unary and (pose, pose) batches added: (their
+    chi2, parts)."""
+    dp, cw = plan.dp, camera_width(plan.dp)
     c_u, H_u, g_u, PP = _unary(plan, poses, True)
     Hpp, g_p, Hll, g_l, W, PP = mask_constants(
-        plan, _from_upper(cam[:, 6:], 6) + H_u, -cam[:, :6] - g_u, _from_upper(lm[:, 3:], 3), -lm[:, :3],
-        rows[:, 36:].reshape(plan.M, 6, 3), PP, plan.free_p, plan.free_l)
+        plan, _from_upper(cam[:, dp:], dp) + H_u, -cam[:, :dp] - g_u, _from_upper(lm[:, 3:], 3), -lm[:, :3],
+        rows[:, cw + 9:].reshape(plan.M, dp, 3), PP, plan.free_p, plan.free_l)
     return c_u, dict(Hpp=Hpp, g_p=g_p, Hll=Hll, g_l=g_l, W=W, PP=PP, plan=plan)
 
 
@@ -331,8 +344,9 @@ def _linearize(plan, poses, lms):
     pieces ``schur._schur_reduce`` reads (Hpp, g_p, Hll, g_l, W, PP and the
     plan), masked by ``schur.mask_constants``."""
     cost, rows = _obs_rows(plan, poses, lms)
+    cw = camera_width(plan.dp)
     with span("schur.linearize.sums"):
-        cam, lm = plan.by_cam.sum(rows[:, :27]), plan.by_lm.sum(rows[:, 27:36])
+        cam, lm = plan.by_cam.sum(rows[:, :cw]), plan.by_lm.sum(rows[:, cw:cw + 9])
     c_u, parts = _parts(plan, poses, cam, lm, rows)
     return cost.sum() + c_u, parts
 
@@ -462,10 +476,10 @@ def _back_substitute_retract(parts, Hll_inv, poses, lms, x):
     or dead landmark's row is 0, as the masks leave it), the retraction and
     the reference's update norm."""
     plan = parts["plan"]
-    dx_p = x.reshape(plan.C, 6) * plan.free_p[:, None]
+    dx_p = x.reshape(plan.C, plan.dp) * plan.free_p[:, None]
     dx_l = _back_substitute(Hll_inv, parts["W"], plan, parts["g_l"], dx_p)
     dx_norm = torch.sqrt(torch.sum(dx_p**2) + torch.sum(dx_l**2))
-    return (retract("se3", poses, dx_p), lms + dx_l), dx_norm
+    return (retract(plan.pose_kind, poses, dx_p), lms + dx_l), dx_norm
 
 
 # --------------------------------------------------------------------------
@@ -480,7 +494,7 @@ class DensePairs:
     One row per unordered pair of observations (a, b), a != b, of one
     landmark, oriented so that camera(a) <= camera(b); a and b index the
     plan's camera-ordered observations.
-    ``by_block`` sums the 36 entries of every contribution to a block of
+    ``by_block`` sums the dp² entries of every contribution to a block of
     S above the diagonal or on it — the P pair products, then half of each
     camera's diagonal block, then each (pose, pose) coupling — into the
     unique blocks (``block_i``, ``block_j``).  Host-built once per
@@ -535,7 +549,7 @@ def build_cluster_pairs(plan: LargeBA, cluster: int, n_pair_chunks: int = 4) -> 
     plan of the sum of their products, of half of every camera's diagonal
     block (a unit block for each camera past C in the last cluster) and of
     the same-cluster (pose, pose) couplings into the unique blocks of the
-    K = ceil(C / cluster) diagonal (6 cluster, 6 cluster) blocks of S.
+    K = ceil(C / cluster) diagonal (dp cluster, dp cluster) blocks of S.
     ``block_i`` / ``block_j`` name a block by its two cameras, counted over
     K * cluster (the reference buckets it as cid * cluster² + la * cluster +
     lb)."""
@@ -574,13 +588,13 @@ def build_cluster_pairs(plan: LargeBA, cluster: int, n_pair_chunks: int = 4) -> 
 
 
 def _pair_blocks(pairs, W, Hll_inv, li):
-    """-(W_a Hll⁻¹ W_bᵀ) of every pair, (P, 36), in ``n_pair_chunks``
+    """-(W_a Hll⁻¹ W_bᵀ) of every pair, (P, dp²), in ``n_pair_chunks``
     chunks (the chunk bounds the gathered blocks' memory)."""
-    blocks = W.new_empty((pairs.P, 36))
+    blocks = W.new_empty((pairs.P, W.shape[1] ** 2))
     chunk = max(-(-pairs.P // max(pairs.n_pair_chunks, 1)), 1)
     for lo in range(0, pairs.P, chunk):
         a, b = pairs.pair_a[lo:lo + chunk], pairs.pair_b[lo:lo + chunk]
-        blocks[lo:lo + chunk] = -_mm(_mm(W[a], Hll_inv[li[a]]), W[b].transpose(-1, -2)).reshape(-1, 36)
+        blocks[lo:lo + chunk] = -_mm(_mm(W[a], Hll_inv[li[a]]), W[b].transpose(-1, -2)).flatten(1)
     return blocks
 
 
@@ -598,44 +612,44 @@ def _factor_apply(L, s, r):
 
 
 def _cluster_precond(cpairs, G, parts, Hll_inv, D):
-    """The cluster block-Jacobi preconditioner r -> M⁻¹ r: the (6G, 6G)
+    """The cluster block-Jacobi preconditioner r -> M⁻¹ r: the (dp G, dp G)
     diagonal blocks of S from the same-cluster pairs (one ``slot_reduce``
     into their unique blocks, D at half weight, the same-cluster
     couplings), symmetrized, Jacobi-equilibrated and factored by one batched
     Cholesky; applied by batched triangular solves."""
     plan, W, PP = parts["plan"], parts["W"], parts["PP"]
-    C = plan.C
+    C, dp = plan.C, plan.dp
     K = -(-C // G)
     Cp = K * G
-    Dp = D.reshape(C, 36)
+    Dp = D.reshape(C, dp * dp)
     if Cp > C:  # the padded cameras of the last cluster: unit blocks, decoupled
-        eye = torch.eye(6, dtype=D.dtype, device=D.device).reshape(1, 36)
-        Dp = torch.cat([Dp, eye.expand(Cp - C, 36)])
-    rows = [_pair_blocks(cpairs, W, Hll_inv, plan.pt_idx), 0.5 * Dp, PP[cpairs.pp_rows].reshape(-1, 36)]
+        eye = torch.eye(dp, dtype=D.dtype, device=D.device).reshape(1, dp * dp)
+        Dp = torch.cat([Dp, eye.expand(Cp - C, dp * dp)])
+    rows = [_pair_blocks(cpairs, W, Hll_inv, plan.pt_idx), 0.5 * Dp, PP[cpairs.pp_rows].flatten(1)]
     sums = cpairs.by_block.sum(torch.cat(rows))
-    S = W.new_zeros((K, G, G, 6, 6))
-    S[cpairs.block_i // G, cpairs.block_i % G, cpairs.block_j % G] = sums.reshape(-1, 6, 6)  # unique blocks
-    S = S.transpose(2, 3).reshape(K, 6 * G, 6 * G)
+    S = W.new_zeros((K, G, G, dp, dp))
+    S[cpairs.block_i // G, cpairs.block_i % G, cpairs.block_j % G] = sums.reshape(-1, dp, dp)  # unique blocks
+    S = S.transpose(2, 3).reshape(K, dp * G, dp * G)
     L, s = _equilibrated_cholesky(S + S.transpose(1, 2))
 
     def precond(r):
-        rp = torch.cat([r.reshape(C, 6), r.new_zeros((Cp - C, 6))]).reshape(K, 6 * G)
-        return _factor_apply(L, s, rp).reshape(Cp, 6)[:C].reshape(-1)
+        rp = torch.cat([r.reshape(C, dp), r.new_zeros((Cp - C, dp))]).reshape(K, dp * G)
+        return _factor_apply(L, s, rp).reshape(Cp, dp)[:C].reshape(-1)
 
     return precond
 
 
 def _dense_S(pairs, parts, Hll_inv, D):
-    """The reduced camera system S (6C, 6C) = D - sym(Σ_pairs W_a Hll⁻¹
-    W_bᵀ) + couplings: D at half weight and the pair products summed into
-    unique blocks above the diagonal, then S_pre + S_preᵀ."""
+    """The reduced camera system S (dp C, dp C) = D - sym(Σ_pairs W_a
+    Hll⁻¹ W_bᵀ) + couplings: D at half weight and the pair products summed
+    into unique blocks above the diagonal, then S_pre + S_preᵀ."""
     plan, W, PP = parts["plan"], parts["W"], parts["PP"]
-    C = plan.C
+    C, dp = plan.C, plan.dp
     blocks = _pair_blocks(pairs, W, Hll_inv, plan.pt_idx)
-    sums = pairs.by_block.sum(torch.cat([blocks, 0.5 * D.reshape(C, 36), PP.reshape(-1, 36)]))
-    S = W.new_zeros((C, C, 6, 6))
-    S[pairs.block_i, pairs.block_j] = sums.reshape(-1, 6, 6)  # unique blocks
-    S = S.transpose(1, 2).reshape(6 * C, 6 * C)
+    sums = pairs.by_block.sum(torch.cat([blocks, 0.5 * D.reshape(C, dp * dp), PP.flatten(1)]))
+    S = W.new_zeros((C, C, dp, dp))
+    S[pairs.block_i, pairs.block_j] = sums.reshape(-1, dp, dp)  # unique blocks
+    S = S.transpose(1, 2).reshape(dp * C, dp * C)
     return S + S.T
 
 
@@ -699,8 +713,9 @@ def solve_schur_large(
     ``slot_reduce`` plan, so it has no effect.
 
     ``precond`` (PCG only; with ``linear="dense"`` the reference ignores it
-    and so does this): ``"jacobi"``, the exact 6 x 6 block diagonal of S;
-    ``"cluster"``, the dense (6G, 6G) diagonal blocks of S over clusters of
+    and so does this): ``"jacobi"``, the exact dp x dp block diagonal of S
+    (dp the cameras' dof, 6 or 9); ``"cluster"``, the dense (dp G, dp G)
+    diagonal blocks of S over clusters of
     G = ``cluster_size`` consecutive cameras, assembled each linear solve
     from the same-cluster co-observation pairs (``build_cluster_pairs``,
     built once and kept on the plan) and factored by one batched Cholesky;

@@ -854,6 +854,12 @@ def test_solve_schur_large_on_the_card_matches_the_cpu_path(cuda_device, linear)
 # 200,001 observations, measured on the CPU; the kernel and the f32 twin
 # each err so).
 BAL_TOL = {torch.float32: 2e-3, torch.float64: 1e-10}
+# The 9-dof instantiation's: its intrinsics columns (f r2 pn, f r2^2 pn) are
+# rounded the same way, and the f32 twin alone reaches 1.09e-3 of the scale
+# against the f64 twin under Cauchy at 200,001 observations (measured on the
+# CPU); the kernel and the twin each err so, so their difference is held to
+# twice that with room.
+BAL9_TOL = {torch.float32: 4e-3, torch.float64: 1e-10}
 
 
 def _bal_rows_args(M, dtype, device, per_obs_info, seed=0):
@@ -899,8 +905,10 @@ def _check_bal_rows(args, loss, tol):
     ref = cuda_ops.bal_rows_plain(*args, loss)
     torch.cuda.synchronize()
     M = args[2].shape[0]
-    assert cuda_ops.LAUNCHES["bal_rows"] == (3 if M else 0)
-    assert none is None and cost.shape == (M,) and rows.shape == (M, 54)
+    # se3 poses (C, 4, 4): 54 rows; bal_cam9 cameras (C, 19): 90
+    name, width = ("bal_rows9", 90) if args[0].dim() == 2 else ("bal_rows", 54)
+    assert cuda_ops.LAUNCHES[name] == (3 if M else 0)
+    assert none is None and cost.shape == (M,) and rows.shape == (M, width)
     assert torch.equal(cost, again[0]) and torch.equal(rows, again[1])  # no sums across threads: the same bits
     if M == 0:
         return
@@ -995,6 +1003,121 @@ def test_solve_schur_large_bal_on_the_card_matches_the_cpu_path(cuda_device, los
     assert again[2] == h_g and torch.equal(again[0].blocks["poses"].values, s_g.blocks["poses"].values)
     for n in s_c.blocks:
         assert (s_g.blocks[n].values.cpu() - s_c.blocks[n].values).abs().max().item() <= 1e-8
+
+
+def _bal9_rows_args(M, dtype, device, per_obs_info, seed=0):
+    """``bal_rows``' arguments on 9-parameter cameras: ``_bal_rows_args``'
+    scene with its cameras as bal_cam9 (C, 19) = [vec(T), f, k1, k2], each
+    camera's f off by up to 2% and k1, k2 off by noise, f, k1, k2 None; the
+    observations 2 to 5 px from the prediction of these cameras, so that
+    |r| >= 0.75 px."""
+    from pyslam_tpu_torch.graph.core import FACTOR_KERNELS
+    from pyslam_tpu_torch.io import bal
+
+    poses, lms, cam, pt, _, _, _, _, info, weight = _bal_rows_args(M, torch.float64, "cpu", per_obs_info, seed)
+    data = bal.synthetic_bal(n_cams=12, n_pts=max(-(-M // 4), 1), seed=seed)
+    rng = np.random.default_rng(seed + 5)
+    intr = np.array(data.intrinsics, dtype=np.float64)
+    intr[:, 0] *= 1 + rng.uniform(-0.02, 0.02, size=len(intr))
+    intr[:, 1:] += [1e-8, 1e-15] * rng.standard_normal((len(intr), 2))
+    cams = torch.cat([poses.reshape(-1, 16), torch.from_numpy(intr)], -1)
+    pred, _ = FACTOR_KERNELS["reprojection_bal9"](
+        {"obs": torch.zeros(M, 2, dtype=torch.float64), "sqrt_info": torch.eye(2, dtype=torch.float64)}, cams[cam],
+        lms[pt], compute_jacobians=False)
+    off = rng.uniform(2.0, 5.0, size=(M, 2)) * rng.choice([-1.0, 1.0], size=(M, 2))
+    obs = pred + torch.from_numpy(off)
+    args = (cams, lms, cam, pt, obs, None, None, None, info, weight)
+    return tuple(a if a is None else a.to(device, dtype).contiguous() if a.is_floating_point() else a.to(device)
+                 for a in args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("info", ["shared", "per_observation"])
+@pytest.mark.parametrize("loss", sorted(ASSEMBLE_LOSSES))
+def test_bal_rows9_kernel_matches_plain(cuda_device, loss, info, dtype):
+    """The 9-dof instantiation (90 rows, the intrinsics from the camera
+    table) against its twin at every loss code, one sqrt_info or one an
+    observation, M = 3,003; two launches bitwise equal."""
+    args = _bal9_rows_args(3003, dtype, cuda_device, info == "per_observation")
+    _check_bal_rows(args, ASSEMBLE_LOSSES[loss], BAL9_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", [0, 1, 127, 128, 129, 200_001])
+def test_bal_rows9_kernel_at_every_block_edge(cuda_device, M, dtype):
+    """The 9-dof blocks' edges (128 observations in f32, 64 in f64, 46,080
+    bytes of staged rows either way): the bits repeat and match the twin."""
+    args = _bal9_rows_args(M, dtype, cuda_device, per_obs_info=M % 2 == 1, seed=M % 7)
+    _check_bal_rows(args, CauchyLoss(2.0), BAL9_TOL[dtype])
+
+
+def _bal9_graph(dtype, device, n_cams=60, n_pts=20_000, seed=4):
+    """A BAL problem with 9-parameter cameras, perturbed (intrinsics too),
+    camera 0 frozen whole."""
+    from pyslam_tpu_torch.io import bal
+
+    data = bal.perturbed(bal.synthetic_bal(n_cams=n_cams, n_pts=n_pts, obs_per_pt=5, seed=seed), seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    intr = np.array(data.intrinsics, dtype=np.float64)
+    intr[1:, 0] *= 1 + 0.01 * rng.standard_normal(n_cams - 1)
+    data = bal.BALData(data.T, intr, data.pts, data.cam_idx, data.pt_idx, data.obs)
+    g = build.bal_graph(data, dtype=dtype, device=device, optimize_intrinsics=True, anchor_first=False)
+    pb = g.blocks["poses"]
+    mask = pb.const_mask.clone()
+    mask[0] = True
+    return type(g)({**g.blocks, "poses": type(pb)(pb.kind, pb.values, mask)}, g.batches)
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+def test_bal_rows9_launches_once_a_linearization(cuda_device, speculative):
+    """``solve_schur_large`` on 9-parameter cameras at 128 chunks launches
+    the 9-dof ``bal_rows`` once a linearization and once a cost-only pass,
+    the 6-dof one and the twin never."""
+    from pyslam_tpu_torch.solver import schur_large
+
+    g = _bal9_graph(torch.float32, cuda_device)
+    plan = schur_large.prepare_large_ba(g, 128)
+    assert plan.bal and plan.dp == 9
+    calls = {"lin": 0, "cost": 0}
+    linearize, cost = schur_large._linearize, schur_large._cost
+
+    def counted(what, fn):
+        def call(*a):
+            calls[what] += 1
+            return fn(*a)
+        return call
+
+    cuda_ops.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(schur_large, "_linearize", counted("lin", linearize))
+        mp.setattr(schur_large, "_cost", counted("cost", cost))
+        _, chi2, hist = schur_large.solve_schur_large(g, Options(method="lm", max_iters=5), plan=plan,
+                                                      pcg_rtol=1e-4, pcg_max_iters=12, speculative=speculative)
+    assert chi2 < hist[0] and calls["lin"] > 1
+    assert cuda_ops.LAUNCHES["bal_rows9"] == calls["lin"] + calls["cost"]
+    assert cuda_ops.LAUNCHES["bal_rows"] == cuda_ops.LAUNCHES["bal_rows_plain"] == 0
+
+
+def test_solve_schur_large_bal9_on_the_card_matches_the_cpu_path(cuda_device):
+    """A 9-dof solve through ``bal_rows`` on the card against the CPU's (its
+    twin), f64: the same accepted costs within 1e-9 and states within 1e-8
+    relative; a second solve on the card gives the same bits."""
+    from pyslam_tpu_torch.solver import schur_large
+
+    opts = Options(method="lm", max_iters=10)
+    kw = dict(n_chunks=4, pcg_rtol=1e-10, pcg_max_iters=60)
+    s_c, _, h_c = schur_large.solve_schur_large(_bal9_graph(torch.float64, "cpu", 8, 300, 2), opts, **kw)
+    g = _bal9_graph(torch.float64, cuda_device, 8, 300, 2)
+    cuda_ops.reset_launches()
+    s_g, _, h_g = schur_large.solve_schur_large(g, opts, **kw)
+    again = schur_large.solve_schur_large(g, opts, **kw)
+    assert cuda_ops.LAUNCHES["bal_rows9"] > 0 and cuda_ops.LAUNCHES["bal_rows_plain"] == 0
+    assert len(h_g) == len(h_c) and h_g[-1] < h_g[0]
+    np.testing.assert_allclose(h_g, h_c, rtol=1e-9)
+    assert again[2] == h_g and torch.equal(again[0].blocks["poses"].values, s_g.blocks["poses"].values)
+    for n in s_c.blocks:
+        np.testing.assert_allclose(s_g.blocks[n].values.cpu().numpy(), s_c.blocks[n].values.numpy(), rtol=1e-8,
+                                   atol=1e-8)
 
 
 # --------------------------------------------------------------------------

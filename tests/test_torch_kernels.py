@@ -347,7 +347,7 @@ def test_cpu_tensors_run_the_plain_versions():
     assert cuda_ops.LAUNCHES == {
         "ell_matvec": 0, "ell_matvec_plain": 1, "ell_pcg": 0, "ell_pcg_plain": 0,
         "slot_reduce": 0, "slot_reduce_plain": 1, "ell_assemble": 0, "ell_assemble_plain": 0,
-        "bal_rows": 0, "bal_rows_plain": 1,
+        "bal_rows": 0, "bal_rows9": 0, "bal_rows_plain": 1,
     }
     # ell_pcg's plain version is the host loop over the plain product: one
     # product for r0 and one per iteration
