@@ -191,6 +191,14 @@ Run from the repository root on a machine with a CUDA device and
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 37-42      # a selection, e.g. "32-36", "43-45", "46-48" or "49-51"
+    python3 chip_smoke.py --parent DIR        # also put every slot_reduce launch to DIR's body rule
+
+With ``--parent DIR`` (another checkout), each plan whose ``slot_reduce``
+body DIR's rule gives otherwise is listed with the main path and line that
+launched it, its launches, and both sides' device times on seeded rows of
+its shape, at the end (``record_moved_bodies``, ``time_moved_bodies``).
+Every run prints the launches of each main path by body
+(``slot_reduce_bodies_by_path``).
 
 A selection runs phases 1 and 2, the selected phases and the phases they
 read from (4 to 22 for any of 23 to 27, 49 and 50; 24 for 49; 35 for 41;
@@ -235,6 +243,8 @@ H100_F32_FLOP_PER_S = 67e12
 # solvers, by the keys of bench/standin_cache.json.
 STANDIN_GATE = 1.01
 KERNELS = ("ell_matvec", "ell_pcg", "slot_reduce", "ell_assemble", "bal_rows")
+# slot_reduce's bodies, each counted in LAUNCHES["slot_reduce.<body>"]
+SLOT_BODIES = ("tiles", "subwarps", "block")
 # the paths of phase 51 through solve_bcsr, by (spmv, precond_group)
 BCSR_PATHS = {("ell", 1): "bcsr_sphere2500", ("bcsr", 1): "bcsr_bcsr_g1_sphere2500",
               ("ell", 8): "bcsr_ell_g8_sphere2500"}
@@ -611,6 +621,23 @@ def check_assemble(label, graph, report=None):
     log(f"ell_assemble {label}: library_ms is the general route (ell_contributions + two slot_reduce + masks)")
 
 
+def bal_cell(config, seed, dev):
+    """The benchmark's BAL configuration ``config``
+    (``portbench/configs/<config>.json``): its generator draws the problem
+    from ``seed`` on ``dev`` and its entry builds the graph and the plan
+    (``prepare_large_ba``).  (configuration, entry module, state), the plan
+    in ``state["plan"]``."""
+    import importlib
+
+    with open(os.path.join(ROOT, "portbench", "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+    generator = importlib.import_module(f"portbench.generators.{cfg['generator']}")
+    entry = importlib.import_module(f"portbench.entries.{cfg['entry']}")
+    state = entry.build(generator.generate(cfg["sizes"], seed, dev), cfg, dev)
+    entry.plan(state)
+    return cfg, entry, state
+
+
 def venice_bal_phase(report, drive):
     """Phase 53: ``bal_rows`` at Venice's size, on the ``venice_ba`` problem
     of ``portbench`` (1,778 cameras, 993,923 points, 5,001,946 monocular
@@ -620,24 +647,20 @@ def venice_bal_phase(report, drive):
     cost-only launch's cost within ``BAL_TOL`` of ``bal_rows_scale``, two
     launches bitwise equal; the device times of the kernel (20 back to back,
     and single), its plain version and the chunked path it replaces
-    (``library_ms``) beside its bound by bytes (0.392 ms in f32).  Then the
-    benchmark's solve (LM 10, PCG 1e-4 / 12) as a main path, after a warm-up:
-    one ``bal_rows`` launch a linearization, no plain version, the cost
-    falling."""
+    (``library_ms``) beside its bound by bytes (0.392 ms in f32);
+    ``slot_reduce`` at the plan's sums by landmark, 3 and 9 wide on seeded
+    rows (``check_slot_by_landmark``).  Then the benchmark's solve (LM 10,
+    PCG 1e-4 / 12) as a main path, after a warm-up: one ``bal_rows`` launch
+    a linearization, no plain version, the cost falling."""
     import numpy as np
     import torch
 
-    from portbench.entries import schur_large as venice_entry
-    from portbench.generators import bal_scene
     from pyslam_tpu_torch.observability import SPAN_CALLS
     from pyslam_tpu_torch.solver import cuda_ops, schur_large
 
-    with open(os.path.join(ROOT, "portbench", "configs", "venice_ba.json")) as f:
-        cfg = json.load(f)
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    state = venice_entry.build(bal_scene.generate(cfg["sizes"], 53, dev), cfg, dev)
-    venice_entry.plan(state)
+    _, venice_entry, state = bal_cell("venice_ba", 53, dev)
     plan = state["plan"]
     torch.cuda.synchronize()
     log(f"venice_ba: {plan.C} cameras, {plan.L} points, {plan.M} observations, made and planned in "
@@ -684,6 +707,7 @@ def venice_bal_phase(report, drive):
     add_times(report, "bal_rows", "ms", times, tensor_bytes(*args32, *kernel(*args32)), BAL_ROWS_FLOP * plan.M,
               label="venice_ba")
     log("bal_rows venice_ba: library_ms is the chunked path (the factor kernel over 128 chunks, device time)")
+    check_slot_by_landmark("venice_ba", plan, report, 53)
 
     def run():
         venice_entry.restore(state)
@@ -748,6 +772,27 @@ def index_add_library(contrib, perm, offsets, n_slots):
     return call
 
 
+def parent_cuda_ops(parent):
+    """The ``solver.cuda_ops`` module of the checkout at ``parent``: its
+    package loaded under a name of its own, ``_parent_pyslam_tpu_torch``
+    (the package imports itself only by relative imports), so that its
+    ``slot_reduce`` runs with its own wrapper, body rule and kernels, the
+    library built from its sources into its own ``build/``.  Its launches
+    count in its own ``LAUNCHES``."""
+    import importlib
+    import importlib.util
+
+    name = "_parent_pyslam_tpu_torch"
+    if name not in sys.modules:
+        pkg = os.path.join(os.path.abspath(parent), "pyslam_tpu_torch")
+        spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                      submodule_search_locations=[pkg])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.solver.cuda_ops")
+
+
 def slot_fns(longest):
     """``slot_reduce`` at a plan's longest segment, as the package's plans
     call it (the body that ``cuda_ops.slot_reduce_body`` gives the plan),
@@ -760,24 +805,41 @@ def slot_fns(longest):
     return functools.partial(cuda_ops.slot_reduce, longest=longest), cuda_ops.slot_reduce_plain
 
 
-def check_slot_venice(label, contrib, seg, report):
-    """``slot_reduce`` on one Venice-scale plan: against the plain version
-    in f32 and f64 and bit for bit against a second run (``hold_kernel``),
-    then the device time of the kernel, of the plain version and of
-    ``index_add_`` beside the call's bound, under the kernels line's key
-    ``config6_<label>``."""
+def check_slot_plan(key, contrib, seg, report):
+    """``slot_reduce`` on one plan of the large Schur path (``Segments``):
+    against the plain version in f32 and f64 and bit for bit against a
+    second run (``hold_kernel``), then the device time of the kernel, of the
+    plain version and of ``index_add_`` beside the call's bound, under the
+    kernels line's key ``<key>_ms``; logs the body that the plan takes."""
     from pyslam_tpu_torch.solver import cuda_ops
 
-    width = contrib.shape[1]
+    E, width = contrib.shape
     args = [contrib, seg.perm, seg.offsets, seg.n_slots]
     kernel, plain = slot_fns(seg.longest)
+    log(f"slot_reduce {key}: {E} rows into {seg.n_slots} (longest {seg.longest}), "
+        f"body {cuda_ops.slot_reduce_body(E, seg.n_slots, width, seg.longest)}")
     hold_kernel("slot_reduce", kernel, plain, args, report)
     lib = index_add_library(*args)
     n_bytes = tensor_bytes(contrib, seg.perm, seg.offsets) + seg.n_slots * width * 4
-    add_times(report, "slot_reduce", f"config6_{label.split()[-1].replace('=', '')}_ms",
+    add_times(report, "slot_reduce", f"{key}_ms",
               dict(ms=median_ms(kernel, args, calls=10, inner=5),
                    plain_ms=median_ms(cuda_ops.slot_reduce_plain, args, calls=5),
                    library_ms=median_ms(lib, (), calls=10)), n_bytes, contrib.numel())
+
+
+def check_slot_by_landmark(name, plan, report, seed):
+    """``check_slot_plan`` at a BAL plan's sums by landmark
+    (``plan.by_lm``), on seeded rows 3 and 9 wide: the widths of the
+    linearization's gradient and Hessian blocks and of the Schur products
+    by landmark."""
+    import torch
+
+    gen = torch.Generator(device=plan.by_lm.perm.device).manual_seed(seed)
+    for width in (3, 9):
+        contrib = torch.randn((len(plan.by_lm.perm), width), generator=gen, device=plan.by_lm.perm.device)
+        check_slot_plan(f"{name}_by_landmark_C{width}", contrib, plan.by_lm, report)
+        del contrib
+        torch.cuda.empty_cache()
 
 
 def final_bal9_phase(report, drive):
@@ -790,24 +852,21 @@ def final_bal9_phase(report, drive):
     cost-only launch's cost within ``BAL_TOL`` of ``bal_rows_scale``, two
     launches bitwise equal; the device times of the kernel (20 back to back,
     and single), its plain version and the chunked path it replaces
-    (``final_library_ms``) beside its bound by bytes (3.41 ms in f32).  Then
-    the benchmark's solve (LM 5, PCG 1e-4 / 12) as a main path, after a
-    warm-up: one ``bal_rows9`` launch a linearization, no 6-dof launch, no
-    plain version, the cost falling; its peak memory."""
+    (``final_library_ms``) beside its bound by bytes (3.41 ms in f32);
+    ``slot_reduce`` at the plan's sums by landmark, 3 and 9 wide on seeded
+    rows (``check_slot_by_landmark``).  Then the benchmark's solve (LM 5,
+    PCG 1e-4 / 12) as a main path, after a warm-up: one ``bal_rows9`` launch
+    a linearization, no 6-dof launch, no plain version, the cost falling;
+    its peak memory."""
     import numpy as np
     import torch
 
-    from portbench.entries import schur_large_bal9 as final_entry
-    from portbench.generators import bal_scene9
     from pyslam_tpu_torch.observability import SPAN_CALLS
     from pyslam_tpu_torch.solver import cuda_ops, schur_large
 
-    with open(os.path.join(ROOT, "portbench", "configs", "bal_final13682.json")) as f:
-        cfg = json.load(f)
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    state = final_entry.build(bal_scene9.generate(cfg["sizes"], 54, dev), cfg, dev)
-    final_entry.plan(state)
+    cfg, final_entry, state = bal_cell("bal_final13682", 54, dev)
     plan = state["plan"]
     torch.cuda.synchronize()
     log(f"bal_final13682: {plan.C} cameras of {plan.dp} dof, {plan.L} points, {plan.M} observations, made and "
@@ -858,6 +917,7 @@ def final_bal9_phase(report, drive):
     add_times(report, "bal_rows", "final_ms", times, n_bytes, BAL_ROWS9_FLOP * plan.M, label="bal_final13682 (9 dof)")
     log("bal_rows9 bal_final13682: library_ms is the chunked path (the factor kernel over 128 chunks, device time)")
     torch.cuda.empty_cache()
+    check_slot_by_landmark("final", plan, report, 54)
 
     def run():
         final_entry.restore(state)
@@ -906,7 +966,12 @@ def main(argv=None) -> int:
                     help='phases to run, e.g. "37-42" or "28-31,37": the phases a selected one reads from run too '
                          "(4 to 22 for any of 23 to 27 and 49 to 50, 24 for 49, 35 for 41); phases 1 and 2 always "
                          "run; default every phase")
-    phases = parse_phases(ap.parse_args(argv).phases)
+    ap.add_argument("--parent", default=None,
+                    help="another checkout: every slot_reduce launch is also put to its body rule, and each plan "
+                         "to which it gives another body is timed on both sides at the end (its library built "
+                         "from its sources)")
+    cli = ap.parse_args(argv)
+    phases = parse_phases(cli.phases)
     if phases is not None and 49 in phases:
         phases.add(24)  # phase 49 is held to phase 24's chi2
 
@@ -1069,15 +1134,24 @@ def main(argv=None) -> int:
         del J_cam, J_pt, w_4, Wt_x, W_t, again_4
         torch.cuda.synchronize()
 
-    launches_by_path = {}
+    launches_by_path, bodies_by_path, driven = {}, {}, [None]
+    moved = {}  # with --parent: the plans whose body the parent's rule gives otherwise (record_moved_bodies)
+    against_parent = contextlib.ExitStack()
+    if cli.parent:
+        against_parent.enter_context(record_moved_bodies(parent_cuda_ops(cli.parent), moved, lambda: driven[0]))
 
     def drive(path, run, kernels):
         """Counts to 0, the path, counts read: each kernel of ``kernels``
-        was launched and no plain version ran."""
+        was launched and no plain version ran; ``slot_reduce``'s launches
+        by body add up to its launches."""
         torch.cuda.synchronize()
         cuda_ops.reset_launches()
         linear.reset_host_reads()
-        out = run()
+        driven[0] = path
+        try:
+            out = run()
+        finally:
+            driven[0] = None
         torch.cuda.synchronize()
         launches, reads = dict(cuda_ops.LAUNCHES), dict(linear.HOST_READS)
         for k in KERNELS:
@@ -1085,6 +1159,11 @@ def main(argv=None) -> int:
                 check(launches[k] > 0, f"{path}: kernel {k} was not launched")
             check(launches[f"{k}_plain"] == 0, f"{path}: plain {k} ran")
         launches_by_path[path] = {k: launches[k] for k in kernels}
+        bodies = {b: launches[f"slot_reduce.{b}"] for b in SLOT_BODIES}
+        check(sum(bodies.values()) == launches["slot_reduce"],
+              f"{path}: slot_reduce launches by body {bodies}, {launches['slot_reduce']} in all")
+        if launches["slot_reduce"]:
+            bodies_by_path[path] = bodies
         return out, launches, reads
 
     def gate(name, chi2, factor, ref):
@@ -1671,11 +1750,10 @@ def main(argv=None) -> int:
         # generator on the card.
         t_phase = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        for label, seg, width in (("camera", plan_6.by_cam, 27), ("camera", plan_6.by_cam, 21),
-                                  ("camera", plan_6.by_cam, 6), ("landmark", plan_6.by_lm, 9),
-                                  ("landmark", plan_6.by_lm, 3)):
+        for seg, width in ((plan_6.by_cam, 27), (plan_6.by_cam, 21), (plan_6.by_cam, 6), (plan_6.by_lm, 9),
+                           (plan_6.by_lm, 3)):
             contrib = torch.randn((n_obs6, width), generator=gen, device=dev)
-            check_slot_venice(f"config6 by {label} C={width}", contrib, seg, report)
+            check_slot_plan(f"config6_C{width}", contrib, seg, report)
             del contrib
         del plan_6, g_6, v6  # phases 49 and 50 keep them in ``config6``
         if not want(49, 50):
@@ -1715,6 +1793,10 @@ def main(argv=None) -> int:
     if want(52):
         io_phase(ctx)
     log(f"total: {time.perf_counter() - t_start!r} s")
+    log(json.dumps({"slot_reduce_bodies_by_path": bodies_by_path}))
+    against_parent.close()
+    if cli.parent:
+        time_moved_bodies(moved, parent_cuda_ops(cli.parent))
 
     sources = {"ell_matvec": "pyslam_tpu_torch/csrc/ell_matvec.cu",
                "ell_pcg": "pyslam_tpu_torch/csrc/ell_pcg.cu",
@@ -4301,6 +4383,81 @@ def record_slot_reduce(calls):
         yield calls
     finally:
         cuda_ops._slot_reduce = inner
+
+
+@contextlib.contextmanager
+def record_moved_bodies(old, moved, driven):
+    """Within the block, every ``slot_reduce`` launch (``cuda_ops``'s
+    ``_slot_reduce``) is also put to the body rule of ``old``, another
+    checkout's ``cuda_ops`` (``parent_cuda_ops``).  Where that rule gives
+    another body, the launch counts in ``moved``: (where, rows, destinations,
+    width, longest, dtype) -> [this body, its body, launches, perm, offsets],
+    where ``where`` is the main path being driven (``driven()``, None
+    outside one) and the innermost function and line of this file that led
+    to the launch.  The launch itself, and its count, are unchanged."""
+    from pyslam_tpu_torch.solver import cuda_ops
+
+    inner = cuda_ops._slot_reduce
+
+    def recorded(contrib, perm, offsets, n_slots, longest=None):
+        E, C = contrib.shape
+        this, theirs = cuda_ops.slot_reduce_body(E, n_slots, C, longest), old.slot_reduce_body(E, n_slots, C, longest)
+        if this != theirs:
+            frame = sys._getframe(1)
+            while frame is not None and frame.f_globals is not globals():
+                frame = frame.f_back
+            site = f"{frame.f_code.co_name}:{frame.f_lineno}" if frame is not None else "?"
+            key = (f"{driven() or 'outside a main path'} ({site})", E, n_slots, C, longest,
+                   str(contrib.dtype).split(".")[-1])
+            moved.setdefault(key, [this, theirs, 0, perm, offsets])[2] += 1
+        return inner(contrib, perm, offsets, n_slots, longest)
+
+    cuda_ops._slot_reduce = recorded
+    try:
+        yield moved
+    finally:
+        cuda_ops._slot_reduce = inner
+
+
+def time_moved_bodies(moved, old, rounds=2):
+    """Each plan of ``record_moved_bodies`` on seeded rows of its shape:
+    this checkout's ``slot_reduce`` and ``old``'s (another checkout's
+    ``cuda_ops``) both within ``REL_TOL`` of the plain version, their device
+    times in turns (theirs, this, this, theirs; ``rounds`` of each, each the
+    median of 5 measurements of 5 calls back to back), ``index_add_`` and
+    the bound beside; then the launches that moved by main path."""
+    import functools
+
+    import torch
+
+    from pyslam_tpu_torch.solver import cuda_ops
+
+    by_path = {}
+    for (where, E, n_slots, C, longest, tname), (this, theirs, launches, perm, offsets) in moved.items():
+        by_path[where.split(" (")[0]] = by_path.get(where.split(" (")[0], 0) + launches
+        gen = torch.Generator(device=perm.device).manual_seed(E)
+        contrib = torch.randn((E, C), generator=gen, device=perm.device, dtype=getattr(torch, tname))
+        args = [contrib, perm, offsets, n_slots]
+        sides = {"parent": functools.partial(old.slot_reduce, longest=longest),
+                 "this": functools.partial(cuda_ops.slot_reduce, longest=longest)}
+        ref = cuda_ops.slot_reduce_plain(*args)
+        scale = ref.abs().max().item()
+        for side, fn in sides.items():
+            err = (fn(*args) - ref).abs().max().item()
+            check(err <= REL_TOL[tname] * scale, f"moved body {where} {side}: error {err} > {REL_TOL[tname]} * {scale}")
+        times = {side: [] for side in sides}
+        for _ in range(rounds):
+            for side in ("parent", "this", "this", "parent"):
+                times[side].append(1e3 * median_ms(sides[side], args, calls=5, inner=5))
+        lib_us = 1e3 * median_ms(index_add_library(*args), (), calls=5, inner=5)
+        b_ms, by = bound_ms(tensor_bytes(contrib, perm, offsets, ref), contrib.numel())
+        log(f"slot_reduce body moved at {where}: {E} rows of {C} ({tname}) into {n_slots} (longest {longest}), "
+            f"{launches} launches: this ({this}) {statistics.median(times['this'])!r} us (spread "
+            f"{max(times['this']) - min(times['this'])!r}), parent ({theirs}) {statistics.median(times['parent'])!r} us "
+            f"(spread {max(times['parent']) - min(times['parent'])!r}); index_add_ {lib_us!r} us; bound "
+            f"{1e3 * b_ms!r} us by {by}")
+        del contrib, ref, args
+    log(json.dumps({"slot_reduce_moved_launches_by_path": by_path, "plans_moved": len(moved)}))
 
 
 def vo_phases(ctx):

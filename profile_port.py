@@ -99,16 +99,19 @@ rounds), on a 1-rank NCCL mesh: the median wall with quartiles, the CG
 iterations and the collectives of a solve under each.
 
 The extra cells of ``slot_reduce`` (not in the default list), each with
-the kernels of another checkout beside when ``--parent DIR`` names one
-(its ``_ext.py`` builds its own library; its shape rule picks between its
-kernels): ``slot_sweep`` times the kernel on random plans of 1,024 to
-131,072 destinations, uniform and Zipf-distributed rows a destination;
+the parent checkout's ``slot_reduce`` beside when ``--parent DIR`` names
+one (its package loaded under a name of its own: its wrapper, its body
+rule and its kernels, its library built from its sources):
+``slot_sweep`` times the kernel on random plans of 1,024 to 131,072
+destinations, uniform and Zipf-distributed rows a destination;
 ``slot_pairs`` prints the rows a destination of bench config 6's two pair
 plans (``cluster`` 64 and ``stale``) and times the kernel, ``index_add_``
 and the plain version there beside the bound; ``slot_shapes`` times the
 kernel and the parent's in turns at every shape of PERF.md's kernel table,
-recorded from one solve of each cell.  Each names the body that the plan's
-longest segment gives (``cuda_ops.slot_reduce_body``).
+recorded from one solve of each cell, and at the benchmark's BAL sums by
+landmark (Venice's and BAL Final's, drawn by their generators).  Each
+names the body each side's rule gives the plan
+(``cuda_ops.slot_reduce_body``).
 
 The extra cell ``block_idioms`` (not in the default list) times the Schur
 path's small block products at config 6's shapes in two forms, batched
@@ -1326,14 +1329,14 @@ def slot_sweep(dev, parent):
     uniformly (64 to 2,736 rows each on average) and Zipf-distributed rows
     per destination (exponent 1.3, capped at 20,000 rows, the skew of
     bench config 6's pair plans); with ``--parent``, the parent
-    checkout's kernels by entry point beside."""
+    checkout's ``slot_reduce`` beside (``parent_cuda_ops``)."""
     import numpy as np
     import torch
 
-    from chip_smoke import median_ms
+    from chip_smoke import median_ms, parent_cuda_ops
     from pyslam_tpu_torch.solver import cuda_ops
 
-    old, entries = parent_slot_kernels(parent) if parent else (None, [])
+    old = parent_cuda_ops(parent) if parent else None
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     for n_slots in (1024, 1700, 4096, 8192, 16384, 32768, 65536, 131072):
@@ -1355,36 +1358,11 @@ def slot_sweep(dev, parent):
                 body = cuda_ops.slot_reduce_body(E, n_slots, C, sp.longest)
                 t = {f"this ({body})": median_ms(functools.partial(cuda_ops.slot_reduce, longest=sp.longest), args,
                                                  calls=7, inner=3)}
-                for entry in entries:
-                    t[f"parent {entry or 'default'}"] = median_ms(lambda *a, entry=entry: old(*a, entry), args, calls=7,
-                                                                  inner=3)
+                if old:
+                    t[f"parent ({old.slot_reduce_body(E, n_slots, C, sp.longest)})"] = median_ms(
+                        functools.partial(old.slot_reduce, longest=sp.longest), args, calls=7, inner=3)
                 print(f"   slot_sweep {n_slots} destinations, {rows} rows (E {E}, longest {int(np.diff(sp.offsets).max())}),"
                       f" width {C}: {t} ms", flush=True)
-
-
-def parent_slot_kernels(parent):
-    """``slot_reduce``'s kernels in the checkout at ``parent`` (its
-    ``_ext.py`` loaded as a module of its own, its library built from its
-    sources into its own ``build/``), by entry point: a function
-    ``(contrib, perm, offsets, n_slots, entry) -> out`` that counts no
-    launch, with ``entry`` "" or, on a library that has it, "long_"; and
-    the entry points the library has."""
-    import torch
-
-    ext, lib = parent_library(parent)
-    suffix = {torch.float32: "f32", torch.float64: "f64"}
-
-    def call(contrib, perm, offsets, n_slots, entry):
-        out = torch.empty((n_slots, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
-        fn_name = f"pyslam_slot_reduce_{entry}{suffix[contrib.dtype]}"
-        err = getattr(lib, fn_name)(contrib.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), n_slots,
-                                    contrib.shape[1], torch.cuda.current_stream(contrib.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"{fn_name}: CUDA error {err}")
-        return out
-
-    entries = [e for e in ("", "long_") if f"pyslam_slot_reduce_{e}f32" in ext._SIGNATURES]
-    return call, entries
 
 
 def rows_per_destination(offsets):
@@ -1414,16 +1392,16 @@ def slot_pairs(dev, parent):
     """``slot_reduce`` at bench config 6's two pair plans (``cluster`` of
     64 cameras and ``stale``, the sums of ``chip_smoke.py``'s phase 50, 36
     wide, on seeded rows): the distribution of rows per destination, then
-    the device time of this checkout's ``slot_reduce``, of each kernel of
-    the ``parent`` checkout by entry point (with ``--parent``), of
-    ``index_add_`` and of the plain version, beside the bound."""
+    the device time of this checkout's ``slot_reduce``, of the ``parent``
+    checkout's (with ``--parent``), of ``index_add_`` and of the plain
+    version, beside the bound."""
     import torch
 
-    from chip_smoke import bound_ms, index_add_library, median_ms, tensor_bytes
+    from chip_smoke import bound_ms, index_add_library, median_ms, parent_cuda_ops, tensor_bytes
     from pyslam_tpu_torch.solver import cuda_ops, schur_large
 
     _, _, plan, _ = config6_cell(dev)
-    old, entries = parent_slot_kernels(parent) if parent else (None, [])
+    old = parent_cuda_ops(parent) if parent else None
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, build_pairs in (("cluster64", lambda: schur_large.build_cluster_pairs(plan, 64, 4)),
                               ("stale", lambda: schur_large.build_dense_pairs(plan, 4))):
@@ -1435,8 +1413,9 @@ def slot_pairs(dev, parent):
         ref = cuda_ops.slot_reduce_plain(*args)
         body = cuda_ops.slot_reduce_body(E, seg.n_slots, 36, seg.longest)
         variants = {f"this checkout ({body})": functools.partial(cuda_ops.slot_reduce, longest=seg.longest)}
-        for entry in entries:
-            variants[f"parent {entry or 'default'}"] = lambda *a, entry=entry: old(*a, entry)
+        if old:
+            variants[f"parent ({old.slot_reduce_body(E, seg.n_slots, 36, seg.longest)})"] = functools.partial(
+                old.slot_reduce, longest=seg.longest)
         times = {}
         for label, fn in variants.items():
             err = (fn(*args) - ref).abs().max().item()
@@ -1468,10 +1447,13 @@ def slot_shape_calls(dev):
     the chordal rotation stage's width 81), one solve of each cell that
     sums with it (configs 1, 2, 7, 4, 8, Venice-mini, whose sums are those
     of ``schur_cm``'s one-rank plans, the BCSR and two-level paths, the
-    square-root path), one VO frame, and config 6's sums by camera and by
-    landmark at phase 21's widths on seeded rows."""
+    square-root path), one VO frame, config 6's sums by camera and by
+    landmark at phase 21's widths, and the benchmark's BAL sums by landmark
+    (Venice's and BAL Final's, drawn and planned by their entries,
+    ``chip_smoke.bal_cell``) at widths 3 and 9, on seeded rows."""
     import torch
 
+    from chip_smoke import bal_cell
     from pyslam_tpu_torch.graph import build
     from pyslam_tpu_torch.io import synth
     from pyslam_tpu_torch.pipelines import DenseRGBDPipeline
@@ -1505,34 +1487,44 @@ def slot_shape_calls(dev):
                               ("landmark", plan6.by_lm, 9), ("landmark", plan6.by_lm, 3)):
         yield f"config6 by {label}", [(torch.randn((n_obs, width), generator=gen, device=dev), seg.perm, seg.offsets,
                                        seg.n_slots, seg.longest)]
+    for config in ("venice_ba", "bal_final13682"):
+        seg = bal_cell(config, 0, dev)[2].pop("plan").by_lm  # the rest of the plan and the graph go here
+        torch.cuda.empty_cache()
+        yield f"{config} by landmark", [(torch.randn((len(seg.perm), width), generator=gen, device=dev), seg.perm,
+                                         seg.offsets, seg.n_slots, seg.longest) for width in (3, 9)]
+        del seg
 
 
 def slot_shapes(dev, parent, rounds=4):
     """``slot_reduce`` at every shape of ``slot_shape_calls``: the device
-    time of 20 calls back to back of this checkout's kernel and, with
-    ``--parent``, of the parent checkout's (its own shape rule between its
-    kernels), in turns (parent, this, this, parent, ...; ``rounds`` of each,
-    each the median of 5 measurements), with each side's spread (largest
-    less smallest), and ``index_add_``'s time and the bound beside."""
+    time of 20 calls back to back of this checkout's ``slot_reduce`` and,
+    with ``--parent``, of the parent checkout's (``parent_cuda_ops``: its
+    own wrapper, body rule and kernels), in turns (parent, this, this,
+    parent, ...; ``rounds`` of each, each the median of 5 measurements),
+    with each side's spread (largest less smallest) and body, whether the
+    two give the same bits, and ``index_add_``'s time and the bound
+    beside.  A shape whose body changed, or where this side is slower than
+    the parent by more than the larger spread, is marked."""
     import torch
 
-    from chip_smoke import bound_ms, index_add_library, median_ms, tensor_bytes
+    from chip_smoke import bound_ms, index_add_library, median_ms, parent_cuda_ops, tensor_bytes
     from pyslam_tpu_torch.solver import cuda_ops
 
-    old, _ = parent_slot_kernels(parent) if parent else (None, [])
-
-    def parent_call(contrib, perm, offsets, n_slots):  # the parent's rule: slot_reduce_is_long
-        E = contrib.shape[0]
-        return old(contrib, perm, offsets, n_slots, "long_" if E * 1024 >= 64 * n_slots * max(n_slots, 1024) else "")
-
+    old = parent_cuda_ops(parent) if parent else None
     for label, calls in slot_shape_calls(dev):
         for contrib, perm, offsets, n_slots, longest in calls:
             args = [contrib.float().contiguous(), perm, offsets, n_slots]
-            sides = {"this": functools.partial(cuda_ops.slot_reduce, longest=longest),
-                     **({"parent": parent_call} if old else {})}
+            E, C = args[0].shape
+            sides = {"this": functools.partial(cuda_ops.slot_reduce, longest=longest)}
+            bodies = {"this": cuda_ops.slot_reduce_body(E, n_slots, C, longest)}
+            if old:
+                sides["parent"] = functools.partial(old.slot_reduce, longest=longest)
+                bodies["parent"] = old.slot_reduce_body(E, n_slots, C, longest)
             ref = cuda_ops.slot_reduce_plain(*args)
+            outs = {}
             for side, fn in sides.items():
-                err = (fn(*args) - ref).abs().max().item()
+                outs[side] = fn(*args)
+                err = (outs[side] - ref).abs().max().item()
                 assert err <= 1e-5 * max(ref.abs().max().item(), 1e-30), (label, side, err)
             times = {k: [] for k in sides}
             for rnd in range(rounds):
@@ -1540,11 +1532,18 @@ def slot_shapes(dev, parent, rounds=4):
                     times[side].append(1e3 * median_ms(sides[side], args, calls=5, inner=20))
             lib_us = 1e3 * median_ms(index_add_library(*args), (), calls=5, inner=20)
             b_ms, by = bound_ms(tensor_bytes(*args[:3], ref), contrib.numel())
-            line = "  ".join(f"{k} {statistics.median(v)!r} us (spread {max(v) - min(v)!r})" for k, v in times.items())
+            line = "  ".join(f"{k} ({bodies[k]}) {statistics.median(v)!r} us (spread {max(v) - min(v)!r})"
+                             for k, v in times.items())
+            if old:
+                med = {k: statistics.median(v) for k, v in times.items()}
+                spread = max(max(v) - min(v) for v in times.values())
+                line += (f"; bits {'equal' if torch.equal(outs['this'], outs['parent']) else 'differ'}"
+                         f"{'; BODY CHANGED' if bodies['this'] != bodies['parent'] else ''}"
+                         f"{'; SLOWER beyond the spread' if med['this'] - med['parent'] > spread else ''}")
             n = offsets[1:] - offsets[:-1]
-            body = cuda_ops.slot_reduce_body(contrib.shape[0], n_slots, contrib.shape[1], longest)
             print(f"   slot_shapes {label} {tuple(contrib.shape)} into {n_slots} (longest {int(n.max()) if n_slots else 0}"
-                  f" rows, {body}): {line}; index_add_ {lib_us!r} us; bound {1e3 * b_ms!r} us by {by}", flush=True)
+                  f" rows): {line}; index_add_ {lib_us!r} us; bound {1e3 * b_ms!r} us by {by}", flush=True)
+            del outs, ref, args
 
 
 def parent_library(parent):

@@ -76,13 +76,23 @@
 //    0.1 to 0.6 us a call at the small plans and 7 to 16% at config 6's
 //    sums by landmark.
 //  * slot_block_kernel, a block of 1024 threads a destination (Rb = 1024 /
-//    C rows in flight, their partial sums added pairwise), for few long
-//    segments whose longest chain, ceil(longest / Rb), is at most 64 rows:
-//    config 4's sums by camera (49 destinations of about 526 rows),
-//    sphere2500's two-level coarse sums, Venice-mini's by camera at widths
-//    27 and 6.  There the unit kernel's tiles are few, and each is 6 to 8
-//    dependent round trips (search, bounds, perm, rows, partial, fence,
-//    arrival, combine) to the block's 3.
+//    C rows in flight, their partial sums added pairwise), for few
+//    destinations of many rows (64 on average, more past 1024 destinations)
+//    whose longest chain, ceil(longest / Rb), is at most 64 rows: config
+//    4's sums by camera (49 destinations of about 526 rows), sphere2500's
+//    two-level coarse sums, Venice-mini's by camera at widths 27 and 6.
+//    There the unit kernel's tiles are few, and each is 6 to 8 dependent
+//    round trips (search, bounds, perm, rows, partial, fence, arrival,
+//    combine) to the block's 3.  A skewed plan of many short destinations
+//    and a few long ones (BAL's sums by landmark: a million destinations of
+//    2 or 3 rows, tracks up to thousands) takes the tiles: a block each
+//    would be a million blocks of 1024 threads, scheduled 264 at a time.
+//    Where such a plan is one wave of 264 blocks and its longest chain at
+//    most 16 rows (the fixed-lag windows' sums: about 100 destinations,
+//    one of 1,000 rows or more), the block takes it again: 0.56 to 0.90 of
+//    the tiles' time in f32 and 0.39 to 0.63 in f64 on skewed plans of 32
+//    to 264 destinations at widths 2 to 36; past one wave or such a chain
+//    the block is slower on most.
 // A plan whose segments all have at most R rows keeps the choice between
 // these two that the rule before the unit kernel made (a block for few
 // destinations of many rows on average, else sub-warps), and with it that

@@ -34,9 +34,10 @@ Counterpart of ``pyslam_tpu/solver/pallas_ops.py``:
 Dispatch: a tensor on the CPU goes to the plain version (the CPU tests use
 it); a tensor on a CUDA device launches the kernel or raises.  There is no
 fallback from the kernel to the plain version.  ``LAUNCHES`` counts, for
-each function, the calls that ran it; ``pcg_iterations`` reads the CG
-iterations (over all columns) that ``ell_pcg`` launches summed on the
-device.  The source note
+each function, the calls that ran it, and ``slot_reduce``'s also by the
+body each ran (``"slot_reduce.tiles"``, ``".subwarps"``, ``".block"``);
+``pcg_iterations`` reads the CG iterations (over all columns) that
+``ell_pcg`` launches summed on the device.  The source note
 of each kernel says what bounds it on an H100 and what its design does
 about that.
 """
@@ -57,7 +58,8 @@ from . import linear
 LAUNCHES = {
     "ell_matvec": 0, "ell_matvec_plain": 0,
     "ell_pcg": 0, "ell_pcg_plain": 0,
-    "slot_reduce": 0, "slot_reduce_plain": 0,
+    "slot_reduce": 0, "slot_reduce.tiles": 0, "slot_reduce.subwarps": 0, "slot_reduce.block": 0,
+    "slot_reduce_plain": 0,
     "ell_assemble": 0, "ell_assemble_plain": 0,
     "bal_rows": 0, "bal_rows9": 0, "bal_rows_plain": 0,
 }
@@ -419,15 +421,26 @@ SLOT_TILE_ROWS = 256
 # Where a plan's longest segment is known (``slot_reduce(..., longest=)``),
 # two more bodies take the shapes where they were measured faster
 # (``slot_reduce_body``): a sub-warp a segment with the width a template
-# parameter, and a block of SLOT_BLOCK_THREADS threads a destination whose
-# longest chain of rows is at most SLOT_BLOCK_DEPTH.  Plans whose segments
-# all have at most SLOT_TILE_ROWS rows keep the choice that the rule of
-# LONG_SLOTS and LONG_MIN_ROWS made between those two before the unit
-# kernel came, and with it their bits: a block for at least LONG_MIN_ROWS *
-# max(1, n_slots / LONG_SLOTS) rows a destination on average, else
-# sub-warps.
+# parameter, and a block of SLOT_BLOCK_THREADS threads a destination, for
+# few destinations: at least LONG_MIN_ROWS * max(1, n_slots / LONG_SLOTS)
+# rows a destination on average.  Plans whose segments all have at most
+# SLOT_TILE_ROWS rows keep the choice that this test made between the block
+# and sub-warps before the unit kernel came, and with it their bits.  A
+# plan with a longer segment takes the block only where its longest chain
+# of rows is also at most SLOT_BLOCK_DEPTH, else the tiles: a skewed plan
+# of many short segments and a few long ones (BAL's sums by landmark:
+# 993,923 destinations of 5 rows on average, the longest 1,765) would
+# otherwise launch a block of 1,024 threads for each 2- or 3-row
+# destination.  Its blocks run SLOT_RESIDENT_BLOCKS at a time (2 of 1,024
+# threads on each of the H100's 132 SMs), so a plan of at most that many
+# destinations is one wave of them: there the block also takes a plan of
+# many short segments whose longest chain is at most SLOT_WAVE_DEPTH rows
+# (the fixed-lag windows' sums: about 100 destinations, one of 1,000 rows
+# or more, the others of 1 to 3).
 SLOT_BLOCK_THREADS = 1024
 SLOT_BLOCK_DEPTH = 64
+SLOT_RESIDENT_BLOCKS = 264
+SLOT_WAVE_DEPTH = 16
 LONG_SLOTS = 1024
 LONG_MIN_ROWS = 64
 _BODY = {"tiles": 0, "subwarps": 1, "block": 2}
@@ -459,18 +472,23 @@ def slot_reduce_body(E: int, n_slots: int, C: int, longest) -> str:
     destinations of C values with: "tiles" (the unit kernel with its tile
     blocks: any plan, the only body when ``longest`` is None), "subwarps"
     (a sub-warp a segment, in plan order) or "block" (a block a
-    destination).  Segments of at most SLOT_TILE_ROWS rows: the block where
-    the rule of LONG_SLOTS and LONG_MIN_ROWS gives it, else sub-warps.
-    Longer ones: the block where its longest chain
-    (``slot_block_depth``) is at most SLOT_BLOCK_DEPTH rows, else the
-    tiles.  The plan and C alone decide, so one plan always sums in one
-    order."""
+    destination).  Few destinations: at least LONG_MIN_ROWS * max(1,
+    n_slots / LONG_SLOTS) rows a destination on average.  Segments of at
+    most SLOT_TILE_ROWS rows: the block for few destinations, else
+    sub-warps.  Longer ones, whose longest chain is ``slot_block_depth``:
+    the block for few destinations with a chain of at most
+    SLOT_BLOCK_DEPTH rows, or for one wave of blocks (at most
+    SLOT_RESIDENT_BLOCKS destinations) with a chain of at most
+    SLOT_WAVE_DEPTH rows; else the tiles.  The plan and C alone decide, so
+    one plan always sums in one order."""
     if longest is None:
         return "tiles"
+    few = E * LONG_SLOTS >= LONG_MIN_ROWS * n_slots * max(n_slots, LONG_SLOTS)
     if longest <= SLOT_TILE_ROWS:
-        few_long = E * LONG_SLOTS >= LONG_MIN_ROWS * n_slots * max(n_slots, LONG_SLOTS)
-        return "block" if few_long else "subwarps"
-    return "block" if slot_block_depth(longest, C) <= SLOT_BLOCK_DEPTH else "tiles"
+        return "block" if few else "subwarps"
+    depth = slot_block_depth(longest, C)
+    one_wave = n_slots <= SLOT_RESIDENT_BLOCKS and depth <= SLOT_WAVE_DEPTH
+    return "block" if (few or one_wave) and depth <= SLOT_BLOCK_DEPTH else "tiles"
 
 
 def slot_reduce_tiles(E: int) -> int:
@@ -598,6 +616,7 @@ def _slot_reduce(contrib, perm, offsets, n_slots, longest=None):
     )
     _raise_on_error(fn_name, err)
     LAUNCHES["slot_reduce"] += 1
+    LAUNCHES[f"slot_reduce.{body}"] += 1
     return out
 
 

@@ -236,6 +236,72 @@ def test_slot_reduce_kernel_on_skewed_plans(cuda_device, kind, C, dtype):
     _check_tiled(out, contrib, perm, offsets, n_slots)
 
 
+def _landmark_sizes(n_slots, seed):
+    """Rows per destination of a sum by landmark, cut down from BAL's: a
+    power law of track lengths, most of 2 or 3 rows, and a few tracks past
+    SLOT_TILE_ROWS up to Venice's longest, 1,765."""
+    rng = np.random.default_rng(seed)
+    sizes = np.minimum(1 + rng.zipf(2.0, n_slots), 1765)
+    sizes[rng.choice(n_slots, 4, replace=False)] = [300, 700, 1200, 1765]
+    return sizes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [3, 9])
+def test_slot_reduce_takes_the_tiles_on_a_skewed_landmark_plan(cuda_device, C, dtype):
+    """A skewed plan of many destinations (40,000 landmarks, most of 2 or
+    3 rows, a few past SLOT_TILE_ROWS) whose longest chain a block would
+    take: with its ``longest``, the tiles sum it, one launch a call counted
+    by the body and in the total, the same bits twice and the host model's,
+    the plain version's sums."""
+    sizes = _landmark_sizes(40_000, 13)
+    n_slots, E = len(sizes), int(sizes.sum())
+    longest = int(sizes.max())
+    assert longest > cuda_ops.SLOT_TILE_ROWS and cuda_ops.slot_block_depth(longest, C) <= cuda_ops.SLOT_BLOCK_DEPTH
+    assert int(np.median(sizes)) <= 3
+    assert cuda_ops.slot_reduce_body(E, n_slots, C, longest) == "tiles"
+    rng = np.random.default_rng(14)
+    dest = np.repeat(np.arange(n_slots), sizes)
+    rng.shuffle(dest)  # the observations in another order than the landmarks': a gather
+    plan = bcsr.slot_plan(dest, n_slots)
+    assert plan.longest == longest
+    contrib = torch.from_numpy(rng.normal(size=(E, C))).to(cuda_device, dtype)
+    perm, offsets = torch.from_numpy(plan.perm).to(cuda_device), torch.from_numpy(plan.offsets).to(cuda_device)
+    cuda_ops.reset_launches()
+    out = slot_reduce(contrib, perm, offsets, n_slots, longest)
+    assert cuda_ops.LAUNCHES["slot_reduce"] == 1 and cuda_ops.LAUNCHES["slot_reduce.tiles"] == 1
+    again = slot_reduce(contrib, perm, offsets, n_slots, longest)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["slot_reduce"] == 2 and cuda_ops.LAUNCHES["slot_reduce.tiles"] == 2
+    assert cuda_ops.LAUNCHES["slot_reduce.block"] == 0 and cuda_ops.LAUNCHES["slot_reduce.subwarps"] == 0
+    assert torch.equal(out, again)
+    _assert_close(out, slot_reduce_plain(contrib, perm, offsets, n_slots), KERNEL_TOL[dtype])
+    assert torch.equal(out.cpu(), slot_reduce_model(contrib, perm, offsets, n_slots, longest))
+
+
+@pytest.mark.parametrize("body,n_slots,rows,longest", [("subwarps", 3000, 3, 40), ("block", 20, 450, 700),
+                                                      ("block", 100, 2, 1080), ("tiles", 400, 2, 1700)])
+def test_slot_reduce_counts_launches_by_body(cuda_device, body, n_slots, rows, longest):
+    """Each launch counts once in the total and once under the body that
+    ``slot_reduce_body`` gives its plan."""
+    rng = np.random.default_rng(15)
+    sizes = np.full(n_slots, rows)
+    sizes[0] = longest
+    E = int(sizes.sum())
+    dest = np.repeat(np.arange(n_slots), sizes)
+    rng.shuffle(dest)
+    plan = bcsr.slot_plan(dest, n_slots)
+    assert cuda_ops.slot_reduce_body(E, n_slots, 6, plan.longest) == body
+    contrib = torch.from_numpy(rng.normal(size=(E, 6))).to(cuda_device, torch.float32)
+    perm, offsets = torch.from_numpy(plan.perm).to(cuda_device), torch.from_numpy(plan.offsets).to(cuda_device)
+    cuda_ops.reset_launches()
+    for calls in (1, 2, 3):
+        out = slot_reduce(contrib, perm, offsets, n_slots, plan.longest)
+        assert cuda_ops.LAUNCHES["slot_reduce"] == calls and cuda_ops.LAUNCHES[f"slot_reduce.{body}"] == calls
+    assert sum(cuda_ops.LAUNCHES[f"slot_reduce.{b}"] for b in ("tiles", "subwarps", "block")) == 3
+    _assert_close(out, slot_reduce_plain(contrib, perm, offsets, n_slots), KERNEL_TOL[torch.float32])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("C", [36, 81, 1500])
 def test_slot_reduce_kernel_takes_an_unaligned_view(cuda_device, C, dtype):

@@ -267,12 +267,29 @@ def test_slot_plan_notes_the_longest_segment():
     (100, 1, 3, 100, "block"),                # one segment of 100 rows: the old rule's block
     (300, 10, 3, 100, "subwarps"),            # 30 rows a destination on average: the old rule's sub-warps
     (0, 4, 6, 0, "subwarps"),
+    (5_001_946, 993_923, 3, 1765, "tiles"),       # Venice by landmark: chain 6 rows, 5 rows a destination
+    (5_001_946, 993_923, 9, 1765, "tiles"),       # ... chain 16 rows
+    (28_987_644, 4_456_117, 3, 13_682, "tiles"),  # BAL Final by landmark: chain 41 rows
+    (28_987_644, 4_456_117, 9, 13_682, "tiles"),  # ... chain 122 rows
+    (64_000, 1000, 3, 300, "block"),              # 64 rows a destination: few destinations
+    (63_999, 1000, 3, 300, "tiles"),              # one row fewer: the tiles
+    (262_144, 2048, 6, 1765, "block"),            # past 1,024 destinations: n_slots^2 / 16 rows
+    (262_143, 2048, 6, 1765, "tiles"),
+    (1280, 100, 6, 1080, "block"),                # a fixed-lag window's sums: one wave of blocks, chain 7 rows
+    (1600, 58, 9, 1505, "block"),                 # ... chain 14 rows
+    (2400, 404, 36, 1677, "tiles"),               # fixed-lag sphere2500's Hessian blocks: two waves
+    (1280, 264, 6, 1080, "block"),                # one wave: 264 destinations
+    (1280, 265, 6, 1080, "tiles"),                # one more: two waves
+    (4000, 100, 6, 2720, "block"),                # one wave, chain 16 rows
+    (4000, 100, 6, 2721, "tiles"),                # ... 17 rows
+    (9437, 501, 3, 7972, "tiles"),                # incremental M3500's last landmark sums: two waves (in f64 the
+                                                  # block is faster here, 9.4 against 13.8 us; not in f32)
 ])
 def test_slot_reduce_body(E, n_slots, C, longest, body):
     """The body follows from the shape and the plan's longest segment: the
     old rule's choice where every segment has at most SLOT_TILE_ROWS rows,
-    past that the block where its longest chain has at most
-    SLOT_BLOCK_DEPTH rows, else the tiles."""
+    past that the block for few destinations (the old rule's test) whose
+    longest chain has at most SLOT_BLOCK_DEPTH rows, else the tiles."""
     assert cuda_ops.slot_reduce_body(E, n_slots, C, longest) == body
 
 
@@ -346,7 +363,8 @@ def test_cpu_tensors_run_the_plain_versions():
     assert cost.shape == (1,) and rows.shape == (1, 54)
     assert cuda_ops.LAUNCHES == {
         "ell_matvec": 0, "ell_matvec_plain": 1, "ell_pcg": 0, "ell_pcg_plain": 0,
-        "slot_reduce": 0, "slot_reduce_plain": 1, "ell_assemble": 0, "ell_assemble_plain": 0,
+        "slot_reduce": 0, "slot_reduce.tiles": 0, "slot_reduce.subwarps": 0, "slot_reduce.block": 0,
+        "slot_reduce_plain": 1, "ell_assemble": 0, "ell_assemble_plain": 0,
         "bal_rows": 0, "bal_rows9": 0, "bal_rows_plain": 1,
     }
     # ell_pcg's plain version is the host loop over the plain product: one
